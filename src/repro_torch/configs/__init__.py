@@ -1,0 +1,18 @@
+"""Architecture configs of the port (the dense gate model so far)."""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ["granite-3-2b"]
+
+
+def get_config(arch_id: str, preset: str = "full"):
+    """Load an architecture config by id.  preset='full' is the exact
+    published configuration; preset='smoke' is a reduced same-family config
+    for CPU tests."""
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"{arch_id!r} is not ported yet (have {ARCH_IDS})")
+    mod_name = arch_id.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.full_config() if preset == "full" else mod.smoke_config()

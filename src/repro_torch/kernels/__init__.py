@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+``csrc/`` holds the CUDA sources; ``_build`` compiles them at first use.
+Each wrapper counts its launches; :func:`launch_counts` reads them all and
+:func:`reset_launch_counts` zeroes them.
+"""
+
+from __future__ import annotations
+
+from .attention.ops import flash_attention
+from .quantize.ops import dequantize, quantize
+
+WRAPPERS = {"flash_attention": flash_attention, "quantize": quantize,
+            "dequantize": dequantize}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,8 @@
+"""Model zoo of the port (dense family so far), mirroring ``repro.models``."""
+
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .model import (decode_step, forward, init_params, init_serve_cache,
+                    prefill)
+
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "decode_step", "forward",
+           "init_params", "init_serve_cache", "prefill"]

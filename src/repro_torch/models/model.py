@@ -1,0 +1,159 @@
+"""Dense-family model of the port: params, forward, and serving steps.
+
+Counterpart of ``repro/models/model.py`` (dense family only).  Params keep
+the reference's tree layout, with the blocks stacked on a leading layer
+axis (``blocks/attn/wq`` is (L, D, H*hd)), so ``models.bridge`` and the
+checkpoint map leaf for leaf.  The layer loop is a Python loop over views
+of the stacked tensors, and the serving cache is updated in place.
+
+  init_params(cfg, generator, device=)             -> params
+  forward(cfg, params, batch)                      -> (logits, (h, aux))
+  init_serve_cache(cfg, batch_size, max_len, device=) -> cache
+  prefill(cfg, params, batch, cache)               -> (last logits, cache)
+  decode_step(cfg, params, tokens, cache, kv_bucket=) -> (logits, cache)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
+
+from .config import ModelConfig
+from .layers import (attention, dtype_of, init_attention, init_cache,
+                     init_mlp, mlp, ninit, rms_norm)
+
+
+def _require_dense(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense "
+            "only)")
+
+
+def layer_view(tree, i):
+    """Layer ``i`` of a stacked tree, as views (writes reach the stack)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                *, device=None):
+    """Random params drawn from ``generator`` (default: seed 0 on the
+    target device).  The generator's device is where the draws happen."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    elif torch.device(gen.device).type != dev.type:
+        raise ValueError(f"generator on {gen.device}, params on {dev}")
+    dt = dtype_of(cfg)
+    d, n = cfg.d_model, cfg.n_layers
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    p = {"embed": ninit(gen, (cfg.vocab, d), dt), "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ninit(gen, (d, cfg.vocab), dt, fan_in=d)
+    p["blocks"] = {
+        "ln1": ones(n, d),
+        "attn": init_attention(gen, cfg, n),
+        "ln2": ones(n, d),
+        "mlp": init_mlp(gen, cfg, n),
+    }
+    return p
+
+
+# ---------------------------------------------------------------------------
+# blocks / embeddings / head
+# ---------------------------------------------------------------------------
+
+def apply_dense_block(p, h, cfg: ModelConfig, positions, cache=None,
+                      kv_bucket=None):
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    h = h + attention(p["attn"], x, cfg, positions, cache=cache,
+                      kv_bucket=kv_bucket)
+    return h + mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
+def embed_tokens(params, cfg, tokens):
+    return params["embed"][tokens]
+
+
+def lm_logits(params, cfg, h):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return (h @ w).float()
+
+
+def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
+    """The stacked blocks of ``params`` over ``h``; ``cache`` (stacked like
+    the blocks) is updated in place.  Returns (h, cache)."""
+    blocks = params["blocks"]
+    for i in range(blocks["ln1"].shape[0]):
+        c = None if cache is None else layer_view(cache, i)
+        h = apply_dense_block(layer_view(blocks, i), h, cfg, positions,
+                              cache=c, kv_bucket=kv_bucket)
+    return h, cache
+
+
+def _positions(b, s, device):
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Full-sequence causal forward -> (logits, (h, aux))."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = embed_tokens(params, cfg, tokens)
+    h, _ = _dense_apply(cfg, params, h, _positions(b, s, tokens.device))
+    return lm_logits(params, cfg, h), (h, 0.0)
+
+
+# ---- serving ---------------------------------------------------------------
+
+def init_serve_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+                     device=None):
+    """An empty decode cache (zeros); prefill fills it in place."""
+    _require_dense(cfg)
+    return init_cache(cfg, cfg.n_layers, batch_size, max_len,
+                      device=resolve_device(device))
+
+
+def prefill(cfg: ModelConfig, params, batch, cache):
+    """Run the prompt through the model, filling the (fresh) cache.
+    Returns (last-token logits (B, 1, V) float32, cache)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = embed_tokens(params, cfg, tokens)
+    h, cache = _dense_apply(cfg, params, h, _positions(b, s, tokens.device),
+                            cache)
+    return lm_logits(params, cfg, h[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache,
+                kv_bucket: int | None = None):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
+
+    kv_bucket: attention reads only rows [0, kv_bucket) of the cache;
+    callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows."""
+    b = tokens.shape[0]
+    h = embed_tokens(params, cfg, tokens)
+    positions = _cache_len(cfg, cache)[:, None].expand(b, 1)
+    h, cache = _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+    return lm_logits(params, cfg, h), cache
+
+
+def _cache_len(cfg, cache):
+    """Current per-row sequence length (layer 0's counter), as a copy: the
+    layers advance the counters in place."""
+    _require_dense(cfg)
+    return cache["len"][0].clone()

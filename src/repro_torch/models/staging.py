@@ -1,0 +1,79 @@
+"""Per-stage views of the dense model (the model half of pipelined serving).
+
+Counterpart of ``repro/models/staging.py`` (dense family only).  A pipeline
+stage owns a contiguous block range ``[lo, hi)``, plus the embedding when it
+is the first stage and the final norm and LM head when it is the last.  A
+chain of stages runs the same op sequence as the monolithic model, so
+greedy tokens through a raw wire are bit-identical to ``ServeEngine``'s.
+"""
+
+from __future__ import annotations
+
+from repro_torch._tree import tree_map
+
+from .config import ModelConfig
+from .layers import init_cache
+from .model import _cache_len, _dense_apply, embed_tokens, lm_logits
+
+
+def stage_granularity(cfg: ModelConfig) -> int:
+    """Smallest block count a stage boundary must align to (1: dense)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return 1
+
+
+def check_stage_ranges(cfg: ModelConfig, ranges) -> None:
+    g = stage_granularity(cfg)
+    for lo, hi in ranges:
+        if lo % g or hi % g:
+            raise ValueError(
+                f"{cfg.name}: stage cut [{lo}, {hi}) not aligned to the "
+                f"family's stacking granularity {g}")
+
+
+def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
+                         first: bool, last: bool):
+    """The param subtree stage ``[lo, hi)`` needs — and nothing else.
+
+    Leaves are views of ``params`` (no copy).  A tied embedding goes to the
+    last stage as well (its head reads it)."""
+    stage_granularity(cfg)
+    sp = {"blocks": tree_map(lambda a: a[lo:hi], params["blocks"])}
+    if first:
+        sp["embed"] = params["embed"]
+    if last:
+        sp["final_norm"] = params["final_norm"]
+        if "lm_head" in params:
+            sp["lm_head"] = params["lm_head"]
+        else:
+            sp["embed"] = params["embed"]      # tied head
+    return sp
+
+
+def init_stage_cache(cfg: ModelConfig, lo: int, hi: int, batch_size: int,
+                     max_len: int, *, device):
+    """Empty decode cache for blocks ``[lo, hi)`` (``{}`` for a block-free
+    stage)."""
+    if lo == hi:
+        return {}
+    stage_granularity(cfg)
+    return init_cache(cfg, hi - lo, batch_size, max_len, device=device)
+
+
+def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
+                   hi: int, kv_bucket: int | None = None):
+    """Blocks ``[lo, hi)`` applied to ``h`` (cache updated in place)."""
+    if lo == hi:
+        return h, cache
+    return _dense_apply(cfg, sparams, h, positions, cache, kv_bucket)
+
+
+def stage_cache_len(cfg: ModelConfig, cache):
+    """Current per-row sequence length from a (non-empty) stage cache."""
+    return _cache_len(cfg, cache)
+
+
+__all__ = ["check_stage_ranges", "embed_tokens", "extract_stage_params",
+           "init_stage_cache", "lm_logits", "stage_backbone",
+           "stage_cache_len", "stage_granularity"]

@@ -1,0 +1,95 @@
+"""Monolithic greedy serving engine (the reference the pipeline is held to).
+
+Counterpart of ``repro/serve/engine.py``.  Two loops over the same model
+functions:
+
+* ``fast`` — the cache is preallocated once and updated in place, decode
+  attention reads only the filled prefix rounded up to ``kv_block`` rows
+  (``kv_bucket``), greedy argmax stays on the device and feeds the next
+  step, and the loop never reads a device value: tokens come back to the
+  host once, at the end.
+* ``reference`` — the same steps with ``kv_bucket=None`` (attention over
+  the whole cache).
+
+Both give the same greedy tokens.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import decode_step, init_serve_cache, prefill
+
+
+def make_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """A synthetic request batch: uniform random prompt tokens (numpy,
+    seeded)."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, (b, s), dtype=np.int64)}
+
+
+def as_batch(batch, device):
+    """A request batch with its tensors on ``device`` (numpy accepted)."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+class ServeEngine:
+    """Greedy serving over one model.
+
+    cfg/params : the model (dense family); params live on one device, and
+                 the engine serves there.
+    max_len    : cache capacity per sequence; every request must satisfy
+                 prompt_len + gen_len - 1 <= max_len.
+    kv_block   : decode-attention bucket granularity (rows).
+    """
+
+    def __init__(self, cfg, params, *, max_len: int, kv_block: int = 32):
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.max_len = int(max_len)
+        self.kv_block = int(kv_block)
+
+    def bucket_for(self, filled: int) -> int:
+        """Smallest kv_block multiple covering `filled` rows (<= max_len)."""
+        b = -(-filled // self.kv_block) * self.kv_block
+        return min(max(b, self.kv_block), self.max_len)
+
+    def _check_fit(self, prompt_len: int, gen_len: int) -> None:
+        if prompt_len + gen_len - 1 > self.max_len:
+            raise ValueError(
+                f"prompt {prompt_len} + gen {gen_len} - 1 exceeds "
+                f"max_len {self.max_len}")
+
+    @torch.inference_mode()
+    def generate(self, batch, gen_len: int, engine: str = "fast",
+                 collect_logits: bool = False):
+        """Greedy-decode a synchronized batch for `gen_len` tokens.
+
+        Returns np tokens (B, gen_len) int32 — or (tokens, logits
+        (B, gen_len, V) float32) when collect_logits."""
+        if engine not in ("fast", "reference"):
+            raise ValueError(engine)
+        batch = as_batch(batch, self.device)
+        b, prompt_len = batch["tokens"].shape
+        self._check_fit(prompt_len, gen_len)
+        cache = init_serve_cache(self.cfg, b, self.max_len,
+                                 device=self.device)
+        logits, cache = prefill(self.cfg, self.params, batch, cache)
+        toks = logits.argmax(-1).int()
+        outs, logs = [toks], [logits]
+        cur = prompt_len
+        for _ in range(gen_len - 1):
+            bucket = self.bucket_for(cur + 1) if engine == "fast" else None
+            logits, cache = decode_step(self.cfg, self.params, toks, cache,
+                                        kv_bucket=bucket)
+            toks = logits.argmax(-1).int()
+            cur += 1
+            outs.append(toks)
+            if collect_logits:
+                logs.append(logits)
+        out = torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
+        if collect_logits:
+            return out, torch.cat(logs, dim=1).cpu().numpy()
+        return out

@@ -1,0 +1,174 @@
+"""The port on the card: each CUDA kernel against its plain version, and the
+serving path through the kernels against itself and against the CPU.
+
+Every test here carries the ``cuda`` marker and skips, from a fixture, where
+``torch.cuda.is_available()`` is False.  The file imports only torch, numpy
+and the port, so it also runs where jax is not installed; there the
+repository's conftest (which imports jax) is left out:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: flash attention 2e-5 (float32) and 3e-2 (bfloat16), quantize
+and dequantize bit-equal; the smoke model's logits on the card within 5e-2
+of the CPU's (teacher-forced; bf16 products rounded in other places).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch._tree import tree_map
+from repro_torch.configs import get_config
+from repro_torch.core import from_block_cuts
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize import ref as q_ref
+from repro_torch.models import (decode_step, init_params, init_serve_cache,
+                                prefill)
+from repro_torch.serve.engine import ServeEngine, make_batch
+from repro_torch.serve.pipeline import PipelineServeEngine
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def randn(cuda, seed, *shape, dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).to(cuda).to(dtype)
+
+
+def bits_equal(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("s,causal,dtype", [
+    (512, True, torch.bfloat16), (300, True, torch.bfloat16),
+    (512, False, torch.bfloat16), (384, True, torch.float32),
+    (200, False, torch.float32)])
+def test_flash_kernel_vs_plain(cuda, s, causal, dtype):
+    q = randn(cuda, 0, 2, s, 32, 64, dtype=dtype)
+    k = randn(cuda, 1, 2, s, 8, 64, dtype=dtype)
+    v = randn(cuda, 2, 2, s, 8, 64, dtype=dtype)
+    before = attn_ops.flash_attention.launches
+    out = attn_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 128])
+def test_flash_kernel_head_dims(cuda, hd):
+    q, k, v = (randn(cuda, i, 1, 130, 4, hd) for i in range(3))
+    torch.testing.assert_close(attn_ops.flash_attention(q, k, v),
+                               attention_ref(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_rejects_other_head_dims(cuda):
+    q = randn(cuda, 0, 1, 128, 2, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        attn_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("shape,bm,bn", [((2048, 2048), 1, 2048),
+                                         ((2048, 2048), 256, 256),
+                                         ((300, 520), 256, 256),
+                                         ((257, 129), 256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_bit_equal(cuda, shape, bm, bn, dtype):
+    x = randn(cuda, 3, *shape, dtype=dtype)
+    q, s = q_ops.quantize(x, bm, bn)
+    qr, sr = q_ref.quantize_ref(x, bm, bn)
+    bits_equal(q, qr)
+    bits_equal(s, sr)
+    bits_equal(q_ops.dequantize(q, s, bm, bn, dtype),
+               q_ref.dequantize_ref(q, s, bm, bn, dtype))
+
+
+def test_rowwise_wire_bit_equal(cuda):
+    x = randn(cuda, 4, 4, 512, 2048, dtype=torch.bfloat16)
+    q, s = q_ops.rowwise_quantize(x)
+    qr, sr = q_ref.rowwise_quantize(x)
+    bits_equal(q, qr)
+    bits_equal(s, sr)
+    bits_equal(q_ops.rowwise_dequantize(q, s),
+               (qr.float() * sr).to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the serving path at the smoke config, through the kernels
+# ---------------------------------------------------------------------------
+
+PROMPT, GEN = 40, 8
+
+
+@pytest.fixture
+def smoke(cuda):
+    cfg = get_config("granite-3-2b", "smoke").replace(n_layers=4)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu = init_params(cfg, gen, device="cpu")
+    return cfg, cpu, tree_map(lambda t: t.to(cuda), cpu)
+
+
+def test_model_on_card_matches_cpu(smoke):
+    """Teacher-forced logits: prefill (the flash kernel) and 6 decode
+    steps on the card against the same model on the CPU."""
+    cfg, cpu, gpu = smoke
+    tokens = make_batch(cfg, 2, PROMPT, seed=1)["tokens"]
+    runs, forced = [], None             # the CPU's greedy tokens
+    with torch.inference_mode():
+        for params in (cpu, gpu):
+            dev = params["embed"].device
+            cache = init_serve_cache(cfg, 2, PROMPT + GEN, device=dev)
+            logits, cache = prefill(
+                cfg, params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                cache)
+            out, fed = [logits.float().cpu()], []
+            for i in range(6):
+                t = out[-1].argmax(-1) if forced is None else forced[i]
+                fed.append(t)
+                logits, cache = decode_step(cfg, params, t.int().to(dev),
+                                            cache, kv_bucket=PROMPT + GEN)
+                out.append(logits.float().cpu())
+            runs.append(out)
+            forced = fed
+    for a, b in zip(*runs):
+        torch.testing.assert_close(b, a, rtol=5e-2, atol=5e-2)
+
+
+def test_pipelines_on_card(smoke):
+    """Raw wire: bit-identical to ServeEngine, across a kill; int8 wire: a
+    kill changes nothing; and the kernels were launched."""
+    cfg, _, gpu = smoke
+    batch = make_batch(cfg, 3, PROMPT, seed=2)
+    kernels.reset_launch_counts()
+    mono = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8).generate(
+        batch, GEN)
+    kill = {"after_step": 2, "stage": 1}
+    raw = PipelineServeEngine(cfg, gpu, from_block_cuts(cfg, [2],
+                                                        spare_nodes=(9,)),
+                              max_len=PROMPT + GEN, kv_block=8)
+    np.testing.assert_array_equal(raw.generate(batch, GEN), mono)
+    np.testing.assert_array_equal(raw.generate(batch, GEN, kill=kill), mono)
+    i8 = PipelineServeEngine(cfg, gpu, from_block_cuts(
+        cfg, [1, 3], spare_nodes=(9,), wire_bits=8), max_len=PROMPT + GEN,
+        kv_block=8)
+    clean = i8.generate(batch, GEN)
+    np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill), clean)
+    counts = kernels.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts

@@ -1,0 +1,186 @@
+"""The port's kernel wrappers and plain versions against the reference.
+
+Inputs come from a numpy seed and go through both packages: the reference's
+ops (Pallas in interpret mode, the default on the CPU) and its ``ref.py``
+oracles, and the port's wrappers (which take their plain versions for CPU
+tensors) and ``ref.py``.  Tolerances are those of ``tests/test_kernels.py``:
+quantize bit-equal, attention 2e-5 in float32 and 3e-2 in bfloat16.
+
+The CUDA kernels themselves are held against their plain versions on the
+card by ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention.ops import flash_attention as jax_flash
+from repro.kernels.attention.ref import attention_ref as jax_attention_ref
+from repro.kernels.quantize.ops import dequantize as jax_dequantize
+from repro.kernels.quantize.ops import quantize as jax_quantize
+from repro.kernels.quantize.ref import dequantize_ref as jax_dequantize_ref
+from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref
+from repro.kernels.quantize.ref import rowwise_quantize as jax_rowwise
+from repro_torch import kernels
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize import ref as q_ref
+from repro_torch.models.bridge import tensor_from_numpy, tensor_to_numpy
+
+torch.set_num_threads(2)
+
+BF16 = np.dtype(ml_dtypes.bfloat16)
+DTYPES = {"float32": np.float32, "bfloat16": BF16}
+
+
+def normal(seed, shape, dtype="float32"):
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return x.astype(DTYPES[dtype])
+
+
+def both(x):
+    """The same numpy array as a jax array and a CPU torch tensor."""
+    return jnp.asarray(x), tensor_from_numpy(x, "cpu")
+
+
+def as_np(t):
+    return tensor_to_numpy(t) if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def bits_equal(a, b):
+    a, b = as_np(a), as_np(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape,
+                                                       a.dtype, b.dtype)
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def close(a, b, tol):
+    np.testing.assert_allclose(as_np(a).astype(np.float32),
+                               as_np(b).astype(np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# quantize / dequantize: bit-equal
+# ---------------------------------------------------------------------------
+
+QSHAPES = [(256, 256), (300, 520), (64, 1024), (1024, 64), (257, 129)]
+
+
+class TestQuantize:
+    @pytest.mark.parametrize("shape", QSHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_reference_ops_and_ref(self, shape, dtype):
+        xj, xt = both(normal(0, shape, dtype))
+        q, s = q_ops.quantize(xt)
+        for qj, sj in (jax_quantize(xj), jax_quantize_ref(xj)):
+            bits_equal(q, qj)
+            bits_equal(s, sj)
+        qr, sr = q_ref.quantize_ref(xt)
+        bits_equal(q, qr)
+        bits_equal(s, sr)
+
+    @pytest.mark.parametrize("shape", [(300, 520), (257, 129)])
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    def test_dequantize_matches_reference(self, shape, out):
+        xj, xt = both(normal(1, shape))
+        q, s = q_ops.quantize(xt)
+        odt = getattr(torch, out)
+        x = q_ops.dequantize(q, s, out_dtype=odt)
+        qj, sj = jax_quantize_ref(xj)
+        bits_equal(x, jax_dequantize(qj, sj, out_dtype=jnp.dtype(out)))
+        bits_equal(x, jax_dequantize_ref(qj, sj, out_dtype=jnp.dtype(out)))
+        bits_equal(x, q_ref.dequantize_ref(q, s, out_dtype=odt))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_rowwise_matches_reference(self, dtype):
+        x = normal(2, (2, 5, 64), dtype)
+        x[0, 1] = 0.0                       # an all-zero row: scale 1
+        xj, xt = both(x)
+        q, s = q_ops.rowwise_quantize(xt)
+        qj, sj = jax_rowwise(xj)
+        bits_equal(q, qj)
+        bits_equal(s, sj)
+        qr, sr = q_ref.rowwise_quantize(xt)
+        bits_equal(q, qr)
+        bits_equal(s, sr)
+        # the pipeline's _wire_in: (q * scale) cast to the param dtype
+        back = q_ops.rowwise_dequantize(q, s, torch.bfloat16)
+        bits_equal(back, (qj.astype(jnp.float32) * sj).astype(jnp.bfloat16))
+
+    def test_half_way_ties_round_to_even(self):
+        # absmax 127 gives scale 1 (exactly 127 * f32(1/127)); x.5 ties
+        # then decide round() by the half-to-even rule
+        row = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]],
+                       np.float32)
+        xj, xt = both(row)
+        q, s = q_ops.quantize(xt, 1, row.shape[1])
+        qj, sj = jax_quantize_ref(xj, 1, row.shape[1])
+        bits_equal(q, qj)
+        bits_equal(s, sj)
+
+    def test_zero_tile_safe(self):
+        q, s = q_ops.quantize(torch.zeros(256, 256))
+        assert float(s) == 1.0
+        assert float(q_ops.dequantize(q, s).abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# flash attention: 2e-5 (float32), 3e-2 (bfloat16)
+# ---------------------------------------------------------------------------
+
+def qkv(seed, b, s, h, kv, hd, dtype="float32"):
+    return (normal(seed, (b, s, h, hd), dtype),
+            normal(seed + 1, (b, s, kv, hd), dtype),
+            normal(seed + 2, (b, s, kv, hd), dtype))
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("s", [128, 200, 384])
+    @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 1)])
+    @pytest.mark.parametrize("hd", [32, 64])
+    def test_causal_sweep_vs_reference_oracle(self, s, h, kv, hd):
+        arrays = qkv(3, 2, s, h, kv, hd)
+        ref = jax_attention_ref(*map(jnp.asarray, arrays), causal=True)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        close(attn_ops.flash_attention(*ts, causal=True), ref, 2e-5)
+        close(attention_ref(*ts, causal=True), ref, 2e-5)
+
+    @pytest.mark.parametrize("s,causal", [(256, True), (200, True),
+                                          (256, False), (129, False)])
+    def test_matches_reference_pallas_op(self, s, causal):
+        arrays = qkv(4, 1, s, 4, 2, 32)
+        want = jax_flash(*map(jnp.asarray, arrays), causal=causal)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        close(attn_ops.flash_attention(*ts, causal=causal), want, 2e-5)
+        close(attention_ref(*ts, causal=causal), want, 2e-5)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_bfloat16(self, causal):
+        arrays = qkv(5, 1, 128, 2, 2, 64, "bfloat16")
+        ref = jax_attention_ref(*map(jnp.asarray, arrays), causal=causal)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        out = attn_ops.flash_attention(*ts, causal=causal)
+        assert out.dtype == torch.bfloat16
+        close(out, ref, 3e-2)
+        close(attention_ref(*ts, causal=causal), ref, 3e-2)
+
+    def test_fold_and_pad_shapes(self):
+        arrays = qkv(6, 1, 129, 8, 2, 16)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        out = attn_ops.flash_attention(*ts, causal=True)
+        assert out.shape == (1, 129, 8, 16)
+        close(out, attention_ref(*ts, causal=True), 2e-5)
+
+    def test_cpu_path_launches_nothing(self):
+        kernels.reset_launch_counts()
+        arrays = qkv(7, 1, 128, 2, 2, 8)
+        attn_ops.flash_attention(*[tensor_from_numpy(a, "cpu")
+                                   for a in arrays])
+        q_ops.quantize(torch.ones(4, 4))
+        assert kernels.launch_counts() == {"flash_attention": 0,
+                                           "quantize": 0, "dequantize": 0}
