@@ -13,19 +13,21 @@ Phases, in order; any failure exits non-zero before the result line:
    (float32), quantize and dequantize bit-equal; times from CUDA events
    beside the plain version's, the bound, and for flash the library call
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
-4. model   — the smoke config on the card against the same model on the
-   CPU (plain versions), teacher-forced logits within 5e-2;
-5. main path at full width — granite-3-2b (40 layers, d_model 2048, random
+4. main path at full width — granite-3-2b (40 layers, d_model 2048, random
    bf16 weights from seed 0) planned by the SEIFER planner onto a
    10-node edge cluster, served by the monolithic ``ServeEngine`` (fast and
    reference loops), by the raw-wire ``PipelineServeEngine`` (bit-identical
    tokens, also across a stage kill) and by the int8-wire one (a kill and
-   restore gives the same tokens as the run without it).  Kernel launch
-   counters are zeroed before this phase and read after it; each kernel
-   must have launched.
+   restore gives the same tokens as the run without it).  The kernel launch
+   counters are zeroed just before each of these five runs and read just
+   after it: flash attention must launch in every run, quantize and
+   dequantize in the int8-wire runs and in no other.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
-per kernel, and ``{"ok": true, "device": {...}}``.
+per kernel, and ``{"ok": true, "device": {...}}``.  A record's
+``launches`` is the count from the run that goes through every step of the
+main path (planner, int8 wire, stage kill, restore and replay);
+``launches_by_path`` holds the count from each of the five runs.
 """
 
 from __future__ import annotations
@@ -198,52 +200,7 @@ def check_quantize(torch, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the smoke model on the card against the CPU
-# ---------------------------------------------------------------------------
-
-def check_smoke_model(torch):
-    from repro_torch._tree import tree_map
-    from repro_torch.configs import get_config
-    from repro_torch.models import (decode_step, init_params,
-                                    init_serve_cache, prefill)
-    from repro_torch.serve.engine import make_batch
-    cfg = get_config("granite-3-2b", "smoke").replace(n_layers=4)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(0)
-    cpu = init_params(cfg, gen, device="cpu")
-    tokens = make_batch(cfg, 2, 40, seed=1)["tokens"]
-
-    def run(params, forced=None):
-        dev = params["embed"].device
-        cache = init_serve_cache(cfg, 2, 48, device=dev)
-        logits, cache = prefill(
-            cfg, params, {"tokens": torch.as_tensor(tokens, device=dev)},
-            cache)
-        outs, fed = [logits.float().cpu()], []
-        for i in range(6):
-            t = (logits.argmax(-1) if forced is None else forced[i]).to(dev)
-            fed.append(t.cpu())
-            logits, cache = decode_step(cfg, params, t.int(), cache,
-                                        kv_bucket=48)
-            outs.append(logits.float().cpu())
-        return outs, fed
-
-    with torch.inference_mode():
-        ref, fed = run(cpu)
-        got, _ = run(tree_map(lambda t: t.cuda(), cpu), fed)  # teacher-forced
-    worst = 0.0
-    for a, b in zip(ref, got):
-        if not bool(torch.isfinite(b).all()):
-            raise SystemExit("smoke model on the card gave non-finite logits")
-        worst = max(worst, (a - b).abs().max().item())
-    log(f"  smoke model (4 layers, hd 8): card vs CPU teacher-forced logits "
-        f"over prefill + 6 decode steps, max |diff| = {worst:.3g} (tol 5e-2)")
-    if worst > 5e-2:
-        raise SystemExit("smoke model on the card disagrees with the CPU")
-
-
-# ---------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
 def main_path(torch, tmp, cfg):
@@ -292,34 +249,30 @@ def main_path(torch, tmp, cfg):
 
     batch = make_batch(cfg, BATCH, PROMPT, seed=0)
     max_len = PROMPT + GEN
-    counts = {name: 0 for name in kernels.WRAPPERS}
+    by_path = {}          # run -> {kernel: launches in that run alone}
 
-    def counted(label, fn):
+    def counted(path, fn):
         kernels.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        got = kernels.launch_counts()
-        for name, n in got.items():
-            counts[name] += n
-        log(f"  [{label}] kernel launches: {got}")
+        by_path[path] = kernels.launch_counts()
+        log(f"  [{path}] kernel launches: {by_path[path]}")
         return out
 
     mono = ServeEngine(cfg, params, max_len=max_len, kv_block=32)
-    counted("ServeEngine warm-up", lambda: mono.generate(batch, 2))
+    mono.generate(batch, 2)                               # warm-up
     toks_mono, gen_s = timed(lambda: counted(
-        "ServeEngine fast", lambda: mono.generate(batch, GEN)))
-    (_, logits), pre_s = timed(lambda: counted(
-        "ServeEngine prefill only", lambda: mono.generate(
-            batch, 1, collect_logits=True)))
+        "monolithic", lambda: mono.generate(batch, GEN)))
+    (_, logits), pre_s = timed(lambda: mono.generate(
+        batch, 1, collect_logits=True))                   # prefill only
     if logits.shape != (BATCH, 1, cfg.vocab) or not \
             bool(torch.isfinite(torch.from_numpy(logits)).all()):
         raise SystemExit(f"prefill logits {logits.shape} not finite")
     log(f"  ServeEngine: prefill (B={BATCH}, S={PROMPT}) {pre_s * 1e3:.1f} "
         f"ms; generate {GEN} tokens {gen_s:.3f}s, decode "
         f"{(gen_s - pre_s) / (GEN - 1) * 1e3:.2f} ms/step")
-    toks_ref, ref_s = timed(lambda: counted(
-        "ServeEngine reference", lambda: mono.generate(
-            batch, GEN, engine="reference")))
+    toks_ref, ref_s = timed(lambda: mono.generate(
+        batch, GEN, engine="reference"))
     same = bool((toks_ref == toks_mono).all())
     log(f"  ServeEngine reference loop {ref_s:.3f}s: tokens equal to the "
         f"fast loop: {same}")
@@ -336,7 +289,7 @@ def main_path(torch, tmp, cfg):
     log(f"  raw-wire pipeline: {raw.n_stages} stages on nodes "
         f"{raw.node_of_stage}; checkpointing the stages took {ck_s:.1f}s")
     toks_raw, raw_s = timed(lambda: counted(
-        "pipeline raw wire", lambda: raw.generate(batch, GEN)))
+        "pipeline_raw", lambda: raw.generate(batch, GEN)))
     same = bool((toks_raw == toks_mono).all())
     log(f"  raw-wire pipeline generate {raw_s:.3f}s: bit-identical to "
         f"ServeEngine: {same}")
@@ -344,7 +297,7 @@ def main_path(torch, tmp, cfg):
         raise SystemExit("raw-wire pipeline tokens differ from ServeEngine")
     kill = {"after_step": 3, "stage": 1}
     toks_rk, rk_s = timed(lambda: counted(
-        "pipeline raw wire, stage 1 killed", lambda: raw.generate(
+        "pipeline_raw_kill", lambda: raw.generate(
             batch, GEN, kill=kill)))
     same = bool((toks_rk == toks_mono).all())
     log(f"  raw-wire pipeline with stage 1 killed after step 3: "
@@ -361,9 +314,9 @@ def main_path(torch, tmp, cfg):
         ckpt_dir=Path(tmp) / "int8", cluster=cluster))
     log(f"  int8-wire pipeline: checkpointing the stages took {ck_s:.1f}s")
     toks_i8, i8_s = timed(lambda: counted(
-        "pipeline int8 wire", lambda: i8.generate(batch, GEN)))
+        "pipeline_int8", lambda: i8.generate(batch, GEN)))
     toks_i8k, i8k_s = timed(lambda: counted(
-        "pipeline int8 wire, stage 1 killed", lambda: i8.generate(
+        "pipeline_int8_kill", lambda: i8.generate(
             batch, GEN, kill=kill)))
     same = bool((toks_i8k == toks_i8).all())
     agree = float((toks_i8 == toks_mono).mean())
@@ -377,12 +330,14 @@ def main_path(torch, tmp, cfg):
     if not any("restored from checkpoint" in m for _, m in i8.events):
         raise SystemExit("the int8-wire kill logged no restore")
     del i8
-    log(f"  kernel launches over the main path: {counts}")
-    missing = [n for n, c in counts.items() if c <= 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: "
-                         f"{missing}")
-    return counts
+    wire = {"quantize", "dequantize"}
+    for path, got in by_path.items():
+        want = set(got) if "int8" in path else set(got) - wire
+        bad = [n for n, c in got.items() if (c > 0) != (n in want)]
+        if bad:
+            raise SystemExit(f"[{path}] launched {got}: expected launches "
+                             f"of exactly {sorted(want)}")
+    return by_path
 
 
 def main() -> int:
@@ -419,17 +374,16 @@ def main() -> int:
     gen.manual_seed(0)
     records = [check_flash(torch, gen), *check_quantize(torch, gen)]
 
-    log("== 4. smoke model, card against CPU")
-    check_smoke_model(torch)
-
-    log("== 5. main path at full width")
+    log("== 4. main path at full width")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        counts = main_path(torch, tmp, get_config("granite-3-2b", "full"))
+        by_path = main_path(torch, tmp, get_config("granite-3-2b", "full"))
     for r in records:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = by_path["pipeline_int8_kill"][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(f"== done in {time.perf_counter() - t_start:.1f}s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

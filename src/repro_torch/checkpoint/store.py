@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 
 _NP_OF = {torch.float32: np.float32, torch.float16: np.float16,
@@ -119,9 +120,11 @@ def _from_host(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device="cpu"):
+def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device=None):
     """Restore into the structure of ``like_tree`` (tensors or a
-    :func:`template_of`), cast to its dtypes, on ``device``."""
+    :func:`template_of`), cast to its dtypes, on ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``; raises without a card)."""
+    device = resolve_device(device)
     src = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((src / "manifest.json").read_text())
     likes, _ = _flatten(like_tree)

@@ -6,6 +6,13 @@ sequential ``PipelineServeEngine`` over those block cuts (``--wire-bits 8``
 sends stage boundaries as rowwise int8).  Runs on the card unless
 ``--device cpu``.
 
+The flags are those of ``repro/launch/serve.py``'s monolithic and
+``--cuts`` paths, plus two: ``--wire-bits``, since the reference launcher
+never reaches the int8 wire that the served pipeline sends (the paper's
+lambda compression), and ``--profile``, which traces one prefill-only run
+and one full run with ``torch.profiler`` and prints the device busy time,
+the kernel launches and the kernels that took the most device time.
+
 Timing: the first generate is a warm-up (it builds the kernels on first
 use) and is reported separately; every reported time ends in
 ``torch.cuda.synchronize()`` on the card, since PyTorch returns before the

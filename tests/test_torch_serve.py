@@ -100,11 +100,21 @@ def test_checkpoint_format_matches_reference(granite, tmp_path):
 def test_checkpoint_crosses_both_ways(granite, tmp_path):
     _, jparams, nparams, _, params = granite
     jax_ckpt.save_checkpoint(tmp_path / "jax", 0, jparams)
-    got = restore_checkpoint(tmp_path / "jax", 0, template_of(params))
+    got = restore_checkpoint(tmp_path / "jax", 0, template_of(params),
+                             device="cpu")
     leaves_equal(nparams, params_to_jax(got))
     save_checkpoint(tmp_path / "torch", 0, params)
     back = jax_ckpt.restore_checkpoint(tmp_path / "torch", 0, jparams)
     leaves_equal(nparams, back)
+
+
+def test_restore_needs_a_card_unless_asked_for_the_cpu(granite, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    params = granite[4]
+    save_checkpoint(tmp_path, 0, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(tmp_path, 0, template_of(params))
 
 
 def test_checkpoint_detects_a_flipped_bit(granite, tmp_path):
@@ -115,7 +125,7 @@ def test_checkpoint_detects_a_flipped_bit(granite, tmp_path):
     raw[-1] ^= 1
     leaf.write_bytes(bytes(raw))
     with pytest.raises(CheckpointCorrupt):
-        restore_checkpoint(tmp_path, 0, template_of(params))
+        restore_checkpoint(tmp_path, 0, template_of(params), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +257,13 @@ def test_spare_choice_matches_reference(granite):
         assert eng._spare_score(k, 5) == jeng._spare_score(k, 5)
 
 
-def test_launcher_runs_both_paths_on_the_cpu():
+def test_launcher_runs_both_paths_on_the_cpu(capsys):
     args = ["--arch", "granite-3-2b", "--device", "cpu", "--batch", "2",
             "--prompt-len", "8", "--gen-len", "4"]
     mono = launch_serve.main(args + ["--profile"])
+    out = capsys.readouterr().out
+    assert "[profile/fast, prefill only]" in out
+    assert "[profile/fast, 4 tokens]" in out
     np.testing.assert_array_equal(launch_serve.main(args + ["--cuts", "1"]),
                                   mono)
     assert launch_serve.main(args + ["--cuts", "1", "--wire-bits", "8"]
