@@ -9,25 +9,33 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — nvcc builds every kernel of the path from ``src/repro_torch/
    kernels/csrc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the main path's shapes: flash attention within 3e-2 (bf16) and 2e-5
-   (float32), quantize and dequantize bit-equal; times from CUDA events
+   at the main paths' shapes: flash attention within 3e-2 (bf16) and 2e-5
+   (float32), quantize and dequantize bit-equal, the SSD scan within
+   |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
+   |plain| (float32 output and the float32 state); times from CUDA events
    beside the plain version's, the bound, and for flash the library call
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
-4. main path at full width — granite-3-2b (40 layers, d_model 2048, random
-   bf16 weights from seed 0) planned by the SEIFER planner onto a
-   10-node edge cluster, served by the monolithic ``ServeEngine`` (fast and
-   reference loops), by the raw-wire ``PipelineServeEngine`` (bit-identical
-   tokens, also across a stage kill) and by the int8-wire one (a kill and
-   restore gives the same tokens as the run without it).  The kernel launch
-   counters are zeroed just before each of these five runs and read just
-   after it: flash attention must launch in every run, quantize and
-   dequantize in the int8-wire runs and in no other.
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
+   no PyTorch call computes the SSD scan);
+4. the main paths at full width, with random bf16 weights from seed 0:
+   granite-3-2b (40 layers, d_model 2048) and mamba2-1.3b (48 layers,
+   d_model 2048, 64 SSM heads, state 128), each planned by the SEIFER
+   planner onto a 10-node edge cluster into 4 stages, served by the
+   monolithic ``ServeEngine`` (fast and reference loops), by the raw-wire
+   ``PipelineServeEngine`` (bit-identical tokens, also across a stage kill)
+   and by the int8-wire one (a kill and restore gives the same tokens as
+   the run without it).  The kernel launch counters are zeroed just before
+   each of these five runs of each model and read just after it, and each
+   run must launch exactly what it runs: the model's sequence mixer (flash
+   attention for granite, the SSD scan for mamba2) once per layer per
+   prefill, quantize and dequantize once per stage boundary per pass in
+   the int8-wire runs, and nothing else.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``.  A record's
-``launches`` is the count from the run that goes through every step of the
-main path (planner, int8 wire, stage kill, restore and replay);
-``launches_by_path`` holds the count from each of the five runs.
+``launches`` is the count from the runs that go through every step of a
+main path (planner, int8 wire, stage kill, restore and replay), summed
+over the two models; ``launches_by_path`` holds the count from each of the
+ten runs, keyed ``model/run``.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ BF16_PEAK = 989e12      # dense bf16 tensor-core FLOP/s, H100 SXM
 F32_PEAK = 67e12        # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
+KILL = {"after_step": 3, "stage": 1}
+ARCHS = ("granite-3-2b", "mamba2-1.3b")
 
 
 def log(msg=""):
@@ -199,9 +209,97 @@ def check_quantize(torch, gen):
                  bound_ms=db_ms, bound_by=db_by)]
 
 
+def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
+    """x, B and C as views of one (B, S, H*P + 2N) tensor, the layout in
+    which the model's convolution output hands them to the kernel; dt and A
+    drawn as the reference's kernel tests draw them."""
+    import torch.nn.functional as F
+    conv = torch.randn(b, s, h * p + 2 * n, generator=gen, device="cuda")
+    conv[..., h * p:] *= 0.5
+    conv = conv.to(dtype)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(h, generator=gen, device="cuda") * 0.3)
+    return x, dt, A, conv[..., h * p:h * p + n], conv[..., h * p + n:]
+
+
+def check_ssd(torch, gen):
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 1e-2, f32: 2e-4}     # |kernel - plain| <= tol (1 + |plain|)
+    cases = [  # (B, S, H, P, N, Q, dtype)
+        (BATCH, PROMPT, 64, 64, 128, 128, bf16),   # mamba2-1.3b prefill
+        (BATCH, 300, 64, 64, 128, 128, bf16),      # ragged S
+        (2, 40, 8, 16, 16, 16, bf16),              # the smoke config's
+        (2, 384, 8, 64, 128, 128, f32),
+    ]
+    main = None
+    for b, s, h, p, n, q, dt_ in cases:
+        ins = ssd_inputs(torch, gen, b, s, h, p, n, dt_)
+        y, st = ops.ssd_scan(*ins, q)
+        torch.cuda.synchronize()
+        yr, sr = ssd_chunked(*ins, q)
+        ey = (y.float() - yr.float()).abs()
+        es = (st - sr).abs()
+        err = max(ey.max().item(), es.max().item())
+        ok = bool((ey <= tol[dt_] * (1 + yr.float().abs())).all()
+                  and (es <= tol[f32] * (1 + sr.abs())).all()
+                  and math.isfinite(err))
+        log(f"  ssd B={b} S={s} H={h} P={p} N={n} Q={q} {str(dt_)[6:]}: max "
+            f"|kernel - plain| = {ey.max().item():.3g} on y (max |y| "
+            f"{yr.float().abs().max().item():.3g}), {es.max().item():.3g} on "
+            f"the state (tol {tol[dt_]:g} on y, {tol[f32]:g} on the state, "
+            f"each times 1 + |plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the SSD scan disagrees with its plain version")
+        if main is None:
+            main = (ins, err)
+    ins, err = main
+    b, s, h, p = ins[0].shape
+    n = ins[3].shape[-1]
+    q = 128
+    k_ms = time_ms(lambda: ops._launch(*ins, q))
+    w_ms = time_ms(lambda: ops.ssd_scan(*ins, q))
+    p_ms = time_ms(lambda: ssd_chunked(*ins, q))
+    # the four products per (b, h, chunk), as the TPU kernel counts them:
+    # C B^T, (.) x, C state^T and x^T B
+    nc = -(-s // q)
+    flops = 2.0 * b * h * nc * (q * q * n + q * q * p + 2 * q * p * n)
+    nbytes = (2 * 2 * b * s * h * p          # x in, y out (bf16)
+              + 4 * b * h * p * n            # the final state (f32)
+              + 2 * 2 * b * s * n            # B and C (bf16)
+              + 4 * b * s * h + 4 * h)       # dt and A (f32)
+    b_ms, b_by = bound(flops, nbytes, F32_PEAK)
+    log(f"  ssd at the prefill shape: kernel {k_ms:.4f} ms (through the "
+        f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:32",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
+
+def expected_launches(cfg, n_stages, path):
+    """Launches of every kernel in one counted run: the sequence mixer once
+    per layer per prefill (a run with a kill prefills again in its
+    replay), the wire kernels once per stage boundary per pass on the int8
+    wire (a replay repeats the prefill and the decode steps before the
+    kill)."""
+    from repro_torch import kernels
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    kill = path.endswith("_kill")
+    mixer = "ssd" if cfg.family == "ssm" else "flash_attention"
+    want[mixer] = cfg.n_layers * (2 if kill else 1)
+    if "int8" in path:
+        passes = GEN + (1 + KILL["after_step"] if kill else 0)
+        want["quantize"] = want["dequantize"] = (n_stages - 1) * passes
+    return want
 
 def main_path(torch, tmp, cfg):
     from repro_torch import kernels
@@ -224,9 +322,14 @@ def main_path(torch, tmp, cfg):
     gen.manual_seed(0)
     params, dt = timed(lambda: init_params(cfg, gen, device="cuda"))
     n_par = sum(t.numel() for t in tree_leaves(params))
+    if cfg.family == "ssm":
+        mixer = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+                 f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    else:
+        mixer = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+                 f"{cfg.d_ff}")
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}: {n_par / 1e9:.3f} B params "
+        f"{mixer}, vocab {cfg.vocab}: {n_par / 1e9:.3f} B params "
         f"({2 * n_par / 1e9:.2f} GB bf16) initialised in {dt:.1f}s")
 
     graph = lm_block_graph(cfg, ShapeConfig("serve", PROMPT, BATCH,
@@ -244,8 +347,8 @@ def main_path(torch, tmp, cfg):
     log(ep_int8.describe())
     ranges = ep_raw.block_ranges(cfg.n_layers)
     log(f"  stage block ranges: {ranges}")
-    if not 3 <= len(ranges) <= 4:
-        raise SystemExit(f"planner gave {len(ranges)} stages, expected 3-4")
+    if len(ranges) != 4:
+        raise SystemExit(f"planner gave {len(ranges)} stages, expected 4")
 
     batch = make_batch(cfg, BATCH, PROMPT, seed=0)
     max_len = PROMPT + GEN
@@ -295,10 +398,9 @@ def main_path(torch, tmp, cfg):
         f"ServeEngine: {same}")
     if not same:
         raise SystemExit("raw-wire pipeline tokens differ from ServeEngine")
-    kill = {"after_step": 3, "stage": 1}
     toks_rk, rk_s = timed(lambda: counted(
         "pipeline_raw_kill", lambda: raw.generate(
-            batch, GEN, kill=kill)))
+            batch, GEN, kill=KILL)))
     same = bool((toks_rk == toks_mono).all())
     log(f"  raw-wire pipeline with stage 1 killed after step 3: "
         f"{rk_s:.3f}s, bit-identical to ServeEngine: {same}")
@@ -317,7 +419,7 @@ def main_path(torch, tmp, cfg):
         "pipeline_int8", lambda: i8.generate(batch, GEN)))
     toks_i8k, i8k_s = timed(lambda: counted(
         "pipeline_int8_kill", lambda: i8.generate(
-            batch, GEN, kill=kill)))
+            batch, GEN, kill=KILL)))
     same = bool((toks_i8k == toks_i8).all())
     agree = float((toks_i8 == toks_mono).mean())
     log(f"  int8-wire pipeline {i8_s:.3f}s, with stage 1 killed after step "
@@ -330,13 +432,12 @@ def main_path(torch, tmp, cfg):
     if not any("restored from checkpoint" in m for _, m in i8.events):
         raise SystemExit("the int8-wire kill logged no restore")
     del i8
-    wire = {"quantize", "dequantize"}
+    shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
     for path, got in by_path.items():
-        want = set(got) if "int8" in path else set(got) - wire
-        bad = [n for n, c in got.items() if (c > 0) != (n in want)]
-        if bad:
-            raise SystemExit(f"[{path}] launched {got}: expected launches "
-                             f"of exactly {sorted(want)}")
+        want = expected_launches(cfg, len(ranges), path)
+        if got != want:
+            raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
+                             f"expected {want}")
     return by_path
 
 
@@ -372,13 +473,20 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    records = [check_flash(torch, gen), *check_quantize(torch, gen)]
+    records = [check_flash(torch, gen), *check_quantize(torch, gen),
+               check_ssd(torch, gen)]
 
-    log("== 4. main path at full width")
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        by_path = main_path(torch, tmp, get_config("granite-3-2b", "full"))
+    log("== 4. main paths at full width")
+    by_path = {}
+    for arch in ARCHS:
+        log(f"-- {arch}")
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+            for path, got in main_path(torch, tmp,
+                                       get_config(arch, "full")).items():
+                by_path[f"{arch}/{path}"] = got
     for r in records:
-        r["launches"] = by_path["pipeline_int8_kill"][r["name"]]
+        r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
+                            for a in ARCHS)
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(f"== done in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",

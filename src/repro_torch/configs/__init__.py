@@ -1,10 +1,10 @@
-"""Architecture configs of the port (the dense gate model so far)."""
+"""Architecture configs of the port (the dense and SSM gate models so far)."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["granite-3-2b"]
+ARCH_IDS = ["granite-3-2b", "mamba2-1.3b"]
 
 
 def get_config(arch_id: str, preset: str = "full"):

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from .attention.ops import flash_attention
 from .quantize.ops import dequantize, quantize
+from .ssd.ops import ssd_scan
 
 WRAPPERS = {"flash_attention": flash_attention, "quantize": quantize,
-            "dequantize": dequantize}
+            "dequantize": dequantize, "ssd": ssd_scan}
 
 
 def launch_counts() -> dict[str, int]:

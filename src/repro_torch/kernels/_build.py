@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # library -> {C function: (argtypes, restype)}
 SIGNATURES = {
@@ -45,6 +46,10 @@ SIGNATURES = {
         "quantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "dequantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "quantize_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ssd": {
+        "ssd_scan_launch": ([_P] * 7 + [_I] * 7 + [_L] * 10 + [_I, _P], _I),
+        "ssd_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -1,4 +1,5 @@
-"""Model zoo of the port (dense family so far), mirroring ``repro.models``."""
+"""Model zoo of the port (dense and pure SSM families so far), mirroring
+``repro.models``."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .model import (decode_step, forward, init_params, init_serve_cache,

@@ -1,10 +1,12 @@
-"""Dense-family model of the port: params, forward, and serving steps.
+"""Models of the port: params, forward, and serving steps.
 
-Counterpart of ``repro/models/model.py`` (dense family only).  Params keep
-the reference's tree layout, with the blocks stacked on a leading layer
-axis (``blocks/attn/wq`` is (L, D, H*hd)), so ``models.bridge`` and the
-checkpoint map leaf for leaf.  The layer loop is a Python loop over views
-of the stacked tensors, and the serving cache is updated in place.
+Counterpart of ``repro/models/model.py`` for the dense family and the pure
+SSM family (mamba2); the hybrid (zamba2) and the other families are not
+ported yet and raise.  Params keep the reference's tree layout, with the
+blocks stacked on a leading layer axis (``blocks/attn/wq`` is (L, D, H*hd),
+``blocks/in_proj`` (L, D, ...)), so ``models.bridge`` and the checkpoint
+map leaf for leaf.  The layer loop is a Python loop over views of the
+stacked tensors, and the serving cache is updated in place.
 
   init_params(cfg, generator, device=)             -> params
   forward(cfg, params, batch)                      -> (logits, (h, aux))
@@ -23,13 +25,18 @@ from repro_torch._tree import tree_map
 from .config import ModelConfig
 from .layers import (attention, dtype_of, init_attention, init_cache,
                      init_mlp, mlp, ninit, rms_norm)
+from .ssm import init_mamba_block, init_mamba_cache, mamba_block
+
+FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def family(cfg: ModelConfig) -> str:
+    """``cfg.family`` when the port has it; raises otherwise."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense "
-            "only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (have "
+            f"{FAMILIES})")
+    return cfg.family
 
 
 def layer_view(tree, i):
@@ -45,7 +52,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 *, device=None):
     """Random params drawn from ``generator`` (default: seed 0 on the
     target device).  The generator's device is where the draws happen."""
-    _require_dense(cfg)
+    fam = family(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -62,12 +69,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     p = {"embed": ninit(gen, (cfg.vocab, d), dt), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = ninit(gen, (d, cfg.vocab), dt, fan_in=d)
-    p["blocks"] = {
-        "ln1": ones(n, d),
-        "attn": init_attention(gen, cfg, n),
-        "ln2": ones(n, d),
-        "mlp": init_mlp(gen, cfg, n),
-    }
+    if fam == "ssm":
+        p["blocks"] = init_mamba_block(gen, cfg, n)
+    else:
+        p["blocks"] = {
+            "ln1": ones(n, d),
+            "attn": init_attention(gen, cfg, n),
+            "ln2": ones(n, d),
+            "mlp": init_mlp(gen, cfg, n),
+        }
     return p
 
 
@@ -104,17 +114,42 @@ def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
     return h, cache
 
 
+def _ssm_apply(cfg, params, h, cache=None, layer_offset=0):
+    """The stacked mamba blocks of ``params`` over ``h`` (pre-norm,
+    residual); ``cache`` (``{"mamba": ...}``, stacked like the blocks) is
+    updated in place.  ``layer_offset`` is the index of the first block in
+    the whole model: a pipeline stage runs a slice.  Pure SSM blocks do not
+    depend on it; the hybrid family's shared-attention call sites would
+    (``family`` refuses the hybrid until they are ported).  Returns (h,
+    cache)."""
+    blocks = params["blocks"]
+    for i in range(blocks["pre_norm"].shape[0]):
+        c = None if cache is None else layer_view(cache["mamba"], i)
+        bp = layer_view(blocks, i)
+        h = h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps),
+                            cfg, cache=c)
+    return h, cache
+
+
+def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
+              layer_offset=0):
+    """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds dense
+    decode attention; the SSM family has no attention and ignores it."""
+    if family(cfg) == "ssm":
+        return _ssm_apply(cfg, params, h, cache, layer_offset)
+    return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+
+
 def _positions(b, s, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
 def forward(cfg: ModelConfig, params, batch):
     """Full-sequence causal forward -> (logits, (h, aux))."""
-    _require_dense(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
-    h, _ = _dense_apply(cfg, params, h, _positions(b, s, tokens.device))
+    h, _ = _backbone(cfg, params, h, _positions(b, s, tokens.device))
     return lm_logits(params, cfg, h), (h, 0.0)
 
 
@@ -122,10 +157,13 @@ def forward(cfg: ModelConfig, params, batch):
 
 def init_serve_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                      device=None):
-    """An empty decode cache (zeros); prefill fills it in place."""
-    _require_dense(cfg)
-    return init_cache(cfg, cfg.n_layers, batch_size, max_len,
-                      device=resolve_device(device))
+    """An empty decode cache (zeros); prefill fills it in place.  The SSM
+    cache has a fixed size: ``max_len`` only bounds attention caches."""
+    dev = resolve_device(device)
+    if family(cfg) == "ssm":
+        return {"mamba": init_mamba_cache(cfg, cfg.n_layers, batch_size,
+                                          device=dev)}
+    return init_cache(cfg, cfg.n_layers, batch_size, max_len, device=dev)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -134,8 +172,8 @@ def prefill(cfg: ModelConfig, params, batch, cache):
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
-    h, cache = _dense_apply(cfg, params, h, _positions(b, s, tokens.device),
-                            cache)
+    h, cache = _backbone(cfg, params, h, _positions(b, s, tokens.device),
+                         cache)
     return lm_logits(params, cfg, h[:, -1:]), cache
 
 
@@ -144,16 +182,18 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     kv_bucket: attention reads only rows [0, kv_bucket) of the cache;
-    callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows."""
+    callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows.
+    The SSM family ignores it."""
     b = tokens.shape[0]
     h = embed_tokens(params, cfg, tokens)
     positions = _cache_len(cfg, cache)[:, None].expand(b, 1)
-    h, cache = _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+    h, cache = _backbone(cfg, params, h, positions, cache, kv_bucket)
     return lm_logits(params, cfg, h), cache
 
 
 def _cache_len(cfg, cache):
     """Current per-row sequence length (layer 0's counter), as a copy: the
     layers advance the counters in place."""
-    _require_dense(cfg)
+    if family(cfg) == "ssm":
+        return cache["mamba"]["len"][0].clone()
     return cache["len"][0].clone()

@@ -1,10 +1,11 @@
-"""Per-stage views of the dense model (the model half of pipelined serving).
+"""Per-stage views of the model (the model half of pipelined serving).
 
-Counterpart of ``repro/models/staging.py`` (dense family only).  A pipeline
-stage owns a contiguous block range ``[lo, hi)``, plus the embedding when it
-is the first stage and the final norm and LM head when it is the last.  A
-chain of stages runs the same op sequence as the monolithic model, so
-greedy tokens through a raw wire are bit-identical to ``ServeEngine``'s.
+Counterpart of ``repro/models/staging.py`` for the dense and pure SSM
+families, which both take any cut between blocks.  A pipeline stage owns a
+contiguous block range ``[lo, hi)``, plus the embedding when it is the
+first stage and the final norm and LM head when it is the last.  A chain of
+stages runs the same op sequence as the monolithic model, so greedy tokens
+through a raw wire are bit-identical to ``ServeEngine``'s.
 """
 
 from __future__ import annotations
@@ -13,13 +14,14 @@ from repro_torch._tree import tree_map
 
 from .config import ModelConfig
 from .layers import init_cache
-from .model import _cache_len, _dense_apply, embed_tokens, lm_logits
+from .model import _backbone, _cache_len, embed_tokens, family, lm_logits
+from .ssm import init_mamba_cache
 
 
 def stage_granularity(cfg: ModelConfig) -> int:
-    """Smallest block count a stage boundary must align to (1: dense)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """Smallest block count a stage boundary must align to (1: dense and
+    ssm)."""
+    family(cfg)
     return 1
 
 
@@ -57,16 +59,20 @@ def init_stage_cache(cfg: ModelConfig, lo: int, hi: int, batch_size: int,
     stage)."""
     if lo == hi:
         return {}
-    stage_granularity(cfg)
+    if family(cfg) == "ssm":
+        return {"mamba": init_mamba_cache(cfg, hi - lo, batch_size,
+                                          device=device)}
     return init_cache(cfg, hi - lo, batch_size, max_len, device=device)
 
 
 def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
                    hi: int, kv_bucket: int | None = None):
-    """Blocks ``[lo, hi)`` applied to ``h`` (cache updated in place)."""
+    """Blocks ``[lo, hi)`` applied to ``h`` (cache updated in place): the
+    same op sequence the monolithic model runs over those blocks."""
     if lo == hi:
         return h, cache
-    return _dense_apply(cfg, sparams, h, positions, cache, kv_bucket)
+    return _backbone(cfg, sparams, h, positions, cache, kv_bucket,
+                     layer_offset=lo)
 
 
 def stage_cache_len(cfg: ModelConfig, cache):

@@ -37,8 +37,8 @@ def as_batch(batch, device):
 class ServeEngine:
     """Greedy serving over one model.
 
-    cfg/params : the model (dense family); params live on one device, and
-                 the engine serves there.
+    cfg/params : the model (any ported family); params live on one device,
+                 and the engine serves there.
     max_len    : cache capacity per sequence; every request must satisfy
                  prompt_len + gen_len - 1 <= max_len.
     kv_block   : decode-attention bucket granularity (rows).

@@ -52,8 +52,8 @@ class StageDown(RuntimeError):
 class PipelineServeEngine:
     """Greedy pipelined serving over one StageExecutionPlan.
 
-    cfg/params : the model (dense family); params are split into per-stage
-                 subtrees (views of ``params``).
+    cfg/params : the model (any ported family); params are split into
+                 per-stage subtrees (views of ``params``).
     plan       : StageExecutionPlan; block ranges, node ids, spares and the
                  wire format come from it.
     max_len    : cache capacity per sequence (as ServeEngine).

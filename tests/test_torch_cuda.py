@@ -9,8 +9,11 @@ repository's conftest (which imports jax) is left out:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: flash attention 2e-5 (float32) and 3e-2 (bfloat16), quantize
-and dequantize bit-equal; the smoke model's logits on the card within 5e-2
-of the CPU's (teacher-forced; bf16 products rounded in other places).
+and dequantize bit-equal; the SSD scan |kernel - plain| <= tol (1 +
+|plain|) with tol 2e-4 on float32 outputs and the float32 state and 1e-2
+on bfloat16 outputs (one bf16 rounding step is under 0.8% of the value);
+the smoke models' logits on the card within 5e-2 of the CPU's
+(teacher-forced; bf16 products rounded in other places).
 """
 
 import numpy as np
@@ -25,6 +28,8 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.models import (decode_step, init_params, init_serve_cache,
                                 prefill)
 from repro_torch.serve.engine import ServeEngine, make_batch
@@ -109,6 +114,71 @@ def test_rowwise_wire_bit_equal(cuda):
                (qr.float() * sr).to(torch.bfloat16))
 
 
+def ssd_inputs(cuda, seed, b, s, h, p, n, dtype):
+    """x, B and C as views of one (B, S, H*P + 2N) tensor, as the model
+    hands them over; dt and A as the reference's kernel tests draw them."""
+    conv = randn(cuda, seed, b, s, h * p + 2 * n)
+    conv[..., h * p:] *= 0.5
+    conv = conv.to(dtype)
+    dt = torch.nn.functional.softplus(randn(cuda, seed + 1, b, s, h))
+    A = -torch.exp(randn(cuda, seed + 2, h) * 0.3)
+    return (conv[..., :h * p].reshape(b, s, h, p), dt, A,
+            conv[..., h * p:h * p + n], conv[..., h * p + n:])
+
+
+def assert_ssd_close(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * (1 + want.float().abs())).all()), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("s,h,p,n,q", [
+    (512, 8, 64, 128, 128), (300, 8, 64, 128, 128), (40, 8, 16, 16, 16),
+    (200, 4, 64, 64, 64), (77, 3, 16, 32, 32), (130, 2, 128, 128, 128),
+    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 20, 24, 32),
+    (70, 2, 17, 24, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_vs_plain(cuda, s, h, p, n, q, dtype):
+    ins = ssd_inputs(cuda, 5, 2, s, h, p, n, dtype)
+    before = ssd_ops.ssd_scan.launches
+    y, st = ssd_ops.ssd_scan(*ins, q)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + 1
+    yr, sr = ssd_chunked(*ins, q)
+    assert_ssd_close(y, yr, 2e-4 if dtype == torch.float32 else 1e-2)
+    assert_ssd_close(st, sr, 2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_unaligned_views(cuda, dtype):
+    """x, B and C one element off a 16-byte boundary: the kernel's
+    element-wise path."""
+    b, s, h, p, n = 2, 150, 4, 64, 64
+    conv = randn(cuda, 8, b, s, 1 + h * p + 2 * n).to(dtype)
+    dt = torch.nn.functional.softplus(randn(cuda, 9, b, s, h))
+    A = -torch.exp(randn(cuda, 10, h) * 0.3)
+    ins = (conv[..., 1:1 + h * p].reshape(b, s, h, p), dt, A,
+           conv[..., 1 + h * p:1 + h * p + n], conv[..., 1 + h * p + n:])
+    y, st = ssd_ops.ssd_scan(*ins, 64)
+    yr, sr = ssd_chunked(*ins, 64)
+    assert_ssd_close(y, yr, 2e-4 if dtype == torch.float32 else 1e-2)
+    assert_ssd_close(st, sr, 2e-4)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm = ssd_inputs(cuda, 6, 1, 32, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_ops.ssd_scan(x, dt[:, :16], A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm, 48)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, 16)
+    strided = torch.zeros(*x.shape[:3], 2 * x.shape[3], device=cuda)
+    with pytest.raises(ValueError, match="dense"):
+        ssd_ops.ssd_scan(strided[..., ::2], dt, A, Bm, Cm, 16)
+
+
 # ---------------------------------------------------------------------------
 # the serving path at the smoke config, through the kernels
 # ---------------------------------------------------------------------------
@@ -116,9 +186,9 @@ def test_rowwise_wire_bit_equal(cuda):
 PROMPT, GEN = 40, 8
 
 
-@pytest.fixture
-def smoke(cuda):
-    cfg = get_config("granite-3-2b", "smoke").replace(n_layers=4)
+@pytest.fixture(params=["granite-3-2b", "mamba2-1.3b"])
+def smoke(cuda, request):
+    cfg = get_config(request.param, "smoke").replace(n_layers=4)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     cpu = init_params(cfg, gen, device="cpu")
@@ -126,8 +196,8 @@ def smoke(cuda):
 
 
 def test_model_on_card_matches_cpu(smoke):
-    """Teacher-forced logits: prefill (the flash kernel) and 6 decode
-    steps on the card against the same model on the CPU."""
+    """Teacher-forced logits: prefill (the flash or SSD kernel) and 6
+    decode steps on the card against the same model on the CPU."""
     cfg, cpu, gpu = smoke
     tokens = make_batch(cfg, 2, PROMPT, seed=1)["tokens"]
     runs, forced = [], None             # the CPU's greedy tokens
@@ -171,4 +241,6 @@ def test_pipelines_on_card(smoke):
     clean = i8.generate(batch, GEN)
     np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill), clean)
     counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    mixer = "ssd" if cfg.family == "ssm" else "flash_attention"
+    assert {n for n, c in counts.items() if c} == {
+        mixer, "quantize", "dequantize"}, counts

@@ -28,6 +28,7 @@ from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
+from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.models.bridge import tensor_from_numpy, tensor_to_numpy
 
 torch.set_num_threads(2)
@@ -182,5 +183,8 @@ class TestFlashAttention:
         attn_ops.flash_attention(*[tensor_from_numpy(a, "cpu")
                                    for a in arrays])
         q_ops.quantize(torch.ones(4, 4))
+        ssd_scan(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), -torch.ones(2),
+                 torch.ones(1, 4, 8), torch.ones(1, 4, 8), 16)
         assert kernels.launch_counts() == {"flash_attention": 0,
-                                           "quantize": 0, "dequantize": 0}
+                                           "quantize": 0, "dequantize": 0,
+                                           "ssd": 0}

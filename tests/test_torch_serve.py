@@ -144,12 +144,14 @@ def _plan(pkg, graph_fn, shape_cls, cfg, shape_args, div, bpp):
     return plan, plan.execution_plan(cluster, wire_bits=8, arch=cfg.name)
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-1.3b"])
 @pytest.mark.parametrize("preset,shape,div,bpp", [
     ("smoke", ("serve", 16, 1, "prefill"), 2.5, 4.0),
     ("full", ("serve", 512, 4, "prefill"), 3.5, 2.0)])
-def test_partition_and_place_matches_reference(preset, shape, div, bpp):
-    jcfg = jax_get_config("granite-3-2b", preset)
-    cfg = get_config("granite-3-2b", preset)
+def test_partition_and_place_matches_reference(arch, preset, shape, div,
+                                               bpp):
+    jcfg = jax_get_config(arch, preset)
+    cfg = get_config(arch, preset)
     if preset == "smoke":
         jcfg, cfg = (c.replace(n_layers=N_LAYERS) for c in (jcfg, cfg))
     jplan, jep = _plan(jax_core, jax_lm_block_graph, JaxShapeConfig, jcfg,
