@@ -91,8 +91,13 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, peak):
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BW
+def bound(nbytes, *work):
+    """Least ms for moving ``nbytes`` and doing ``work``, pairs (FLOP, peak
+    FLOP/s) for operand types that run on separate units (float32 FMA,
+    bf16 tensor cores), which can overlap: the largest of the times.
+    Returns (ms, what bounds it)."""
+    t_ops = max(flops / peak for flops, peak in work)
+    t_bytes = nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -143,7 +148,7 @@ def check_flash(torch, gen):
         qt, kt, vt, is_causal=True, enable_gqa=True))
     flops = 4.0 * b * h * hd * s * (s + 1) / 2      # QK^T and PV, causal
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    b_ms, b_by = bound(nbytes, (flops, BF16_PEAK))
     log(f"  flash at the prefill shape: kernel {k_ms:.4f} ms (with the "
         f"wrapper's pad/fold {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
         f"F.scaled_dot_product_attention {l_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -190,8 +195,8 @@ def check_quantize(torch, gen):
     dp_ms = time_ms(lambda: ref.dequantize_ref(q, s, 1, 2048))
     # float32 operations per element: quantize |x|, max, x * (1/scale),
     # round, and the clip's two compares; dequantize one multiply
-    qb_ms, qb_by = bound(6.0 * m * n, 2 * m * n + m * n + 4 * m, F32_PEAK)
-    db_ms, db_by = bound(1.0 * m * n, m * n + 4 * m + 2 * m * n, F32_PEAK)
+    qb_ms, qb_by = bound(2 * m * n + m * n + 4 * m, (6.0 * m * n, F32_PEAK))
+    db_ms, db_by = bound(m * n + 4 * m + 2 * m * n, (1.0 * m * n, F32_PEAK))
     log(f"  quantize ({m}, {n}) bf16 rowwise: kernel {qk_ms:.4f} ms, plain "
         f"{qp_ms:.4f} ms, bound {qb_ms:.4f} ms ({qb_by})")
     log(f"  dequantize ({m}, {n}) -> bf16 rowwise: kernel {dk_ms:.4f} ms, "
@@ -262,18 +267,24 @@ def check_ssd(torch, gen):
     k_ms = time_ms(lambda: ops._launch(*ins, q))
     w_ms = time_ms(lambda: ops.ssd_scan(*ins, q))
     p_ms = time_ms(lambda: ssd_chunked(*ins, q))
-    # the four products per (b, h, chunk), as the TPU kernel counts them:
-    # C B^T, (.) x, C state^T and x^T B
+    # what the function needs per (b, h, chunk): the causal halves of C B^T
+    # (bf16 inputs: the bf16 rate) and of its product with x (the weights
+    # L o dt are float32), C state^T past the first chunk (the state is
+    # zero before it) and the state update (float32 state and weights)
     nc = -(-s // q)
-    flops = 2.0 * b * h * nc * (q * q * n + q * q * p + 2 * q * p * n)
+    tri = q * (q + 1) / 2
+    cb_flops = 2.0 * b * h * nc * tri * n
+    f32_flops = 2.0 * b * h * (nc * tri * p + (nc - 1) * q * p * n
+                               + nc * q * p * n)
     nbytes = (2 * 2 * b * s * h * p          # x in, y out (bf16)
               + 4 * b * h * p * n            # the final state (f32)
               + 2 * 2 * b * s * n            # B and C (bf16)
               + 4 * b * s * h + 4 * h)       # dt and A (f32)
-    b_ms, b_by = bound(flops, nbytes, F32_PEAK)
+    b_ms, b_by = bound(nbytes, (cb_flops, BF16_PEAK), (f32_flops, F32_PEAK))
     log(f"  ssd at the prefill shape: kernel {k_ms:.4f} ms (through the "
         f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        f"({b_by}; {cb_flops / 1e9:.2f} GFLOP bf16, {f32_flops / 1e9:.2f} "
+        f"GFLOP float32, {nbytes / 1e6:.2f} MB)")
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:32",

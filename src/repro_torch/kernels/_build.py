@@ -48,7 +48,7 @@ SIGNATURES = {
         "quantize_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd": {
-        "ssd_scan_launch": ([_P] * 7 + [_I] * 7 + [_L] * 10 + [_I, _P], _I),
+        "ssd_scan_launch": ([_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, _P], _I),
         "ssd_error_string": ([_I], ctypes.c_char_p),
     },
 }

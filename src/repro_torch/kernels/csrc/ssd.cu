@@ -14,7 +14,8 @@
 // shared by all heads; y (B, S, H, P) in x's type, the final state
 // (B, H, P, N) float32.  x, dt, B and C are read in place through strides
 // (the model hands views of its convolution output; the last dimension must
-// be dense), so no transposed or padded copy is made.  A ragged last chunk
+// be dense and every row 16-byte aligned), so no transposed or padded copy
+// is made.  A ragged last chunk
 // is masked in the kernel: steps past S read dt = x = B = C = 0, so they
 // decay by 1, add nothing to the state, and write no output.
 //
@@ -38,44 +39,27 @@
 // memory, so no loop needs a guard.  Every read of shared memory in the
 // products is 16 bytes wide, and the state update gives each thread 4 x 8
 // tiles of the state, so three reads feed 32 FMAs.  Device memory is read
-// and written 16 bytes at a time where the wrapper finds every row aligned
-// (the model's views are), element by element otherwise.
+// and written 16 bytes at a time.
 //
 // Bound on this card: at the mamba2-1.3b prefill shape (B = 4, S = 512,
-// H = 64, P = 64, N = 128, Q = 128, bf16 x/B/C) the four products per
-// (b, h, chunk) are 10.7 GFLOP, 0.16 ms at the float32 FMA rate, against
-// 43.6 MB moved, 0.013 ms at 3.35 TB/s: operations bound it.  This kernel
-// does scalar float32 FMA work (true float32, which the float32 tests need
-// at 2e-4; TF32 would not meet it) with one block of 2Q threads per SM, so
-// FMA issue and latency at that occupancy limit it; and a warp owns 16
-// consecutive query rows, so in the causal term the warp of the last rows
-// walks all Q keys while the first walks 16, and the block waits for the
-// slowest.  Moving the products onto the tensor cores, balancing the
-// causal term across warps and splitting P across blocks for occupancy is
-// later work.
+// H = 64, P = 64, N = 128, Q = 128, bf16 x/B/C) the function needs the
+// causal halves of C B^T (2.16 GFLOP on bf16 inputs, 0.002 ms at the bf16
+// rate) and of its product with x, C state^T past the first chunk and the
+// state update (4.84 GFLOP with float32 operands, 0.072 ms at the float32
+// rate), against 43.5 MB moved, 0.013 ms at 3.35 TB/s: operations bound
+// it at 0.072 ms.  This kernel does scalar float32 FMA work (true float32,
+// which the float32 tests need at 2e-4; TF32 would not meet it) with one
+// block of 2Q threads per SM, so FMA issue and latency at that occupancy
+// limit it; and a warp owns 16 consecutive query rows, so in the causal
+// term the warp of the last rows walks all Q keys while the first walks 16,
+// and the block waits for the slowest.  Moving the products onto the
+// tensor cores, balancing the causal term across warps and splitting P
+// across blocks for occupancy is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // 16 bytes of T as E floats, and E floats back (rounded to nearest even).
 template <typename T>
@@ -138,7 +122,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ bm,
                 const T* __restrict__ cm, T* __restrict__ y,
                 float* __restrict__ state, int seqlen, int heads, int pdim,
-                int ndim, int vec, Strides st) {
+                int ndim, Strides st) {
   constexpr int kThreads = 2 * Q;
   constexpr int NH = NC / 2, PH = PC / 2;   // a thread's half of N and P
   constexpr int E = Vec<T>::E;              // elements per 16-byte access
@@ -181,20 +165,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     if (tid < Q) dts[tid] = tid < valid ? dtb[(t0 + tid) * st.dt_s] : 0.f;
     float cr[NH];
     const T* crow = cb + (t0 + row) * st.c_s + half * NH;
-    if (vec) {
 #pragma unroll
-      for (int v = 0; v < NH / E; ++v) {
-        if (live && half * NH + v * E < ndim) {
-          Vec<T>::load(crow + v * E, cr + v * E);
-        } else {
+    for (int v = 0; v < NH / E; ++v) {
+      if (live && half * NH + v * E < ndim) {
+        Vec<T>::load(crow + v * E, cr + v * E);
+      } else {
 #pragma unroll
-          for (int i = 0; i < E; ++i) cr[v * E + i] = 0.f;
-        }
+        for (int i = 0; i < E; ++i) cr[v * E + i] = 0.f;
       }
-    } else {
-#pragma unroll
-      for (int m = 0; m < NH; ++m)
-        cr[m] = (live && half * NH + m < ndim) ? to_f32(crow[m]) : 0.f;
     }
     __syncthreads();
     if (tid == 0) {                 // in token order, as the plain cumsum
@@ -248,54 +226,37 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
 
     // the chunk's B and dt_j x_j, zero past S, N and P; 16 bytes a load
-    // where the wrapper found every row aligned
-    if (vec) {
 #pragma unroll
-      for (int r = 0; r < NC / (2 * E); ++r) {     // Q * NC / E in all
-        const int e = tid + r * kThreads;
-        const int j = e / (NC / E), n = (e % (NC / E)) * E;
-        float f[E];
-        if (j < valid && n < ndim) {
-          Vec<T>::load(bb + (t0 + j) * st.b_s + n, f);
-        } else {
+    for (int r = 0; r < NC / (2 * E); ++r) {       // Q * NC / E in all
+      const int e = tid + r * kThreads;
+      const int j = e / (NC / E), n = (e % (NC / E)) * E;
+      float f[E];
+      if (j < valid && n < ndim) {
+        Vec<T>::load(bb + (t0 + j) * st.b_s + n, f);
+      } else {
 #pragma unroll
-          for (int i = 0; i < E; ++i) f[i] = 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < E; i += 4) Vec<float>::store(bs + j * NC + n + i,
-                                                         f + i);
+        for (int i = 0; i < E; ++i) f[i] = 0.f;
       }
 #pragma unroll
-      for (int r = 0; r < PC / (2 * E); ++r) {     // Q * PC / E in all
-        const int e = tid + r * kThreads;
-        const int j = e / (PC / E), p = (e % (PC / E)) * E;
-        float f[E];
-        if (j < valid && p < pdim) {
-          Vec<T>::load(xb + (t0 + j) * st.x_s + p, f);
-        } else {
+      for (int i = 0; i < E; i += 4) Vec<float>::store(bs + j * NC + n + i,
+                                                       f + i);
+    }
 #pragma unroll
-          for (int i = 0; i < E; ++i) f[i] = 0.f;
-        }
+    for (int r = 0; r < PC / (2 * E); ++r) {       // Q * PC / E in all
+      const int e = tid + r * kThreads;
+      const int j = e / (PC / E), p = (e % (PC / E)) * E;
+      float f[E];
+      if (j < valid && p < pdim) {
+        Vec<T>::load(xb + (t0 + j) * st.x_s + p, f);
+      } else {
 #pragma unroll
-        for (int i = 0; i < E; ++i) f[i] *= dts[j];
+        for (int i = 0; i < E; ++i) f[i] = 0.f;
+      }
 #pragma unroll
-        for (int i = 0; i < E; i += 4) Vec<float>::store(vs + j * PC + p + i,
-                                                         f + i);
-      }
-    } else {
-#pragma unroll 8
-      for (int e = tid; e < Q * NC; e += kThreads) {
-        const int j = e / NC, n = e % NC;
-        bs[e] = (j < valid && n < ndim) ? to_f32(bb[(t0 + j) * st.b_s + n])
-                                        : 0.f;
-      }
-#pragma unroll 8
-      for (int e = tid; e < Q * PC; e += kThreads) {
-        const int j = e / PC, p = e % PC;
-        vs[e] = (j < valid && p < pdim)
-                    ? dts[j] * to_f32(xb[(t0 + j) * st.x_s + p])
-                    : 0.f;
-      }
+      for (int i = 0; i < E; ++i) f[i] *= dts[j];
+#pragma unroll
+      for (int i = 0; i < E; i += 4) Vec<float>::store(vs + j * PC + p + i,
+                                                       f + i);
     }
     __syncthreads();
 
@@ -330,15 +291,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     if (live) {
       T* yr = yb + (t0 + row) * y_row + half * PH;
-      if (vec) {
 #pragma unroll
-        for (int v = 0; v < PH / E; ++v)
-          if (half * PH + v * E < pdim) Vec<T>::store(yr + v * E, acc + v * E);
-      } else {
-#pragma unroll
-        for (int k = 0; k < PH; ++k)
-          if (half * PH + k < pdim) yr[k] = from_f32<T>(acc[k]);
-      }
+      for (int v = 0; v < PH / E; ++v)
+        if (half * PH + v * E < pdim) Vec<T>::store(yr + v * E, acc + v * E);
     }
     __syncthreads();
 
@@ -393,7 +348,7 @@ struct Args {
   const void* cm;
   void* y;
   void* state;
-  int batch, seqlen, heads, pdim, ndim, vec;
+  int batch, seqlen, heads, pdim, ndim;
   Strides st;
 };
 
@@ -410,7 +365,7 @@ int launch(const Args& g, cudaStream_t stream) {
   kern<<<grid, 2 * Q, smem, stream>>>(
       (const T*)g.x, (const float*)g.dt, (const float*)g.a, (const T*)g.bm,
       (const T*)g.cm, (T*)g.y, (float*)g.state, g.seqlen, g.heads, g.pdim,
-      g.ndim, g.vec, g.st);
+      g.ndim, g.st);
   return (int)cudaGetLastError();
 }
 
@@ -439,8 +394,6 @@ template <typename T>
 int dispatch_q(const Args& g, int chunk, cudaStream_t s) {
   switch (chunk) {
     case 16: return dispatch_n<T, 16>(g, s);
-    case 32: return dispatch_n<T, 32>(g, s);
-    case 64: return dispatch_n<T, 64>(g, s);
     case 128: return dispatch_n<T, 128>(g, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -448,16 +401,15 @@ int dispatch_q(const Args& g, int chunk, cudaStream_t s) {
 
 }  // namespace
 
-// dtype of x, B, C and y: 0 = float32, 1 = bfloat16; chunk: 16, 32, 64 or
-// 128; 1 <= P, N <= 128; vec: 1 when x, B, C and y may be accessed 16 bytes
-// at a time (pointers 16-byte aligned; P, N and the row strides multiples
-// of 16 bytes).  Returns cudaGetLastError() after the launch (0 on
+// dtype of x, B, C and y: 0 = float32, 1 = bfloat16; chunk: 16 or 128 (the
+// configs' chunk lengths); P, N <= 128.  x, B, C and y are accessed 16
+// bytes at a time, so their pointers must be 16-byte aligned and P, N and
+// their row strides multiples of 16 bytes.  Returns cudaGetLastError() after the launch (0 on
 // success); the caller raises on anything else.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, void* y,
                                void* state, int batch, int seqlen, int heads,
-                               int pdim, int ndim, int chunk, int vec,
-                               long long x_b,
+                               int pdim, int ndim, int chunk, long long x_b,
                                long long x_s, long long x_h, long long dt_b,
                                long long dt_s, long long dt_h, long long b_b,
                                long long b_s, long long c_b, long long c_s,
@@ -466,7 +418,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
   if (seqlen < 0 || pdim < 1 || pdim > 128 || ndim < 1 || ndim > 128 ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  Args g{x, dt, a, bm, cm, y, state, batch, seqlen, heads, pdim, ndim, vec,
+  Args g{x, dt, a, bm, cm, y, state, batch, seqlen, heads, pdim, ndim,
          Strides{x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, c_b, c_s}};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch_q<float>(g, chunk, st);

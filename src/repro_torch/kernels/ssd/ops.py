@@ -5,8 +5,9 @@ For tensors on the CPU it computes the kernel's function in plain PyTorch
 there is no fallback.  ``ssd_scan.launches`` counts kernel launches.
 
 The kernel reads x, dt, B and C in place through their strides, so the
-model's views of its convolution output go in without a copy; only each
-last dimension must be dense.
+model's views of its convolution output go in without a copy.  It reads
+and writes x, B, C and y 16 bytes at a time: each last dimension must be
+dense, and every row of x, B and C must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from .. import _build
 from .ref import ssd_chunked
 
-CHUNKS = (16, 32, 64, 128)     # the kernel's chunk lengths (a template)
+CHUNKS = (16, 128)             # the configs' chunk lengths (a template)
 MAX_DIM = 128                  # largest head dim P and state size N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,14 +54,16 @@ def _launch(xh, dt, A, Bm, Cm, chunk: int):
     if xh.stride(3) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1:
         raise ValueError("ssd_scan: the last dimension of xh, Bm and Cm "
                          "must be dense")
-    A = A.contiguous()
-    # 16-byte accesses when every row of x, B, C and y starts aligned
     e = 16 // xh.element_size()
-    vec = (p % e == 0 and n % e == 0
-           and all(t.data_ptr() % 16 == 0 for t in (xh, Bm, Cm))
-           and all(st % e == 0 for st in (*xh.stride()[:3],
-                                          *Bm.stride()[:2],
-                                          *Cm.stride()[:2])))
+    if p % e or n % e:
+        raise ValueError(f"ssd_scan: head dim {p} and state {n} must be "
+                         f"multiples of 16 bytes ({e} elements)")
+    if any(t.data_ptr() % 16 for t in (xh, Bm, Cm)) \
+            or any(st % e for st in (*xh.stride()[:3], *Bm.stride()[:2],
+                                     *Cm.stride()[:2])):
+        raise ValueError("ssd_scan: every row of xh, Bm and Cm must start "
+                         "on a 16-byte boundary")
+    A = A.contiguous()
     y = torch.empty((b, s, h, p), dtype=xh.dtype, device=xh.device)
     st = torch.empty((b, h, p, n), dtype=torch.float32, device=xh.device)
     lib = _build.load("ssd")
@@ -68,7 +71,7 @@ def _launch(xh, dt, A, Bm, Cm, chunk: int):
         err = lib.ssd_scan_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), st.data_ptr(), b, s, h, p, n, chunk,
-            int(vec), *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+            *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
             *Cm.stride()[:2], _DTYPES[xh.dtype],
             torch.cuda.current_stream(xh.device).cuda_stream)
     _build.check("ssd", "ssd_scan_launch", err)

@@ -114,14 +114,10 @@ def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
     return h, cache
 
 
-def _ssm_apply(cfg, params, h, cache=None, layer_offset=0):
+def _ssm_apply(cfg, params, h, cache=None):
     """The stacked mamba blocks of ``params`` over ``h`` (pre-norm,
     residual); ``cache`` (``{"mamba": ...}``, stacked like the blocks) is
-    updated in place.  ``layer_offset`` is the index of the first block in
-    the whole model: a pipeline stage runs a slice.  Pure SSM blocks do not
-    depend on it; the hybrid family's shared-attention call sites would
-    (``family`` refuses the hybrid until they are ported).  Returns (h,
-    cache)."""
+    updated in place.  Returns (h, cache)."""
     blocks = params["blocks"]
     for i in range(blocks["pre_norm"].shape[0]):
         c = None if cache is None else layer_view(cache["mamba"], i)
@@ -131,12 +127,11 @@ def _ssm_apply(cfg, params, h, cache=None, layer_offset=0):
     return h, cache
 
 
-def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
-              layer_offset=0):
+def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None):
     """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds dense
     decode attention; the SSM family has no attention and ignores it."""
     if family(cfg) == "ssm":
-        return _ssm_apply(cfg, params, h, cache, layer_offset)
+        return _ssm_apply(cfg, params, h, cache)
     return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
 
 
@@ -159,11 +154,16 @@ def init_serve_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                      device=None):
     """An empty decode cache (zeros); prefill fills it in place.  The SSM
     cache has a fixed size: ``max_len`` only bounds attention caches."""
-    dev = resolve_device(device)
+    return _init_cache(cfg, cfg.n_layers, batch_size, max_len,
+                       resolve_device(device))
+
+
+def _init_cache(cfg, n_layers, batch_size, max_len, device):
+    """The family's empty cache for ``n_layers`` stacked blocks."""
     if family(cfg) == "ssm":
-        return {"mamba": init_mamba_cache(cfg, cfg.n_layers, batch_size,
-                                          device=dev)}
-    return init_cache(cfg, cfg.n_layers, batch_size, max_len, device=dev)
+        return {"mamba": init_mamba_cache(cfg, n_layers, batch_size,
+                                          device=device)}
+    return init_cache(cfg, n_layers, batch_size, max_len, device=device)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):

@@ -13,9 +13,8 @@ from __future__ import annotations
 from repro_torch._tree import tree_map
 
 from .config import ModelConfig
-from .layers import init_cache
-from .model import _backbone, _cache_len, embed_tokens, family, lm_logits
-from .ssm import init_mamba_cache
+from .model import (_backbone, _cache_len, _init_cache, embed_tokens, family,
+                    lm_logits)
 
 
 def stage_granularity(cfg: ModelConfig) -> int:
@@ -59,10 +58,7 @@ def init_stage_cache(cfg: ModelConfig, lo: int, hi: int, batch_size: int,
     stage)."""
     if lo == hi:
         return {}
-    if family(cfg) == "ssm":
-        return {"mamba": init_mamba_cache(cfg, hi - lo, batch_size,
-                                          device=device)}
-    return init_cache(cfg, hi - lo, batch_size, max_len, device=device)
+    return _init_cache(cfg, hi - lo, batch_size, max_len, device)
 
 
 def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
@@ -71,8 +67,7 @@ def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
     same op sequence the monolithic model runs over those blocks."""
     if lo == hi:
         return h, cache
-    return _backbone(cfg, sparams, h, positions, cache, kv_bucket,
-                     layer_offset=lo)
+    return _backbone(cfg, sparams, h, positions, cache, kv_bucket)
 
 
 def stage_cache_len(cfg: ModelConfig, cache):

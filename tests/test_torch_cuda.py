@@ -135,9 +135,8 @@ def assert_ssd_close(got, want, tol):
 
 @pytest.mark.parametrize("s,h,p,n,q", [
     (512, 8, 64, 128, 128), (300, 8, 64, 128, 128), (40, 8, 16, 16, 16),
-    (200, 4, 64, 64, 64), (77, 3, 16, 32, 32), (130, 2, 128, 128, 128),
-    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 20, 24, 32),
-    (70, 2, 17, 24, 16)])
+    (200, 4, 64, 64, 128), (77, 3, 16, 32, 16), (130, 2, 128, 128, 128),
+    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 32, 24, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_vs_plain(cuda, s, h, p, n, q, dtype):
     ins = ssd_inputs(cuda, 5, 2, s, h, p, n, dtype)
@@ -146,22 +145,6 @@ def test_ssd_kernel_vs_plain(cuda, s, h, p, n, q, dtype):
     torch.cuda.synchronize()
     assert ssd_ops.ssd_scan.launches == before + 1
     yr, sr = ssd_chunked(*ins, q)
-    assert_ssd_close(y, yr, 2e-4 if dtype == torch.float32 else 1e-2)
-    assert_ssd_close(st, sr, 2e-4)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_reads_unaligned_views(cuda, dtype):
-    """x, B and C one element off a 16-byte boundary: the kernel's
-    element-wise path."""
-    b, s, h, p, n = 2, 150, 4, 64, 64
-    conv = randn(cuda, 8, b, s, 1 + h * p + 2 * n).to(dtype)
-    dt = torch.nn.functional.softplus(randn(cuda, 9, b, s, h))
-    A = -torch.exp(randn(cuda, 10, h) * 0.3)
-    ins = (conv[..., 1:1 + h * p].reshape(b, s, h, p), dt, A,
-           conv[..., 1 + h * p:1 + h * p + n], conv[..., 1 + h * p + n:])
-    y, st = ssd_ops.ssd_scan(*ins, 64)
-    yr, sr = ssd_chunked(*ins, 64)
     assert_ssd_close(y, yr, 2e-4 if dtype == torch.float32 else 1e-2)
     assert_ssd_close(st, sr, 2e-4)
 
@@ -177,6 +160,11 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     strided = torch.zeros(*x.shape[:3], 2 * x.shape[3], device=cuda)
     with pytest.raises(ValueError, match="dense"):
         ssd_ops.ssd_scan(strided[..., ::2], dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd_ops.ssd_scan(x[..., :6], dt, A, Bm, Cm, 16)
+    off = torch.zeros(Bm.numel() + 1, device=cuda)[1:].view(Bm.shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ssd_ops.ssd_scan(x, dt, A, off, Cm, 16)
 
 
 # ---------------------------------------------------------------------------
