@@ -9,13 +9,16 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build   — nvcc builds every kernel of the path from ``src/repro_torch/
    kernels/csrc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the main paths' shapes: flash attention within 3e-2 (bf16) and 2e-5
-   (float32), quantize and dequantize bit-equal, the SSD scan within
+   at the main paths' shapes: flash attention within 3e-2 (bf16, every head
+   dim, ragged S, and a 4096-token prompt) and 2e-5 (float32), with no
+   copy of its inputs or output in its wrapper, quantize and dequantize
+   bit-equal, the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); times from CUDA events
    beside the plain version's, the bound, and for flash the library call
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
-   no PyTorch call computes the SSD scan);
+   no PyTorch call computes the SSD scan), and flash again at B=1 and a
+   4096-token prompt beside the library call and its bound;
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048) and mamba2-1.3b (48 layers,
    d_model 2048, 64 SSM heads, state 128), each planned by the SEIFER
@@ -56,6 +59,7 @@ BF16_PEAK = 989e12      # dense bf16 tensor-core FLOP/s, H100 SXM
 F32_PEAK = 67e12        # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
+LONG_PROMPT = 4096      # flash alone, B=1: where operations bound it
 KILL = {"after_step": 3, "stage": 1}
 ARCHS = ("granite-3-2b", "mamba2-1.3b")
 
@@ -109,55 +113,88 @@ def bound(nbytes, *work):
 def check_flash(torch, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops
-    from repro_torch.kernels.attention.ref import attention_ref
-    cases = [  # (B, S, H, KV, hd, dtype, causal, tol)
-        (BATCH, PROMPT, 32, 8, 64, torch.bfloat16, True, 3e-2),
-        (BATCH, 300, 32, 8, 64, torch.bfloat16, True, 3e-2),
-        (BATCH, PROMPT, 32, 8, 64, torch.bfloat16, False, 3e-2),
-        (2, 384, 32, 8, 64, torch.float32, True, 2e-5),
+    from repro_torch.kernels.attention.ref import flash_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 3e-2, f32: 2e-5}
+    cases = [  # (B, S, H, KV, hd, dtype, causal)
+        (BATCH, PROMPT, 32, 8, 64, bf16, True),    # granite prefill
+        (BATCH, 300, 32, 8, 64, bf16, True),       # ragged S
+        (BATCH, PROMPT, 32, 8, 64, bf16, False),
+        *((2, 130, 8, 2, hd, bf16, True) for hd in (8, 16, 32, 128)),
+        (2, 384, 32, 8, 64, f32, True),
+        (1, LONG_PROMPT, 32, 8, 64, bf16, True),   # operations bound it
     ]
-    main = None
-    for b, s, h, kv, hd, dt, causal, tol in cases:
+    inputs = {}
+    err_max = 0.0
+    for b, s, h, kv, hd, dt, causal in cases:
         q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(dt)
         out = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal)
+        ref = flash_ref(q, k, v, causal=causal)
         err = (out.float() - ref.float()).abs().max().item()
-        ok = math.isfinite(err) and err <= tol
+        del ref
+        ok = math.isfinite(err) and err <= tol[dt]
         log(f"  flash B={b} S={s} H={h} KV={kv} hd={hd} {str(dt)[6:]} "
             f"causal={causal}: max |kernel - plain| = {err:.3g} "
-            f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+            f"(tol {tol[dt]:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"flash attention disagrees with its plain "
-                             f"version: {err} > {tol}")
-        if main is None:
-            main = (q, k, v, err)
-    q, k, v, err = main
-    b, s, h, hd = q.shape
-    kv = k.shape[2]
-    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(b * kv, s, hd).contiguous()
-    vf = v.transpose(1, 2).reshape(b * kv, s, hd).contiguous()
-    k_ms = time_ms(lambda: ops._launch(qf, kf, vf, h // kv, True, s))
+                             f"version: {err} > {tol[dt]}")
+        err_max = max(err_max, err)
+        if dt == bf16 and causal and hd == 64 and s in (PROMPT, LONG_PROMPT):
+            inputs[s] = (q, k, v)
+
+    def bound_of(q, k, v):
+        b, s, h, hd = q.shape
+        flops = 4.0 * b * h * hd * s * (s + 1) / 2      # QK^T and PV, causal
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        return bound(nbytes, (flops, BF16_PEAK)), flops, nbytes
+
+    def library(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    q, k, v = inputs[PROMPT]
+    # the wrapper allocates its output and nothing else: no padded,
+    # transposed or contiguous copy of q, k, v or the output
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = ops.flash_attention(q, k, v, causal=True)
+    extra = torch.cuda.max_memory_allocated() - before
+    log(f"  flash wrapper at the prefill shape: {extra} bytes allocated at "
+        f"peak for a {out.nbytes}-byte output")
+    if extra > out.nbytes:
+        raise SystemExit("the flash wrapper copied its inputs or output")
+    del out
+    k_ms = time_ms(lambda: ops._launch(q, k, v, True, PROMPT))
     w_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    p_ms = time_ms(lambda: attention_ref(q, k, v, causal=True))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    flops = 4.0 * b * h * hd * s * (s + 1) / 2      # QK^T and PV, causal
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    b_ms, b_by = bound(nbytes, (flops, BF16_PEAK))
-    log(f"  flash at the prefill shape: kernel {k_ms:.4f} ms (with the "
-        f"wrapper's pad/fold {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
+    p_ms = time_ms(lambda: flash_ref(q, k, v, causal=True))
+    l_ms = library(q, k, v)
+    (b_ms, b_by), flops, nbytes = bound_of(q, k, v)
+    log(f"  flash at the prefill shape: kernel {k_ms:.4f} ms (through the "
+        f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
         f"F.scaled_dot_product_attention {l_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    q, k, v = inputs[LONG_PROMPT]
+    lk_ms = time_ms(lambda: ops._launch(q, k, v, True, LONG_PROMPT))
+    ll_ms = library(q, k, v)
+    (lb_ms, lb_by), lflops, lbytes = bound_of(q, k, v)
+    log(f"  flash at a long prompt (B=1, S={LONG_PROMPT}): kernel "
+        f"{lk_ms:.4f} ms ({lflops / lk_ms / 1e9:.1f} TFLOP/s), "
+        f"F.scaled_dot_product_attention {ll_ms:.4f} ms, bound {lb_ms:.4f} "
+        f"ms ({lb_by}; {lflops / 1e9:.2f} GFLOP, {lbytes / 1e6:.2f} MB)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:44",
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+            "max_abs_err": err_max, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "long_prompt": {"B, S, H, KV, hd": [*q.shape[:3], k.shape[2],
+                                                q.shape[3]],
+                            "ms": lk_ms, "library_ms": ll_ms,
+                            "bound_ms": lb_ms, "bound_by": lb_by}}
 
 
 def check_quantize(torch, gen):
@@ -504,7 +541,9 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+    keys += ("long_prompt",)                    # flash's second shape
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 # library -> {C function: (argtypes, restype)}
 SIGNATURES = {
     "flash_attention": {
-        "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _P], _I),
+        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_L] * 9
+                                   + [_I, _I, _F, _I, _P], _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {

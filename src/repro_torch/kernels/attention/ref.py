@@ -26,19 +26,27 @@ def attention_ref(q, k, v, causal: bool = True):
     return out.reshape(b, s, h, hd)
 
 
-def flash_fold_ref(qf, kf, vf, group: int, causal: bool, valid_len: int):
-    """The kernel's contract in plain PyTorch: q (BH, S, hd), k/v
-    (BH // group, S, hd) with q row b reading kv row b // group; keys at or
-    past ``valid_len`` and (causal) after the query are masked; float32
-    softmax and accumulation; output in q's dtype."""
-    bh, s, hd = qf.shape
-    kx = kf.float().repeat_interleave(group, dim=0)
-    vx = vf.float().repeat_interleave(group, dim=0)
-    sc = torch.einsum("bqh,bkh->bqk", qf.float(), kx) * (1.0 / math.sqrt(hd))
-    pos = torch.arange(s, device=qf.device)
+def flash_ref(q, k, v, causal: bool = True, valid_len: int | None = None):
+    """The kernel's contract in plain PyTorch, on the model's layout: q
+    (B,S,H,hd), k/v (B,S,KV,hd), any strides, q head h reading kv head
+    h // (H // KV); keys at or past ``valid_len`` (default S) and, when
+    causal, keys after the query are masked; scores and softmax in float32.
+    With bfloat16 inputs P is rounded to bfloat16 before it multiplies v,
+    as the kernel feeds P to the tensor cores in bfloat16; the product is
+    accumulated in float32.  Returns a contiguous (B,S,H,hd) in q's
+    dtype."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    valid_len = s if valid_len is None else valid_len
+    qg = q.float().reshape(b, s, kv, h // kv, hd)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    sc = sc * (1.0 / math.sqrt(hd))
+    pos = torch.arange(s, device=q.device)
     keep = (pos < valid_len)[None, :]
     if causal:
         keep = keep & (pos[None, :] <= pos[:, None])
-    sc = sc.masked_fill(~keep, NEG)
-    p = torch.softmax(sc, dim=-1)
-    return torch.einsum("bqk,bkh->bqh", p, vx).to(qf.dtype)
+    p = torch.softmax(sc.masked_fill(~keep, NEG), dim=-1)
+    if q.dtype == torch.bfloat16:
+        p = p.bfloat16().float()
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)

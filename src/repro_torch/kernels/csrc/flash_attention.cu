@@ -3,109 +3,444 @@
 // Replaces the TPU kernel src/repro/kernels/attention/kernel.py
 // `_flash_kernel`, launched by `flash_attention_pallas`.
 //
-// Function: q (BH, S, hd) with BH = batch * q_heads, k/v (BH / group, S, hd),
-// S a multiple of 128 (the wrapper pads).  Program row b reads kv row
-// b / group, so grouped-query attention never materialises repeated k/v.
-// Keys at or beyond `valid_len` (the wrapper's zero padding) and, when
-// causal, keys after the query position get a -1e30 score.  Softmax and the
-// weighted sum are accumulated in float32; the output is cast to q's type.
-//
-// Design for the GPU rather than a copy of the TPU blocks: the TPU walked kv
-// blocks as a sequential grid axis with the accumulators in VMEM scratch;
-// here one thread block owns one (row b, 128-query tile) and loops over kv
-// tiles itself, so the online-softmax state never leaves the SM.  Two
-// threads share a query row: each keeps half of the row's q and of its
-// float32 accumulator in registers (dimensions 2i and 2i+1), the two halves
-// of every q.k dot product meet through one warp shuffle, and both threads
-// then hold the same score, max and sum.  A 64-key tile of k and v is
-// staged in shared memory as float32 (64 * hd * 8 bytes, 64 KB at hd=128);
-// every thread reads each staged key as a broadcast, the two halves of a
-// pair on neighbouring words, so the reads are free of bank conflicts.
-// Scores go through registers 16 keys at a time, so the accumulator is
-// rescaled once per 16 keys, not once per key.  For causal attention the
-// kv loop stops at the diagonal of the query tile: tiles above it are
-// never loaded.
+// Function: q (B, S, H, hd) and k/v (B, S, KV, hd) in the model's own
+// layout, read in place through their batch, row and head strides (each
+// row of hd elements dense and on a 16-byte boundary; the wrapper checks).
+// q head h reads kv head h / group, so grouped-query attention never
+// materialises repeated k/v.  Keys at or past `valid_len` (<= S) and, when
+// causal, keys after the query position are masked.  Softmax statistics
+// and the weighted sum are accumulated in float32; the output, a
+// contiguous (B, S, H, hd) tensor in q's type, is written for the S real
+// rows only.  A ragged S needs no padding: rows past S are zero-filled on
+// load and never stored.
 //
 // Bound on this card: at the main path's prefill shape (B=4, H=32, KV=8,
-// S=512, hd=64, bf16) the least time is set by bytes: 21 MB of q, k, v and
-// output take 6.3 us at 3.35 TB/s, the 4.3 GFLOP of causal QK^T and PV
-// 4.3 us at the bf16 tensor-core rate; from S of about 1k the operations
-// set it.  This first kernel is far from either: it does plain float32 FMA
-// work out of shared memory (true float32 products, no TF32, which the
-// float32 tests need at 2e-5) and does not use the tensor cores, so the
-// FMA units and shared-memory reads limit it.  Moving the bf16 path onto
-// mma/wgmma is later work.
+// S=512, hd=64, bf16) the least time is set by bytes, 21 MB of q, k, v and
+// output in 6.3 us at 3.35 TB/s, against 4.3 GFLOP of causal QK^T and PV
+// in 4.3 us at the bf16 tensor-core rate; from S of about 1k the
+// operations set it (a 4096-token prompt: 69 GFLOP, 69 us).  So the kernel
+// has to keep the tensor cores fed from few bytes: read every tile of k and
+// v once per block, out of shared memory that the loads fill while the
+// previous tile computes, and keep scores and probabilities in registers.
+//
+// The bf16 path (the one the model takes) is FlashAttention-2's shape on
+// `mma.sync.m16n8k16` (bf16 in, float32 accumulators):
+//   * a block of 4 warps owns one (batch, head, 64-query tile), 16 query
+//     rows a warp, and walks 64-key tiles of k and v;
+//   * q is loaded once, then held in registers as `ldmatrix` A-fragments;
+//   * k and v tiles are double-buffered with 16-byte `cp.async` (a source
+//     size of 0 zero-fills rows past S) into shared memory whose 16-byte
+//     chunks are XOR-swizzled by row, so `ldmatrix` (k as the B operand of
+//     QK^T) and `ldmatrix.trans` (v as the B operand of PV) are free of
+//     bank conflicts; 40 KB a block at hd=64, so several blocks share an SM;
+//   * S = QK^T stays in registers; scale * log2(e) is folded into one
+//     multiply and the exponentials are `ex2`; row max and sum reduce over
+//     the quad of lanes that shares a row (two xor-shuffles); the output
+//     accumulator is rescaled once per key tile;
+//   * P is repacked from the accumulator layout straight into bf16
+//     A-fragments (no shared-memory round trip) and multiplies v;
+//   * causal: only the diagonal tile is masked, tiles above it are never
+//     loaded, and the query tiles with the most key tiles are scheduled
+//     first, which shortens the tail across the 132 SMs; within a query
+//     tile the q heads of one kv head are neighbours, so their k/v tiles
+//     are read from L2;
+//   * hd is a template over 16, 32, 64 and 128; hd = 8 runs as 16 with the
+//     upper half zero-filled in shared memory, which is exact;
+//   * the output tile is staged through the block's q buffer and stored 16
+//     bytes a lane.
+// `mma.sync` rather than `wgmma` with a TMA ring: at the prefill shape the
+// bytes bound the work, not the tensor cores.  At long prompts, where the
+// operations do, the chain inside a warp from QK^T through the softmax to
+// PV is what `wgmma` with two warpgroups in ping-pong would overlap.
+//
+// The float32 path stays on true float32 FMA: the float32 tests hold the
+// kernel to 2e-5, which TF32 tensor-core products (10-bit mantissas) miss.
+// Its body is the first port's: two threads share a query row of a
+// 128-query tile, each holding half of q and of the accumulator in
+// registers, and 64-key tiles of k and v are staged in shared memory as
+// float32; it takes the same strided layout and ragged S as the bf16 path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 128;          // query rows per block (two threads each)
-constexpr int kBK = 64;           // keys per shared-memory tile
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long q_sb, q_ss, q_sh;   // strides in elements: batch, row, head
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  int b, s, h, group, hd, causal, valid_len;
+  float scale;
+};
+
+// The block's (batch, head, first query row): query tiles from the last
+// (for causal attention the one with the most key tiles) to the first, and
+// within a tile the B * H (batch, head) pairs in order.
+struct Tile {
+  int bi, hi, q0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int rows) {
+  const int bh = a.b * a.h;
+  const int nqt = (a.s + rows - 1) / rows;
+  const int i = blockIdx.x % bh;
+  Tile t;
+  t.q0 = (nqt - 1 - (int)(blockIdx.x / bh)) * rows;
+  t.bi = i / a.h;
+  t.hi = i % a.h;
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTq = 64;           // query rows per block, 16 per warp
+constexpr int kTk = 64;           // keys per tile
+constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory; zero-fills when !pred
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16x8 float32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Index of 16-byte chunk c of row r in a tile with CPR chunks a row.  The
+// chunk is XORed with bits of the row so that the eight rows one
+// `ldmatrix` reads in a column of chunks land on eight distinct 16-byte
+// bank groups: rows of 128 bytes or more use r & 7; shorter rows, several
+// to a 128-byte line, use the bits above the line's rows.
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (CPR >= 8) return r * CPR + (c ^ (r & 7));
+  else if constexpr (CPR == 4) return r * 4 + (c ^ ((r >> 1) & 3));
+  else return r * 2 + (c ^ ((r >> 2) & 1));
+}
+
+// Rows [0, 64) of a tile whose row 0 is `base`: cp.async of each 16-byte
+// chunk, zero for rows at or past `rows` and chunks at or past `creal`
+// (hd = 8 in a 16-wide tile).
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* base,
+                                          long long row_stride, int rows,
+                                          int creal, int tid) {
+  constexpr int CPR = HD / 8;
+#pragma unroll
+  for (int i = 0; i < kTk * CPR / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r < rows && c < creal;
+    const __nv_bfloat16* src = ok ? base + r * row_stride + c * 8 : base;
+    cp_async16(smem_u32(dst + swz<CPR>(r, c) * 8), src, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_mma_kernel(const Args a) {
+  constexpr int CPR = HD / 8;     // 16-byte chunks a row
+  constexpr int KQ = HD / 16;     // k-steps of QK^T
+  constexpr int ND = HD / 8;      // 8-wide column tiles of the output
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  auto* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kTq][HD]
+  auto* sk = sq + kTq * HD;                               // [2][kTk][HD]
+  auto* sv = sk + 2 * kTk * HD;                           // [2][kTk][HD]
+
+  const Tile t = tile_of(a, kTq);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;   // row in the 8-row group, quad
+  const int mi = lane >> 3;                 // ldmatrix: which 8x8 matrix
+  const int kvh = t.hi / a.group;
+  const int creal = a.hd / 8;
+  const auto* qg = static_cast<const __nv_bfloat16*>(a.q) + t.bi * a.q_sb +
+                   t.hi * a.q_sh + t.q0 * a.q_ss;
+  const auto* kg =
+      static_cast<const __nv_bfloat16*>(a.k) + t.bi * a.k_sb + kvh * a.k_sh;
+  const auto* vg =
+      static_cast<const __nv_bfloat16*>(a.v) + t.bi * a.v_sb + kvh * a.v_sh;
+
+  const int kv_end = a.causal ? min(t.q0 + kTq, a.valid_len) : a.valid_len;
+  const int n_tiles = (kv_end + kTk - 1) / kTk;
+
+  load_tile<HD>(sq, qg, a.q_ss, a.s - t.q0, creal, tid);
+  load_tile<HD>(sk, kg, a.k_ss, a.s, creal, tid);
+  load_tile<HD>(sv, vg, a.v_ss, a.s, creal, tid);
+  cp_async_commit();
+
+  uint32_t qf[KQ][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  // this thread's two query rows: qrow and qrow + 8
+  const int qrow = t.q0 + warp * 16 + g;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kTk;
+    if (j + 1 < n_tiles) {        // the next tile loads while this computes
+      const int nxt = (j + 1) & 1;
+      load_tile<HD>(sk + nxt * kTk * HD, kg + (k0 + kTk) * a.k_ss, a.k_ss,
+                    a.s - k0 - kTk, creal, tid);
+      load_tile<HD>(sv + nxt * kTk * HD, vg + (k0 + kTk) * a.v_ss, a.v_ss,
+                    a.s - k0 - kTk, creal, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+        ldsm_x4(smem_u32(sq + swz<CPR>(warp * 16 + (lane & 15),
+                                       2 * kk + (lane >> 4)) * 8),
+                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+    }
+    const __nv_bfloat16* ks = sk + (j & 1) * kTk * HD;
+    const __nv_bfloat16* vs = sv + (j & 1) * kTk * HD;
+
+    // S = Q K^T: 8 column tiles of 8 keys, c0/c1 row g, c2/c3 row g + 8
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_u32(ks + swz<CPR>(n * 8 + (mi >> 1) * 8 + (lane & 7),
+                                       2 * kk + (mi & 1)) * 8),
+                b0, b1, b2, b3);
+        mma_bf16(sc[n], qf[kk], b0, b1);
+        mma_bf16(sc[n + 1], qf[kk], b2, b3);
+      }
+    }
+
+    // scale into the log2 domain; mask the diagonal tile and keys past
+    // valid_len
+    const bool edge =
+        (a.causal && k0 == t.q0) || k0 + kTk > a.valid_len;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * sl2;
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * tq + (e & 1);
+          const int qpos = qrow + (e >> 1) * 8;
+          if (kpos >= a.valid_len || (a.causal && kpos > qpos)) x = -INFINITY;
+        }
+        sc[n][e] = x;
+      }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // a row with every key so far masked keeps a max of -inf: subtract 0
+    const float base0 = mx0 == -INFINITY ? 0.f : mx0;
+    const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+    const float al0 = ex2(m0 - base0), al1 = ex2(m1 - base1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sc[n][0] = ex2(sc[n][0] - base0);
+      sc[n][1] = ex2(sc[n][1] - base0);
+      sc[n][2] = ex2(sc[n][2] - base1);
+      sc[n][3] = ex2(sc[n][3] - base1);
+      l0 += sc[n][0] + sc[n][1];
+      l1 += sc[n][2] + sc[n][3];
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      acc[d][0] *= al0;
+      acc[d][1] *= al0;
+      acc[d][2] *= al1;
+      acc[d][3] *= al1;
+    }
+
+    // O += P V: P's accumulator tiles 2kc and 2kc + 1 are the A fragment
+    // of keys [16kc, 16kc + 16)
+#pragma unroll
+    for (int kc = 0; kc < kTk / 16; ++kc) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int d = 0; d < ND; d += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(smem_u32(vs + swz<CPR>(kc * 16 + (mi & 1) * 8 + (lane & 7),
+                                         d + (mi >> 1)) * 8),
+                  b0, b1, b2, b3);
+        mma_bf16(acc[d], pa, b0, b1);
+        mma_bf16(acc[d + 1], pa, b2, b3);
+      }
+    }
+    __syncthreads();              // every warp is done with this stage
+  }
+
+  // the quad's partial row sums; l > 0 (key 0 is never masked)
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+
+  // the warp's own 16 rows of the q buffer take its output tile, which then
+  // goes out 16 bytes a lane, real rows and chunks only
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    *reinterpret_cast<uint32_t*>(sq + swz<CPR>(r0, d) * 8 + 2 * tq) =
+        pack_bf16(acc[d][0] * inv0, acc[d][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sq + swz<CPR>(r0 + 8, d) * 8 + 2 * tq) =
+        pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
+  }
+  __syncwarp();
+  auto* og = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int i = 0; i < 16 * CPR / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / CPR, c = idx % CPR;
+    const int qpos = t.q0 + warp * 16 + r;
+    if (qpos < a.s && c < creal)
+      *reinterpret_cast<uint4*>(
+          og + (((long long)t.bi * a.s + qpos) * a.h + t.hi) * a.hd + c * 8) =
+          *reinterpret_cast<const uint4*>(sq + swz<CPR>(warp * 16 + r, c) * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBQf = 128;         // query rows per block (two threads each)
+constexpr int kBKf = 64;          // keys per shared-memory tile
 constexpr int kChunk = 16;        // keys per online-softmax update
-constexpr int kThreads = 2 * kBQ;
+constexpr int kThreadsF = 2 * kBQf;
 constexpr float kNeg = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s, int group,
-                 int causal, int valid_len, float scale) {
+template <int HD>
+__global__ void __launch_bounds__(kThreadsF)
+flash_f32_kernel(const Args a) {
   constexpr int kHalf = HD / 2;
   extern __shared__ float smem[];
-  float* ks = smem;               // [kBK][HD]
-  float* vs = smem + kBK * HD;    // [kBK][HD]
+  float* ks = smem;               // [kBKf][HD]
+  float* vs = smem + kBKf * HD;   // [kBKf][HD]
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const Tile t = tile_of(a, kBQf);
   const int tid = threadIdx.x;
   const int row = tid >> 1;       // query row within the tile
   const int half = tid & 1;       // which interleaved half of hd
-  const int qpos = q0 + row;
-
-  const size_t qoff = ((size_t)b * s + qpos) * HD;
-  const size_t kvoff = (size_t)(b / group) * s * HD;
+  const int qpos = t.q0 + row;
+  const int kvh = t.hi / a.group;
+  const float* q = static_cast<const float*>(a.q) + t.bi * a.q_sb +
+                   t.hi * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + t.bi * a.k_sb +
+                   kvh * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + t.bi * a.v_sb +
+                   kvh * a.v_sh;
 
   float qr[kHalf], acc[kHalf];
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    qr[i] = to_f32(q[qoff + 2 * i + half]);
+    qr[i] = qpos < a.s ? q[qpos * a.q_ss + 2 * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNeg, l = 0.f;
 
-  int kv_end = causal ? min(s, q0 + kBQ) : s;
-  kv_end = min(kv_end, valid_len);
+  const int kv_end = a.causal ? min(t.q0 + kBQf, a.valid_len) : a.valid_len;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = 0; k0 < kv_end; k0 += kBKf) {
     __syncthreads();              // every thread is done with the last tile
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const size_t g = kvoff + (size_t)k0 * HD + e;
-      ks[e] = to_f32(k[g]);
-      vs[e] = to_f32(v[g]);
+    for (int e = tid; e < kBKf * HD; e += kThreadsF) {
+      const int kpos = k0 + e / HD, d = e % HD;
+      const bool in = kpos < a.s;
+      ks[e] = in ? k[kpos * a.k_ss + d] : 0.f;
+      vs[e] = in ? v[kpos * a.v_ss + d] : 0.f;
     }
     __syncthreads();
 
-    for (int c0 = 0; c0 < kBK; c0 += kChunk) {
+    for (int c0 = 0; c0 < kBKf; c0 += kChunk) {
       float sc[kChunk];
       float cmax = kNeg;
 #pragma unroll
@@ -116,8 +451,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < kHalf; ++i) part = fmaf(qr[i], kr[2 * i], part);
         part += __shfl_xor_sync(0xffffffffu, part, 1);
         const int kpos = k0 + c0 + j;
-        float sv = part * scale;
-        if ((causal && kpos > qpos) || kpos >= valid_len) sv = kNeg;
+        float sv = part * a.scale;
+        if ((a.causal && kpos > qpos) || kpos >= a.valid_len) sv = kNeg;
         sc[j] = sv;
         cmax = fmaxf(cmax, sv);
       }
@@ -143,75 +478,80 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const float inv_l = 1.f / fmaxf(l, 1e-30f);
+  if (qpos < a.s) {
+    float* o = static_cast<float*>(a.o) +
+               (((long long)t.bi * a.s + qpos) * a.h + t.hi) * HD;
+    const float inv_l = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < kHalf; ++i)
-    o[qoff + 2 * i + half] = from_f32<T>(acc[i] * inv_l);
+    for (int i = 0; i < kHalf; ++i) o[2 * i + half] = acc[i] * inv_l;
+  }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, int group, int causal, int valid_len, float scale,
-           cudaStream_t st) {
-  const int smem = 2 * kBK * HD * (int)sizeof(float);
-  auto kern = flash_fwd_kernel<T, HD>;
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+int run(Kernel kern, const Args& a, int rows, int threads, int smem,
+        cudaStream_t st) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(s / kBQ, bh);
-  kern<<<grid, kThreads, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                     (T*)o, s, group, causal, valid_len,
-                                     scale);
+  const long long blocks = (long long)((a.s + rows - 1) / rows) * a.b * a.h;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh,
-                int s, int hd, int group, int causal, int valid_len,
-                float scale, cudaStream_t st) {
-  switch (hd) {
-    case 8:
-      return launch<T, 8>(q, k, v, o, bh, s, group, causal, valid_len, scale,
-                          st);
-    case 16:
-      return launch<T, 16>(q, k, v, o, bh, s, group, causal, valid_len,
-                           scale, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, s, group, causal, valid_len,
-                           scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, s, group, causal, valid_len,
-                           scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, s, group, causal, valid_len,
-                            scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int HD>
+int run_mma(const Args& a, cudaStream_t st) {
+  return run(flash_mma_kernel<HD>, a, kTq, kThreads,
+             (kTq + 4 * kTk) * HD * (int)sizeof(__nv_bfloat16), st);
+}
+
+template <int HD>
+int run_f32(const Args& a, cudaStream_t st) {
+  return run(flash_f32_kernel<HD>, a, kBQf, kThreadsF,
+             2 * kBKf * HD * (int)sizeof(float), st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; o is a
+// contiguous (b, s, h, hd) tensor.  Returns cudaGetLastError() after the
 // launch (0 on success); the caller raises on anything else.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bh, int s,
-                                      int hd, int group, int causal,
-                                      int valid_len, float scale, int dtype,
-                                      void* stream) {
-  if (bh <= 0 || s <= 0) return 0;
-  if (s % kBQ != 0 || group <= 0 || bh % group != 0 || valid_len <= 0 ||
-      valid_len > s)
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int b, int s,
+    int h, int kv, int hd, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, int causal, int valid_len, float scale,
+    int dtype, void* stream) {
+  if (b <= 0 || s <= 0 || h <= 0) return 0;
+  if (kv <= 0 || h % kv != 0 || valid_len <= 0 || valid_len > s)
     return (int)cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    o,    q_sb,   q_ss,   q_sh,
+               k_sb, k_ss, k_sh, v_sb, v_ss,   v_sh,   b,
+               s,    h,    h / kv, hd, causal, valid_len, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, o, bh, s, hd, group, causal,
-                              valid_len, scale, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, bh, s, hd, group, causal,
-                                      valid_len, scale, st);
+  if (dtype == 1) {
+    switch (hd) {
+      case 8:                     // zero-padded to 16 in shared memory
+      case 16: return run_mma<16>(a, st);
+      case 32: return run_mma<32>(a, st);
+      case 64: return run_mma<64>(a, st);
+      case 128: return run_mma<128>(a, st);
+    }
+  } else if (dtype == 0) {
+    switch (hd) {
+      case 8: return run_f32<8>(a, st);
+      case 16: return run_f32<16>(a, st);
+      case 32: return run_f32<32>(a, st);
+      case 64: return run_f32<64>(a, st);
+      case 128: return run_f32<128>(a, st);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }
 

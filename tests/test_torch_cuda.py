@@ -25,7 +25,7 @@ from repro_torch._tree import tree_map
 from repro_torch.configs import get_config
 from repro_torch.core import from_block_cuts
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, flash_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -87,6 +87,103 @@ def test_flash_kernel_rejects_other_head_dims(cuda):
     q = randn(cuda, 0, 1, 128, 2, 48)
     with pytest.raises(ValueError, match="head dim"):
         attn_ops.flash_attention(q, q, q)
+
+
+def flash_close(cuda, q, k, v, causal=True, valid_len=None):
+    """One launch, a contiguous (B, S, H, hd) output in q's dtype, and the
+    plain version's values at the dtype's tolerance."""
+    before = attn_ops.flash_attention.launches
+    out = attn_ops.flash_attention(q, k, v, causal=causal,
+                                   valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == before + 1
+    assert out.is_contiguous() and out.dtype == q.dtype
+    assert out.shape == q.shape
+    if valid_len is None:
+        ref = attention_ref(q, k, v, causal=causal)
+    else:
+        ref = flash_ref(q, k, v, causal=causal, valid_len=valid_len)
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_bf16_head_dims(cuda, hd, causal):
+    """The tensor-core path at every head dim (8 runs zero-padded to 16)."""
+    q = randn(cuda, 10, 2, 200, 8, hd, dtype=torch.bfloat16)
+    k, v = (randn(cuda, i, 2, 200, 2, hd, dtype=torch.bfloat16)
+            for i in (11, 12))
+    flash_close(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("s", [130, 300, 511])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_s(cuda, s, causal, dtype):
+    q = randn(cuda, 13, 2, s, 8, 64, dtype=dtype)
+    k, v = (randn(cuda, i, 2, s, 2, 64, dtype=dtype) for i in (14, 15))
+    flash_close(cuda, q, k, v, causal)
+
+
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 2), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_gqa_groups(cuda, h, kv, dtype):
+    """Groups 1, 4 and 8: q head h reads kv head h // group."""
+    q = randn(cuda, 16, 2, 256, h, 64, dtype=dtype)
+    k, v = (randn(cuda, i, 2, 256, kv, 64, dtype=dtype) for i in (17, 18))
+    flash_close(cuda, q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_one_batch_row_and_mha(cuda, dtype):
+    """B = 1 and H == KV."""
+    q, k, v = (randn(cuda, i, 1, 320, 4, 64, dtype=dtype) for i in range(3))
+    flash_close(cuda, q, k, v)
+    flash_close(cuda, q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_valid_len(cuda, causal, dtype):
+    """Keys at or past valid_len are masked for every query row."""
+    q = randn(cuda, 19, 2, 256, 8, 32, dtype=dtype)
+    k, v = (randn(cuda, i, 2, 256, 2, 32, dtype=dtype) for i in (20, 21))
+    flash_close(cuda, q, k, v, causal, valid_len=150)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_views_in_place(cuda, dtype):
+    """q, k and v sliced out of one fused projection whose rows are wider
+    than the heads, and q as a transposed (B, H, S, hd) tensor: read
+    through their strides, with no copy."""
+    b, s, h, kv, hd = 2, 200, 8, 2, 64
+    fused = randn(cuda, 22, b, s, (h + 2 * kv) * hd + 64, dtype=dtype)
+    q = fused[..., :h * hd].view(b, s, h, hd)
+    k = fused[..., h * hd:(h + kv) * hd].view(b, s, kv, hd)
+    v = fused[..., (h + kv) * hd:(h + 2 * kv) * hd].view(b, s, kv, hd)
+    assert q.stride(1) == (h + 2 * kv) * hd + 64
+    flash_close(cuda, q, k, v)
+    qt = randn(cuda, 23, b, h, s, hd, dtype=dtype).transpose(1, 2)
+    flash_close(cuda, qt, k, v, causal=False)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    bf16 = torch.bfloat16
+    wide = randn(cuda, 24, 1, 64, 2, 128, dtype=bf16)
+    with pytest.raises(ValueError, match="dense"):
+        attn_ops.flash_attention(wide[..., ::2], wide[..., ::2],
+                                 wide[..., ::2])
+    x = randn(cuda, 25, 1, 64, 2, 64, dtype=bf16)
+    off = torch.zeros(x.numel() + 1, dtype=bf16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        attn_ops.flash_attention(off.view(x.shape), x, x)
+    rows = randn(cuda, 26, 1, 64, 2 * 64 + 4, dtype=bf16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        attn_ops.flash_attention(x, rows[..., :128].view(1, 64, 2, 64), x)
+    q48 = randn(cuda, 27, 1, 64, 2, 48, dtype=bf16)
+    with pytest.raises(ValueError, match="head dim"):
+        attn_ops.flash_attention(q48, q48, q48)
 
 
 @pytest.mark.parametrize("shape,bm,bn", [((2048, 2048), 1, 2048),

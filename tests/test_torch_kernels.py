@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.attention.kernel import flash_attention_pallas
 from repro.kernels.attention.ops import flash_attention as jax_flash
 from repro.kernels.attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.quantize.ops import dequantize as jax_dequantize
@@ -25,7 +26,7 @@ from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref
 from repro.kernels.quantize.ref import rowwise_quantize as jax_rowwise
 from repro_torch import kernels
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, flash_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd.ops import ssd_scan
@@ -134,6 +135,18 @@ class TestQuantize:
 # flash attention: 2e-5 (float32), 3e-2 (bfloat16)
 # ---------------------------------------------------------------------------
 
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def fold_pad(a, sp):
+    """(B, S, N, hd) -> (B*N, sp, hd), rows past S zero: the reference
+    kernel's folded, padded layout."""
+    b, s, n, hd = a.shape
+    f = np.zeros((b, n, sp, hd), a.dtype)
+    f[:, :, :s] = a.transpose(0, 2, 1, 3)
+    return f.reshape(b * n, sp, hd)
+
+
 def qkv(seed, b, s, h, kv, hd, dtype="float32"):
     return (normal(seed, (b, s, h, hd), dtype),
             normal(seed + 1, (b, s, kv, hd), dtype),
@@ -176,6 +189,87 @@ class TestFlashAttention:
         out = attn_ops.flash_attention(*ts, causal=True)
         assert out.shape == (1, 129, 8, 16)
         close(out, attention_ref(*ts, causal=True), 2e-5)
+
+    @pytest.mark.parametrize("b,s,h,kv,hd,causal,valid", [
+        (1, 129, 4, 2, 8, True, 129), (1, 129, 4, 2, 8, False, 129),
+        (2, 200, 4, 1, 32, True, 150), (1, 256, 2, 2, 16, False, 100),
+        (1, 128, 8, 2, 64, True, 128)])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_contract_vs_reference_pallas(self, b, s, h, kv, hd,
+                                                causal, valid, dtype):
+        """The kernel's contract (model layout, ragged S, valid length)
+        against the reference's Pallas kernel on its folded, padded layout,
+        rows past S sliced off."""
+        arrays = qkv(8, b, s, h, kv, hd, dtype)
+        sp = -(-s // 128) * 128
+        want = flash_attention_pallas(
+            *(jnp.asarray(fold_pad(a, sp)) for a in arrays), group=h // kv,
+            causal=causal, valid_len=valid, interpret=True)
+        want = np.asarray(want.astype(jnp.float32)).reshape(
+            b, h, sp, hd)[:, :, :s].transpose(0, 2, 1, 3)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        got = flash_ref(*ts, causal=causal, valid_len=valid)
+        assert got.dtype == ts[0].dtype and got.shape == (b, s, h, hd)
+        close(got, want, TOL[dtype])
+        out = attn_ops.flash_attention(*ts, causal=causal, valid_len=valid)
+        assert torch.equal(out, got)
+
+    @pytest.mark.parametrize("s,h,kv,hd", [(129, 8, 2, 8), (200, 4, 4, 64),
+                                           (77, 8, 1, 16)])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_contract_vs_reference_oracle(self, s, h, kv, hd, causal,
+                                                dtype):
+        arrays = qkv(9, 2, s, h, kv, hd, dtype)
+        want = jax_attention_ref(*map(jnp.asarray, arrays), causal=causal)
+        ts = [tensor_from_numpy(a, "cpu") for a in arrays]
+        close(flash_ref(*ts, causal=causal), want, TOL[dtype])
+
+    def test_plain_rounds_p_to_bfloat16(self):
+        """bf16 inputs: P is rounded to bf16 before it multiplies v, as the
+        kernel's tensor-core product takes it; float32 accumulation."""
+        arrays = qkv(10, 1, 96, 2, 2, 32, "bfloat16")
+        q, k, v = (a.astype(np.float32) for a in arrays)
+        sc = np.einsum("bqhd,bkhd->bhqk", q, k) * np.float32(1 / np.sqrt(32))
+        sc = np.where(np.tri(96, dtype=bool), sc, -1e30)
+        p = np.exp(sc - sc.max(-1, keepdims=True))
+        p = (p / p.sum(-1, keepdims=True)).astype(BF16).astype(np.float32)
+        want = np.einsum("bhqk,bkhd->bqhd", p, v)
+        got = flash_ref(*[tensor_from_numpy(a, "cpu") for a in arrays])
+        # the float32 sums differ in order only: within one bf16 step (a
+        # relative 2**-7 at most); P left in float32 misses this
+        np.testing.assert_allclose(as_np(got).astype(np.float32),
+                                   want.astype(BF16).astype(np.float32),
+                                   rtol=2.0 ** -7, atol=0)
+
+    def test_reads_views_in_model_layout(self):
+        """q, k and v sliced out of one fused projection (rows wider than
+        the heads) and a transposed (B, H, S, hd) tensor: the same output
+        as their contiguous copies, contiguous, so that merging the heads
+        is a view."""
+        b, s, h, kv, hd = 2, 100, 4, 2, 16
+        fused = tensor_from_numpy(normal(11, (b, s, (h + 2 * kv) * hd + 8)),
+                                  "cpu")
+        q = fused[..., :h * hd].view(b, s, h, hd)
+        k = fused[..., h * hd:(h + kv) * hd].view(b, s, kv, hd)
+        v = fused[..., (h + kv) * hd:(h + 2 * kv) * hd].view(b, s, kv, hd)
+        for qq in (q, q.transpose(1, 2).contiguous().transpose(1, 2)):
+            out = attn_ops.flash_attention(qq, k, v)
+            assert out.is_contiguous() and out.shape == (b, s, h, hd)
+            assert torch.equal(out, flash_ref(q.contiguous(), k.contiguous(),
+                                              v.contiguous()))
+
+    def test_refuses_what_it_does_not_take(self):
+        q, k, v = (tensor_from_numpy(a, "cpu")
+                   for a in qkv(12, 1, 64, 4, 2, 16))
+        with pytest.raises(ValueError, match="do not agree"):
+            attn_ops.flash_attention(q, k[:, :32], v[:, :32])
+        with pytest.raises(ValueError, match="multiple"):
+            attn_ops.flash_attention(q[:, :, :3], k, v)
+        with pytest.raises(ValueError, match="valid_len"):
+            attn_ops.flash_attention(q, k, v, valid_len=0)
+        with pytest.raises(ValueError, match="valid_len"):
+            attn_ops.flash_attention(q, k, v, valid_len=65)
 
     def test_cpu_path_launches_nothing(self):
         kernels.reset_launch_counts()
