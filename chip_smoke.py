@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero before the result line:
    |plain| (float32 output and the float32 state); times from CUDA events
    beside the plain version's, the bound, and for flash the library call
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
-   no PyTorch call computes the SSD scan), and flash again at B=1 and a
-   4096-token prompt beside the library call and its bound;
+   no PyTorch call computes the SSD scan), and flash and the SSD scan
+   again at B=1 and a 4096-token prompt beside their bounds (flash also
+   beside the library call, the SSD scan beside its plain version);
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048) and mamba2-1.3b (48 layers,
    d_model 2048, 64 SSM heads, state 128), each planned by the SEIFER
@@ -59,7 +60,7 @@ BF16_PEAK = 989e12      # dense bf16 tensor-core FLOP/s, H100 SXM
 F32_PEAK = 67e12        # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
-LONG_PROMPT = 4096      # flash alone, B=1: where operations bound it
+LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
 KILL = {"after_step": 3, "stage": 1}
 ARCHS = ("granite-3-2b", "mamba2-1.3b")
 
@@ -265,6 +266,25 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
     return x, dt, A, conv[..., h * p:h * p + n], conv[..., h * p + n:]
 
 
+def ssd_work(b, s, h, p, n, q):
+    """What the scan needs at bf16 x/B/C, per (b, h, chunk): the causal
+    halves of C B^T (bf16 operands) and, with a float32 operand, of its
+    product with x (the weights L o dt), C state^T past the first chunk
+    (the state is zero before it) and the state update (float32 state,
+    decay-weighted x); and the bytes of every input and output once.
+    Returns (bf16 FLOP, float32-operand FLOP, bytes)."""
+    nc = -(-s // q)
+    tri = q * (q + 1) / 2
+    cb_flops = 2.0 * b * h * nc * tri * n
+    f32_flops = 2.0 * b * h * (nc * tri * p + (nc - 1) * q * p * n
+                               + nc * q * p * n)
+    nbytes = (2 * 2 * b * s * h * p          # x in, y out (bf16)
+              + 4 * b * h * p * n            # the final state (f32)
+              + 2 * 2 * b * s * n            # B and C (bf16)
+              + 4 * b * s * h + 4 * h)       # dt and A (f32)
+    return cb_flops, f32_flops, nbytes
+
+
 def check_ssd(torch, gen):
     from repro_torch.kernels.ssd import ops
     from repro_torch.kernels.ssd.ref import ssd_chunked
@@ -273,10 +293,11 @@ def check_ssd(torch, gen):
     cases = [  # (B, S, H, P, N, Q, dtype)
         (BATCH, PROMPT, 64, 64, 128, 128, bf16),   # mamba2-1.3b prefill
         (BATCH, 300, 64, 64, 128, 128, bf16),      # ragged S
+        (1, LONG_PROMPT, 64, 64, 128, 128, bf16),  # a long prompt
         (2, 40, 8, 16, 16, 16, bf16),              # the smoke config's
         (2, 384, 8, 64, 128, 128, f32),
     ]
-    main = None
+    inputs, err_max = {}, 0.0
     for b, s, h, p, n, q, dt_ in cases:
         ins = ssd_inputs(torch, gen, b, s, h, p, n, dt_)
         y, st = ops.ssd_scan(*ins, q)
@@ -295,38 +316,45 @@ def check_ssd(torch, gen):
             f"each times 1 + |plain|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("the SSD scan disagrees with its plain version")
-        if main is None:
-            main = (ins, err)
-    ins, err = main
-    b, s, h, p = ins[0].shape
-    n = ins[3].shape[-1]
-    q = 128
-    k_ms = time_ms(lambda: ops._launch(*ins, q))
-    w_ms = time_ms(lambda: ops.ssd_scan(*ins, q))
-    p_ms = time_ms(lambda: ssd_chunked(*ins, q))
-    # what the function needs per (b, h, chunk): the causal halves of C B^T
-    # (bf16 inputs: the bf16 rate) and of its product with x (the weights
-    # L o dt are float32), C state^T past the first chunk (the state is
-    # zero before it) and the state update (float32 state and weights)
-    nc = -(-s // q)
-    tri = q * (q + 1) / 2
-    cb_flops = 2.0 * b * h * nc * tri * n
-    f32_flops = 2.0 * b * h * (nc * tri * p + (nc - 1) * q * p * n
-                               + nc * q * p * n)
-    nbytes = (2 * 2 * b * s * h * p          # x in, y out (bf16)
-              + 4 * b * h * p * n            # the final state (f32)
-              + 2 * 2 * b * s * n            # B and C (bf16)
-              + 4 * b * s * h + 4 * h)       # dt and A (f32)
-    b_ms, b_by = bound(nbytes, (cb_flops, BF16_PEAK), (f32_flops, F32_PEAK))
-    log(f"  ssd at the prefill shape: kernel {k_ms:.4f} ms (through the "
-        f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {cb_flops / 1e9:.2f} GFLOP bf16, {f32_flops / 1e9:.2f} "
-        f"GFLOP float32, {nbytes / 1e6:.2f} MB)")
+        err_max = max(err_max, err)
+        if dt_ == bf16 and s in (PROMPT, LONG_PROMPT):
+            inputs[s] = ins
+        del y, st, yr, sr, ey, es
+
+    def timed_shape(ins):
+        b, s, h, p = ins[0].shape
+        n = ins[3].shape[-1]
+        k_ms = time_ms(lambda: ops._launch(*ins, 128))
+        p_ms = time_ms(lambda: ssd_chunked(*ins, 128))
+        cb_flops, f32_flops, nbytes = ssd_work(b, s, h, p, n, 128)
+        # the kernel's products on the bf16 tensor cores, each float32
+        # operand split into two bf16 terms
+        b_ms, b_by = bound(nbytes, (cb_flops + 2 * f32_flops, BF16_PEAK))
+        # the first kernel's count: the float32-operand products at the
+        # float32 FMA rate
+        o_ms, o_by = bound(nbytes, (cb_flops, BF16_PEAK),
+                           (f32_flops, F32_PEAK))
+        log(f"  ssd B={b} S={s} H={h} P={p} N={n}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{cb_flops / 1e9:.2f} GFLOP bf16 + 2 x {f32_flops / 1e9:.2f} "
+            f"GFLOP split, {nbytes / 1e6:.2f} MB; counted at the float32 "
+            f"FMA rate {o_ms:.4f} ms, {o_by}); {b * h * -(-p // 32)} blocks")
+        return k_ms, p_ms, b_ms, b_by
+
+    ins = inputs[PROMPT]
+    k_ms, p_ms, b_ms, b_by = timed_shape(ins)
+    w_ms = time_ms(lambda: ops.ssd_scan(*ins, 128))
+    log(f"  ssd at the prefill shape through the wrapper: {w_ms:.4f} ms")
+    lk_ms, lp_ms, lb_ms, lb_by = timed_shape(inputs[LONG_PROMPT])
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:32",
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": err_max, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "long_prompt": {"B, S, H, P, N": [1, LONG_PROMPT, 64, 64, 128],
+                            "ms": lk_ms, "plain_ms": lp_ms,
+                            "bound_ms": lb_ms, "bound_by": lb_by,
+                            "library_ms": None}}
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +569,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(smi)
-    keys += ("long_prompt",)                    # flash's second shape
+    keys += ("long_prompt",)        # flash's and the SSD scan's second shape
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,10 @@ Every ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launch
 functions that take raw pointers, sizes and a stream, and return
 ``cudaGetLastError()``).  ``nvcc`` compiles each source on its own into a
 shared library under ``build/kernels/`` at the repository root (git
--ignored); the file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Building takes
-seconds per source; ``build_all`` starts one ``nvcc`` per source at once.
+-ignored); the file name carries a hash of the source, the headers it may
+include (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is reused.  Building takes seconds per source;
+``build_all`` starts one ``nvcc`` per source at once.
 
 No flag makes arithmetic approximate: ``--use_fast_math`` would turn the
 quantize kernel's IEEE division into an approximate one and break its
@@ -44,6 +45,7 @@ SIGNATURES = {
     },
     "quantize": {
         "quantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "quantize_rows_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "dequantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "quantize_error_string": ([_I], ctypes.c_char_p),
     },
@@ -73,9 +75,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's file: the hash covers the source, the shared headers
+    of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -65,7 +65,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 struct Args {
   const void* q;
@@ -105,80 +109,6 @@ constexpr int kTq = 64;           // query rows per block, 16 per warp
 constexpr int kTk = 64;           // keys per tile
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory; zero-fills when !pred
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-// c (16x8 float32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Index of 16-byte chunk c of row r in a tile with CPR chunks a row.  The
-// chunk is XORed with bits of the row so that the eight rows one
-// `ldmatrix` reads in a column of chunks land on eight distinct 16-byte
-// bank groups: rows of 128 bytes or more use r & 7; shorter rows, several
-// to a 128-byte line, use the bits above the line's rows.
-template <int CPR>
-__device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (CPR >= 8) return r * CPR + (c ^ (r & 7));
-  else if constexpr (CPR == 4) return r * 4 + (c ^ ((r >> 1) & 3));
-  else return r * 2 + (c ^ ((r >> 2) & 1));
-}
 
 // Rows [0, 64) of a tile whose row 0 is `base`: cp.async of each 16-byte
 // chunk, zero for rows at or past `rows` and chunks at or past `creal`

@@ -14,6 +14,18 @@ from . import ref
 from .ref import BM, BN
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROW_MAX = 4096                 # widest row the rowwise path holds in registers
+
+
+def rowwise_path(x, bm: int, bn: int) -> bool:
+    """Whether ``quantize`` takes the kernel's rowwise path for ``x`` (M, N)
+    with a (bm, bn) tile: a tile one row tall and as wide as the row, the
+    row a whole number of 8-element units of at most ``ROW_MAX`` elements,
+    starting on a 16-byte boundary.  Every other tile takes the general
+    path; both give the same bits."""
+    n = x.shape[-1]
+    return (bm == 1 and bn >= n and 0 < n <= ROW_MAX and n % 8 == 0
+            and x.data_ptr() % 16 == 0)
 
 
 def _check(t, name, dtypes):
@@ -38,11 +50,19 @@ def quantize(x, bm: int = BM, bn: int = BN):
     s = torch.empty((-(-m // bm), -(-n // bn)), dtype=torch.float32,
                     device=x.device)
     lib = _build.load("quantize")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.quantize_launch(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), m, n, bm, bn,
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("quantize", "quantize_launch", err)
+        if rowwise_path(x, bm, bn):
+            fn = "quantize_rows_launch"
+            err = lib.quantize_rows_launch(x.data_ptr(), q.data_ptr(),
+                                           s.data_ptr(), m, n,
+                                           _DTYPES[x.dtype], stream)
+        else:
+            fn = "quantize_launch"
+            err = lib.quantize_launch(x.data_ptr(), q.data_ptr(),
+                                      s.data_ptr(), m, n, bm, bn,
+                                      _DTYPES[x.dtype], stream)
+    _build.check("quantize", fn, err)
     quantize.launches += 1
     return q, s
 

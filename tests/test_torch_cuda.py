@@ -201,6 +201,30 @@ def test_quantize_kernels_bit_equal(cuda, shape, bm, bn, dtype):
                q_ref.dequantize_ref(q, s, bm, bn, dtype))
 
 
+@pytest.mark.parametrize("m,n,bm,bn,rowwise", [
+    (2048, 2048, 1, 2048, True), (301, 4096, 1, 4096, True),
+    (7, 16, 1, 16, True), (300, 520, 1, 520, True), (64, 8, 1, 64, True),
+    (300, 1028, 1, 1028, False), (40, 8192, 1, 8192, False),
+    (300, 520, 256, 256, False), (2048, 2048, 2, 2048, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rowwise_path_bit_equal(cuda, m, n, bm, bn, rowwise, dtype):
+    """Tiles one row tall and as wide as the row take the rowwise path
+    (one warp a row, one read of each element); other widths and tiles the
+    general one; both give the plain version's bits."""
+    x = randn(cuda, 7, m, n, dtype=dtype) * 3
+    x[0] = 0                          # an all-zero row: scale 1
+    assert q_ops.rowwise_path(x, bm, bn) == rowwise
+    before = q_ops.quantize.launches
+    q, s = q_ops.quantize(x, bm, bn)
+    torch.cuda.synchronize()
+    assert q_ops.quantize.launches == before + 1
+    qr, sr = q_ref.quantize_ref(x, bm, bn)
+    bits_equal(q, qr)
+    bits_equal(s, sr)
+    bits_equal(q_ops.dequantize(q, s, bm, bn, dtype),
+               q_ref.dequantize_ref(q, s, bm, bn, dtype))
+
+
 def test_rowwise_wire_bit_equal(cuda):
     x = randn(cuda, 4, 4, 512, 2048, dtype=torch.bfloat16)
     q, s = q_ops.rowwise_quantize(x)
@@ -211,16 +235,19 @@ def test_rowwise_wire_bit_equal(cuda):
                (qr.float() * sr).to(torch.bfloat16))
 
 
-def ssd_inputs(cuda, seed, b, s, h, p, n, dtype):
+def ssd_inputs(cuda, seed, b, s, h, p, n, dtype, dt_scale=1.0):
     """x, B and C as views of one (B, S, H*P + 2N) tensor, as the model
-    hands them over; dt and A as the reference's kernel tests draw them."""
+    hands them over; dt and A as the reference's kernel tests draw them.
+    ``dt_scale`` > 1 multiplies dt and divides A by its square, so steps
+    weigh more and decay less: a state of large magnitude."""
     conv = randn(cuda, seed, b, s, h * p + 2 * n)
     conv[..., h * p:] *= 0.5
     conv = conv.to(dtype)
     dt = torch.nn.functional.softplus(randn(cuda, seed + 1, b, s, h))
     A = -torch.exp(randn(cuda, seed + 2, h) * 0.3)
-    return (conv[..., :h * p].reshape(b, s, h, p), dt, A,
-            conv[..., h * p:h * p + n], conv[..., h * p + n:])
+    return (conv[..., :h * p].reshape(b, s, h, p), dt * dt_scale,
+            A / dt_scale ** 2, conv[..., h * p:h * p + n],
+            conv[..., h * p + n:])
 
 
 def assert_ssd_close(got, want, tol):
@@ -230,13 +257,31 @@ def assert_ssd_close(got, want, tol):
         err.max().item()
 
 
-@pytest.mark.parametrize("s,h,p,n,q", [
+SSD_SHAPES = [  # (S, H, P, N, Q)
     (512, 8, 64, 128, 128), (300, 8, 64, 128, 128), (40, 8, 16, 16, 16),
     (200, 4, 64, 64, 128), (77, 3, 16, 32, 16), (130, 2, 128, 128, 128),
-    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 32, 24, 16)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_vs_plain(cuda, s, h, p, n, q, dtype):
-    ins = ssd_inputs(cuda, 5, 2, s, h, p, n, dtype)
+    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 32, 24, 16)]
+# bf16 on the tensor cores: P within, across and at the edges of the
+# kernel's 32-column blocks, large and small grids, B = 1, a long S, a
+# state of large magnitude
+SSD_BF16_CASES = [  # (B, S, H, P, N, Q, dt_scale)
+    (2, 256, 4, 8, 64, 128, 1.0), (2, 256, 4, 24, 128, 128, 1.0),
+    (2, 256, 4, 40, 128, 128, 1.0), (2, 256, 4, 48, 64, 128, 1.0),
+    (2, 200, 4, 96, 128, 128, 1.0), (2, 100, 4, 120, 72, 16, 1.0),
+    (4, 256, 64, 64, 128, 128, 1.0), (4, 130, 66, 24, 128, 128, 1.0),
+    (4, 130, 64, 40, 64, 128, 1.0), (4, 100, 32, 120, 72, 16, 1.0),
+    (1, 512, 64, 64, 128, 128, 1.0), (1, 300, 8, 128, 128, 128, 1.0),
+    (1, 2048, 8, 64, 128, 128, 1.0), (2, 2048, 4, 32, 128, 16, 1.0),
+    (2, 512, 8, 64, 128, 128, 8.0), (1, 2048, 4, 64, 128, 128, 8.0)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q,dtype,dt_scale", [
+    *((2, *shape, dtype, 1.0) for shape in SSD_SHAPES
+      for dtype in (torch.float32, torch.bfloat16)),
+    *((b, s, h, p, n, q, torch.bfloat16, k)
+      for b, s, h, p, n, q, k in SSD_BF16_CASES)])
+def test_ssd_kernel_vs_plain(cuda, b, s, h, p, n, q, dtype, dt_scale):
+    ins = ssd_inputs(cuda, 5, b, s, h, p, n, dtype, dt_scale)
     before = ssd_ops.ssd_scan.launches
     y, st = ssd_ops.ssd_scan(*ins, q)
     torch.cuda.synchronize()

@@ -130,6 +130,23 @@ class TestQuantize:
         assert float(s) == 1.0
         assert float(q_ops.dequantize(q, s).abs().max()) == 0.0
 
+    @pytest.mark.parametrize("n,bm,bn,aligned,rowwise", [
+        (2048, 1, 2048, True, True), (4096, 1, 4096, True, True),
+        (16, 1, 16, True, True), (520, 1, 520, True, True),
+        (8, 1, 64, True, True), (1028, 1, 1028, True, False),
+        (8192, 1, 8192, True, False), (520, 256, 256, True, False),
+        (2048, 2, 2048, True, False), (2048, 1, 1024, True, False),
+        (2048, 1, 2048, False, False)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_which_tiles_take_the_rowwise_path(self, n, bm, bn, aligned,
+                                               rowwise, dtype):
+        """A tile one row tall and as wide as the row, of at most 4096
+        elements in 8-element units on a 16-byte boundary, takes the
+        kernel's rowwise path; every other tile the general one."""
+        x = torch.zeros(3 * n + 1, dtype=dtype)
+        x = (x[:3 * n] if aligned else x[1:]).view(3, n)
+        assert q_ops.rowwise_path(x, bm, bn) == rowwise
+
 
 # ---------------------------------------------------------------------------
 # flash attention: 2e-5 (float32), 3e-2 (bfloat16)

@@ -115,6 +115,119 @@ def test_ssd_chunked_matches_model_chunked(s, chunk):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernel's precision design, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _terms(v, rounding):
+    """A float32 operand as the kernel feeds it to the bf16 tensor cores:
+    "split" into bf16 hi and lo (two products), "once" rounded to bf16, or
+    "exact" (float32, the plain version's arithmetic)."""
+    if rounding == "exact":
+        return [v]
+    hi = _bf16(v)
+    return [hi, _bf16(v - hi)] if rounding == "split" else [hi]
+
+
+def emulate_bf16_kernel(xh, dt, A, Bm, Cm, chunk, weights="split",
+                        xw="split", state="split"):
+    """The bf16 kernel's arithmetic (``csrc/ssd.cu``) in plain PyTorch: x,
+    B and C exact bf16; every product with a float32 operand (the weights
+    C B^T o L o dt, x o w with w = dt exp(cs_last - cs), the state) as
+    bf16 terms of that operand times the exact bf16 one, summed in float32;
+    y rounded to bf16 once at the end."""
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    xf, bf, cf = xh.float(), Bm.float(), Cm.float()
+    y = torch.zeros(b, s, h, p)
+    st = torch.zeros(b, h, p, n)
+    for t0 in range(0, s, chunk):
+        t1 = min(s, t0 + chunk)
+        xc, bc, cc, dtc = xf[:, t0:t1], bf[:, t0:t1], cf[:, t0:t1], \
+            dt[:, t0:t1]
+        cs = torch.cumsum(dtc * A, dim=1).permute(0, 2, 1)      # (b,h,l)
+        causal = torch.ones(t1 - t0, t1 - t0, dtype=torch.bool).tril()
+        L = torch.exp(cs[..., :, None] - cs[..., None, :])
+        W = (cc @ bc.transpose(1, 2))[:, None] * L.masked_fill(~causal, 0) \
+            * dtc.permute(0, 2, 1)[:, :, None, :]               # (b,h,l,l)
+        xt = xc.permute(0, 2, 1, 3)                             # (b,h,l,p)
+        y_in = sum(t @ xt for t in _terms(W, weights))
+        y_off = sum(cc[:, None] @ t.transpose(-1, -2)
+                    for t in _terms(st, state)) * torch.exp(cs)[..., None]
+        y[:, t0:t1] = (y_in + y_off).permute(0, 2, 1, 3)
+        w = torch.exp(cs[..., -1:] - cs) * dtc.permute(0, 2, 1)  # (b,h,l)
+        upd = sum(t.transpose(-1, -2) @ bc[:, None]
+                  for t in _terms(xt * w[..., None], xw))
+        st = st * torch.exp(cs[..., -1])[..., None, None] + upd
+    return _bf16(y), st
+
+
+def bf16_kernel_inputs(seed, b, s, h, p, n, dt_scale=1.0):
+    """The card's input distribution (``tests/test_torch_cuda.py``): x, B
+    and C in bf16, dt and A float32; ``dt_scale`` > 1 gives a state of large
+    magnitude."""
+    r = np.random.default_rng(seed)
+    conv = r.standard_normal((b, s, h * p + 2 * n), dtype=np.float32)
+    conv[..., h * p:] *= 0.5
+    conv = torch.from_numpy(conv).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(r.standard_normal((b, s, h), dtype=np.float32)))
+    A = -torch.exp(torch.from_numpy(r.standard_normal(h, dtype=np.float32))
+                   * 0.3)
+    return (conv[..., :h * p].reshape(b, s, h, p), dt * dt_scale,
+            A / dt_scale ** 2, conv[..., h * p:h * p + n],
+            conv[..., h * p + n:])
+
+
+def ssd_rel_errors(got, want):
+    """max |got - want| / (1 + |want|) on y and on the state."""
+    return tuple(((g.float() - w.float()).abs() / (1 + w.float().abs()))
+                 .max().item() for g, w in zip(got, want))
+
+
+# the card's tolerances, each times 1 + |plain|: bf16 y, the float32 state
+CARD_TOL = (1e-2, 2e-4)
+KERNEL_SHAPE = (1, 512, 4, 64, 128)          # B, S, H, P, N; Q = 128
+
+
+def test_bf16_emulation_in_float32_is_the_plain_version():
+    """With every operand left in float32 the emulation is the function
+    ``ssd_chunked`` computes (so the tests below measure rounding only)."""
+    ins = bf16_kernel_inputs(0, *KERNEL_SHAPE)
+    got = emulate_bf16_kernel(*ins, 128, "exact", "exact", "exact")
+    ey, es = ssd_rel_errors(got, ssd_ref_mod.ssd_chunked(*ins, 128))
+    assert ey <= 2 ** -7 and es <= 1e-6, (ey, es)
+
+
+@pytest.mark.parametrize("dt_scale", [1.0, 8.0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_kernel_split_arithmetic_meets_card_tolerances(seed, dt_scale):
+    """bf16 C, B and x, and the weights, x o w and the state each split
+    into bf16 hi + lo, as the kernel does them: within the card's
+    tolerances of the plain version at the mamba2 head shape (P = 64, N =
+    128, Q = 128, S = 512), also with a state of large magnitude."""
+    ins = bf16_kernel_inputs(seed, *KERNEL_SHAPE, dt_scale=dt_scale)
+    ey, es = ssd_rel_errors(emulate_bf16_kernel(*ins, 128),
+                            ssd_ref_mod.ssd_chunked(*ins, 128))
+    assert ey <= CARD_TOL[0] and es <= CARD_TOL[1], (ey, es)
+
+
+@pytest.mark.parametrize("operand,where", [
+    ("weights", 0), ("xw", 1), ("state", 0)])
+def test_one_bf16_rounding_misses_card_tolerances(operand, where):
+    """Why each float32 operand is split: rounded to bf16 once, each of
+    them alone puts y (``where`` 0) or the state (1) outside the card's
+    tolerance on a state of large magnitude."""
+    ins = bf16_kernel_inputs(0, *KERNEL_SHAPE, dt_scale=8.0)
+    errs = ssd_rel_errors(emulate_bf16_kernel(*ins, 128, **{operand: "once"}),
+                          ssd_ref_mod.ssd_chunked(*ins, 128))
+    assert errs[where] > CARD_TOL[where], errs
+
+
+# ---------------------------------------------------------------------------
 # mamba_block and the model
 # ---------------------------------------------------------------------------
 
