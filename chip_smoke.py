@@ -10,40 +10,50 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels/csrc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the main paths' shapes: flash attention within 3e-2 (bf16, every head
-   dim, ragged S, and a 4096-token prompt) and 2e-5 (float32), with no
-   copy of its inputs or output in its wrapper, quantize and dequantize
-   bit-equal, the SSD scan within
+   dim, 112 on the 128 tile included, ragged S, and a 4096-token prompt)
+   and 2e-5 (float32), with no copy of its inputs or output in its wrapper,
+   quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
+   rowwise path), the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); times from CUDA events
    beside the plain version's, the bound, and for flash the library call
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
-   no PyTorch call computes the SSD scan), and flash and the SSD scan
-   again at B=1 and a 4096-token prompt beside their bounds (flash also
-   beside the library call, the SSD scan beside its plain version);
-4. the main paths at full width, with random bf16 weights from seed 0:
-   granite-3-2b (40 layers, d_model 2048) and mamba2-1.3b (48 layers,
-   d_model 2048, 64 SSM heads, state 128), each planned by the SEIFER
-   planner onto a 10-node edge cluster into 4 stages, served by the
-   monolithic ``ServeEngine`` (fast and reference loops), by the raw-wire
-   ``PipelineServeEngine`` (bit-identical tokens, also across a stage kill)
-   and by the int8-wire one (a kill and restore gives the same tokens as
-   the run without it).  The kernel launch counters are zeroed just before
-   each of these five runs of each model and read just after it, and each
-   run must launch exactly what it runs: the model's sequence mixer (flash
-   attention for granite, the SSD scan for mamba2) once per layer per
-   prefill, quantize and dequantize once per stage boundary per pass in
-   the int8-wire runs, and nothing else.
+   no PyTorch call computes the SSD scan), at granite's and mamba2's
+   prefill shapes, at zamba2's (``zamba2_prefill`` in the records), and
+   flash and the SSD scan again at B=1 and a 4096-token prompt;
+4. the main paths at full width and full depth, with random bf16 weights
+   from seed 0: granite-3-2b (40 layers, d_model 2048), mamba2-1.3b (48
+   layers, d_model 2048, 64 SSM heads, state 128) and zamba2-7b (81 mamba2
+   layers, d_model 3584, 112 SSM heads, state 64, and one shared
+   attention+MLP block of 32 heads of 112 before every 6th layer, 14 call
+   sites), each planned by the SEIFER planner onto a 10-node edge cluster
+   into 4 stages (zamba2: each stage holds call sites and its own copy of
+   the shared block), served by the monolithic ``ServeEngine`` (fast and
+   reference loops), by the raw-wire ``PipelineServeEngine`` (bit-identical
+   tokens, also across a stage kill) and by the int8-wire one (a kill and
+   restore gives the same tokens as the run without it), and then as a
+   stream of 6 staggered requests over 4 slots of the ``SlotScheduler``,
+   each request's stream held against the same request served alone (see
+   ``stream_phase``).  The kernel launch counters are zeroed just before
+   each of these six counted runs of each model and read just after it,
+   and each run must launch exactly what it runs: per prefill, flash
+   attention once per attention layer (granite's 40, zamba2's 14 call
+   sites) and the SSD scan once per mamba layer, quantize and dequantize
+   once per stage boundary per pass in the int8-wire runs, and nothing
+   else.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
-per kernel, and ``{"ok": true, "device": {...}}``.  A record's
-``launches`` is the count from the runs that go through every step of a
-main path (planner, int8 wire, stage kill, restore and replay), summed
-over the two models; ``launches_by_path`` holds the count from each of the
-ten runs, keyed ``model/run``.
+per kernel, and ``{"ok": true, "device": {...}}``; the stream phase's
+numbers are on a JSON line before them.  A record's ``launches`` is the
+count from the runs that go through every step of a main path (planner,
+int8 wire, stage kill, restore and replay), summed over the three models;
+``launches_by_path`` holds the count from each of the eighteen runs, keyed
+``model/run``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -62,7 +72,13 @@ HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
 LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
 KILL = {"after_step": 3, "stage": 1}
-ARCHS = ("granite-3-2b", "mamba2-1.3b")
+ARCHS = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b")
+# the stream phase: the serve-equivalence fixture's staggered requests
+# ((8, 6), (8, 4), (12, 7), (8, 5), (12, 3), (8, 6)) at full width, as
+# (prompt, generated tokens)
+STREAM = ((256, 24), (256, 16), (384, 28), (256, 20), (512, 12), (256, 24))
+SLOTS = 4
+STREAM_TOL = 3e-2
 
 
 def log(msg=""):
@@ -124,6 +140,9 @@ def check_flash(torch, gen):
         *((2, 130, 8, 2, hd, bf16, True) for hd in (8, 16, 32, 128)),
         (2, 384, 32, 8, 64, f32, True),
         (1, LONG_PROMPT, 32, 8, 64, bf16, True),   # operations bound it
+        (BATCH, PROMPT, 32, 32, 112, bf16, True),  # zamba2 prefill
+        (BATCH, 300, 32, 32, 112, bf16, True),     # ragged S
+        (BATCH, PROMPT, 32, 32, 112, f32, True),
     ]
     inputs = {}
     err_max = 0.0
@@ -144,8 +163,8 @@ def check_flash(torch, gen):
             raise SystemExit(f"flash attention disagrees with its plain "
                              f"version: {err} > {tol[dt]}")
         err_max = max(err_max, err)
-        if dt == bf16 and causal and hd == 64 and s in (PROMPT, LONG_PROMPT):
-            inputs[s] = (q, k, v)
+        if dt == bf16 and causal and s in (PROMPT, LONG_PROMPT):
+            inputs[s, hd] = (q, k, v)
 
     def bound_of(q, k, v):
         b, s, h, hd = q.shape
@@ -158,7 +177,7 @@ def check_flash(torch, gen):
         return time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
 
-    q, k, v = inputs[PROMPT]
+    q, k, v = inputs[PROMPT, 64]
     # the wrapper allocates its output and nothing else: no padded,
     # transposed or contiguous copy of q, k, v or the output
     torch.cuda.reset_peak_memory_stats()
@@ -179,7 +198,7 @@ def check_flash(torch, gen):
         f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
         f"F.scaled_dot_product_attention {l_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    q, k, v = inputs[LONG_PROMPT]
+    q, k, v = inputs[LONG_PROMPT, 64]
     lk_ms = time_ms(lambda: ops._launch(q, k, v, True, LONG_PROMPT))
     ll_ms = library(q, k, v)
     (lb_ms, lb_by), lflops, lbytes = bound_of(q, k, v)
@@ -187,6 +206,17 @@ def check_flash(torch, gen):
         f"{lk_ms:.4f} ms ({lflops / lk_ms / 1e9:.1f} TFLOP/s), "
         f"F.scaled_dot_product_attention {ll_ms:.4f} ms, bound {lb_ms:.4f} "
         f"ms ({lb_by}; {lflops / 1e9:.2f} GFLOP, {lbytes / 1e6:.2f} MB)")
+    zq, zk, zv = inputs[PROMPT, 112]
+    zk_ms = time_ms(lambda: ops._launch(zq, zk, zv, True, PROMPT))
+    zw_ms = time_ms(lambda: ops.flash_attention(zq, zk, zv, causal=True))
+    zp_ms = time_ms(lambda: flash_ref(zq, zk, zv, causal=True))
+    zl_ms = library(zq, zk, zv)
+    (zb_ms, zb_by), zflops, zbytes = bound_of(zq, zk, zv)
+    log(f"  flash at zamba2's prefill shape (hd=112 on the 128 tile): "
+        f"kernel {zk_ms:.4f} ms (through the wrapper {zw_ms:.4f} ms), plain "
+        f"{zp_ms:.4f} ms, F.scaled_dot_product_attention {zl_ms:.4f} ms, "
+        f"bound {zb_ms:.4f} ms ({zb_by}; {zflops / 1e9:.2f} GFLOP, "
+        f"{zbytes / 1e6:.2f} MB)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:44",
@@ -195,17 +225,28 @@ def check_flash(torch, gen):
             "long_prompt": {"B, S, H, KV, hd": [*q.shape[:3], k.shape[2],
                                                 q.shape[3]],
                             "ms": lk_ms, "library_ms": ll_ms,
-                            "bound_ms": lb_ms, "bound_by": lb_by}}
+                            "bound_ms": lb_ms, "bound_by": lb_by},
+            "zamba2_prefill": {"B, S, H, KV, hd": [*zq.shape[:3],
+                                                   zk.shape[2], zq.shape[3]],
+                               "ms": zk_ms, "wrapper_ms": zw_ms,
+                               "plain_ms": zp_ms, "library_ms": zl_ms,
+                               "bound_ms": zb_ms, "bound_by": zb_by}}
 
 
 def check_quantize(torch, gen):
     from repro_torch.kernels.quantize import ops, ref
     cases = [((BATCH * PROMPT, 2048), 1, 2048),      # the wire at prefill
+             ((BATCH * PROMPT, 3584), 1, 3584),      # zamba2's wire
              ((2048, 2048), 256, 256), ((300, 520), 256, 256)]
     q_err = d_err = 0.0
     for shape, bm, bn in cases:
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            rowwise = ops.rowwise_path(x, bm, bn)
+            if rowwise != (bm == 1):
+                raise SystemExit(f"quantize {shape} tile ({bm}, {bn}) takes "
+                                 f"the {'rowwise' if rowwise else 'general'} "
+                                 f"path")
             q, s = ops.quantize(x, bm, bn)
             torch.cuda.synchronize()
             qr, sr = ref.quantize_ref(x, bm, bn)
@@ -216,7 +257,8 @@ def check_quantize(torch, gen):
             same_d = torch.equal(d.view(torch.uint8), dr.view(torch.uint8))
             q_err = max(q_err, (q.int() - qr.int()).abs().max().item())
             d_err = max(d_err, (d.float() - dr.float()).abs().max().item())
-            log(f"  quantize {shape} tile ({bm}, {bn}) {str(dt)[6:]}: q "
+            log(f"  quantize {shape} tile ({bm}, {bn}) {str(dt)[6:]} "
+                f"({'rowwise' if rowwise else 'general'} path): q "
                 f"bit-equal {same_q}, scales equal {same_s}; dequantize "
                 f"bit-equal {same_d}")
             if not (same_q and same_s and same_d):
@@ -296,6 +338,8 @@ def check_ssd(torch, gen):
         (1, LONG_PROMPT, 64, 64, 128, 128, bf16),  # a long prompt
         (2, 40, 8, 16, 16, 16, bf16),              # the smoke config's
         (2, 384, 8, 64, 128, 128, f32),
+        (BATCH, PROMPT, 112, 64, 64, 128, bf16),   # zamba2-7b prefill
+        (BATCH, 300, 112, 64, 64, 128, bf16),      # ragged S
     ]
     inputs, err_max = {}, 0.0
     for b, s, h, p, n, q, dt_ in cases:
@@ -318,7 +362,7 @@ def check_ssd(torch, gen):
             raise SystemExit("the SSD scan disagrees with its plain version")
         err_max = max(err_max, err)
         if dt_ == bf16 and s in (PROMPT, LONG_PROMPT):
-            inputs[s] = ins
+            inputs[s, h] = ins
         del y, st, yr, sr, ey, es
 
     def timed_shape(ins):
@@ -341,11 +385,16 @@ def check_ssd(torch, gen):
             f"FMA rate {o_ms:.4f} ms, {o_by}); {b * h * -(-p // 32)} blocks")
         return k_ms, p_ms, b_ms, b_by
 
-    ins = inputs[PROMPT]
+    ins = inputs[PROMPT, 64]
     k_ms, p_ms, b_ms, b_by = timed_shape(ins)
     w_ms = time_ms(lambda: ops.ssd_scan(*ins, 128))
     log(f"  ssd at the prefill shape through the wrapper: {w_ms:.4f} ms")
-    lk_ms, lp_ms, lb_ms, lb_by = timed_shape(inputs[LONG_PROMPT])
+    lk_ms, lp_ms, lb_ms, lb_by = timed_shape(inputs[LONG_PROMPT, 64])
+    zins = inputs[PROMPT, 112]
+    zk_ms, zp_ms, zb_ms, zb_by = timed_shape(zins)
+    zw_ms = time_ms(lambda: ops.ssd_scan(*zins, 128))
+    log(f"  ssd at zamba2's prefill shape through the wrapper: {zw_ms:.4f} "
+        f"ms")
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:32",
@@ -354,7 +403,11 @@ def check_ssd(torch, gen):
             "long_prompt": {"B, S, H, P, N": [1, LONG_PROMPT, 64, 64, 128],
                             "ms": lk_ms, "plain_ms": lp_ms,
                             "bound_ms": lb_ms, "bound_by": lb_by,
-                            "library_ms": None}}
+                            "library_ms": None},
+            "zamba2_prefill": {"B, S, H, P, N": [BATCH, PROMPT, 112, 64, 64],
+                               "ms": zk_ms, "wrapper_ms": zw_ms,
+                               "plain_ms": zp_ms, "bound_ms": zb_ms,
+                               "bound_by": zb_by, "library_ms": None}}
 
 
 # ---------------------------------------------------------------------------
@@ -362,20 +415,176 @@ def check_ssd(torch, gen):
 # ---------------------------------------------------------------------------
 
 def expected_launches(cfg, n_stages, path):
-    """Launches of every kernel in one counted run: the sequence mixer once
-    per layer per prefill (a run with a kill prefills again in its
-    replay), the wire kernels once per stage boundary per pass on the int8
-    wire (a replay repeats the prefill and the decode steps before the
+    """Launches of every kernel in one counted run: per prefill, flash
+    attention once per attention layer (granite's 40 layers, zamba2's 14
+    call sites of its shared block) and the SSD scan once per mamba layer
+    (a run with a kill prefills again in its replay; the stream run once
+    per request), the wire kernels once per stage boundary per pass on the
+    int8 wire (a replay repeats the prefill and the decode steps before the
     kill)."""
     from repro_torch import kernels
+    from repro_torch.models.model import hybrid_apps
     want = dict.fromkeys(kernels.WRAPPERS, 0)
     kill = path.endswith("_kill")
-    mixer = "ssd" if cfg.family == "ssm" else "flash_attention"
-    want[mixer] = cfg.n_layers * (2 if kill else 1)
+    prefills = len(STREAM) if path == "stream" else 2 if kill else 1
+    if cfg.family == "dense":
+        want["flash_attention"] = cfg.n_layers * prefills
+    else:
+        want["ssd"] = cfg.n_layers * prefills
+        want["flash_attention"] = (hybrid_apps(cfg, 0, cfg.n_layers)[1]
+                                   * prefills)
     if "int8" in path:
         passes = GEN + (1 + KILL["after_step"] if kill else 0)
         want["quantize"] = want["dequantize"] = (n_stages - 1) * passes
     return want
+
+
+def stream_schedule(requests, slots):
+    """Slot -> request id at each batched decode step, as
+    ``SlotScheduler.run`` admits (arrival order, lowest free slot) and
+    evicts."""
+    free, active, nxt, maps = list(range(slots)), {}, 0, []
+    while nxt < len(requests) or active:
+        while free and nxt < len(requests):
+            r = requests[nxt]
+            nxt += 1
+            slot = free.pop(0)
+            if r.gen_len > 1:
+                active[slot] = [r, 1]
+            else:
+                free.append(slot)
+                free.sort()
+        if not active:
+            continue
+        maps.append({slot: st[0].rid for slot, st in active.items()})
+        for slot in list(active):
+            active[slot][1] += 1
+            if active[slot][1] >= active[slot][0].gen_len:
+                del active[slot]
+                free.append(slot)
+        free.sort()
+    return maps
+
+
+def stream_phase(torch, cfg, params, timed, counted):
+    """Continuous batching: STREAM requests over SLOTS slots, each stream
+    held against the same request served alone, teacher-forced on the
+    stream's own tokens: the solo run's logits at every step against the
+    stream's (recorded as the scheduler's decode steps return them) within
+    STREAM_TOL (1 + |solo|) — or, for a model whose bf16 solo run is itself
+    further than STREAM_TOL from the same run in float32 (its bf16 rounding
+    noise), the stream no further from the float32 run than twice the solo
+    run is.  Tokens: the stream's equal to the solo argmax wherever the
+    solo top-1/top-2 gap is above twice the logits' difference (a flip
+    needs less), and to the per-request reference loop's up to the first
+    step whose gap is not above the larger of that and STREAM_TOL.  Every
+    flip is logged with its gap."""
+    import numpy as np
+    from repro_torch._tree import tree_map
+    from repro_torch.models import decode_step, init_serve_cache, prefill
+    from repro_torch.serve import scheduler
+    from repro_torch.serve.engine import ServeEngine, make_batch
+
+    eng = ServeEngine(cfg, params, max_len=PROMPT + GEN, kv_block=32)
+    sched = scheduler.SlotScheduler(eng, SLOTS)
+    reqs = [scheduler.Request(i, make_batch(cfg, 1, pl, seed=1000 + i)[
+        "tokens"], gl) for i, (pl, gl) in enumerate(STREAM)]
+    sched.run(reqs[:1])                                   # warm-up
+    (streams, stats), wall = timed(lambda: counted(
+        "stream", lambda: sched.run(reqs)))
+    n_tok = sum(len(t) for t in streams)
+    (ref_streams, _), ref_wall = timed(lambda: sched.run(
+        reqs, engine="reference"))
+    log(f"  stream of {len(reqs)} requests (prompt, gen) {STREAM} over "
+        f"{SLOTS} slots: {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
+        f"tok/s), {stats['decode_steps']} decode steps, slot utilisation "
+        f"{stats['slot_utilization']:.3f}; the requests served alone "
+        f"(reference loop) {ref_wall:.3f}s ({n_tok / ref_wall:.1f} tok/s)")
+
+    # the same run again, recording each batched step's logits
+    recorded, decode = [], scheduler.decode_step
+
+    def recording(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        recorded.append(logits[:, 0])
+        return logits, cache
+
+    scheduler.decode_step = recording
+    try:
+        again, _ = sched.run(reqs)
+    finally:
+        scheduler.decode_step = decode
+    maps = stream_schedule(reqs, SLOTS)
+    if len(maps) != stats["decode_steps"] or len(recorded) != len(maps) \
+            or any((a != b).any() for a, b in zip(again, streams)):
+        raise SystemExit("the stream's schedule or tokens changed between "
+                         "two runs")
+
+    @torch.inference_mode()
+    def solo_run(cfg_, params_, r, toks):
+        """One request alone, fed the stream's tokens: (gen_len, V)."""
+        cache = init_serve_cache(cfg_, 1, eng.max_len, device="cuda")
+        logits, cache = prefill(cfg_, params_, {"tokens": torch.as_tensor(
+            r.tokens, device="cuda")}, cache)
+        out = [logits[0, 0].float()]
+        for j in range(1, r.gen_len):
+            fed = torch.tensor([[int(toks[j - 1])]], dtype=torch.int32,
+                               device="cuda")
+            logits, cache = decode_step(cfg_, params_, fed, cache)
+            out.append(logits[0, 0].float())
+        return torch.stack(out)
+
+    cfg32 = cfg.replace(param_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    worst = {"stream-solo": 0.0, "solo-f32": 0.0, "stream-f32": 0.0}
+    bad, n_flips = [], 0
+    for r, toks, ref in zip(reqs, streams, ref_streams):
+        steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
+                             for slot, rid in m.items() if rid == r.rid])
+        solo = solo_run(cfg, params, r, toks)
+        exact = solo_run(cfg32, params32, r, toks)[1:]
+        d = (steps - solo[1:]).abs().max().item()
+        e = (solo[1:] - exact).abs().max().item()
+        s = (steps - exact).abs().max().item()
+        for k, v in zip(worst, (d, e, s)):
+            worst[k] = max(worst[k], v)
+        within = bool(((steps - solo[1:]).abs()
+                       <= STREAM_TOL * (1 + solo[1:].abs())).all())
+        if not (within or (e > STREAM_TOL and s <= 2 * e)):
+            bad.append(f"request {r.rid}: stream off solo by {d:.4g}, "
+                       f"solo off float32 by {e:.4g}, stream off float32 "
+                       f"by {s:.4g}")
+        top2 = solo.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        argmax = solo.argmax(-1).cpu().numpy()
+        for j in np.nonzero(toks != argmax)[0]:
+            n_flips += 1
+            log(f"    flip: request {r.rid} step {j}: stream token "
+                f"{toks[j]}, solo {argmax[j]}, solo top-1/top-2 gap "
+                f"{gap[j]:.4g} (logits differ by up to {d:.4g})")
+            if gap[j] > 2 * d:
+                bad.append(f"request {r.rid} step {j} flipped at gap "
+                           f"{gap[j]:.4g} > 2 x {d:.4g}")
+        low = np.nonzero(gap <= max(STREAM_TOL, 2 * d))[0]
+        upto = low[0] if len(low) else r.gen_len
+        if (toks[:upto] != ref[:upto]).any():
+            bad.append(f"request {r.rid}: differs from the reference loop "
+                       f"before step {upto}")
+    del params32
+    log(f"  stream vs each request alone (teacher-forced, max over the "
+        f"requests): |stream - solo| {worst['stream-solo']:.4g} (tol "
+        f"{STREAM_TOL:g} (1 + |solo|)); the float32 run's distance from the "
+        f"solo run {worst['solo-f32']:.4g} and from the stream "
+        f"{worst['stream-f32']:.4g}; {n_flips} token flip(s)")
+    if bad:
+        raise SystemExit(f"[{cfg.name}/stream] " + "; ".join(bad))
+    return {"wall_s": wall, "reference_wall_s": ref_wall, "tokens": n_tok,
+            "decode_steps": stats["decode_steps"],
+            "slot_utilization": stats["slot_utilization"],
+            "max_logit_diff": worst["stream-solo"],
+            "solo_vs_float32": worst["solo-f32"],
+            "stream_vs_float32": worst["stream-f32"], "flips": n_flips}
+
 
 def main_path(torch, tmp, cfg):
     from repro_torch import kernels
@@ -384,6 +593,7 @@ def main_path(torch, tmp, cfg):
                                   random_geometric_cluster)
     from repro_torch.models import init_params
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import hybrid_apps
     from repro_torch.serve.engine import ServeEngine, make_batch
     from repro_torch.serve.pipeline import PipelineServeEngine
 
@@ -398,12 +608,14 @@ def main_path(torch, tmp, cfg):
     gen.manual_seed(0)
     params, dt = timed(lambda: init_params(cfg, gen, device="cuda"))
     n_par = sum(t.numel() for t in tree_leaves(params))
-    if cfg.family == "ssm":
-        mixer = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
-                 f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
-    else:
-        mixer = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
-                 f"{cfg.d_ff}")
+    ssm = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    attn = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}")
+    mixer = {"dense": attn, "ssm": ssm,
+             "hybrid": f"{ssm}; one shared block of {attn} at "
+                       f"{hybrid_apps(cfg, 0, cfg.n_layers)[1]} call sites, "
+                       f"every {cfg.hybrid_attn_every} layers"}[cfg.family]
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{mixer}, vocab {cfg.vocab}: {n_par / 1e9:.3f} B params "
         f"({2 * n_par / 1e9:.2f} GB bf16) initialised in {dt:.1f}s")
@@ -425,6 +637,15 @@ def main_path(torch, tmp, cfg):
     log(f"  stage block ranges: {ranges}")
     if len(ranges) != 4:
         raise SystemExit(f"planner gave {len(ranges)} stages, expected 4")
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        sites = [[i for i in range(lo, hi) if i % every == 0]
+                 for lo, hi in ranges]
+        log(f"  shared-block call sites by stage (each such stage holds "
+            f"its own copy of the block): {sites}")
+        if sum(1 for x in sites if x) < 2:
+            raise SystemExit("fewer than two stages hold a call site of the "
+                             "shared block")
 
     batch = make_batch(cfg, BATCH, PROMPT, seed=0)
     max_len = PROMPT + GEN
@@ -509,12 +730,13 @@ def main_path(torch, tmp, cfg):
         raise SystemExit("the int8-wire kill logged no restore")
     del i8
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
+    stream = stream_phase(torch, cfg, params, timed, counted)
     for path, got in by_path.items():
         want = expected_launches(cfg, len(ranges), path)
         if got != want:
             raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
                              f"expected {want}")
-    return by_path
+    return by_path, stream
 
 
 def main() -> int:
@@ -553,13 +775,16 @@ def main() -> int:
                check_ssd(torch, gen)]
 
     log("== 4. main paths at full width")
-    by_path = {}
+    by_path, streams = {}, {}
     for arch in ARCHS:
         log(f"-- {arch}")
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-            for path, got in main_path(torch, tmp,
-                                       get_config(arch, "full")).items():
-                by_path[f"{arch}/{path}"] = got
+            counts, streams[arch] = main_path(torch, tmp,
+                                              get_config(arch, "full"))
+        for path, got in counts.items():
+            by_path[f"{arch}/{path}"] = got
+        gc.collect()                  # this model's weights and caches
+        torch.cuda.empty_cache()
     for r in records:
         r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
                             for a in ARCHS)
@@ -567,9 +792,10 @@ def main() -> int:
     log(f"== done in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms",
+            "long_prompt", "zamba2_prefill")   # flash's and the SSD scan's
+    log(json.dumps({"streams": streams}))
     print(smi)
-    keys += ("long_prompt",)        # flash's and the SSD scan's second shape
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

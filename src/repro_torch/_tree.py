@@ -3,11 +3,13 @@
 from __future__ import annotations
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict, same structure."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested dict (and the matching
+    leaves of ``rest``, trees of the same structure), same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):

@@ -1,10 +1,10 @@
-"""Architecture configs of the port (the dense and SSM gate models so far)."""
+"""Architecture configs of the port (the dense, SSM and hybrid gate models)."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["granite-3-2b", "mamba2-1.3b"]
+ARCH_IDS = ["granite-3-2b", "mamba2-1.3b", "zamba2-7b"]
 
 
 def get_config(arch_id: str, preset: str = "full"):

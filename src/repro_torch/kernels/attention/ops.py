@@ -21,7 +21,7 @@ import torch
 from .. import _build
 from .ref import flash_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

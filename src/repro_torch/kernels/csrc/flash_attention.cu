@@ -45,7 +45,11 @@
 //     tile the q heads of one kv head are neighbours, so their k/v tiles
 //     are read from L2;
 //   * hd is a template over 16, 32, 64 and 128; hd = 8 runs as 16 with the
-//     upper half zero-filled in shared memory, which is exact;
+//     upper half zero-filled in shared memory, and hd = 112 (zamba2's
+//     shared attention) as 128 with its last two 16-byte chunks
+//     zero-filled, which is exact: the zero columns add nothing to QK^T,
+//     give zero output columns, and are never stored (14% more tensor-core
+//     work at 112, left for a kernel with a native 112 tile);
 //   * the output tile is staged through the block's q buffer and stored 16
 //     bytes a lane.
 // `mma.sync` rather than `wgmma` with a TMA ring: at the prefill shape the
@@ -58,7 +62,8 @@
 // Its body is the first port's: two threads share a query row of a
 // 128-query tile, each holding half of q and of the accumulator in
 // registers, and 64-key tiles of k and v are staged in shared memory as
-// float32; it takes the same strided layout and ragged S as the bf16 path.
+// float32; it takes the same strided layout and ragged S as the bf16 path,
+// and is instantiated at every head dim it takes, 112 included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +117,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Rows [0, 64) of a tile whose row 0 is `base`: cp.async of each 16-byte
 // chunk, zero for rows at or past `rows` and chunks at or past `creal`
-// (hd = 8 in a 16-wide tile).
+// (hd = 8 in a 16-wide tile, hd = 112 in a 128-wide one).
 template <int HD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* base,
@@ -471,6 +476,7 @@ extern "C" int flash_attention_launch(
       case 16: return run_mma<16>(a, st);
       case 32: return run_mma<32>(a, st);
       case 64: return run_mma<64>(a, st);
+      case 112:                   // zero-padded to 128 in shared memory
       case 128: return run_mma<128>(a, st);
     }
   } else if (dtype == 0) {
@@ -479,6 +485,7 @@ extern "C" int flash_attention_launch(
       case 16: return run_f32<16>(a, st);
       case 32: return run_f32<32>(a, st);
       case 64: return run_f32<64>(a, st);
+      case 112: return run_f32<112>(a, st);
       case 128: return run_f32<128>(a, st);
     }
   }

@@ -3,11 +3,14 @@
 Prefill + greedy decode of a batch of synthetic requests through the
 monolithic ``ServeEngine``, or with ``--cuts C1,C2,...`` through the
 sequential ``PipelineServeEngine`` over those block cuts (``--wire-bits 8``
-sends stage boundaries as rowwise int8).  Runs on the card unless
-``--device cpu``.
+sends stage boundaries as rowwise int8).  ``--stream N`` serves N
+requests (each ``--prompt-len`` tokens long, ``--gen-len`` tokens to
+generate) through the continuous-batching ``SlotScheduler`` over
+``--batch`` slots instead of one synchronized batch.  Runs on the card
+unless ``--device cpu``.
 
-The flags are those of ``repro/launch/serve.py``'s monolithic and
-``--cuts`` paths, plus two: ``--wire-bits``, since the reference launcher
+The flags are those of ``repro/launch/serve.py``'s monolithic, ``--stream``
+and ``--cuts`` paths, plus two: ``--wire-bits``, since the reference launcher
 never reaches the int8 wire that the served pipeline sends (the paper's
 lambda compression), and ``--profile``, which traces one prefill-only run
 and one full run with ``torch.profiler`` and prints the device busy time,
@@ -54,6 +57,10 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--engine", default="fast",
                     choices=["fast", "reference"])
+    ap.add_argument("--stream", type=int, default=0, metavar="N",
+                    help="serve N staggered requests via continuous "
+                         "batching over --batch slots instead of one "
+                         "synchronized batch")
     ap.add_argument("--cuts", default="", metavar="C1,C2",
                     help="serve through PipelineServeEngine over these "
                          "block cuts (e.g. 10,20,30)")
@@ -68,6 +75,9 @@ def main(argv=None):
                          "a full run with torch.profiler and print device "
                          "busy time, kernel launches and the top kernels")
     args = ap.parse_args(argv)
+    if args.stream and args.cuts:
+        ap.error("--stream serves through the monolithic engine; continuous "
+                 "batching across --cuts stages is not ported yet")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)
@@ -75,8 +85,29 @@ def main(argv=None):
     rng.manual_seed(0)
     params = init_params(cfg, rng, device=device)
     b, pl, gl = args.batch, args.prompt_len, args.gen_len
-    batch = make_batch(cfg, b, pl, seed=0)
 
+    if args.stream:
+        from repro_torch.serve.scheduler import Request, SlotScheduler
+        eng = ServeEngine(cfg, params, max_len=pl + gl, kv_block=32)
+        sched = SlotScheduler(eng, slots=b)
+        reqs = [Request(i, make_batch(cfg, 1, pl, seed=1000 + i)["tokens"],
+                        gl) for i in range(args.stream)]
+        def run():
+            return sched.run(reqs, engine=args.engine)
+        _, warm_s = _timed(run, device)
+        (streams, stats), dt = _timed(run, device)
+        total = sum(len(t) for t in streams)
+        print(f"[serve/stream-{args.engine}] {cfg.name} on {device}: "
+              f"{args.stream} requests x {gl} tokens over {b} slots: "
+              f"{total} tokens in {dt:.3f}s ({total / dt:.1f} tok/s; "
+              f"{stats['decode_steps']} decode steps, slot utilisation "
+              f"{stats['slot_utilization']:.1%}; warm-up {warm_s:.2f}s, "
+              f"excluded); sample: {streams[0][:8].tolist()}")
+        if args.profile:
+            _profile(f"stream-{args.engine}", run, device)
+        return streams
+
+    batch = make_batch(cfg, b, pl, seed=0)
     if args.cuts:
         from repro_torch.core.stageplan import from_block_cuts
         from repro_torch.serve.pipeline import PipelineServeEngine

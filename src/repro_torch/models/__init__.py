@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense and pure SSM families so far), mirroring
+"""Model zoo of the port (dense, pure SSM and hybrid families), mirroring
 ``repro.models``."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig

@@ -1,12 +1,15 @@
 """Models of the port: params, forward, and serving steps.
 
-Counterpart of ``repro/models/model.py`` for the dense family and the pure
-SSM family (mamba2); the hybrid (zamba2) and the other families are not
-ported yet and raise.  Params keep the reference's tree layout, with the
-blocks stacked on a leading layer axis (``blocks/attn/wq`` is (L, D, H*hd),
-``blocks/in_proj`` (L, D, ...)), so ``models.bridge`` and the checkpoint
-map leaf for leaf.  The layer loop is a Python loop over views of the
-stacked tensors, and the serving cache is updated in place.
+Counterpart of ``repro/models/model.py`` for the dense family, the pure
+SSM family (mamba2) and the hybrid family (zamba2: mamba2 blocks with one
+weight-shared attention+MLP block applied before every
+``hybrid_attn_every``-th of them); the other families are not ported yet
+and raise.  Params keep the reference's tree layout, with the blocks
+stacked on a leading layer axis (``blocks/attn/wq`` is (L, D, H*hd),
+``blocks/in_proj`` (L, D, ...)) and the hybrid's ``shared_attn`` unstacked,
+so ``models.bridge`` and the checkpoint map leaf for leaf.  The layer loop
+is a Python loop over views of the stacked tensors, and the serving cache
+is updated in place.
 
   init_params(cfg, generator, device=)             -> params
   forward(cfg, params, batch)                      -> (logits, (h, aux))
@@ -27,7 +30,7 @@ from .layers import (attention, dtype_of, init_attention, init_cache,
                      init_mlp, mlp, ninit, rms_norm)
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -66,18 +69,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
+    def dense_blocks(n_blocks):
+        return {"ln1": ones(n_blocks, d),
+                "attn": init_attention(gen, cfg, n_blocks),
+                "ln2": ones(n_blocks, d),
+                "mlp": init_mlp(gen, cfg, n_blocks)}
+
     p = {"embed": ninit(gen, (cfg.vocab, d), dt), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = ninit(gen, (d, cfg.vocab), dt, fan_in=d)
-    if fam == "ssm":
-        p["blocks"] = init_mamba_block(gen, cfg, n)
+    if fam == "dense":
+        p["blocks"] = dense_blocks(n)
     else:
-        p["blocks"] = {
-            "ln1": ones(n, d),
-            "attn": init_attention(gen, cfg, n),
-            "ln2": ones(n, d),
-            "mlp": init_mlp(gen, cfg, n),
-        }
+        p["blocks"] = init_mamba_block(gen, cfg, n)
+    if fam == "hybrid":
+        # one block, unstacked (the reference's init_dense_block)
+        p["shared_attn"] = layer_view(dense_blocks(1), 0)
     return p
 
 
@@ -114,12 +121,29 @@ def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
     return h, cache
 
 
-def _ssm_apply(cfg, params, h, cache=None):
+def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
+               layer_offset=0, app_offset=0):
     """The stacked mamba blocks of ``params`` over ``h`` (pre-norm,
-    residual); ``cache`` (``{"mamba": ...}``, stacked like the blocks) is
-    updated in place.  Returns (h, cache)."""
+    residual); ``cache`` (``{"mamba": ...}``, stacked like the blocks, and
+    for the hybrid ``"shared"``, stacked by call site) is updated in place.
+    Returns (h, cache).
+
+    Hybrid: before block ``idx = layer_offset + i`` with ``idx % every ==
+    0``, the shared attention block runs with the cache of call site ``idx
+    // every - app_offset`` (a pipeline stage passes its first block and
+    the call sites before it; the defaults are the whole model).  A tree
+    without ``shared_attn`` (a stage with no call site) is a pure-ssm
+    run."""
     blocks = params["blocks"]
+    shared = params.get("shared_attn")
+    every = cfg.hybrid_attn_every if shared is not None else 0
     for i in range(blocks["pre_norm"].shape[0]):
+        idx = layer_offset + i
+        if every and idx % every == 0:
+            sc = (None if cache is None
+                  else layer_view(cache["shared"], idx // every - app_offset))
+            h = apply_dense_block(shared, h, cfg, positions, cache=sc,
+                                  kv_bucket=kv_bucket)
         c = None if cache is None else layer_view(cache["mamba"], i)
         bp = layer_view(blocks, i)
         h = h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps),
@@ -127,12 +151,15 @@ def _ssm_apply(cfg, params, h, cache=None):
     return h, cache
 
 
-def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None):
-    """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds dense
-    decode attention; the SSM family has no attention and ignores it."""
-    if family(cfg) == "ssm":
-        return _ssm_apply(cfg, params, h, cache)
-    return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
+              layer_offset=0, app_offset=0):
+    """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds decode
+    attention (dense, and the hybrid's shared block); the offsets place a
+    stage's blocks in the hybrid's call-site order (``_ssm_apply``)."""
+    if family(cfg) == "dense":
+        return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+    return _ssm_apply(cfg, params, h, positions, cache, kv_bucket,
+                      layer_offset, app_offset)
 
 
 def _positions(b, s, device):
@@ -154,16 +181,34 @@ def init_serve_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                      device=None):
     """An empty decode cache (zeros); prefill fills it in place.  The SSM
     cache has a fixed size: ``max_len`` only bounds attention caches."""
-    return _init_cache(cfg, cfg.n_layers, batch_size, max_len,
+    return _init_cache(cfg, 0, cfg.n_layers, batch_size, max_len,
                        resolve_device(device))
 
 
-def _init_cache(cfg, n_layers, batch_size, max_len, device):
-    """The family's empty cache for ``n_layers`` stacked blocks."""
-    if family(cfg) == "ssm":
-        return {"mamba": init_mamba_cache(cfg, n_layers, batch_size,
-                                          device=device)}
-    return init_cache(cfg, n_layers, batch_size, max_len, device=device)
+def hybrid_apps(cfg: ModelConfig, lo: int, hi: int) -> tuple[int, int]:
+    """(call sites before ``lo``, call sites inside ``[lo, hi)``) of the
+    hybrid's shared attention block; (0, 0) without one."""
+    every = cfg.hybrid_attn_every
+    if not every:
+        return 0, 0
+    before = -(-lo // every)
+    return before, -(-hi // every) - before
+
+
+def _init_cache(cfg, lo, hi, batch_size, max_len, device):
+    """The family's empty cache for blocks ``[lo, hi)``: the hybrid's
+    ``shared`` holds one attention cache per call site inside the range,
+    and is left out where there is none."""
+    n_layers = hi - lo
+    if family(cfg) == "dense":
+        return init_cache(cfg, n_layers, batch_size, max_len, device=device)
+    out = {"mamba": init_mamba_cache(cfg, n_layers, batch_size,
+                                     device=device)}
+    apps = hybrid_apps(cfg, lo, hi)[1]
+    if apps:
+        out["shared"] = init_cache(cfg, apps, batch_size, max_len,
+                                   device=device)
+    return out
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -183,7 +228,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
 
     kv_bucket: attention reads only rows [0, kv_bucket) of the cache;
     callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows.
-    The SSM family ignores it."""
+    The pure SSM family has no attention and ignores it."""
     b = tokens.shape[0]
     h = embed_tokens(params, cfg, tokens)
     positions = _cache_len(cfg, cache)[:, None].expand(b, 1)
@@ -194,6 +239,6 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
 def _cache_len(cfg, cache):
     """Current per-row sequence length (layer 0's counter), as a copy: the
     layers advance the counters in place."""
-    if family(cfg) == "ssm":
-        return cache["mamba"]["len"][0].clone()
-    return cache["len"][0].clone()
+    if family(cfg) == "dense":
+        return cache["len"][0].clone()
+    return cache["mamba"]["len"][0].clone()

@@ -1,11 +1,16 @@
 """Per-stage views of the model (the model half of pipelined serving).
 
-Counterpart of ``repro/models/staging.py`` for the dense and pure SSM
-families, which both take any cut between blocks.  A pipeline stage owns a
-contiguous block range ``[lo, hi)``, plus the embedding when it is the
-first stage and the final norm and LM head when it is the last.  A chain of
-stages runs the same op sequence as the monolithic model, so greedy tokens
-through a raw wire are bit-identical to ``ServeEngine``'s.
+Counterpart of ``repro/models/staging.py`` for the dense, pure SSM and
+hybrid families, which all take any cut between blocks.  A pipeline stage
+owns a contiguous block range ``[lo, hi)``, plus the embedding when it is
+the first stage and the final norm and LM head when it is the last.  A
+chain of stages runs the same op sequence as the monolithic model, so
+greedy tokens through a raw wire are bit-identical to ``ServeEngine``'s.
+
+Hybrid (zamba2): the shared attention params ride along into *every* stage
+that holds a call site of them (a cut between call sites duplicates the
+shared weights, as the partitioner's omega charges them), and the shared
+kv cache is sliced per stage by call-site index.
 """
 
 from __future__ import annotations
@@ -14,12 +19,12 @@ from repro_torch._tree import tree_map
 
 from .config import ModelConfig
 from .model import (_backbone, _cache_len, _init_cache, embed_tokens, family,
-                    lm_logits)
+                    hybrid_apps as _hybrid_apps, lm_logits)
 
 
 def stage_granularity(cfg: ModelConfig) -> int:
-    """Smallest block count a stage boundary must align to (1: dense and
-    ssm)."""
+    """Smallest block count a stage boundary must align to (1: dense, ssm
+    and hybrid)."""
     family(cfg)
     return 1
 
@@ -38,9 +43,12 @@ def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
     """The param subtree stage ``[lo, hi)`` needs — and nothing else.
 
     Leaves are views of ``params`` (no copy).  A tied embedding goes to the
-    last stage as well (its head reads it)."""
+    last stage as well (its head reads it), and the hybrid's shared block
+    to every stage with a call site in ``[lo, hi)``."""
     stage_granularity(cfg)
     sp = {"blocks": tree_map(lambda a: a[lo:hi], params["blocks"])}
+    if _hybrid_apps(cfg, lo, hi)[1]:
+        sp["shared_attn"] = params["shared_attn"]
     if first:
         sp["embed"] = params["embed"]
     if last:
@@ -55,10 +63,10 @@ def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
 def init_stage_cache(cfg: ModelConfig, lo: int, hi: int, batch_size: int,
                      max_len: int, *, device):
     """Empty decode cache for blocks ``[lo, hi)`` (``{}`` for a block-free
-    stage)."""
+    stage; the hybrid's ``shared`` sized to the call sites inside)."""
     if lo == hi:
         return {}
-    return _init_cache(cfg, hi - lo, batch_size, max_len, device)
+    return _init_cache(cfg, lo, hi, batch_size, max_len, device)
 
 
 def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
@@ -67,7 +75,8 @@ def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
     same op sequence the monolithic model runs over those blocks."""
     if lo == hi:
         return h, cache
-    return _backbone(cfg, sparams, h, positions, cache, kv_bucket)
+    return _backbone(cfg, sparams, h, positions, cache, kv_bucket,
+                     layer_offset=lo, app_offset=_hybrid_apps(cfg, lo, hi)[0])
 
 
 def stage_cache_len(cfg: ModelConfig, cache):

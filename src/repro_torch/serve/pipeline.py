@@ -16,7 +16,10 @@ int8 wire is lossy, so there the contract is that a run with a kill gives
 the same tokens as the same run without it.
 
 **Fault tolerance.**  At construction every stage's param subtree is
-checkpointed (``repro_torch.checkpoint``, the NFS analogue).
+checkpointed (``repro_torch.checkpoint``, the NFS analogue); a hybrid
+stage that holds a call site of the shared attention block checkpoints its
+own copy of that block, as the plan charges it, and gets it back on
+restore.
 ``kill_stage`` drops a stage's params (everything a dead node loses);
 ``restore_stage`` reads them back from the checkpoint onto a spare node —
 the best by bandwidth to the pipeline neighbours when a cluster is given —

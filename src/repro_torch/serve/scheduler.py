@@ -1,0 +1,208 @@
+"""Slot-based continuous batching over a ServeEngine.
+
+Counterpart of ``repro/serve/scheduler.py`` for the monolithic engine.  A
+fixed bank of ``slots`` batch rows shares one cache.  Requests are admitted
+into free slots in arrival order (prefill runs per request at its exact
+prompt length, so no prompt is padded), decode advances every slot in one
+batched step, and finished requests are evicted so waiting requests can
+reuse the slot.
+
+Token identity: each slot's attention sees only its own rows (per-slot
+lengths mask the kv cache, per-slot positions drive RoPE) and each slot's
+SSM state is its own, so a request decoded in a mixed batch emits the same
+greedy tokens as the same request decoded alone, as long as the device
+rounds a row's products the same way at every batch size (on the card a
+GEMM may be picked by its row count; ``chip_smoke.py`` measures it).
+
+Inactive slots keep stepping with garbage rows (the batch shape is fixed);
+their outputs are never recorded and their rows never influence other
+slots.  An inactive row writes its kv at its own length, so a slot that
+stays idle long enough would write past the end of the cache (the
+reference clamps that write); here its lengths go back to 0 first, which
+changes no active row.  Admission scatters a batch-1 cache into the bank
+at offset 0 along every axis but the batch axis; stale rows past the new
+request's length are masked by its length until overwritten.
+
+Like the engine, the loop never reads a device value: the schedule depends
+only on the known prompt and generation lengths, and every token comes back
+to the host once, at the end.  Continuous batching across the stages of a
+``PipelineServeEngine`` is not ported yet; ``run`` refuses one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._tree import tree_map
+from repro_torch.models import decode_step, init_serve_cache, prefill
+
+from .engine import ServeEngine
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request: prompt tokens (1, S) int + a fixed greedy
+    generation budget.  (The ported families take no per-request modal
+    inputs, so there is no ``extras``.)"""
+    rid: int
+    tokens: np.ndarray
+    gen_len: int
+
+
+def leaf_batch_axes(shapes):
+    """Per-leaf batch-axis index from a ``shapes(batch_size)`` callable
+    returning a cache tree: the one axis where a batch-1 and a batch-2
+    cache disagree."""
+    return tree_map(
+        lambda a, b: int(np.argmax(np.array(a.shape) != np.array(b.shape))),
+        shapes(1), shapes(2))
+
+
+def _insert_leaf(full, one, slot, b_ax):
+    """Scatter a single-request cache leaf into slot ``slot`` of the bank,
+    in place: ``one``'s full extent at offset 0 on every axis except the
+    batch axis (kv rows [0, S1), and per-slot state, conv buffers and
+    length counters whole)."""
+    src = one.select(b_ax, 0)
+    full.select(b_ax, slot)[tuple(slice(0, n) for n in src.shape)].copy_(
+        src)
+
+
+def _zero_lens(cache, axes, slot):
+    """Every length counter of slot ``slot`` back to 0, in place."""
+    for key, leaf in cache.items():
+        if isinstance(leaf, dict):
+            _zero_lens(leaf, axes[key], slot)
+        elif key == "len":
+            leaf.select(axes[key], slot).zero_()
+
+
+class SlotScheduler:
+    """Continuous batching: admit/evict requests into ``slots`` cache rows
+    of a monolithic ``ServeEngine``."""
+
+    def __init__(self, engine, slots: int):
+        self.engine = engine
+        self.slots = int(slots)
+        self._batch_axes = None
+
+    def _leaf_batch_axes(self):
+        cfg, ml = self.engine.cfg, self.engine.max_len
+        return leaf_batch_axes(
+            lambda b: init_serve_cache(cfg, b, ml, device="meta"))
+
+    def _admit(self, tokens, cache, slot_tokens, slot):
+        """Prefill one request into a batch-1 cache of its prompt length,
+        scatter it into ``slot`` of the bank, and put its first token in
+        ``slot_tokens`` (a new tensor: the old one holds a recorded step).
+        Returns (first token (1, 1), slot_tokens)."""
+        eng = self.engine
+        c1 = init_serve_cache(eng.cfg, 1, tokens.shape[1], device=eng.device)
+        logits, c1 = prefill(eng.cfg, eng.params, {"tokens": tokens}, c1)
+        tok = logits.argmax(-1).int()
+        tree_map(lambda full, one, ax: _insert_leaf(full, one, slot, ax),
+                 cache, c1, self._batch_axes)
+        slot_tokens = slot_tokens.clone()
+        slot_tokens[slot] = tok[0]
+        return tok, slot_tokens
+
+    @torch.inference_mode()
+    def run(self, requests: list[Request], engine: str = "fast"):
+        """Serve ``requests`` to completion; returns (streams, stats) with
+        streams[i] the i-th request's np int32 greedy tokens (gen_len,).
+
+        ``engine="reference"`` serves each request alone through
+        ``ServeEngine.generate(..., engine="reference")``: the oracle the
+        slot path must match."""
+        eng = self.engine
+        if not isinstance(eng, ServeEngine):
+            raise NotImplementedError(
+                "SlotScheduler over a pipeline engine is not ported yet; "
+                "give it a ServeEngine")
+        if engine not in ("fast", "reference"):
+            raise ValueError(engine)
+        if not requests:
+            return [], {"wall_s": 0.0, "decode_steps": 0,
+                        "slot_utilization": 0.0}
+        for r in requests:
+            eng._check_fit(r.tokens.shape[1], r.gen_len)
+
+        if engine == "reference":
+            t0 = time.perf_counter()
+            streams = [eng.generate({"tokens": r.tokens}, r.gen_len,
+                                    engine="reference")[0]
+                       for r in requests]
+            stats = {"wall_s": time.perf_counter() - t0, "decode_steps": 0,
+                     "slot_utilization": 1.0}
+            return streams, stats
+
+        cfg, B = eng.cfg, self.slots
+        if self._batch_axes is None:
+            self._batch_axes = self._leaf_batch_axes()
+        cache = init_serve_cache(cfg, B, eng.max_len, device=eng.device)
+        slot_tokens = torch.zeros((B, 1), dtype=torch.int32,
+                                  device=eng.device)
+
+        t0 = time.perf_counter()
+        next_idx = 0
+        active: dict[int, list] = {}          # slot -> [request, n_emitted]
+        free = list(range(B))
+        slot_len = np.zeros(B, np.int64)      # host mirror of cache lens
+        first_tok: dict[int, torch.Tensor] = {}  # rid -> (1, 1) token
+        step_toks: list[torch.Tensor] = []    # per-step (B, 1) tokens
+        step_maps: list[dict[int, int]] = []  # per-step slot -> rid
+        n_steps = busy = 0
+        while next_idx < len(requests) or active:
+            while free and next_idx < len(requests):
+                r = requests[next_idx]
+                next_idx += 1
+                slot = free.pop(0)
+                tokens = torch.tensor(r.tokens, device=eng.device)
+                first_tok[r.rid], slot_tokens = self._admit(
+                    tokens, cache, slot_tokens, slot)
+                slot_len[slot] = r.tokens.shape[1]
+                if r.gen_len > 1:
+                    active[slot] = [r, 1]
+                else:
+                    free.append(slot)
+                    free.sort()
+            if not active:
+                continue
+            for slot in range(B):     # an idle row about to write past the end
+                if slot not in active and slot_len[slot] >= eng.max_len:
+                    _zero_lens(cache, self._batch_axes, slot)
+                    slot_len[slot] = 0
+            bucket = eng.bucket_for(
+                int(max(slot_len[s] for s in active)) + 1)
+            logits, cache = decode_step(cfg, eng.params, slot_tokens, cache,
+                                        kv_bucket=bucket)
+            slot_tokens = logits.argmax(-1).int()
+            slot_len += 1                  # every row writes, active or not
+            n_steps += 1
+            busy += len(active)
+            step_toks.append(slot_tokens)
+            step_maps.append({s: st[0].rid for s, st in active.items()})
+            for slot in list(active):
+                active[slot][1] += 1
+                if active[slot][1] >= active[slot][0].gen_len:
+                    del active[slot]
+                    free.append(slot)
+            free.sort()
+
+        # one host read: every step's tokens and every first token at once
+        stacked = (torch.cat(step_toks, dim=1).cpu().numpy() if step_toks
+                   else np.zeros((B, 0), np.int32))
+        firsts = torch.cat([first_tok[r.rid] for r in requests]).view(-1)
+        firsts = firsts.cpu().numpy()
+        streams = {r.rid: [int(firsts[i])] for i, r in enumerate(requests)}
+        for i, m in enumerate(step_maps):
+            for slot, rid in m.items():
+                streams[rid].append(int(stacked[slot, i]))
+        stats = {"wall_s": time.perf_counter() - t0,
+                 "decode_steps": n_steps,
+                 "slot_utilization": busy / max(1, n_steps * B)}
+        return [np.asarray(streams[r.rid], np.int32) for r in requests], stats

@@ -13,7 +13,8 @@ and dequantize bit-equal; the SSD scan |kernel - plain| <= tol (1 +
 |plain|) with tol 2e-4 on float32 outputs and the float32 state and 1e-2
 on bfloat16 outputs (one bf16 rounding step is under 0.8% of the value);
 the smoke models' logits on the card within 5e-2 of the CPU's
-(teacher-forced; bf16 products rounded in other places).
+(teacher-forced; bf16 products rounded in other places), zamba2's as
+accurate as the CPU's against its float32 run (see that test).
 """
 
 import numpy as np
@@ -168,6 +169,34 @@ def test_flash_kernel_reads_views_in_place(cuda, dtype):
     flash_close(cuda, qt, k, v, causal=False)
 
 
+# zamba2's shared attention: head dim 112 (the bf16 path on the 128 tile
+# with two zero chunks, float32 instantiated at 112), full MHA (group 1)
+@pytest.mark.parametrize("b,s,h,kv,causal,valid_len", [
+    (4, 512, 32, 32, True, None), (4, 512, 32, 32, False, None),
+    (1, 300, 32, 32, True, None), (1, 130, 8, 8, False, None),
+    (4, 200, 8, 8, True, 150), (1, 256, 8, 8, False, 100),
+    (2, 256, 8, 2, True, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_112(cuda, b, s, h, kv, causal, valid_len,
+                                   dtype):
+    q = randn(cuda, 28, b, s, h, 112, dtype=dtype)
+    k, v = (randn(cuda, i, b, s, kv, 112, dtype=dtype) for i in (29, 30))
+    flash_close(cuda, q, k, v, causal, valid_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_112_reads_views_in_place(cuda, dtype):
+    """q, k and v as views of one fused (B, S, 3 H 112) projection: rows of
+    224 (bf16) or 448 bytes, read through their strides."""
+    b, s, h, hd = 2, 200, 8, 112
+    fused = randn(cuda, 31, b, s, 3 * h * hd, dtype=dtype)
+    q, k, v = (fused[..., i * h * hd:(i + 1) * h * hd].view(b, s, h, hd)
+               for i in range(3))
+    assert not q.is_contiguous()
+    flash_close(cuda, q, k, v)
+    flash_close(cuda, q, k, v, causal=False, valid_len=123)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     bf16 = torch.bfloat16
     wide = randn(cuda, 24, 1, 64, 2, 128, dtype=bf16)
@@ -260,7 +289,8 @@ def assert_ssd_close(got, want, tol):
 SSD_SHAPES = [  # (S, H, P, N, Q)
     (512, 8, 64, 128, 128), (300, 8, 64, 128, 128), (40, 8, 16, 16, 16),
     (200, 4, 64, 64, 128), (77, 3, 16, 32, 16), (130, 2, 128, 128, 128),
-    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 32, 24, 16)]
+    (200, 3, 32, 16, 128), (1, 4, 16, 16, 16), (77, 3, 32, 24, 16),
+    (300, 112, 64, 64, 128)]
 # bf16 on the tensor cores: P within, across and at the edges of the
 # kernel's 32-column blocks, large and small grids, B = 1, a long S, a
 # state of large magnitude
@@ -272,7 +302,10 @@ SSD_BF16_CASES = [  # (B, S, H, P, N, Q, dt_scale)
     (4, 130, 64, 40, 64, 128, 1.0), (4, 100, 32, 120, 72, 16, 1.0),
     (1, 512, 64, 64, 128, 128, 1.0), (1, 300, 8, 128, 128, 128, 1.0),
     (1, 2048, 8, 64, 128, 128, 1.0), (2, 2048, 4, 32, 128, 16, 1.0),
-    (2, 512, 8, 64, 128, 128, 8.0), (1, 2048, 4, 64, 128, 128, 8.0)]
+    (2, 512, 8, 64, 128, 128, 8.0), (1, 2048, 4, 64, 128, 128, 8.0),
+    # zamba2-7b: 112 heads of 64, state 64
+    (4, 512, 112, 64, 64, 128, 1.0), (1, 300, 112, 64, 64, 128, 1.0),
+    (2, 512, 112, 64, 64, 128, 8.0)]
 
 
 @pytest.mark.parametrize("b,s,h,p,n,q,dtype,dt_scale", [
@@ -316,7 +349,7 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
 PROMPT, GEN = 40, 8
 
 
-@pytest.fixture(params=["granite-3-2b", "mamba2-1.3b"])
+@pytest.fixture(params=["granite-3-2b", "mamba2-1.3b", "zamba2-7b"])
 def smoke(cuda, request):
     cfg = get_config(request.param, "smoke").replace(n_layers=4)
     gen = torch.Generator(device="cpu")
@@ -326,27 +359,41 @@ def smoke(cuda, request):
 
 
 def test_model_on_card_matches_cpu(smoke):
-    """Teacher-forced logits: prefill (the flash or SSD kernel) and 6
-    decode steps on the card against the same model on the CPU."""
+    """Teacher-forced logits: prefill (the flash or SSD kernel, or both)
+    and 6 decode steps on the card against the same model on the CPU.
+    zamba2's bf16 logits move by more than 5e-2 wherever its products round
+    differently (on the CPU its bf16 run is 0.12 off its float32 run), so
+    there the card is held to the CPU's own accuracy: no further from the
+    float32 run on the CPU than twice the CPU's bf16 run is."""
     cfg, cpu, gpu = smoke
     tokens = make_batch(cfg, 2, PROMPT, seed=1)["tokens"]
+    models = [(cfg, cpu), (cfg, gpu)]
+    if cfg.family == "hybrid":
+        models.append((cfg.replace(param_dtype="float32"),
+                       tree_map(lambda t: t.float(), cpu)))
     runs, forced = [], None             # the CPU's greedy tokens
     with torch.inference_mode():
-        for params in (cpu, gpu):
+        for mcfg, params in models:
             dev = params["embed"].device
-            cache = init_serve_cache(cfg, 2, PROMPT + GEN, device=dev)
+            cache = init_serve_cache(mcfg, 2, PROMPT + GEN, device=dev)
             logits, cache = prefill(
-                cfg, params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                mcfg, params, {"tokens": torch.as_tensor(tokens,
+                                                         device=dev)},
                 cache)
             out, fed = [logits.float().cpu()], []
             for i in range(6):
                 t = out[-1].argmax(-1) if forced is None else forced[i]
                 fed.append(t)
-                logits, cache = decode_step(cfg, params, t.int().to(dev),
+                logits, cache = decode_step(mcfg, params, t.int().to(dev),
                                             cache, kv_bucket=PROMPT + GEN)
                 out.append(logits.float().cpu())
             runs.append(out)
-            forced = fed
+            forced = forced or fed
+    if cfg.family == "hybrid":
+        on_cpu, on_card, exact = (torch.stack(r) for r in runs)
+        assert (on_card - exact).abs().max() <= \
+            2 * (on_cpu - exact).abs().max()
+        return
     for a, b in zip(*runs):
         torch.testing.assert_close(b, a, rtol=5e-2, atol=5e-2)
 
@@ -371,6 +418,7 @@ def test_pipelines_on_card(smoke):
     clean = i8.generate(batch, GEN)
     np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill), clean)
     counts = kernels.launch_counts()
-    mixer = "ssd" if cfg.family == "ssm" else "flash_attention"
-    assert {n for n, c in counts.items() if c} == {
-        mixer, "quantize", "dequantize"}, counts
+    mixers = {"dense": {"flash_attention"}, "ssm": {"ssd"},
+              "hybrid": {"flash_attention", "ssd"}}[cfg.family]
+    assert {n for n, c in counts.items() if c} == mixers | {
+        "quantize", "dequantize"}, counts

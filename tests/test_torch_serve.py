@@ -336,7 +336,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "assert 'repro_torch.launch.serve' in sys.modules\n"
+        "assert {'repro_torch.launch.serve', 'repro_torch.serve.scheduler',"
+        " 'repro_torch.configs.zamba2_7b'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

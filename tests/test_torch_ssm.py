@@ -359,13 +359,6 @@ def test_fast_and_reference_loops_agree(model):
     assert fast.shape == (3, 10) and fast.dtype == np.int32
 
 
-def test_hybrid_is_refused():
-    cfg = get_config("mamba2-1.3b", "smoke").replace(family="hybrid",
-                                                     hybrid_attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        init_params(cfg, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the port's pipeline against the port's ServeEngine, and the reference
 # ---------------------------------------------------------------------------
