@@ -15,40 +15,67 @@ Phases, in order; any failure exits non-zero before the result line:
    quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
    rowwise path), the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
-   |plain| (float32 output and the float32 state); times from CUDA events
-   beside the plain version's, the bound, and for flash the library call
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls;
-   no PyTorch call computes the SSD scan), at granite's and mamba2's
-   prefill shapes, at zamba2's (``zamba2_prefill`` in the records), and
-   flash and the SSD scan again at B=1 and a 4096-token prompt;
-4. the main paths at full width and full depth, with random bf16 weights
-   from seed 0: granite-3-2b (40 layers, d_model 2048), mamba2-1.3b (48
-   layers, d_model 2048, 64 SSM heads, state 128) and zamba2-7b (81 mamba2
+   |plain| (float32 output and the float32 state); the four row-invariant
+   decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
+   in_proj and llama3-405b's wg, ``rms_norm_rows``, ``decode_attention`` at
+   granite's, zamba2's and llama3-405b's caches, ``ssm_decode_step`` at
+   mamba2's and zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
+   |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state, each
+   row's bits the same alone and within batches of 2, 4 and 8, and
+   attention's the same over the fast loop's bucket as over the whole
+   cache (the plain versions' invariance is logged beside: the ops at
+   fault on the card); times from CUDA events beside the plain version's,
+   the bound, and the library call (a yardstick the port never calls:
+   ``F.scaled_dot_product_attention`` for flash and decode attention,
+   ``x @ w`` for ``rows_matmul``, ``F.rms_norm``; no PyTorch call computes
+   the SSD scan or the SSM step), flash and the SSD scan at granite's,
+   mamba2's and zamba2's prefill shapes and at B=1 and a 4096-token
+   prompt; the SiLU kernel of the mamba blocks bit-equal to its plain
+   version at mamba2's and zamba2's gate and conv shapes, beside
+   ``F.silu``;
+4. the main paths at full width, with random bf16 weights from seed 0:
+   granite-3-2b (40 layers, d_model 2048, tied head), mamba2-1.3b (48
+   layers, d_model 2048, 64 SSM heads, state 128), zamba2-7b (81 mamba2
    layers, d_model 3584, 112 SSM heads, state 64, and one shared
    attention+MLP block of 32 heads of 112 before every 6th layer, 14 call
-   sites), each planned by the SEIFER planner onto a 10-node edge cluster
-   into 4 stages (zamba2: each stage holds call sites and its own copy of
-   the shared block), served by the monolithic ``ServeEngine`` (fast and
-   reference loops), by the raw-wire ``PipelineServeEngine`` (bit-identical
-   tokens, also across a stage kill) and by the int8-wire one (a kill and
-   restore gives the same tokens as the run without it), and then as a
-   stream of 6 staggered requests over 4 slots of the ``SlotScheduler``,
-   each request's stream held against the same request served alone (see
-   ``stream_phase``).  The kernel launch counters are zeroed just before
-   each of these six counted runs of each model and read just after it,
-   and each run must launch exactly what it runs: per prefill, flash
-   attention once per attention layer (granite's 40, zamba2's 14 call
-   sites) and the SSD scan once per mamba layer, quantize and dequantize
-   once per stage boundary per pass in the int8-wire runs, and nothing
-   else.
+   sites), minicpm-2b (40 layers, d_model 2304, 36 heads of 64, tied head,
+   vocab 122753), deepseek-7b (30 layers, d_model 4096, 32 heads of 128)
+   and llama3-405b at full width (d_model 16384, 128 q heads over 8 kv
+   heads of 128, d_ff 53248, vocab 128256) and 4 of its 126 layers.  Each
+   is served by both ``ServeEngine`` loops, whose tokens and every step's
+   logits must be bit-identical; one decode step is traced and must run
+   only the kinds of ``STEP_KERNELS`` (the port's kernels and torch's
+   element-wise, copy, gather and indexing ones: no library GEMM, GEMV or
+   reduction); then a stream of 6 staggered
+   requests over 4 slots of the ``SlotScheduler``, each request's tokens
+   and every decode step's logits bit-identical to the same request served
+   alone (see ``stream_phase``).  The first three are also planned by the
+   SEIFER planner onto a 10-node edge cluster into 4 stages (zamba2: each
+   stage holds call sites and its own copy of the shared block) and
+   served by the raw-wire ``PipelineServeEngine`` (bit-identical tokens,
+   also across a stage kill) and by the int8-wire one (a kill and restore
+   gives the same tokens as the run without it).  The kernel launch
+   counters are zeroed just before each counted run (a model's monolithic
+   run, its four pipeline runs, its stream) and read just after it, and
+   each run must launch exactly what it runs: per prefill, flash attention
+   once per attention layer (the dense layers, zamba2's 14 call sites) and
+   the SSD scan once per mamba layer, and the final norm and head of the
+   last token; per decode step, per attention layer two ``rms_norm_rows``,
+   seven ``rows_matmul`` and one ``decode_attention``, per mamba layer two
+   ``rms_norm_rows``, two ``rows_matmul``, one ``ssm_decode_step`` and
+   two SiLU, and the final norm and head; per mamba layer of a prefill
+   two SiLU; quantize and dequantize once per stage boundary per pass in
+   the int8-wire runs; and nothing else.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
-per kernel, and ``{"ok": true, "device": {...}}``; the stream phase's
-numbers are on a JSON line before them.  A record's ``launches`` is the
-count from the runs that go through every step of a main path (planner,
-int8 wire, stage kill, restore and replay), summed over the three models;
-``launches_by_path`` holds the count from each of the eighteen runs, keyed
-``model/run``.
+per kernel, and ``{"ok": true, "device": {...}}``; the streams' and the
+serving phases' numbers are on a JSON line before them.  A record's
+``launches`` is the count from the runs that go through every step of a
+main path (planner, int8 wire, stage kill, restore and replay), summed over
+the three pipelined models; ``launches_by_path`` holds the count from each
+counted run, keyed ``model/run``.  The decode kernels replace no TPU kernel
+(the reference leaves these ops to XLA): their ``replaces`` names the
+reference's op.
 """
 
 from __future__ import annotations
@@ -72,13 +99,19 @@ HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
 LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
 KILL = {"after_step": 3, "stage": 1}
-ARCHS = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b")
+# planned and served pipelined as well as monolithic
+PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b")
+# served by both ServeEngine loops and the stream only; llama3-405b at full
+# width and a cut depth (its 126 layers are about 810 GB of bf16)
+SERVED = ("minicpm-2b", "deepseek-7b", "llama3-405b")
+ARCHS = PIPELINED + SERVED
+DEPTH = {"llama3-405b": 4}
 # the stream phase: the serve-equivalence fixture's staggered requests
 # ((8, 6), (8, 4), (12, 7), (8, 5), (12, 3), (8, 6)) at full width, as
 # (prompt, generated tokens)
 STREAM = ((256, 24), (256, 16), (384, 28), (256, 20), (512, 12), (256, 24))
 SLOTS = 4
-STREAM_TOL = 3e-2
+DEVICE = "cuda"         # the main paths' device (a rehearsal may set "cpu")
 
 
 def log(msg=""):
@@ -410,32 +443,325 @@ def check_ssd(torch, gen):
                                "bound_by": zb_by, "library_ms": None}}
 
 
+def check_silu(torch, gen):
+    """The SiLU kernel bit-equal to its plain version (the four roundings
+    of the reference's bf16 SiLU under XLA on the CPU, as four torch ops)
+    at the main paths' prefill shapes: mamba2's and zamba2's z, a slice of
+    the in_proj output read in place, and their conv outputs; times beside
+    the plain version, ``F.silu`` and the bound (one read and one write of
+    each element)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.silu import ops
+    from repro_torch.kernels.silu.ref import silu_ref
+    cases = {"mamba2_z": (4096, 8512), "mamba2_conv": (4352, 4352),
+             "zamba2_z": (7168, 14576), "zamba2_conv": (7296, 7296)}
+    rec = {}
+    for key, (d, row) in cases.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(BATCH * PROMPT, row, generator=gen,
+                             device="cuda") * 4).to(dt)[:, :d]
+            y = ops.silu(x)
+            torch.cuda.synchronize()
+            same = torch.equal(y.view(torch.uint8),
+                               silu_ref(x).contiguous().view(torch.uint8))
+            log(f"  silu[{key}] ({BATCH * PROMPT}, {d}) of rows {row} "
+                f"{str(dt)[6:]}: bit-equal to its plain version {same}")
+            if not same:
+                raise SystemExit("silu disagrees with its plain version")
+            if dt == torch.bfloat16:
+                xb = x
+        x = xb
+        rec[key] = {"rows, d": [BATCH * PROMPT, d],
+                    "ms": time_ms(lambda: ops.silu(x)),
+                    "plain_ms": time_ms(lambda: silu_ref(x)),
+                    "library_ms": time_ms(lambda: F.silu(x))}
+        rec[key]["bound_ms"], rec[key]["bound_by"] = bound(
+            2 * 2 * BATCH * PROMPT * d, (4.0 * BATCH * PROMPT * d, F32_PEAK))
+        log(f"  silu[{key}] bf16: kernel {rec[key]['ms']:.4f} ms, plain "
+            f"{rec[key]['plain_ms']:.4f} ms, F.silu "
+            f"{rec[key]['library_ms']:.4f} ms, bound "
+            f"{rec[key]['bound_ms']:.4f} ms")
+    g = rec["mamba2_z"]
+    return dict({k: g[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+                name="silu", route="cuda",
+                source="src/repro_torch/kernels/csrc/silu.cu",
+                replaces="src/repro/models/ssm.py:185", max_abs_err=0.0,
+                shapes={k: v for k, v in rec.items() if k != "mamba2_z"})
+
+
+def rows_bits(torch, fn, xs, m_max=8):
+    """Whether row r of ``fn`` on the first m rows of the inputs ``xs``
+    (each with rows on dim 0) has the bits of the same row alone, for m in
+    2, 4 and 8 and every r < m."""
+    full = fn(*(x[:m_max] for x in xs))
+    for m in (1, 2, 4):
+        part = fn(*(x[:m] for x in xs))
+        if not torch.equal(part.view(-1).view(torch.uint8),
+                           full[:m].contiguous().view(-1).view(torch.uint8)):
+            return False
+    for r in range(m_max):
+        alone = fn(*(x[r:r + 1] for x in xs))
+        if not torch.equal(alone.view(-1).view(torch.uint8),
+                           full[r:r + 1].contiguous().view(-1)
+                           .view(torch.uint8)):
+            return False
+    return True
+
+
+def check_decode(torch, gen):
+    """The row-invariant decode kernels at the main paths' decode shapes
+    (M = BATCH rows): each against its plain version, row r's bits alone
+    and within batches of 2, 4 and 8 (and for attention against a cache cut
+    to the fast loop's bucket and the whole cache), the plain versions'
+    invariance logged beside them (the ops at fault on this card), and
+    times beside the bound and the library call each replaces."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode import ops, ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 3e-2, f32: 2e-5}
+    records, errs = {}, {}
+
+    def close(name, got, want, dt):
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= tol[dt] * (1 + want.float().abs())).all())
+        e = err.max().item()
+        errs[name] = max(errs.get(name, 0.0), e)
+        log(f"  {name} {tuple(got.shape)} {str(dt)[6:]}: max |kernel - "
+            f"plain| = {e:.3g} (tol {tol[dt]:g} (1 + |plain|)) "
+            f"{'ok' if ok and math.isfinite(e) else 'FAIL'}")
+        if not (ok and math.isfinite(e)):
+            raise SystemExit(f"{name} disagrees with its plain version")
+
+    def invariant(name, kernel, plain, xs):
+        k_ok = rows_bits(torch, kernel, xs)
+        p_ok = rows_bits(torch, plain, xs)
+        log(f"  {name}: row bits alone = in batches of 2, 4, 8: kernel "
+            f"{k_ok}, plain version (the library op) {p_ok}")
+        if not k_ok:
+            raise SystemExit(f"{name}: a row's bits depend on the batch")
+        return p_ok
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    # rows_matmul: granite's wg, its tied head (embed.T), llama3's wg
+    shapes = {"granite_wg": (2048, 8192, False),
+              "granite_head": (2048, 49155, True),
+              "mamba2_in_proj": (2048, 8512, False),
+              "llama3_wg": (16384, 53248, False)}
+    mm = {}
+    for key, (k, n, tied) in shapes.items():
+        w = (randn(n, k, scale=k ** -0.5).T if tied
+             else randn(k, n, scale=k ** -0.5))
+        x = randn(8, k)
+        close(f"rows_matmul[{key}]", ops.rows_matmul(x[:BATCH], w),
+              x[:BATCH] @ w, bf16)
+        p_ok = invariant(f"rows_matmul[{key}]",
+                         lambda a: ops.rows_matmul(a, w), lambda a: a @ w,
+                         [x])
+        xb = x[:BATCH]
+        k_ms = time_ms(lambda: ops.rows_matmul(xb, w))
+        l_ms = time_ms(lambda: xb @ w)
+        b_ms, b_by = bound(2 * (k * n + BATCH * k + BATCH * n),
+                           (2.0 * BATCH * k * n, BF16_PEAK))
+        mm[key] = {"K, N": [k, n], "transposed_w": tied, "ms": k_ms,
+                   "plain_ms": l_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "plain_row_invariant": p_ok}
+        log(f"  rows_matmul[{key}] M={BATCH}: kernel {k_ms:.4f} ms, x @ w "
+            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{2 * k * n / 1e6:.1f} MB of weight)")
+        del w
+    torch.cuda.empty_cache()
+    g = mm["granite_wg"]
+    records["rows_matmul"] = dict(
+        ms=g["ms"], plain_ms=g["plain_ms"], library_ms=g["library_ms"],
+        bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+        shapes={k: v for k, v in mm.items() if k != "granite_wg"})
+
+    # rms_norm_rows
+    rn = {}
+    for key, d in (("granite", 2048), ("zamba2", 3584), ("llama3", 16384)):
+        x, w = randn(8, d, scale=3.0), randn(d, scale=0.1) + 1
+        close(f"rms_norm_rows[{key}]", ops.rms_norm_rows(x[:BATCH], w, 1e-5),
+              ref.rms_norm_ref(x[:BATCH], w, 1e-5), bf16)
+        p_ok = invariant(f"rms_norm_rows[{key}]",
+                         lambda a: ops.rms_norm_rows(a, w, 1e-5),
+                         lambda a: ref.rms_norm_ref(a, w, 1e-5), [x])
+        xb = x[:BATCH]
+        rn[key] = {"D": d, "ms": time_ms(lambda: ops.rms_norm_rows(
+                       xb, w, 1e-5)),
+                   "plain_ms": time_ms(lambda: ref.rms_norm_ref(xb, w, 1e-5)),
+                   "library_ms": time_ms(lambda: F.rms_norm(xb, (d,), w,
+                                                            1e-5)),
+                   "plain_row_invariant": p_ok}
+        rn[key]["bound_ms"], rn[key]["bound_by"] = bound(
+            2 * (2 * BATCH * d + d), (4.0 * BATCH * d, F32_PEAK))
+        log(f"  rms_norm_rows[{key}] ({BATCH}, {d}): kernel "
+            f"{rn[key]['ms']:.4f} ms, plain {rn[key]['plain_ms']:.4f} ms, "
+            f"F.rms_norm {rn[key]['library_ms']:.4f} ms, bound "
+            f"{rn[key]['bound_ms']:.5f} ms")
+    records["rms_norm_rows"] = dict(
+        {k: rn["granite"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        shapes={k: v for k, v in rn.items() if k != "granite"})
+
+    # decode_attention at the caches of the main paths: max_len rows, the
+    # rows' lengths as in a stream (one freed slot at length 1)
+    max_len = PROMPT + GEN
+    at = {}
+    for key, (h, kv, hd) in (("granite", (32, 8, 64)),
+                             ("zamba2", (32, 32, 112)),
+                             ("llama3", (128, 8, 128))):
+        q = randn(8, 1, h, hd)
+        k, v = randn(8, max_len, kv, hd), randn(8, max_len, kv, hd)
+        lens = torch.tensor([530, 1, 300, 513, 544, 257, 64, 65],
+                            dtype=torch.int32, device="cuda")
+        close(f"decode_attention[{key}]",
+              ops.decode_attention(q[:BATCH], k[:BATCH], v[:BATCH],
+                                   lens[:BATCH]),
+              ref.decode_attention_ref(q[:BATCH], k[:BATCH], v[:BATCH],
+                                       lens[:BATCH]), bf16)
+        p_ok = invariant(f"decode_attention[{key}]", ops.decode_attention,
+                         ref.decode_attention_ref, [q, k, v, lens])
+        # a fast-loop bucket shorter than the cache: rows up to 300 long
+        short = torch.tensor([300, 17, 200, 257], dtype=torch.int32,
+                             device="cuda")
+        bucket = -(-int(short.max()) // 32) * 32
+        same = {}
+        for which, fn in (("kernel", ops.decode_attention),
+                          ("plain", ref.decode_attention_ref)):
+            cut = fn(q[:BATCH], k[:BATCH, :bucket], v[:BATCH, :bucket],
+                     short)
+            whole = fn(q[:BATCH], k[:BATCH], v[:BATCH], short)
+            same[which] = torch.equal(cut.view(torch.uint8),
+                                      whole.view(torch.uint8))
+        p_bucket = same["plain"]
+        log(f"  decode_attention[{key}]: a bucket of {bucket} rows = the "
+            f"whole cache of {max_len}: kernel {same['kernel']}, plain "
+            f"{p_bucket}")
+        if not same["kernel"]:
+            raise SystemExit("decode attention depends on the bucket")
+        qb, kb, vb, lb = q[:BATCH], k[:BATCH], v[:BATCH], lens[:BATCH]
+        mask = (torch.arange(max_len, device="cuda")[None, :]
+                < lb[:, None])[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+        n_keys = int(lb.clamp(max=max_len).sum())
+        at[key] = {
+            "B, S, H, KV, hd": [BATCH, max_len, h, kv, hd],
+            "kv_len": lb.tolist(),
+            "ms": time_ms(lambda: ops.decode_attention(qb, kb, vb, lb)),
+            "plain_ms": time_ms(lambda: ref.decode_attention_ref(
+                qb, kb, vb, lb)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            "plain_row_invariant": p_ok, "plain_bucket_invariant": p_bucket}
+        at[key]["bound_ms"], at[key]["bound_by"] = bound(
+            2 * (2 * BATCH * h * hd + 2 * n_keys * kv * hd) + 4 * BATCH,
+            (4.0 * n_keys * h * hd, BF16_PEAK))
+        log(f"  decode_attention[{key}] B={BATCH} S={max_len} H={h} KV={kv} "
+            f"hd={hd}: kernel {at[key]['ms']:.4f} ms, plain "
+            f"{at[key]['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+            f"{at[key]['library_ms']:.4f} ms, bound "
+            f"{at[key]['bound_ms']:.5f} ms")
+    records["decode_attention"] = dict(
+        {k: at["granite"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        shapes={k: v for k, v in at.items() if k != "granite"})
+
+    # ssm_decode_step at mamba2's and zamba2's shapes
+    sd = {}
+    for key, (h, p, n) in (("mamba2", (64, 64, 128)),
+                           ("zamba2", (112, 64, 64))):
+        conv = randn(8, h * p + 2 * n)
+        x = conv[:, :h * p].view(8, h, p)
+        bm, cm = conv[:, h * p:h * p + n], conv[:, h * p + n:]
+        dt = F.softplus(randn(8, h, dtype=f32))
+        a = -torch.exp(randn(h, scale=0.3, dtype=f32))
+        st = randn(8, h, p, n, dtype=f32)
+        sk, sp = st[:BATCH].clone(), st[:BATCH].clone()
+        close(f"ssm_decode_step[{key}]",
+              ops.ssm_decode_step(sk, x[:BATCH], dt[:BATCH], a, bm[:BATCH],
+                                  cm[:BATCH]),
+              ref.ssm_decode_ref(sp, x[:BATCH], dt[:BATCH], a, bm[:BATCH],
+                                 cm[:BATCH]), bf16)
+        close(f"ssm_decode_step[{key}] state", sk, sp, f32)
+
+        def step(fn):
+            return lambda s_, x_, d_, b_, c_: fn(s_.clone(), x_, d_, a, b_,
+                                                 c_)
+        p_ok = invariant(f"ssm_decode_step[{key}]",
+                         step(ops.ssm_decode_step), step(ref.ssm_decode_ref),
+                         [st, x, dt, bm, cm])
+        args = (sk, x[:BATCH], dt[:BATCH], a, bm[:BATCH], cm[:BATCH])
+        sd[key] = {"B, H, P, N": [BATCH, h, p, n],
+                   "ms": time_ms(lambda: ops.ssm_decode_step(*args)),
+                   "plain_ms": time_ms(lambda: ref.ssm_decode_ref(*args)),
+                   "library_ms": None, "plain_row_invariant": p_ok}
+        sd[key]["bound_ms"], sd[key]["bound_by"] = bound(
+            2 * 4 * BATCH * h * p * n + 2 * 2 * BATCH * h * p
+            + 2 * 2 * BATCH * n + 4 * (BATCH * h + h),
+            (5.0 * BATCH * h * p * n, F32_PEAK))
+        log(f"  ssm_decode_step[{key}] B={BATCH} H={h} P={p} N={n}: kernel "
+            f"{sd[key]['ms']:.4f} ms, plain {sd[key]['plain_ms']:.4f} ms, "
+            f"bound {sd[key]['bound_ms']:.5f} ms")
+    records["ssm_decode_step"] = dict(
+        {k: sd["mamba2"][k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")},
+        shapes={"zamba2": sd["zamba2"]})
+
+    # no TPU kernel computes these: the reference leaves them to XLA, and
+    # "replaces" names the reference's op
+    replaces = {"rows_matmul": "src/repro/models/layers.py:364",
+                "rms_norm_rows": "src/repro/models/layers.py:126",
+                "decode_attention": "src/repro/models/layers.py:310",
+                "ssm_decode_step": "src/repro/models/ssm.py:168"}
+    return [dict(r, name=name, route="cuda",
+                 source="src/repro_torch/kernels/csrc/decode.cu",
+                 replaces=replaces[name],
+                 max_abs_err=max(e for k, e in errs.items()
+                                 if k.startswith(name)))
+            for name, r in records.items()]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, n_stages, path):
-    """Launches of every kernel in one counted run: per prefill, flash
-    attention once per attention layer (granite's 40 layers, zamba2's 14
-    call sites of its shared block) and the SSD scan once per mamba layer
-    (a run with a kill prefills again in its replay; the stream run once
-    per request), the wire kernels once per stage boundary per pass on the
-    int8 wire (a replay repeats the prefill and the decode steps before the
-    kill)."""
+def expected_launches(cfg, n_stages, path, steps):
+    """Launches of every kernel in one counted run of ``steps`` decode
+    steps: per prefill, flash attention once per attention layer (the
+    dense layers, zamba2's 14 call sites of its shared block) and the SSD
+    scan once per mamba layer (a run with a kill prefills again in its
+    replay; the stream run once per request), then the last token's final
+    norm and head through ``rms_norm_rows`` and ``rows_matmul``; per decode
+    step, per attention layer two norms, seven projections and one
+    ``decode_attention``, per mamba layer two norms, two projections and
+    one ``ssm_decode_step``, and the final norm and head; SiLU twice per
+    mamba layer (the conv's activation and the gate) per prefill and per
+    decode step; the wire kernels
+    once per stage boundary per pass on the int8 wire (a replay repeats the
+    prefill and the decode steps before the kill)."""
     from repro_torch import kernels
     from repro_torch.models.model import hybrid_apps
     want = dict.fromkeys(kernels.WRAPPERS, 0)
-    kill = path.endswith("_kill")
-    prefills = len(STREAM) if path == "stream" else 2 if kill else 1
+    prefills = (len(STREAM) if path == "stream"
+                else 2 if path.endswith("_kill") else 1)
     if cfg.family == "dense":
-        want["flash_attention"] = cfg.n_layers * prefills
+        attn, mamba = cfg.n_layers, 0
     else:
-        want["ssd"] = cfg.n_layers * prefills
-        want["flash_attention"] = (hybrid_apps(cfg, 0, cfg.n_layers)[1]
-                                   * prefills)
+        attn, mamba = hybrid_apps(cfg, 0, cfg.n_layers)[1], cfg.n_layers
+    want["flash_attention"] = attn * prefills
+    want["ssd"] = mamba * prefills
+    want["decode_attention"] = attn * steps
+    want["ssm_decode_step"] = mamba * steps
+    want["rms_norm_rows"] = (2 * attn + 2 * mamba + 1) * steps + prefills
+    want["rows_matmul"] = (7 * attn + 2 * mamba + 1) * steps + prefills
+    want["silu"] = 2 * mamba * (prefills + steps)
     if "int8" in path:
-        passes = GEN + (1 + KILL["after_step"] if kill else 0)
-        want["quantize"] = want["dequantize"] = (n_stages - 1) * passes
+        want["quantize"] = want["dequantize"] = \
+            (n_stages - 1) * (prefills + steps)
     return want
 
 
@@ -468,19 +794,13 @@ def stream_schedule(requests, slots):
 
 def stream_phase(torch, cfg, params, timed, counted):
     """Continuous batching: STREAM requests over SLOTS slots, each stream
-    held against the same request served alone, teacher-forced on the
-    stream's own tokens: the solo run's logits at every step against the
-    stream's (recorded as the scheduler's decode steps return them) within
-    STREAM_TOL (1 + |solo|) — or, for a model whose bf16 solo run is itself
-    further than STREAM_TOL from the same run in float32 (its bf16 rounding
-    noise), the stream no further from the float32 run than twice the solo
-    run is.  Tokens: the stream's equal to the solo argmax wherever the
-    solo top-1/top-2 gap is above twice the logits' difference (a flip
-    needs less), and to the per-request reference loop's up to the first
-    step whose gap is not above the larger of that and STREAM_TOL.  Every
-    flip is logged with its gap."""
+    held against the same request served alone, bit for bit: its tokens
+    equal to the per-request reference loop's, and the logits of each of
+    its batched decode steps (recorded as the scheduler's decode steps
+    return them) equal to those of the request alone (batch 1, attention
+    over the whole cache) fed the same tokens.  Returns the phase's
+    numbers and the decode steps of the counted run."""
     import numpy as np
-    from repro_torch._tree import tree_map
     from repro_torch.models import decode_step, init_serve_cache, prefill
     from repro_torch.serve import scheduler
     from repro_torch.serve.engine import ServeEngine, make_batch
@@ -521,81 +841,173 @@ def stream_phase(torch, cfg, params, timed, counted):
                          "two runs")
 
     @torch.inference_mode()
-    def solo_run(cfg_, params_, r, toks):
-        """One request alone, fed the stream's tokens: (gen_len, V)."""
-        cache = init_serve_cache(cfg_, 1, eng.max_len, device="cuda")
-        logits, cache = prefill(cfg_, params_, {"tokens": torch.as_tensor(
-            r.tokens, device="cuda")}, cache)
-        out = [logits[0, 0].float()]
+    def solo_run(r, toks):
+        """One request alone, fed the stream's tokens: (gen_len - 1, V)
+        decode logits."""
+        cache = init_serve_cache(cfg, 1, eng.max_len, device=DEVICE)
+        _, cache = prefill(cfg, params, {"tokens": torch.as_tensor(
+            r.tokens, device=DEVICE)}, cache)
+        out = []
         for j in range(1, r.gen_len):
             fed = torch.tensor([[int(toks[j - 1])]], dtype=torch.int32,
-                               device="cuda")
-            logits, cache = decode_step(cfg_, params_, fed, cache)
-            out.append(logits[0, 0].float())
+                               device=DEVICE)
+            logits, cache = decode_step(cfg, params, fed, cache)
+            out.append(logits[0, 0])
         return torch.stack(out)
 
-    cfg32 = cfg.replace(param_dtype="float32")
-    params32 = tree_map(lambda t: t.float(), params)
-    worst = {"stream-solo": 0.0, "solo-f32": 0.0, "stream-f32": 0.0}
-    bad, n_flips = [], 0
+    bad, worst, n_steps = [], 0.0, 0
     for r, toks, ref in zip(reqs, streams, ref_streams):
         steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
                              for slot, rid in m.items() if rid == r.rid])
-        solo = solo_run(cfg, params, r, toks)
-        exact = solo_run(cfg32, params32, r, toks)[1:]
-        d = (steps - solo[1:]).abs().max().item()
-        e = (solo[1:] - exact).abs().max().item()
-        s = (steps - exact).abs().max().item()
-        for k, v in zip(worst, (d, e, s)):
-            worst[k] = max(worst[k], v)
-        within = bool(((steps - solo[1:]).abs()
-                       <= STREAM_TOL * (1 + solo[1:].abs())).all())
-        if not (within or (e > STREAM_TOL and s <= 2 * e)):
-            bad.append(f"request {r.rid}: stream off solo by {d:.4g}, "
-                       f"solo off float32 by {e:.4g}, stream off float32 "
-                       f"by {s:.4g}")
-        top2 = solo.topk(2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-        argmax = solo.argmax(-1).cpu().numpy()
-        for j in np.nonzero(toks != argmax)[0]:
-            n_flips += 1
-            log(f"    flip: request {r.rid} step {j}: stream token "
-                f"{toks[j]}, solo {argmax[j]}, solo top-1/top-2 gap "
-                f"{gap[j]:.4g} (logits differ by up to {d:.4g})")
-            if gap[j] > 2 * d:
-                bad.append(f"request {r.rid} step {j} flipped at gap "
-                           f"{gap[j]:.4g} > 2 x {d:.4g}")
-        low = np.nonzero(gap <= max(STREAM_TOL, 2 * d))[0]
-        upto = low[0] if len(low) else r.gen_len
-        if (toks[:upto] != ref[:upto]).any():
-            bad.append(f"request {r.rid}: differs from the reference loop "
-                       f"before step {upto}")
-    del params32
-    log(f"  stream vs each request alone (teacher-forced, max over the "
-        f"requests): |stream - solo| {worst['stream-solo']:.4g} (tol "
-        f"{STREAM_TOL:g} (1 + |solo|)); the float32 run's distance from the "
-        f"solo run {worst['solo-f32']:.4g} and from the stream "
-        f"{worst['stream-f32']:.4g}; {n_flips} token flip(s)")
+        solo = solo_run(r, toks)
+        n_steps += len(steps)
+        worst = max(worst, (steps - solo).abs().max().item())
+        if not torch.equal(steps.view(torch.int32), solo.view(torch.int32)):
+            bad.append(f"request {r.rid}: stream logits not bit-identical "
+                       f"to the request alone (max |diff| "
+                       f"{(steps - solo).abs().max().item():.4g})")
+        if not np.array_equal(toks, ref):
+            at = int(np.nonzero(toks != ref)[0][0])
+            bad.append(f"request {r.rid}: tokens differ from the request "
+                       f"alone from step {at}")
+    log(f"  stream vs each request alone: {n_steps} decode steps' logits "
+        f"and {n_tok} tokens compared, max |stream - solo| {worst:.4g} "
+        f"({'bit-identical' if not bad else 'NOT identical'})")
     if bad:
         raise SystemExit(f"[{cfg.name}/stream] " + "; ".join(bad))
     return {"wall_s": wall, "reference_wall_s": ref_wall, "tokens": n_tok,
             "decode_steps": stats["decode_steps"],
             "slot_utilization": stats["slot_utilization"],
-            "max_logit_diff": worst["stream-solo"],
-            "solo_vs_float32": worst["solo-f32"],
-            "stream_vs_float32": worst["stream-f32"], "flips": n_flips}
+            "bit_identical_to_solo": True,
+            "max_logit_diff": worst}, stats["decode_steps"]
 
 
-def main_path(torch, tmp, cfg):
+# Device kernels a decode step may run: the port's own and torch's
+# element-wise, copy, concatenation, gather and indexing kernels, none of
+# which sums across a row.  Any other kind (a cuBLAS GEMM or GEMV, named
+# gemm, gemv or nvjet_*, a reduction, a softmax) fails the step.
+STEP_KERNELS = ("rows_matmul_kn_kernel", "rows_matmul_nk_kernel",
+                "rms_norm_rows_kernel", "decode_attention_kernel",
+                "ssm_decode_kernel", "silu_kernel", "elementwise_kernel",
+                "CatArrayBatchedCopy", "gather_kernel", "index", "Memcpy",
+                "Memset")
+
+
+def decode_step_kernels(torch, cfg, params, batch):
+    """Device kernels of one decode step at batch BATCH (after a prefill,
+    untraced), traced with torch.profiler: every kind on the allow-list
+    ``STEP_KERNELS``, so no library GEMM, GEMV or reduction is left in
+    it.  Returns the launches of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, init_serve_cache, prefill
+    from repro_torch.serve.engine import as_batch
+    with torch.inference_mode():
+        cache = init_serve_cache(cfg, BATCH, PROMPT + GEN, device=DEVICE)
+        logits, cache = prefill(cfg, params, as_batch(batch, DEVICE), cache)
+        tok = logits.argmax(-1).int()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode_step(cfg, params, tok, cache, kv_bucket=PROMPT + 32)
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in kern)
+    other = sorted({e.key for e in kern
+                    if not any(w in e.key for w in STEP_KERNELS)})
+    log(f"  one decode step (B={BATCH}): {launches} kernel launches of "
+        f"{len(kern)} kinds; kinds off the allow-list: {other or 'none'}")
+    if not kern:
+        raise SystemExit("the profiler saw no device kernel in a decode step")
+    if other:
+        log("  every kind: " + "; ".join(sorted(e.key[:100] for e in kern)))
+        raise SystemExit(f"[{cfg.name}] a decode step runs {other}")
+    return launches
+
+
+def decode_hunt(torch, cfg, params, batch):
+    """The ops at fault, found on the card: every row-kernel call of one
+    decode step at batch BATCH is recorded, and those of the first layer
+    (the hybrid's first call site of its shared block and mamba layer)
+    and of the head are replayed on each row alone, through the kernel and
+    through its plain version (the library ops the port used before).  A
+    kernel whose rows change bits fails; the plain ops that do are logged.
+    Returns their names."""
+    from repro_torch.kernels.decode import ops, ref
+    from repro_torch.models import (decode_step, init_serve_cache, layers,
+                                    prefill, ssm)
+    from repro_torch.serve.engine import as_batch
+    plain = {"rows_matmul": ref.rows_matmul_ref,
+             "rms_norm_rows": ref.rms_norm_ref,
+             "decode_attention": ref.decode_attention_ref,
+             "ssm_decode_step": ref.ssm_decode_ref}
+    batched = {"rows_matmul": (0,), "rms_norm_rows": (0,),
+               "decode_attention": (0, 1, 2, 3),
+               "ssm_decode_step": (0, 1, 2, 4, 5)}
+    calls, saved = [], {}
+    for mod, name in ((layers, "rows_matmul"), (layers, "rms_norm_rows"),
+                      (layers, "decode_attention"),
+                      (ssm, "ssm_decode_step")):
+        fn = saved[mod, name] = getattr(mod, name)
+
+        def rec(*args, _fn=fn, _name=name):
+            # the step updates the SSM state in place: keep its input
+            calls.append((_name, [args[0].clone(), *args[1:]]
+                          if _name == "ssm_decode_step" else list(args)))
+            return _fn(*args)
+        setattr(mod, name, rec)
+    try:
+        with torch.inference_mode():
+            cache = init_serve_cache(cfg, BATCH, PROMPT + GEN, device=DEVICE)
+            logits, cache = prefill(cfg, params, as_batch(batch, DEVICE),
+                                    cache)
+            calls.clear()
+            decode_step(cfg, params, logits.argmax(-1).int(), cache)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    first = {"dense": 10, "ssm": 5, "hybrid": 15}[cfg.family]
+    differ = []
+    with torch.inference_mode():
+        for i, (name, args) in enumerate(calls[:first] + calls[-2:]):
+            for which, fn in (("kernel", getattr(ops, name)),
+                              ("plain", plain[name])):
+                def run(a):
+                    a = list(a)
+                    if name == "ssm_decode_step":
+                        a[0] = a[0].clone()
+                    return fn(*a)
+                whole = run(args)
+                same = all(torch.equal(
+                    run([x[r:r + 1] if j in batched[name] else x
+                         for j, x in enumerate(args)]).view(torch.uint8),
+                    whole[r:r + 1].contiguous().view(torch.uint8))
+                    for r in range(BATCH))
+                if not same and which == "kernel":
+                    raise SystemExit(f"[{cfg.name}] {name} (call {i}): a "
+                                     f"row's bits depend on the batch")
+                if not same:
+                    shape = "x".join(str(d) for d in args[1].shape) \
+                        if name == "rows_matmul" else ""
+                    differ.append(f"{name}{'[' + shape + ']' if shape else ''}"
+                                  f"{'[head]' if i >= first else ''}")
+    log(f"  the hunt, one decode step's first layer and head at B={BATCH}: "
+        f"{len(calls[:first]) + 2} row-kernel calls; the plain ops whose "
+        f"row bits change with the batch: {differ or 'none'}")
+    return differ
+
+
+def main_path(torch, tmp, cfg, pipelined):
+    """One model at full width: random bf16 weights from seed 0, both
+    ServeEngine loops (bit-identical logits), one decode step's kernels,
+    for a PIPELINED model the planner and the raw and int8 pipelines with
+    a stage kill, and the stream.  Returns ({run: launches}, {run: decode
+    steps}, the stream's numbers, {timings})."""
     from repro_torch import kernels
     from repro_torch._tree import tree_leaves
-    from repro_torch.core import (lm_block_graph, partition_and_place,
-                                  random_geometric_cluster)
     from repro_torch.models import init_params
-    from repro_torch.models.config import ShapeConfig
     from repro_torch.models.model import hybrid_apps
     from repro_torch.serve.engine import ServeEngine, make_batch
-    from repro_torch.serve.pipeline import PipelineServeEngine
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -604,9 +1016,9 @@ def main_path(torch, tmp, cfg):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
-    params, dt = timed(lambda: init_params(cfg, gen, device="cuda"))
+    params, dt = timed(lambda: init_params(cfg, gen, device=DEVICE))
     n_par = sum(t.numel() for t in tree_leaves(params))
     ssm = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
            f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
@@ -616,9 +1028,81 @@ def main_path(torch, tmp, cfg):
              "hybrid": f"{ssm}; one shared block of {attn} at "
                        f"{hybrid_apps(cfg, 0, cfg.n_layers)[1]} call sites, "
                        f"every {cfg.hybrid_attn_every} layers"}[cfg.family]
+    head = "tied head (embed.T)" if cfg.tie_embeddings else "untied head"
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{mixer}, vocab {cfg.vocab}: {n_par / 1e9:.3f} B params "
+        f"{mixer}, vocab {cfg.vocab}, {head}: {n_par / 1e9:.3f} B params "
         f"({2 * n_par / 1e9:.2f} GB bf16) initialised in {dt:.1f}s")
+
+    batch = make_batch(cfg, BATCH, PROMPT, seed=0)
+    max_len = PROMPT + GEN
+    by_path, steps = {}, {}   # run -> {kernel: launches}, decode steps
+
+    def counted(path, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[path] = kernels.launch_counts()
+        log(f"  [{path}] kernel launches: {by_path[path]}")
+        return out
+
+    mono = ServeEngine(cfg, params, max_len=max_len, kv_block=32)
+    mono.generate(batch, 2)                               # warm-up
+    toks_mono, gen_s = timed(lambda: counted(
+        "monolithic", lambda: mono.generate(batch, GEN)))
+    steps["monolithic"] = GEN - 1
+    (_, logits), pre_s = timed(lambda: mono.generate(
+        batch, 1, collect_logits=True))                   # prefill only
+    if logits.shape != (BATCH, 1, cfg.vocab) or not \
+            bool(torch.isfinite(torch.from_numpy(logits)).all()):
+        raise SystemExit(f"prefill logits {logits.shape} not finite")
+    decode_ms = (gen_s - pre_s) / (GEN - 1) * 1e3
+    log(f"  ServeEngine: prefill (B={BATCH}, S={PROMPT}) {pre_s * 1e3:.1f} "
+        f"ms; generate {GEN} tokens {gen_s:.3f}s, decode {decode_ms:.2f} "
+        f"ms/step")
+    (toks_ref, logits_ref), ref_s = timed(lambda: mono.generate(
+        batch, GEN, engine="reference", collect_logits=True))
+    toks_fast, logits_fast = mono.generate(batch, GEN, collect_logits=True)
+    same = bool((toks_ref == toks_mono).all()
+                and (toks_fast == toks_mono).all()
+                and logits_ref.tobytes() == logits_fast.tobytes())
+    log(f"  ServeEngine reference loop {ref_s:.3f}s: tokens and every "
+        f"step's logits bit-identical to the fast loop: {same}")
+    log(f"  tokens row 0: {toks_mono[0].tolist()}")
+    if not same:
+        raise SystemExit("fast and reference loops disagree")
+    del logits_ref, logits_fast
+    step_launches = decode_step_kernels(torch, cfg, params, batch)
+    at_fault = decode_hunt(torch, cfg, params, batch)
+
+    n_stages = 1
+    if pipelined:
+        n_stages = pipeline_runs(torch, tmp, cfg, params, batch, toks_mono,
+                                 timed, counted)
+        steps.update(pipeline_raw=GEN - 1, pipeline_int8=GEN - 1,
+                     pipeline_raw_kill=GEN - 1 + KILL["after_step"],
+                     pipeline_int8_kill=GEN - 1 + KILL["after_step"])
+    stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
+                                           counted)
+    for path, got in by_path.items():
+        want = expected_launches(cfg, n_stages, path, steps[path])
+        if got != want:
+            raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
+                             f"expected {want}")
+    return by_path, stream, {"prefill_ms": pre_s * 1e3,
+                             "decode_ms_per_step": decode_ms,
+                             "decode_step_launches": step_launches,
+                             "plain_ops_at_fault": at_fault}
+
+
+def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
+                  counted):
+    """The planner's 4 stages, the raw-wire pipeline (bit-identical to
+    ServeEngine, also across a stage kill) and the int8-wire one (a kill
+    gives the tokens of the run without it).  Returns the stage count."""
+    from repro_torch.core import (lm_block_graph, partition_and_place,
+                                  random_geometric_cluster)
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.pipeline import PipelineServeEngine
 
     graph = lm_block_graph(cfg, ShapeConfig("serve", PROMPT, BATCH,
                                             "prefill"))
@@ -646,40 +1130,7 @@ def main_path(torch, tmp, cfg):
         if sum(1 for x in sites if x) < 2:
             raise SystemExit("fewer than two stages hold a call site of the "
                              "shared block")
-
-    batch = make_batch(cfg, BATCH, PROMPT, seed=0)
     max_len = PROMPT + GEN
-    by_path = {}          # run -> {kernel: launches in that run alone}
-
-    def counted(path, fn):
-        kernels.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        by_path[path] = kernels.launch_counts()
-        log(f"  [{path}] kernel launches: {by_path[path]}")
-        return out
-
-    mono = ServeEngine(cfg, params, max_len=max_len, kv_block=32)
-    mono.generate(batch, 2)                               # warm-up
-    toks_mono, gen_s = timed(lambda: counted(
-        "monolithic", lambda: mono.generate(batch, GEN)))
-    (_, logits), pre_s = timed(lambda: mono.generate(
-        batch, 1, collect_logits=True))                   # prefill only
-    if logits.shape != (BATCH, 1, cfg.vocab) or not \
-            bool(torch.isfinite(torch.from_numpy(logits)).all()):
-        raise SystemExit(f"prefill logits {logits.shape} not finite")
-    log(f"  ServeEngine: prefill (B={BATCH}, S={PROMPT}) {pre_s * 1e3:.1f} "
-        f"ms; generate {GEN} tokens {gen_s:.3f}s, decode "
-        f"{(gen_s - pre_s) / (GEN - 1) * 1e3:.2f} ms/step")
-    toks_ref, ref_s = timed(lambda: mono.generate(
-        batch, GEN, engine="reference"))
-    same = bool((toks_ref == toks_mono).all())
-    log(f"  ServeEngine reference loop {ref_s:.3f}s: tokens equal to the "
-        f"fast loop: {same}")
-    log(f"  tokens row 0: {toks_mono[0].tolist()}")
-    if not same:
-        raise SystemExit("fast and reference loops disagree")
-
     free = shutil.disk_usage(tmp).free
     log(f"  stage checkpoints go to a temporary directory "
         f"({free / 1e9:.1f} GB free there)")
@@ -730,13 +1181,7 @@ def main_path(torch, tmp, cfg):
         raise SystemExit("the int8-wire kill logged no restore")
     del i8
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
-    stream = stream_phase(torch, cfg, params, timed, counted)
-    for path, got in by_path.items():
-        want = expected_launches(cfg, len(ranges), path)
-        if got != want:
-            raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
-                             f"expected {want}")
-    return by_path, stream
+    return len(ranges)
 
 
 def main() -> int:
@@ -772,29 +1217,37 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = [check_flash(torch, gen), *check_quantize(torch, gen),
-               check_ssd(torch, gen)]
+               check_ssd(torch, gen), *check_decode(torch, gen),
+               check_silu(torch, gen)]
+    torch.cuda.empty_cache()
 
     log("== 4. main paths at full width")
-    by_path, streams = {}, {}
+    by_path, streams, timings = {}, {}, {}
     for arch in ARCHS:
-        log(f"-- {arch}")
+        cfg = get_config(arch, "full")
+        if arch in DEPTH:
+            log(f"-- {arch} at {DEPTH[arch]} of its {cfg.n_layers} layers")
+            cfg = cfg.replace(n_layers=DEPTH[arch])
+        else:
+            log(f"-- {arch}")
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-            counts, streams[arch] = main_path(torch, tmp,
-                                              get_config(arch, "full"))
+            counts, streams[arch], timings[arch] = main_path(
+                torch, tmp, cfg, arch in PIPELINED)
         for path, got in counts.items():
             by_path[f"{arch}/{path}"] = got
         gc.collect()                  # this model's weights and caches
         torch.cuda.empty_cache()
     for r in records:
         r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
-                            for a in ARCHS)
+                            for a in PIPELINED)
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(f"== done in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
-            "long_prompt", "zamba2_prefill")   # flash's and the SSD scan's
-    log(json.dumps({"streams": streams}))
+            "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
+            "shapes")                          # the decode kernels'
+    log(json.dumps({"streams": streams, "serving": timings}))
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))

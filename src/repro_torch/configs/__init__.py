@@ -1,10 +1,13 @@
-"""Architecture configs of the port (the dense, SSM and hybrid gate models)."""
+"""Architecture configs of the port: the dense models (granite-3-2b,
+minicpm-2b, deepseek-7b, llama3-405b), the SSM model (mamba2-1.3b) and the
+hybrid (zamba2-7b)."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["granite-3-2b", "mamba2-1.3b", "zamba2-7b"]
+ARCH_IDS = ["granite-3-2b", "minicpm-2b", "deepseek-7b", "llama3-405b",
+            "mamba2-1.3b", "zamba2-7b"]
 
 
 def get_config(arch_id: str, preset: str = "full"):

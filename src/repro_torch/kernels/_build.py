@@ -53,6 +53,22 @@ SIGNATURES = {
         "ssd_scan_launch": ([_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, _P], _I),
         "ssd_error_string": ([_I], ctypes.c_char_p),
     },
+    "silu": {
+        "silu_launch": ([_P, _L, _P, _L, _I, _I, _P], _I),
+        "silu_error_string": ([_I], ctypes.c_char_p),
+    },
+    "decode": {
+        "rows_matmul_launch": ([_P, _L, _P, _L, _L, _P, _L] + [_I] * 4
+                               + [_P], _I),
+        "rms_norm_rows_launch": ([_P, _L, _P, _P, _L, _I, _I, _F, _I, _P],
+                                 _I),
+        "decode_attention_launch": ([_P, _L, _L, _P, _P] + [_L] * 6
+                                    + [_P, _P] + [_I] * 5 + [_F, _I, _I, _P],
+                                    _I),
+        "ssm_decode_launch": ([_P, _P, _L, _L, _P, _L, _P, _P, _L, _P, _L, _P]
+                              + [_I] * 5 + [_P], _I),
+        "decode_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

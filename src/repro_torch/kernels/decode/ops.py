@@ -1,0 +1,218 @@
+"""Wrappers of the row-invariant decode kernels (``csrc/decode.cu``).
+
+For tensors on the CPU each wrapper computes its plain version
+(``ref.py``, the model's code as it was); for CUDA tensors it launches the
+kernel or raises: there is no fallback.  Each wrapper counts its kernel
+launches in ``.launches``.
+
+On the card every output of a row is summed in a fixed order that depends
+on neither the number of rows nor the length the cache was padded to, so
+a request decoded in a batch gets the bits it gets alone.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+from . import ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 16                 # q heads a kv head in decode_attention
+MAX_HEAD_DIM = 128
+MAX_STATE = 128                # ssm_decode_step's N
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_card(name, *ts):
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {dev}")
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
+def _dtype(name, *ts):
+    dt = ts[0].dtype
+    if dt not in _DTYPES or any(t.dtype != dt for t in ts):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in ts]}; need one "
+                        f"of {list(_DTYPES)} for all")
+    return _DTYPES[dt]
+
+
+def _aligned(t, elems):
+    """Every row of ``t`` (2-d, dense last dim) on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0 and t.stride(0) % elems == 0
+
+
+def rows_matmul(x, w):
+    """x (..., K) @ w -> (..., N) in x's dtype, float32 sums: the rows of x
+    are its leading dims flattened.  ``w`` is (K, N) with its last dim
+    dense, or the transposed view of a dense (N, K) matrix (a tied head's
+    ``embed.T``), read in place either way."""
+    if x.dim() < 1 or w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"rows_matmul: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not agree")
+    if x.device.type == "cpu":
+        return ref.rows_matmul_ref(x, w)
+    _on_card("rows_matmul", x, w)
+    code = _dtype("rows_matmul", x, w)
+    lead, k, n = x.shape[:-1], x.shape[-1], w.shape[1]
+    x = x.reshape(-1, k)
+    m = x.shape[0]
+    if x.stride(1) != 1 and k > 1:
+        raise ValueError("rows_matmul: the last dim of x must be dense")
+    if w.stride(1) != 1 and w.stride(0) != 1:
+        raise ValueError(f"rows_matmul: w strides {w.stride()}: need a dense "
+                         "(K, N) or the transpose of a dense (N, K)")
+    if w.stride(1) != 1:
+        e = 16 // x.element_size()
+        if k % e or not _aligned(x, e) or not _aligned(w.t(), e):
+            raise ValueError("rows_matmul: with a transposed w, K must be a "
+                             f"multiple of {e} and every row of x and of "
+                             "w.T must start on a 16-byte boundary")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.load("decode")
+    with torch.cuda.device(x.device):
+        err = lib.rows_matmul_launch(
+            x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
+            w.stride(1), out.data_ptr(), n, m, k, n, code, _stream(x))
+    _build.check("decode", "rows_matmul_launch", err)
+    rows_matmul.launches += 1
+    return out.view(*lead, n)
+
+
+def rms_norm_rows(x, w, eps: float):
+    """RMSNorm of each row of x (..., D) with weight w (D,), in float32,
+    cast back to x's dtype."""
+    if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1]:
+        raise ValueError(f"rms_norm_rows: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not agree")
+    if x.device.type == "cpu":
+        return ref.rms_norm_ref(x, w, eps)
+    _on_card("rms_norm_rows", x, w)
+    code = _dtype("rms_norm_rows", x, w)
+    shape, d = x.shape, x.shape[-1]
+    x = x.reshape(-1, d)
+    if (x.stride(1) != 1 and d > 1) or w.stride(0) != 1:
+        raise ValueError("rms_norm_rows: the last dim of x and w must be "
+                         "dense")
+    m = x.shape[0]
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    lib = _build.load("decode")
+    with torch.cuda.device(x.device):
+        err = lib.rms_norm_rows_launch(x.data_ptr(), x.stride(0), w.data_ptr(),
+                                       out.data_ptr(), d, m, d, float(eps),
+                                       code, _stream(x))
+    _build.check("decode", "rms_norm_rows_launch", err)
+    rms_norm_rows.launches += 1
+    return out.view(shape)
+
+
+def decode_attention(q, k, v, kv_len):
+    """q (B,1,H,hd) against k/v (B,S,KV,hd): each row attends to its keys
+    ``[0, kv_len[b])`` (int32 (B,), on the device; lengths past S read S
+    keys).  Returns (B,1,H,hd) in q's dtype.  k/v may be a bucket of the
+    cache or the whole of it: the kernel reads the same keys either way."""
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or tuple(kv_len.shape) != (q.shape[0],):
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_len "
+                         f"{tuple(kv_len.shape)} do not agree")
+    b, _, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"decode_attention: {h} q heads not a multiple of "
+                         f"{kvh} kv heads")
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, kv_len)
+    _on_card("decode_attention", q, k, v, kv_len)
+    pair = (q.dtype, k.dtype)
+    if pair not in ((torch.bfloat16, torch.bfloat16),
+                    (torch.float32, torch.bfloat16),
+                    (torch.float32, torch.float32)) or v.dtype != k.dtype:
+        raise TypeError(f"decode_attention: q {q.dtype} with k/v {k.dtype}, "
+                        f"{v.dtype} not taken")
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"decode_attention: kv_len must be int32, got "
+                        f"{kv_len.dtype}")
+    if h // kvh > MAX_GROUP or hd > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: group {h // kvh} and head dim "
+                         f"{hd} must be at most {MAX_GROUP} and "
+                         f"{MAX_HEAD_DIM}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("decode_attention: the last dim of q, k and v must "
+                         "be dense")
+    e = 16 // k.element_size()
+    if hd % e or any(t.data_ptr() % 16 or any(st % e for st in t.stride()[:3])
+                     for t in (k, v)):
+        raise ValueError("decode_attention: every row of k and v must start "
+                         "on a 16-byte boundary and hold a whole number of "
+                         "16-byte units")
+    kv_len = kv_len.contiguous()
+    out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
+    lib = _build.load("decode")
+    with torch.cuda.device(q.device):
+        err = lib.decode_attention_launch(
+            q.data_ptr(), q.stride(0), q.stride(2), k.data_ptr(),
+            v.data_ptr(), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+            v.stride(1), v.stride(2), kv_len.data_ptr(), out.data_ptr(), b,
+            s, h, kvh, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+            _DTYPES[k.dtype], _stream(q))
+    _build.check("decode", "decode_attention_launch", err)
+    decode_attention.launches += 1
+    return out
+
+
+def ssm_decode_step(state, x, dt, A, Bm, Cm):
+    """One Mamba2 recurrence step: state (B,H,P,N) float32, updated in
+    place; x (B,H,P); dt (B,H) float32, softplus'd; A (H,) float32; Bm/Cm
+    (B,N) in x's dtype.  Returns y = C . state (B,H,P) in x's dtype."""
+    if state.dim() != 4 or x.dim() != 3 or dt.dim() != 2 or A.dim() != 1 \
+            or Bm.dim() != 2 or Cm.dim() != 2:
+        raise ValueError("ssm_decode_step: need state (B,H,P,N), x (B,H,P), "
+                         "dt (B,H), A (H,), Bm/Cm (B,N)")
+    b, h, p, n = state.shape
+    if tuple(x.shape) != (b, h, p) or tuple(dt.shape) != (b, h) \
+            or tuple(A.shape) != (h,) or tuple(Bm.shape) != (b, n) \
+            or tuple(Cm.shape) != (b, n):
+        raise ValueError(
+            f"ssm_decode_step: shapes state {tuple(state.shape)}, x "
+            f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+            f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do not agree")
+    if x.device.type == "cpu":
+        return ref.ssm_decode_ref(state, x, dt, A, Bm, Cm)
+    _on_card("ssm_decode_step", state, x, dt, A, Bm, Cm)
+    code = _dtype("ssm_decode_step", x, Bm, Cm)
+    if any(t.dtype != torch.float32 for t in (state, dt, A)):
+        raise TypeError("ssm_decode_step: state, dt and A must be float32")
+    if not state.is_contiguous() or x.stride(2) != 1 or dt.stride(1) != 1 \
+            or A.stride(0) != 1 or Bm.stride(1) != 1 or Cm.stride(1) != 1:
+        raise ValueError("ssm_decode_step: state must be contiguous, and the "
+                         "last dim of x, dt, A, Bm and Cm dense")
+    if n > MAX_STATE:
+        raise ValueError(f"ssm_decode_step: state size {n} above "
+                         f"{MAX_STATE}")
+    y = torch.empty((b, h, p), dtype=x.dtype, device=x.device)
+    lib = _build.load("decode")
+    with torch.cuda.device(x.device):
+        err = lib.ssm_decode_launch(
+            state.data_ptr(), x.data_ptr(), x.stride(0), x.stride(1),
+            dt.data_ptr(), dt.stride(0), A.data_ptr(), Bm.data_ptr(),
+            Bm.stride(0), Cm.data_ptr(), Cm.stride(0), y.data_ptr(), b, h, p,
+            n, code, _stream(x))
+    _build.check("decode", "ssm_decode_launch", err)
+    ssm_decode_step.launches += 1
+    return y
+
+
+rows_matmul.launches = 0
+rms_norm_rows.launches = 0
+decode_attention.launches = 0
+ssm_decode_step.launches = 0

@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the decode kernels (``csrc/decode.cu``).
+
+They are the model's decode-step code as it was before the kernels, moved
+here unchanged: on the CPU the port computes the same bits as before.  On
+the card they are the yardstick each kernel is held to, and they are what
+the kernels replace there: a library matmul, torch's row reductions and a
+masked softmax over the kv bucket choose their summation order by the row
+count and the padded length.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e30
+
+
+def rows_matmul_ref(x, w):
+    """x (M, K) @ w (K, N) in x's dtype."""
+    return x @ w
+
+
+def rms_norm_ref(x, w, eps):
+    """RMSNorm over the last dim, computed in float32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def decode_attention_ref(q, k, v, kv_len):
+    """One query token per sequence: q (B,1,H,hd) against k/v (B,S,KV,hd),
+    keys at or past ``kv_len`` (B,) masked.  Scores in q's dtype, softmax in
+    float32, probabilities back in q's dtype (the reference's ``_sdpa``)."""
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    qg = q.reshape(b, sq, kv, group, hd)
+    k, v = k.to(q.dtype), v.to(q.dtype)     # a bf16 cache under f32 params
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    s_pos = torch.arange(skv, device=q.device)
+    keep = (s_pos[None, :] < kv_len[:, None])[:, None, None, None, :]
+    scores = scores.masked_fill(~keep, NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def ssm_decode_ref(state, x, dt, A, Bm, Cm):
+    """One Mamba2 recurrence step.  state (B,H,P,N) float32, updated in
+    place; x (B,H,P); dt (B,H) float32 (softplus'd); A (H,) float32; Bm/Cm
+    (B,N).  Returns y = C . state (B,H,P) in x's dtype."""
+    dA = torch.exp(dt * A)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), x.float())
+    state.copy_(state * dA[:, :, None, None] + dBx)
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
+    return y.to(x.dtype)

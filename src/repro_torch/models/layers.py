@@ -7,8 +7,16 @@ The length-aware decode bound ``kv_bucket`` is an argument here, not a
 module global.
 
 Attention over a fresh prompt (prefill at cache offset 0, and the cacheless
-``forward``) goes through the flash-attention kernel; decode attention and
-every projection are plain torch ops.
+``forward``) goes through the flash-attention kernel.  A prefill into a
+cache that already holds rows writes at the rows' length and attends over
+the cache in plain torch ops, as the reference does.  Rows of one token per
+sequence (a decode step, and the last prompt token's head) go through the
+row-invariant decode kernels (``kernels.decode``): the projections, the
+RMSNorms and decode attention, so that on the card a row gets the same
+bits in a batch of any size and against a cache cut to any bucket.  Every
+other product is ``torch.matmul``.  The MLP's SiLU is torch's own: the
+``silu`` kernel, with the reference's bf16 rounding points, serves the
+mamba blocks (``ssm.py``), where that rounding was the measured fault.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.attention.ops import flash_attention
+from repro_torch.kernels.decode import ref as decode_ref
+from repro_torch.kernels.decode.ops import (decode_attention, rms_norm_rows,
+                                            rows_matmul)
 
 from .config import ModelConfig
 
@@ -41,11 +52,22 @@ def ninit(gen: torch.Generator, shape, dtype, *, scale=0.02, fan_in=None):
     return (scale * x).to(dtype)
 
 
+def _one_token(x):
+    """Whether x (B, S, D) holds one token per sequence: the rows that go
+    through the decode kernels."""
+    return x.dim() == 3 and x.shape[1] == 1
+
+
 def rms_norm(x, w, eps):
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * w.float()).to(dt)
+    if _one_token(x):
+        return rms_norm_rows(x, w, eps)
+    return decode_ref.rms_norm_ref(x, w, eps)
+
+
+def linear(x, w):
+    """x (B, S, K) @ w (K, N); one token per sequence goes through
+    ``rows_matmul`` (``w`` may be the transposed view of a tied head)."""
+    return rows_matmul(x, w) if _one_token(x) else x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -86,11 +108,11 @@ def init_attention(gen, cfg: ModelConfig, n_layers: int):
     }
 
 
-def _sdpa(q, k, v, causal, kv_len=None):
+def _sdpa(q, k, v, causal, q_offset: int = 0):
     """Plain grouped-query attention.  q: (B,Sq,H,hd)  k/v: (B,Skv,KV,hd).
 
-    kv_len: optional (B,) active cache lengths, applied when Sq == 1
-    (decode): the query attends to the written slots only."""
+    q_offset: the cache position of q's first token; a causal query at
+    position q_offset + i attends to keys [0, q_offset + i]."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     group = h // kv
@@ -98,71 +120,97 @@ def _sdpa(q, k, v, causal, kv_len=None):
     k, v = k.to(q.dtype), v.to(q.dtype)     # a bf16 cache under f32 params
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
     scores = scores / math.sqrt(hd)
-    s_pos = torch.arange(skv, device=q.device)
-    if sq == 1:
-        if kv_len is not None:
-            keep = (s_pos[None, :] < kv_len[:, None])[:, None, None, None, :]
-            scores = scores.masked_fill(~keep, NEG)
-    elif causal:
-        keep = s_pos[None, :] <= torch.arange(sq, device=q.device)[:, None]
-        scores = scores.masked_fill(~keep, NEG)
+    if sq > 1 and causal:
+        s_pos = torch.arange(skv, device=q.device)
+        q_pos = torch.arange(sq, device=q.device) + q_offset
+        scores = scores.masked_fill(~(s_pos[None, :] <= q_pos[:, None]), NEG)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])
 
 
-def _batched_update(cache, new, lens):
+def cache_offset(lens) -> int:
+    """The rows' common cache length, where a multi-token write goes (the
+    reference's ``lens[0]``).  A host read of ``lens`` (any shape); raises
+    if the lengths disagree, which the reference assumes they never do."""
+    vals = set(lens.flatten().tolist())
+    if len(vals) != 1:
+        raise ValueError(f"a multi-token cache write needs rows of one "
+                         f"length, got lengths {sorted(vals)}")
+    return vals.pop()
+
+
+def _batched_update(cache, new, lens, offset: int):
     """Write ``new`` (B,s,...) into ``cache`` (B,S,...) in place.
 
-    Decode (s == 1) writes each row at its own length.  A multi-token write
-    is a prefill, which always fills a fresh cache from offset 0."""
-    if new.shape[1] == 1:
+    Decode (s == 1) writes each row at its own length ``lens`` (on the
+    device).  A multi-token write goes at ``offset``, the rows' common
+    length (``cache_offset``), as the reference's
+    ``dynamic_update_slice_in_dim`` at ``lens[0]``; it must fit."""
+    s = new.shape[1]
+    if s == 1:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, lens.long()] = new[:, 0].to(cache.dtype)
-    else:
-        cache[:, :new.shape[1]] = new.to(cache.dtype)
+        return
+    if offset + s > cache.shape[1]:
+        raise ValueError(f"a write of {s} rows at {offset} does not fit a "
+                         f"cache of {cache.shape[1]}")
+    cache[:, offset:offset + s] = new.to(cache.dtype)
 
 
 def attention(params, x, cfg: ModelConfig, positions, *, causal=True,
-              cache=None, kv_bucket: int | None = None):
+              cache=None, kv_bucket: int | None = None,
+              offset: int | None = None):
     """Returns the attention output (B, S, D).
 
     cache: None, or dict(k, v, len) with k/v (B, S_max, KV, hd) and len
-    (B,); it is updated in place.  kv_bucket: decode attends to rows
-    [0, kv_bucket) of the cache only; every row's length + 1 must fit."""
+    (B,); it is updated in place.  kv_bucket: the plain decode attention
+    reads rows [0, kv_bucket) of the cache only; every row's length + 1
+    must fit (the decode kernel reads each row's own length whatever the
+    bucket).  offset: for a multi-token write, the rows' common cache
+    length when the caller has read it (``cache_offset``); None reads it
+    here."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = linear(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
     if cache is not None:
         lens = cache["len"]
+        if s > 1 and offset is None:
+            offset = cache_offset(lens)
+        _batched_update(cache["k"], k, lens, offset)
+        _batched_update(cache["v"], v, lens, offset)
         kv_len = lens + s
-        _batched_update(cache["k"], k, lens)
-        _batched_update(cache["v"], v, lens)
         if s == 1:
             kc, vc = cache["k"], cache["v"]
             if kv_bucket is not None and kv_bucket < kc.shape[1]:
                 kc, vc = kc[:, :kv_bucket], vc[:, :kv_bucket]
-            out = _sdpa(q, kc, vc, causal, kv_len)
-        else:
-            # prefill at offset 0: the causal mask hides every cache slot
-            # past the prompt, so attending over the new k/v is the same
+            out = decode_attention(q, kc, vc, kv_len)
+        elif offset == 0:
+            # a fresh cache: the causal mask hides every cache slot past
+            # the prompt, so attending over the new k/v is the same
             # function; k/v go through the cache's dtype as the reference's
             # attention over the cache does
             out = flash_attention(q, k.to(cache["k"].dtype).to(q.dtype),
                                   v.to(cache["v"].dtype).to(q.dtype),
                                   causal=causal)
+        else:
+            # rows already in the cache: attend over [0, offset + s) with
+            # the causal mask from q_offset, as the reference's _sdpa
+            end = offset + s
+            out = _sdpa(q, cache["k"][:, :end], cache["v"][:, :end], causal,
+                        q_offset=offset)
         lens.copy_(kv_len)
     elif s > 1:
         out = flash_attention(q, k, v, causal=causal)
     else:
         out = _sdpa(q, k, v, causal)
-    return out.reshape(b, s, cfg.n_heads * hd) @ params["wo"]
+    return linear(out.reshape(b, s, cfg.n_heads * hd), params["wo"])
 
 
 def init_cache(cfg: ModelConfig, n_layers, batch, max_len, *, device):
@@ -194,5 +242,5 @@ def init_mlp(gen, cfg: ModelConfig, n_layers: int):
 
 
 def mlp(params, x):
-    h = F.silu(x @ params["wg"]) * (x @ params["wu"])
-    return h @ params["wd"]
+    h = F.silu(linear(x, params["wg"])) * linear(x, params["wu"])
+    return linear(h, params["wd"])

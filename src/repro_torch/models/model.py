@@ -26,8 +26,8 @@ from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 
 from .config import ModelConfig
-from .layers import (attention, dtype_of, init_attention, init_cache,
-                     init_mlp, mlp, ninit, rms_norm)
+from .layers import (attention, cache_offset, dtype_of, init_attention,
+                     init_cache, init_mlp, linear, mlp, ninit, rms_norm)
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block
 
 FAMILIES = ("dense", "ssm", "hybrid")
@@ -93,10 +93,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 def apply_dense_block(p, h, cfg: ModelConfig, positions, cache=None,
-                      kv_bucket=None):
+                      kv_bucket=None, offset=None):
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     h = h + attention(p["attn"], x, cfg, positions, cache=cache,
-                      kv_bucket=kv_bucket)
+                      kv_bucket=kv_bucket, offset=offset)
     return h + mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
 
 
@@ -107,18 +107,28 @@ def embed_tokens(params, cfg, tokens):
 def lm_logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return (h @ w).float()
+    return linear(h, w).float()
 
 
 def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
     """The stacked blocks of ``params`` over ``h``; ``cache`` (stacked like
     the blocks) is updated in place.  Returns (h, cache)."""
     blocks = params["blocks"]
+    offset = _write_offset(h, cache)
     for i in range(blocks["ln1"].shape[0]):
         c = None if cache is None else layer_view(cache, i)
         h = apply_dense_block(layer_view(blocks, i), h, cfg, positions,
-                              cache=c, kv_bucket=kv_bucket)
+                              cache=c, kv_bucket=kv_bucket, offset=offset)
     return h, cache
+
+
+def _write_offset(h, attn_cache):
+    """Where a multi-token pass writes its k/v: the rows' common length in
+    the (stacked) attention cache, read on the host once a pass rather
+    than once a layer.  None for a decode step or without a cache."""
+    if attn_cache is None or h.shape[1] == 1:
+        return None
+    return cache_offset(attn_cache["len"])
 
 
 def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
@@ -137,13 +147,15 @@ def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
     blocks = params["blocks"]
     shared = params.get("shared_attn")
     every = cfg.hybrid_attn_every if shared is not None else 0
+    offset = (_write_offset(h, cache["shared"])
+              if every and cache is not None else None)
     for i in range(blocks["pre_norm"].shape[0]):
         idx = layer_offset + i
         if every and idx % every == 0:
             sc = (None if cache is None
                   else layer_view(cache["shared"], idx // every - app_offset))
             h = apply_dense_block(shared, h, cfg, positions, cache=sc,
-                                  kv_bucket=kv_bucket)
+                                  kv_bucket=kv_bucket, offset=offset)
         c = None if cache is None else layer_view(cache["mamba"], i)
         bp = layer_view(blocks, i)
         h = h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps),
@@ -212,7 +224,8 @@ def _init_cache(cfg, lo, hi, batch_size, max_len, device):
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
-    """Run the prompt through the model, filling the (fresh) cache.
+    """Run the prompt through the model, writing its k/v at the cache's
+    length (0 for a fresh cache; positions start at 0, as the reference's).
     Returns (last-token logits (B, 1, V) float32, cache)."""
     tokens = batch["tokens"]
     b, s = tokens.shape

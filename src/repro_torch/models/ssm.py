@@ -6,8 +6,13 @@ SSD recurrence (B and C shared by all heads) and gates the output with z.
 
 The scan from a zero state, which is the cacheless forward and the prefill
 into a fresh cache, goes through the SSD kernel (``kernels.ssd.ops``);
-decode at s == 1 is the O(1) recurrence in plain torch ops.  Caches are
-updated in place.
+decode at s == 1 is the O(1) recurrence, through the row-invariant
+``ssm_decode_step`` kernel, with the block's projections and norms through
+the other decode kernels (``layers.linear``, ``layers.rms_norm``).  The
+conv's activation and the gate use the ``silu`` kernel, which rounds each
+of its four ops as the reference's ``jax.nn.silu`` does under XLA on the
+CPU (torch's one rounding put these blocks over 2 bf16 ulps off the
+reference).  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -17,10 +22,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode.ops import ssm_decode_step
+from repro_torch.kernels.silu.ops import silu
 from repro_torch.kernels.ssd.ops import ssd_scan
 
 from .config import ModelConfig
-from .layers import dtype_of, ninit, rms_norm
+from .layers import dtype_of, linear, ninit, rms_norm
 
 
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, n_layers: int):
@@ -74,7 +81,7 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
     b, s, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = linear(x, params["in_proj"])
     z = zxbcdt[..., :di]
     conv_in = zxbcdt[..., di:2 * di + 2 * n]          # x, B, C
     dt = zxbcdt[..., 2 * di + 2 * n:]
@@ -87,7 +94,7 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
         conv = sum(buf[:, i:i + s, :] * params["conv_w"][i][None, None, :]
                    for i in range(kw)) + params["conv_b"][None, None, :]
         cache["conv_buf"].copy_(buf[:, -(kw - 1):, :])
-    conv = F.silu(conv)
+    conv = silu(conv)
 
     xh = conv[..., :di].reshape(b, s, h, p)
     b2 = conv[..., di:di + n]
@@ -96,13 +103,8 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
     A = -torch.exp(params["A_log"])
 
     if cache is not None and s == 1:
-        st = cache["state"]
-        dA = torch.exp(dt[:, 0] * A)                   # (b,h)
-        dBx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], b2[:, 0].float(),
-                           xh[:, 0].float())
-        st.copy_(st * dA[:, :, None, None] + dBx)
-        y = torch.einsum("bn,bhpn->bhp", c2[:, 0].float(), st)
-        y = y[:, None].to(x.dtype)                     # (b,1,h,p)
+        y = ssm_decode_step(cache["state"], xh[:, 0], dt[:, 0], A,
+                            b2[:, 0], c2[:, 0])[:, None]      # (b,1,h,p)
     else:
         y, st = ssd_scan(xh, dt, A, b2, c2, cfg.ssm_chunk)
         if cache is not None:
@@ -112,8 +114,8 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
 
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh.to(y.dtype)
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    y = rms_norm(y * silu(z), params["norm_w"], cfg.norm_eps)
+    return linear(y, params["out_proj"])
 
 
 def init_mamba_cache(cfg: ModelConfig, n_layers: int, batch: int, *,

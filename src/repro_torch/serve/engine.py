@@ -4,14 +4,17 @@ Counterpart of ``repro/serve/engine.py``.  Two loops over the same model
 functions:
 
 * ``fast`` — the cache is preallocated once and updated in place, decode
-  attention reads only the filled prefix rounded up to ``kv_block`` rows
-  (``kv_bucket``), greedy argmax stays on the device and feeds the next
-  step, and the loop never reads a device value: tokens come back to the
-  host once, at the end.
+  attention is given only the filled prefix rounded up to ``kv_block``
+  rows (``kv_bucket``), greedy argmax stays on the device and feeds the
+  next step, and the decode loop never reads a device value (the prefill
+  reads the fresh cache's length once, where its k/v go): tokens come back
+  to the host once, at the end.
 * ``reference`` — the same steps with ``kv_bucket=None`` (attention over
   the whole cache).
 
-Both give the same greedy tokens.
+Both give the same greedy tokens.  On the card they also give the same
+logits bit for bit: the decode-attention kernel reads each row's own keys
+whatever the bucket (``kernels.decode``).
 """
 
 from __future__ import annotations

@@ -10,9 +10,13 @@ reuse the slot.
 Token identity: each slot's attention sees only its own rows (per-slot
 lengths mask the kv cache, per-slot positions drive RoPE) and each slot's
 SSM state is its own, so a request decoded in a mixed batch emits the same
-greedy tokens as the same request decoded alone, as long as the device
-rounds a row's products the same way at every batch size (on the card a
-GEMM may be picked by its row count; ``chip_smoke.py`` measures it).
+greedy tokens as the same request decoded alone.  On the card every
+product and reduction of a decode step runs in the row-invariant decode
+kernels (``kernels.decode``), whose bits for a row depend neither on the
+other rows nor on their number, so each decode step's logits equal the
+request's alone bit for bit (``chip_smoke.py`` checks it); the CPU's plain
+matmuls may round a row by the row count, so there the tokens are what
+is held identical.
 
 Inactive slots keep stepping with garbage rows (the batch shape is fixed);
 their outputs are never recorded and their rows never influence other
@@ -23,9 +27,10 @@ changes no active row.  Admission scatters a batch-1 cache into the bank
 at offset 0 along every axis but the batch axis; stale rows past the new
 request's length are masked by its length until overwritten.
 
-Like the engine, the loop never reads a device value: the schedule depends
-only on the known prompt and generation lengths, and every token comes back
-to the host once, at the end.  Continuous batching across the stages of a
+Like the engine's, the decode loop never reads a device value (an
+admission's prefill reads its fresh cache's length once): the schedule
+depends only on the known prompt and generation lengths, and every token
+comes back to the host once, at the end.  Continuous batching across the stages of a
 ``PipelineServeEngine`` is not ported yet; ``run`` refuses one.
 """
 

@@ -27,13 +27,18 @@ from repro_torch.configs import get_config
 from repro_torch.core import from_block_cuts
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref, flash_ref
+from repro_torch.kernels.decode import ops as dec_ops
+from repro_torch.kernels.decode import ref as dec_ref
 from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.silu import ops as silu_ops
+from repro_torch.kernels.silu.ref import silu_ref
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.models import (decode_step, init_params, init_serve_cache,
                                 prefill)
 from repro_torch.serve.engine import ServeEngine, make_batch
+from repro_torch.serve import scheduler
 from repro_torch.serve.pipeline import PipelineServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -343,6 +348,151 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the row-invariant decode kernels
+# ---------------------------------------------------------------------------
+
+def weight(cuda, seed, k, n, dtype):
+    """A (K, N) weight scaled as the model's (1 / sqrt(K))."""
+    return (randn(cuda, seed, k, n) / k ** 0.5).to(dtype)
+
+
+def check_rows(a, b, dtype):
+    tol = TOL[dtype]
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 20])
+@pytest.mark.parametrize("k,n,layout", [
+    (64, 96, "kn"), (2048, 512, "kn"), (256, 4099, "kn"), (300, 1000, "kn"),
+    (2048, 1000, "nk"), (64, 256, "nk")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_matmul_vs_plain_and_row_invariant(cuda, m, k, n, layout,
+                                                 dtype):
+    x = randn(cuda, 1, m, k, dtype=dtype)
+    w = (weight(cuda, 2, k, n, dtype) if layout == "kn"
+         else weight(cuda, 2, n, k, dtype).T)
+    before = dec_ops.rows_matmul.launches
+    out = dec_ops.rows_matmul(x, w)
+    torch.cuda.synchronize()
+    assert dec_ops.rows_matmul.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == dtype
+    check_rows(out, x @ w, dtype)
+    for r in {0, m - 1}:
+        bits_equal(dec_ops.rows_matmul(x[r:r + 1], w)[0], out[r])
+
+
+@pytest.mark.parametrize("d", [64, 2048, 3584, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_rows_vs_plain_and_row_invariant(cuda, d, dtype):
+    x = randn(cuda, 3, 8, d, dtype=dtype) * 3
+    w = (1 + 0.1 * randn(cuda, 4, d)).to(dtype)
+    out = dec_ops.rms_norm_rows(x, w, 1e-5)
+    check_rows(out, dec_ref.rms_norm_ref(x, w, 1e-5), dtype)
+    for m in (1, 2, 4):
+        bits_equal(dec_ops.rms_norm_rows(x[:m], w, 1e-5), out[:m])
+    bits_equal(dec_ops.rms_norm_rows(x[5:6], w, 1e-5), out[5:6])
+
+
+def attn_case(cuda, b, s, h, kv, hd, qdt, kvdt):
+    q = randn(cuda, 5, b, 1, h, hd, dtype=qdt)
+    k = randn(cuda, 6, b, s, kv, hd, dtype=kvdt)
+    v = randn(cuda, 7, b, s, kv, hd, dtype=kvdt)
+    lens = torch.tensor([1, s, s // 3, 65, 64, 128, 7, s - 1][:b],
+                        dtype=torch.int32, device=cuda).clamp(1, s)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 64), (32, 32, 112),
+                                     (128, 8, 128), (8, 2, 8), (4, 4, 16),
+                                     (36, 36, 64)])
+@pytest.mark.parametrize("qdt,kvdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_decode_attention_vs_plain_and_invariant(cuda, h, kv, hd, qdt, kvdt):
+    """Against the plain version over the whole cache; the same bits for a
+    row alone, in a batch, and against a cache cut to a bucket."""
+    b, s = 8, 300
+    q, k, v, lens = attn_case(cuda, b, s, h, kv, hd, qdt, kvdt)
+    before = dec_ops.decode_attention.launches
+    out = dec_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert dec_ops.decode_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == qdt
+    check_rows(out, dec_ref.decode_attention_ref(q, k, v, lens), qdt)
+    for r in range(b):
+        n = int(lens[r])
+        bucket = -(-n // 32) * 32
+        alone = dec_ops.decode_attention(q[r:r + 1], k[r:r + 1, :bucket],
+                                         v[r:r + 1, :bucket], lens[r:r + 1])
+        bits_equal(alone, out[r:r + 1])
+    for m in (2, 4):
+        bits_equal(dec_ops.decode_attention(q[:m], k[:m], v[:m], lens[:m]),
+                   out[:m])
+
+
+@pytest.mark.parametrize("h,p,n", [(64, 64, 128), (112, 64, 64),
+                                   (8, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_decode_step_vs_plain_and_invariant(cuda, h, p, n, dtype):
+    b = 8
+    conv = randn(cuda, 8, b, 1, h * p + 2 * n, dtype=dtype)
+    x = conv[:, 0, :h * p].reshape(b, h, p)
+    Bm, Cm = conv[:, 0, h * p:h * p + n], conv[:, 0, h * p + n:]
+    dt = torch.nn.functional.softplus(randn(cuda, 9, b, h))
+    A = -torch.exp(randn(cuda, 10, h) * 0.3)
+    state0 = randn(cuda, 11, b, h, p, n)
+    st_k, st_p = state0.clone(), state0.clone()
+    before = dec_ops.ssm_decode_step.launches
+    y = dec_ops.ssm_decode_step(st_k, x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert dec_ops.ssm_decode_step.launches == before + 1
+    yr = dec_ref.ssm_decode_ref(st_p, x, dt, A, Bm, Cm)
+    check_rows(y, yr, dtype)
+    torch.testing.assert_close(st_k, st_p, rtol=2e-5, atol=2e-5)
+    for m in (1, 2, 4):
+        st = state0[:m].clone()
+        bits_equal(dec_ops.ssm_decode_step(st, x[:m], dt[:m], A, Bm[:m],
+                                           Cm[:m]), y[:m])
+        bits_equal(st, st_k[:m])
+
+
+@pytest.mark.parametrize("shape,cut", [((3, 5, 160), None),
+                                       ((4, 512, 8192), None),
+                                       ((2, 7, 296), 128), ((1, 8), None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_kernel_bit_equal(cuda, shape, cut, dtype):
+    """One pass with the plain version's four roundings: the same bits, on
+    a contiguous tensor and on a last-dim slice read in place."""
+    x = randn(cuda, 12, *shape, dtype=dtype) * 4
+    if cut is not None:
+        x = x[..., :cut]
+    before = silu_ops.silu.launches
+    y = silu_ops.silu(x)
+    torch.cuda.synchronize()
+    assert silu_ops.silu.launches == before + 1 and y.is_contiguous()
+    bits_equal(y, silu_ref(x))
+
+
+def test_decode_kernels_refuse_what_they_do_not_take(cuda):
+    x = randn(cuda, 0, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtypes"):
+        dec_ops.rows_matmul(x, randn(cuda, 1, 64, 8))
+    with pytest.raises(ValueError, match="strides"):
+        dec_ops.rows_matmul(x, randn(cuda, 1, 64, 16, dtype=torch.bfloat16)
+                            [:, ::2])
+    q, k, v, lens = attn_case(cuda, 2, 40, 8, 2, 16, torch.bfloat16,
+                              torch.bfloat16)
+    with pytest.raises(TypeError, match="int32"):
+        dec_ops.decode_attention(q, k, v, lens.long())
+    with pytest.raises(TypeError, match="not taken"):
+        dec_ops.decode_attention(q, k.float(), v.float(), lens)
+    q, k, v, lens = attn_case(cuda, 2, 40, 64, 2, 16, torch.bfloat16,
+                              torch.bfloat16)
+    with pytest.raises(ValueError, match="group"):
+        dec_ops.decode_attention(q, k, v, lens)
+
+
+# ---------------------------------------------------------------------------
 # the serving path at the smoke config, through the kernels
 # ---------------------------------------------------------------------------
 
@@ -418,7 +568,149 @@ def test_pipelines_on_card(smoke):
     clean = i8.generate(batch, GEN)
     np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill), clean)
     counts = kernels.launch_counts()
-    mixers = {"dense": {"flash_attention"}, "ssm": {"ssd"},
-              "hybrid": {"flash_attention", "ssd"}}[cfg.family]
+    mixers = {"dense": {"flash_attention", "decode_attention"},
+              "ssm": {"ssd", "ssm_decode_step", "silu"},
+              "hybrid": {"flash_attention", "ssd", "decode_attention",
+                         "ssm_decode_step", "silu"}}[cfg.family]
     assert {n for n, c in counts.items() if c} == mixers | {
-        "quantize", "dequantize"}, counts
+        "quantize", "dequantize", "rows_matmul", "rms_norm_rows"}, counts
+
+
+def test_decode_step_ops_row_invariant_on_card(smoke, monkeypatch):
+    """The hunt, op by op: every row kernel call of one decode step of the
+    smoke model at 4 rows is replayed on each row alone (and decode
+    attention also over a bucket of the cache): the kernel's rows keep
+    their bits, and the plain versions that differ are printed (the ops
+    the kernels replace for that reason)."""
+    cfg, _, gpu = smoke
+    from repro_torch.models import layers, ssm
+    calls = []
+    for mod, name in ((layers, "rows_matmul"), (layers, "rms_norm_rows"),
+                      (layers, "decode_attention"),
+                      (ssm, "ssm_decode_step")):
+        fn = getattr(mod, name)
+
+        def rec(*args, _fn=fn, _name=name):
+            calls.append((_name, [a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args]))
+            return _fn(*args)
+        monkeypatch.setattr(mod, name, rec)
+    tokens = make_batch(cfg, 4, PROMPT, seed=4)["tokens"]
+    with torch.inference_mode():
+        cache = init_serve_cache(cfg, 4, PROMPT + GEN, device=gpu["embed"]
+                                 .device)
+        logits, cache = prefill(cfg, gpu, {"tokens": torch.as_tensor(
+            tokens, device=gpu["embed"].device)}, cache)
+        calls.clear()
+        decode_step(cfg, gpu, logits.argmax(-1).int(), cache)
+    assert calls
+    plain = {"rows_matmul": dec_ref.rows_matmul_ref,
+             "rms_norm_rows": dec_ref.rms_norm_ref,
+             "decode_attention": dec_ref.decode_attention_ref,
+             "ssm_decode_step": dec_ref.ssm_decode_ref}
+    kernel = {n: getattr(dec_ops, n) for n in plain}
+    batched = {"rows_matmul": (0,), "rms_norm_rows": (0,),
+               "decode_attention": (0, 1, 2, 3),
+               "ssm_decode_step": (0, 1, 2, 4, 5)}
+    differ = set()
+    with torch.inference_mode():
+        for name, args in calls:
+            def rows(r, a=args, name=name):
+                return [x[r] if i in batched[name] else x
+                        for i, x in enumerate(a)]
+
+            def run(fn, a):
+                a = [x.clone() if isinstance(x, torch.Tensor) else x
+                     for x in a]
+                return fn(*a)
+            for which, fn in (("kernel", kernel[name]),
+                              ("plain", plain[name])):
+                whole = run(fn, args)
+                for r in range(4):
+                    alone = run(fn, rows(slice(r, r + 1)))
+                    if not torch.equal(alone.view(torch.uint8),
+                                       whole[r:r + 1].contiguous()
+                                       .view(torch.uint8)):
+                        assert which == "plain", (name, r)
+                        differ.add(f"{name} (rows)")
+            if name == "decode_attention":
+                q, k, v, lens = args
+                cut = -(-int(lens.max()) // 8) * 8
+                for which, fn in (("kernel", kernel[name]),
+                                  ("plain", plain[name])):
+                    same = torch.equal(fn(q, k[:, :cut], v[:, :cut], lens)
+                                       .view(torch.uint8),
+                                       fn(q, k, v, lens).view(torch.uint8))
+                    if not same:
+                        assert which == "plain", "the kernel's bucket"
+                        differ.add(f"{name} (bucket)")
+    print(f"{cfg.name}: plain ops whose row bits depend on the batch or "
+          f"the bucket: {sorted(differ) or 'none'}")
+
+
+def test_loops_bit_identical_on_card(smoke):
+    """The fast loop (decode attention over a kv bucket) and the reference
+    loop (over the whole cache) give the same logits, bit for bit."""
+    cfg, _, gpu = smoke
+    eng = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8)
+    batch = make_batch(cfg, 3, PROMPT, seed=3)
+    fast = eng.generate(batch, GEN, collect_logits=True)
+    ref = eng.generate(batch, GEN, engine="reference", collect_logits=True)
+    np.testing.assert_array_equal(fast[0], ref[0])
+    assert fast[1].tobytes() == ref[1].tobytes()
+
+
+def slot_schedule(requests, slots):
+    """Slot -> request id at each batched decode step, as
+    ``SlotScheduler.run`` admits (arrival order, lowest free slot) and
+    evicts."""
+    free, active, nxt, maps = list(range(slots)), {}, 0, []
+    while nxt < len(requests) or active:
+        while free and nxt < len(requests):
+            r = requests[nxt]
+            nxt += 1
+            slot = free.pop(0)
+            if r.gen_len > 1:
+                active[slot] = [r, 1]
+            else:
+                free.append(slot)
+                free.sort()
+        if not active:
+            continue
+        maps.append({slot: st[0].rid for slot, st in active.items()})
+        for slot in list(active):
+            active[slot][1] += 1
+            if active[slot][1] >= active[slot][0].gen_len:
+                del active[slot]
+                free.append(slot)
+        free.sort()
+    return maps
+
+
+def test_stream_bit_identical_to_solo_on_card(smoke, monkeypatch):
+    """Each request of a SlotScheduler stream (4 slots, staggered) gets the
+    tokens and, at every decode step, the logits bits of the same request
+    served alone by the reference loop."""
+    cfg, _, gpu = smoke
+    eng = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8)
+    reqs = [scheduler.Request(i, make_batch(cfg, 1, pl, seed=40 + i)[
+        "tokens"], gl) for i, (pl, gl) in enumerate(
+            [(24, 6), (24, 4), (36, 7), (24, 5), (40, 3), (24, 6)])]
+    recorded, decode = [], scheduler.decode_step
+
+    def recording(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        recorded.append(logits[:, 0].cpu())
+        return logits, cache
+
+    monkeypatch.setattr(scheduler, "decode_step", recording)
+    streams, _ = scheduler.SlotScheduler(eng, 4).run(reqs)
+    maps = slot_schedule(reqs, 4)
+    assert len(maps) == len(recorded)
+    for r, got in zip(reqs, streams):
+        toks, logits = eng.generate({"tokens": r.tokens}, r.gen_len,
+                                    engine="reference", collect_logits=True)
+        np.testing.assert_array_equal(got, toks[0])
+        steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
+                             for slot, rid in m.items() if rid == r.rid])
+        assert steps.numpy().tobytes() == logits[0, 1:].tobytes()

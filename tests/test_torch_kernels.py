@@ -296,6 +296,19 @@ class TestFlashAttention:
         q_ops.quantize(torch.ones(4, 4))
         ssd_scan(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), -torch.ones(2),
                  torch.ones(1, 4, 8), torch.ones(1, 4, 8), 16)
+        kernels.rows_matmul(torch.ones(2, 8), torch.ones(8, 4))
+        kernels.silu(torch.ones(2, 8))
+        kernels.rms_norm_rows(torch.ones(2, 8), torch.ones(8), 1e-5)
+        kernels.decode_attention(torch.ones(2, 1, 4, 8),
+                                 torch.ones(2, 6, 2, 8),
+                                 torch.ones(2, 6, 2, 8),
+                                 torch.tensor([3, 6], dtype=torch.int32))
+        kernels.ssm_decode_step(torch.ones(2, 3, 4, 8), torch.ones(2, 3, 4),
+                                torch.ones(2, 3), -torch.ones(3),
+                                torch.ones(2, 8), torch.ones(2, 8))
         assert kernels.launch_counts() == {"flash_attention": 0,
                                            "quantize": 0, "dequantize": 0,
-                                           "ssd": 0}
+                                           "ssd": 0, "rows_matmul": 0,
+                                           "rms_norm_rows": 0,
+                                           "decode_attention": 0,
+                                           "ssm_decode_step": 0, "silu": 0}
