@@ -22,10 +22,14 @@ Phases, in order; any failure exits non-zero before the result line:
    mamba2's and zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
    |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state, each
    row's bits the same alone and within batches of 2, 4 and 8, and
-   attention's the same over the fast loop's bucket as over the whole
-   cache (the plain versions' invariance is logged beside: the ops at
-   fault on the card); times from CUDA events beside the plain version's,
-   the bound, and the library call (a yardstick the port never calls:
+   attention's the same over the fast loop's bucket, and over one that
+   ends inside a split of 64 keys, as over the whole cache (the plain
+   versions' invariance is logged beside: the ops at fault on the card);
+   times from CUDA events beside the plain version's, the bound, and the
+   library call, ``rows_matmul`` (also at granite's wk and wd) and
+   ``decode_attention`` and their library calls cold, each call reading
+   its own copy of the weight or cache (copies past 100 MB), and warm
+   (``warm_ms``, ``warm_library_ms``) (a yardstick the port never calls:
    ``F.scaled_dot_product_attention`` for flash and decode attention,
    ``x @ w`` for ``rows_matmul``, ``F.rms_norm``; no PyTorch call computes
    the SSD scan or the SSM step), flash and the SSD scan at granite's,
@@ -81,6 +85,7 @@ reference's op.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import shutil
@@ -98,6 +103,7 @@ F32_PEAK = 67e12        # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
 LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
+COLD_BYTES = 100e6      # copies a cold timing rotates over, in total
 KILL = {"after_step": 3, "stage": 1}
 # planned and served pipelined as well as monolithic
 PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b")
@@ -143,6 +149,23 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, nbytes, iters=20):
+    """Device milliseconds per call of ``fn(c)``, a call that reads copy
+    ``c`` of inputs of ``nbytes``: ``copies`` copies that together pass
+    COLD_BYTES (twice the L2), and at least as many calls in the graph,
+    call i reading copy i mod copies, so that no call finds its bytes in
+    L2, as a decode step finds each weight and cache.  Returns (ms,
+    copies); the caller makes the copies with ``cold_copies``."""
+    copies = cold_copies(nbytes)
+    turn = itertools.count()
+    return time_ms(lambda: fn(next(turn) % copies),
+                   iters=max(iters, copies)), copies
+
+
+def cold_copies(nbytes):
+    return int(COLD_BYTES // nbytes) + 1
 
 
 def bound(nbytes, *work):
@@ -513,9 +536,14 @@ def check_decode(torch, gen):
     """The row-invariant decode kernels at the main paths' decode shapes
     (M = BATCH rows): each against its plain version, row r's bits alone
     and within batches of 2, 4 and 8 (and for attention against a cache cut
-    to the fast loop's bucket and the whole cache), the plain versions'
-    invariance logged beside them (the ops at fault on this card), and
-    times beside the bound and the library call each replaces."""
+    to the fast loop's bucket, and to one that ends inside a split of 64
+    keys, and the whole cache), the plain versions' invariance logged
+    beside them (the ops at fault on this card), and times beside the
+    bound and the library call each replaces.  ``rows_matmul`` and
+    ``decode_attention``, and their library calls, are timed cold (a copy
+    of the weight or cache a call, as a decode step reads them: ``ms``,
+    ``library_ms``) and warm (one copy, in L2 where it fits: ``warm_ms``,
+    ``warm_library_ms``); the others warm."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode import ops, ref
     bf16, f32 = torch.bfloat16, torch.float32
@@ -546,15 +574,22 @@ def check_decode(torch, gen):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    # rows_matmul: granite's wg, its tied head (embed.T), llama3's wg
+    # rows_matmul: granite's wg, wk, wd and tied head (embed.T), mamba2's
+    # in_proj, llama3's wg; timed cold (a copy of the weight a call) and
+    # warm (one weight), beside x @ w the same two ways
     shapes = {"granite_wg": (2048, 8192, False),
+              "granite_wk": (2048, 512, False),
+              "granite_wd": (8192, 2048, False),
               "granite_head": (2048, 49155, True),
               "mamba2_in_proj": (2048, 8512, False),
               "llama3_wg": (16384, 53248, False)}
     mm = {}
     for key, (k, n, tied) in shapes.items():
-        w = (randn(n, k, scale=k ** -0.5).T if tied
-             else randn(k, n, scale=k ** -0.5))
+        def draw():
+            return (randn(n, k, scale=k ** -0.5).T if tied
+                    else randn(k, n, scale=k ** -0.5))
+        ws = [draw() for _ in range(cold_copies(2 * k * n))]
+        w = ws[0]
         x = randn(8, k)
         close(f"rows_matmul[{key}]", ops.rows_matmul(x[:BATCH], w),
               x[:BATCH] @ w, bf16)
@@ -562,22 +597,33 @@ def check_decode(torch, gen):
                          lambda a: ops.rows_matmul(a, w), lambda a: a @ w,
                          [x])
         xb = x[:BATCH]
-        k_ms = time_ms(lambda: ops.rows_matmul(xb, w))
-        l_ms = time_ms(lambda: xb @ w)
+        k_ms, copies = time_cold_ms(lambda c: ops.rows_matmul(xb, ws[c]),
+                                    2 * k * n)
+        l_ms, _ = time_cold_ms(lambda c: xb @ ws[c], 2 * k * n)
+        kw_ms = time_ms(lambda: ops.rows_matmul(xb, w))
+        lw_ms = time_ms(lambda: xb @ w)
         b_ms, b_by = bound(2 * (k * n + BATCH * k + BATCH * n),
                            (2.0 * BATCH * k * n, BF16_PEAK))
+        tn, ks = ((None, None) if tied else ops.rows_plan(
+            k, n, 2, ops._sms(torch.cuda.current_device())))
         mm[key] = {"K, N": [k, n], "transposed_w": tied, "ms": k_ms,
-                   "plain_ms": l_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "plain_row_invariant": p_ok}
-        log(f"  rows_matmul[{key}] M={BATCH}: kernel {k_ms:.4f} ms, x @ w "
-            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{2 * k * n / 1e6:.1f} MB of weight)")
-        del w
+                   "plain_ms": lw_ms, "library_ms": l_ms, "warm_ms": kw_ms,
+                   "warm_library_ms": lw_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "cold_copies": copies,
+                   "plan": None if tied else {"tn": tn, "ks": ks,
+                                              "splits": -(-k // ks)},
+                   "plain_row_invariant": p_ok}
+        log(f"  rows_matmul[{key}] M={BATCH}: kernel cold {k_ms:.4f} ms "
+            f"(warm {kw_ms:.4f}), x @ w cold {l_ms:.4f} ms (warm "
+            f"{lw_ms:.4f}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{2 * k * n / 1e6:.1f} MB of weight, {copies} copies); plan "
+            f"{mm[key]['plan']}")
+        del w, ws
     torch.cuda.empty_cache()
     g = mm["granite_wg"]
     records["rows_matmul"] = dict(
-        ms=g["ms"], plain_ms=g["plain_ms"], library_ms=g["library_ms"],
-        bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+        {k: g[k] for k in ("ms", "plain_ms", "library_ms", "warm_ms",
+                           "warm_library_ms", "bound_ms", "bound_by")},
         shapes={k: v for k, v in mm.items() if k != "granite_wg"})
 
     # rms_norm_rows
@@ -625,48 +671,67 @@ def check_decode(torch, gen):
                                        lens[:BATCH]), bf16)
         p_ok = invariant(f"decode_attention[{key}]", ops.decode_attention,
                          ref.decode_attention_ref, [q, k, v, lens])
-        # a fast-loop bucket shorter than the cache: rows up to 300 long
+        # buckets shorter than the cache, rows up to 300 long: the fast
+        # loop's (a multiple of 32) and one that ends inside a split
         short = torch.tensor([300, 17, 200, 257], dtype=torch.int32,
                              device="cuda")
-        bucket = -(-int(short.max()) // 32) * 32
-        same = {}
-        for which, fn in (("kernel", ops.decode_attention),
-                          ("plain", ref.decode_attention_ref)):
-            cut = fn(q[:BATCH], k[:BATCH, :bucket], v[:BATCH, :bucket],
-                     short)
-            whole = fn(q[:BATCH], k[:BATCH], v[:BATCH], short)
-            same[which] = torch.equal(cut.view(torch.uint8),
-                                      whole.view(torch.uint8))
+        same = {"kernel": True, "plain": True}
+        for bucket in (-(-int(short.max()) // 32) * 32, int(short.max())):
+            for which, fn in (("kernel", ops.decode_attention),
+                              ("plain", ref.decode_attention_ref)):
+                cut = fn(q[:BATCH], k[:BATCH, :bucket], v[:BATCH, :bucket],
+                         short)
+                whole = fn(q[:BATCH], k[:BATCH], v[:BATCH], short)
+                same[which] &= torch.equal(cut.view(torch.uint8),
+                                           whole.view(torch.uint8))
+            log(f"  decode_attention[{key}]: a bucket of {bucket} rows "
+                f"(split {bucket // ops.SPLIT} cut at key "
+                f"{bucket % ops.SPLIT}) = the whole cache of {max_len}: "
+                f"kernel {same['kernel']}, plain {same['plain']}")
         p_bucket = same["plain"]
-        log(f"  decode_attention[{key}]: a bucket of {bucket} rows = the "
-            f"whole cache of {max_len}: kernel {same['kernel']}, plain "
-            f"{p_bucket}")
         if not same["kernel"]:
             raise SystemExit("decode attention depends on the bucket")
-        qb, kb, vb, lb = q[:BATCH], k[:BATCH], v[:BATCH], lens[:BATCH]
+        qb, lb = q[:BATCH], lens[:BATCH]
         mask = (torch.arange(max_len, device="cuda")[None, :]
                 < lb[:, None])[:, None, None, :]
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qb, kb, vb))
+        qt = qb.transpose(1, 2).contiguous()
+        cache_bytes = 2 * 2 * BATCH * max_len * kv * hd
+        kvs = [(k[:BATCH], v[:BATCH])] + [
+            (randn(BATCH, max_len, kv, hd), randn(BATCH, max_len, kv, hd))
+            for _ in range(cold_copies(cache_bytes) - 1)]
+        kvt = [tuple(t.transpose(1, 2).contiguous() for t in pair)
+               for pair in kvs]
         n_keys = int(lb.clamp(max=max_len).sum())
+        k_ms, copies = time_cold_ms(
+            lambda c: ops.decode_attention(qb, *kvs[c], lb), cache_bytes)
+        l_ms, _ = time_cold_ms(lambda c: F.scaled_dot_product_attention(
+            qt, *kvt[c], attn_mask=mask, enable_gqa=True), cache_bytes)
+        kb, vb = kvs[0]
+        kt, vt = kvt[0]
         at[key] = {
             "B, S, H, KV, hd": [BATCH, max_len, h, kv, hd],
-            "kv_len": lb.tolist(),
-            "ms": time_ms(lambda: ops.decode_attention(qb, kb, vb, lb)),
+            "kv_len": lb.tolist(), "ms": k_ms, "library_ms": l_ms,
+            "warm_ms": time_ms(lambda: ops.decode_attention(qb, kb, vb, lb)),
+            "warm_library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
             "plain_ms": time_ms(lambda: ref.decode_attention_ref(
                 qb, kb, vb, lb)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            "cold_copies": copies,
             "plain_row_invariant": p_ok, "plain_bucket_invariant": p_bucket}
         at[key]["bound_ms"], at[key]["bound_by"] = bound(
             2 * (2 * BATCH * h * hd + 2 * n_keys * kv * hd) + 4 * BATCH,
             (4.0 * n_keys * h * hd, BF16_PEAK))
         log(f"  decode_attention[{key}] B={BATCH} S={max_len} H={h} KV={kv} "
-            f"hd={hd}: kernel {at[key]['ms']:.4f} ms, plain "
-            f"{at[key]['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
-            f"{at[key]['library_ms']:.4f} ms, bound "
-            f"{at[key]['bound_ms']:.5f} ms")
+            f"hd={hd}: kernel cold {k_ms:.4f} ms (warm "
+            f"{at[key]['warm_ms']:.4f}), plain {at[key]['plain_ms']:.4f} "
+            f"ms, F.scaled_dot_product_attention cold {l_ms:.4f} ms (warm "
+            f"{at[key]['warm_library_ms']:.4f}), bound "
+            f"{at[key]['bound_ms']:.5f} ms ({copies} copies)")
+        del kvs, kvt
     records["decode_attention"] = dict(
         {k: at["granite"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "warm_ms", "warm_library_ms",
                                        "bound_ms", "bound_by")},
         shapes={k: v for k, v in at.items() if k != "granite"})
 
@@ -1245,6 +1310,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
+            "warm_ms", "warm_library_ms",      # the two decode kernels'
+
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "shapes")                          # the decode kernels'
     log(json.dumps({"streams": streams, "serving": timings}))

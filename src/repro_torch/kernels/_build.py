@@ -58,12 +58,12 @@ SIGNATURES = {
         "silu_error_string": ([_I], ctypes.c_char_p),
     },
     "decode": {
-        "rows_matmul_launch": ([_P, _L, _P, _L, _L, _P, _L] + [_I] * 4
-                               + [_P], _I),
+        "rows_matmul_launch": ([_P, _L, _P, _L, _L, _P, _L, _P, _P]
+                               + [_I] * 6 + [_P], _I),
         "rms_norm_rows_launch": ([_P, _L, _P, _P, _L, _I, _I, _F, _I, _P],
                                  _I),
         "decode_attention_launch": ([_P, _L, _L, _P, _P] + [_L] * 6
-                                    + [_P, _P] + [_I] * 5 + [_F, _I, _I, _P],
+                                    + [_P, _P] + [_I] * 6 + [_F, _I, _I, _P],
                                     _I),
         "ssm_decode_launch": ([_P, _P, _L, _L, _P, _L, _P, _P, _L, _P, _L, _P]
                               + [_I] * 5 + [_P], _I),

@@ -8,10 +8,32 @@ launches in ``.launches``.
 On the card every output of a row is summed in a fixed order that depends
 on neither the number of rows nor the length the cache was padded to, so
 a request decoded in a batch gets the bits it gets alone.
+
+Both kernels that carry most of a decode step's bytes split their work
+across blocks, and the way they split it never looks at M or the bucket:
+
+* ``rows_matmul`` over a (K, N) weight runs the grid :func:`rows_plan`
+  picks from K, N, the type and the card's SM count: a column tile of 64,
+  128 or 256 columns and K-slices of a multiple of 16 rows, so that the
+  blocks keep every SM busy in one wave however narrow N is.  Several
+  slices leave float32 partials in a workspace this wrapper allocates; the
+  tile's last block to finish, elected by a ticket on a per-device int32
+  counter that the kernel leaves at zero (:func:`_counters`, allocated
+  once and grown), sums them in slice order.
+* ``decode_attention`` gives each (row, kv head) a cluster of C blocks
+  (:func:`attention_cluster`); block r takes the runs r, r + C, ... of
+  ``SPLIT`` keys from key 0 below the row's length, and the cluster merges
+  its blocks in order through their shared memory.  The grid does not
+  depend on the bucket.
+
+Both kernels are bound by bytes (the weight, the cache): the plan spreads
+the weight over the SMs, and the kernel keeps three 16 KB stages of it in
+flight a block; attention's blocks are short, on the tensor cores in bf16.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,6 +45,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16                 # q heads a kv head in decode_attention
 MAX_HEAD_DIM = 128
 MAX_STATE = 128                # ssm_decode_step's N
+SPLIT = 64                     # keys a decode_attention run
+TILES = (64, 128, 256)         # rows_matmul's column tiles
+SLICE = 16                     # rows_matmul's K-slices are multiples of it
+RESIDENT = 2                   # rows_matmul blocks an SM holds at once
+FILL = 0.9                     # the share of the SMs a plan keeps busy
+BLOCK_BYTES = 32768            # the least weight a block streams: 2 stages
 
 
 def _stream(t):
@@ -48,6 +76,81 @@ def _dtype(name, *ts):
 def _aligned(t, elems):
     """Every row of ``t`` (2-d, dense last dim) on a 16-byte boundary."""
     return t.data_ptr() % 16 == 0 and t.stride(0) % elems == 0
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(k: int, n: int, itemsize: int, sms: int) -> tuple[int, int]:
+    """The grid of ``rows_matmul`` over a (K, N) weight: ``(tn, ks)``, a
+    column tile of ``tn`` columns (one of ``TILES``) and K-slices of ``ks``
+    rows (a multiple of ``SLICE``; the last slice may be shorter), one
+    block a (tile, slice).
+
+    The kernel streams a block's slice at a rate of its own, so the plan
+    wants every SM busy in one wave: ``ceil(n / tn) * ceil(k / ks)`` blocks
+    from ``FILL * sms`` to ``RESIDENT * sms`` (all resident at once), with
+    the fewest slices (each adds a partial sum to merge), then the
+    narrowest tile.  A weight too wide for one wave takes one slice and
+    the tile whose last wave is fullest; one too small to give that many
+    blocks ``BLOCK_BYTES`` each takes the most blocks that it can.  There
+    is no M: a row's sums follow from the plan alone."""
+    best = None
+    wave = RESIDENT * sms
+    fill = min(FILL * sms, k * n * itemsize / BLOCK_BYTES)
+    for tn in TILES:
+        tiles = -(-n // tn)
+        seen = set()
+        for want in range(1, -(-k // SLICE) + 1):
+            ks = -(-(-(-k // want)) // SLICE) * SLICE
+            splits = -(-k // ks)
+            if splits in seen:
+                continue
+            seen.add(splits)
+            blocks = tiles * splits
+            if blocks > wave:
+                waves = -(-blocks // wave)
+                key = (2, splits, 1 - blocks / (waves * wave), tn)
+            elif blocks >= fill:
+                key = (0, splits, tn)
+            else:
+                key = (1, -blocks, splits, tn)
+            if best is None or key < best[0]:
+                best = (key, tn, ks)
+            if blocks > wave:
+                break
+    return best[1], best[2]
+
+
+def attention_cluster(kvh: int) -> int:
+    """Blocks of ``decode_attention`` a (row, kv head): 8 for up to 8 kv
+    heads, 4 for more (zamba2's 32), so that a batch of 4 rows still fits
+    the card in about one wave (``sweep.py`` times each size).  A model
+    constant, never the batch or the bucket: a row's sums follow from it
+    and the row's length."""
+    return 8 if kvh <= 8 else 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict[int, torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters on ``dev``, all zero between
+    launches: allocated once per device and grown by doubling (a grown-out
+    buffer is kept alive, since a captured CUDA graph may still point at
+    it).  The kernels that use them run in stream order."""
+    buf = _COUNTERS.get(dev.index)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
+        size = max(n, 16384, 2 * buf.numel() if buf is not None else 0)
+        buf = _COUNTERS[dev.index] = torch.zeros(size, dtype=torch.int32,
+                                                 device=dev)
+    return buf
 
 
 def rows_matmul(x, w):
@@ -77,11 +180,23 @@ def rows_matmul(x, w):
                              f"multiple of {e} and every row of x and of "
                              "w.T must start on a 16-byte boundary")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    tn = ks = 0
+    part = ctr = None
+    if w.stride(1) == 1:
+        tn, ks = rows_plan(k, n, x.element_size(), _sms(x.device.index))
+        splits = -(-k // ks)
+        if splits > 1:
+            part = torch.empty((splits, m, n), dtype=torch.float32,
+                               device=x.device)
+            ctr = _counters(x.device, -(-n // tn) * -(-m // 16))
     lib = _build.load("decode")
     with torch.cuda.device(x.device):
         err = lib.rows_matmul_launch(
             x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
-            w.stride(1), out.data_ptr(), n, m, k, n, code, _stream(x))
+            w.stride(1), out.data_ptr(), n,
+            None if part is None else part.data_ptr(),
+            None if ctr is None else ctr.data_ptr(), m, k, n, tn, ks, code,
+            _stream(x))
     _build.check("decode", "rows_matmul_launch", err)
     rows_matmul.launches += 1
     return out.view(*lead, n)
@@ -163,8 +278,8 @@ def decode_attention(q, k, v, kv_len):
             q.data_ptr(), q.stride(0), q.stride(2), k.data_ptr(),
             v.data_ptr(), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
             v.stride(1), v.stride(2), kv_len.data_ptr(), out.data_ptr(), b,
-            s, h, kvh, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-            _DTYPES[k.dtype], _stream(q))
+            s, h, kvh, hd, attention_cluster(kvh), 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], _DTYPES[k.dtype], _stream(q))
     _build.check("decode", "decode_attention_launch", err)
     decode_attention.launches += 1
     return out

@@ -151,7 +151,7 @@ def _profile(label, fn, device):
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     launches = sum(e.count for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     print(f"[profile/{label}] wall {wall * 1e3:.2f} ms (traced), device "
           f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), {launches} kernel "
           f"launches")

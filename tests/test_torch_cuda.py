@@ -364,10 +364,14 @@ def check_rows(a, b, dtype):
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 20])
 @pytest.mark.parametrize("k,n,layout", [
     (64, 96, "kn"), (2048, 512, "kn"), (256, 4099, "kn"), (300, 1000, "kn"),
+    (8192, 2048, "kn"), (2048, 8512, "kn"), (16384, 1024, "kn"),
     (2048, 1000, "nk"), (64, 256, "nk")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rows_matmul_vs_plain_and_row_invariant(cuda, m, k, n, layout,
                                                  dtype):
+    """Against x @ w; every row's bits the same alone.  The (K, N) shapes
+    take K-slices (2048 x 512, 8192 x 2048, 16384 x 1024 with slices above
+    16384 / 32 rows) or a ragged wave (2048 x 8512) in the plan."""
     x = randn(cuda, 1, m, k, dtype=dtype)
     w = (weight(cuda, 2, k, n, dtype) if layout == "kn"
          else weight(cuda, 2, n, k, dtype).T)
@@ -377,7 +381,7 @@ def test_rows_matmul_vs_plain_and_row_invariant(cuda, m, k, n, layout,
     assert dec_ops.rows_matmul.launches == before + 1
     assert out.shape == (m, n) and out.dtype == dtype
     check_rows(out, x @ w, dtype)
-    for r in {0, m - 1}:
+    for r in range(m):
         bits_equal(dec_ops.rows_matmul(x[r:r + 1], w)[0], out[r])
 
 
@@ -428,6 +432,55 @@ def test_decode_attention_vs_plain_and_invariant(cuda, h, kv, hd, qdt, kvdt):
     for m in (2, 4):
         bits_equal(dec_ops.decode_attention(q[:m], k[:m], v[:m], lens[:m]),
                    out[:m])
+
+
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 64), (32, 32, 112),
+                                     (128, 8, 128)])
+@pytest.mark.parametrize("qdt,kvdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_decode_attention_at_split_edges(cuda, h, kv, hd, qdt, kvdt):
+    """Lengths around a split of SPLIT keys, 1 and the whole cache (more
+    splits than a cluster has blocks), against the plain version; each row
+    alone, and over a bucket that ends inside a split, with the bits of the
+    batch over the whole cache."""
+    sp, s = dec_ops.SPLIT, 600
+    q = randn(cuda, 5, 5, 1, h, hd, dtype=qdt)
+    k = randn(cuda, 6, 5, s, kv, hd, dtype=kvdt)
+    v = randn(cuda, 7, 5, s, kv, hd, dtype=kvdt)
+    lens = torch.tensor([sp - 1, sp, sp + 1, 1, s], dtype=torch.int32,
+                        device=cuda)
+    out = dec_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    check_rows(out, dec_ref.decode_attention_ref(q, k, v, lens), qdt)
+    for r in range(5):
+        bits_equal(dec_ops.decode_attention(q[r:r + 1], k[r:r + 1],
+                                            v[r:r + 1], lens[r:r + 1]),
+                   out[r:r + 1])
+    cut = 2 * sp + 7                         # inside the third split
+    short = lens.clamp(max=cut)
+    bits_equal(dec_ops.decode_attention(q, k[:, :cut], v[:, :cut], short),
+               dec_ops.decode_attention(q, k, v, short))
+
+
+def test_decode_kernels_leave_their_counters_at_zero(cuda):
+    """rows_matmul's merging block resets its ticket counter: two calls in
+    a row give the same bits (attention's too), and every counter is zero
+    after them."""
+    x = randn(cuda, 1, 4, 8192, dtype=torch.bfloat16)
+    w = weight(cuda, 2, 8192, 2048, torch.bfloat16)
+    _, ks = dec_ops.rows_plan(8192, 2048, 2, dec_ops._sms(x.device.index))
+    assert ks < 8192                          # the plan splits K
+    q, k, v, lens = attn_case(cuda, 8, 300, 32, 8, 64, torch.bfloat16,
+                              torch.bfloat16)
+    first = (dec_ops.rows_matmul(x, w), dec_ops.decode_attention(q, k, v,
+                                                                 lens))
+    second = (dec_ops.rows_matmul(x, w), dec_ops.decode_attention(q, k, v,
+                                                                  lens))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        bits_equal(a, b)
+    assert int(dec_ops._counters(x.device, 1).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("h,p,n", [(64, 64, 128), (112, 64, 64),
