@@ -15,11 +15,11 @@ Phases, in order; any failure exits non-zero before the result line:
    quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
    rowwise path), the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
-   |plain| (float32 output and the float32 state); the four row-invariant
+   |plain| (float32 output and the float32 state); the three row-invariant
    decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
-   in_proj and llama3-405b's wg, ``rms_norm_rows``, ``decode_attention`` at
-   granite's, zamba2's and llama3-405b's caches, ``ssm_decode_step`` at
-   mamba2's and zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
+   in_proj and llama3-405b's wg, ``decode_attention`` at granite's,
+   zamba2's and llama3-405b's caches, ``ssm_decode_step`` at mamba2's and
+   zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
    |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state, each
    row's bits the same alone and within batches of 2, 4 and 8, and
    attention's the same over the fast loop's bucket, and over one that
@@ -34,9 +34,16 @@ Phases, in order; any failure exits non-zero before the result line:
    ``x @ w`` for ``rows_matmul``, ``F.rms_norm``; no PyTorch call computes
    the SSD scan or the SSM step), flash and the SSD scan at granite's,
    mamba2's and zamba2's prefill shapes and at B=1 and a 4096-token
-   prompt; the SiLU kernel of the mamba blocks bit-equal to its plain
-   version at mamba2's and zamba2's gate and conv shapes, beside
-   ``F.silu``;
+   prompt; ``rms_norm_rows`` at five model widths, at decode rows and a
+   prefill's 2048, within 3e-2 (1 + |plain|) and each row's bits the same
+   alone, in a batch of 4 and among the 2048, its residual and gated forms
+   bit-equal to the norm kernel on their plain prologues, beside the plain
+   chains and ``F.rms_norm``; the SiLU bit-equal to its plain version over
+   all 65536 bf16 inputs and at mamba2's and zamba2's gate and conv shapes,
+   beside ``F.silu``, its bytes bound and its issue bound (SASS
+   instructions an element); ``conv_silu`` bit-equal to the plain chain
+   (output and the shifted conv_buf) at mamba2's and zamba2's widths, a
+   decode step, a prefill and the cacheless forward;
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048, tied head), mamba2-1.3b (48
    layers, d_model 2048, 64 SSM heads, state 128), zamba2-7b (81 mamba2
@@ -63,13 +70,16 @@ Phases, in order; any failure exits non-zero before the result line:
    run, its four pipeline runs, its stream) and read just after it, and
    each run must launch exactly what it runs: per prefill, flash attention
    once per attention layer (the dense layers, zamba2's 14 call sites) and
-   the SSD scan once per mamba layer, and the final norm and head of the
-   last token; per decode step, per attention layer two ``rms_norm_rows``,
-   seven ``rows_matmul`` and one ``decode_attention``, per mamba layer two
-   ``rms_norm_rows``, two ``rows_matmul``, one ``ssm_decode_step`` and
-   two SiLU, and the final norm and head; per mamba layer of a prefill
-   two SiLU; quantize and dequantize once per stage boundary per pass in
-   the int8-wire runs; and nothing else.
+   the SSD scan once per mamba layer, and the head of the last token; per
+   decode step, per attention layer seven ``rows_matmul`` and one
+   ``decode_attention``, per mamba layer two ``rows_matmul`` and one
+   ``ssm_decode_step``, and the head; per pass (a prefill or a decode
+   step), per attention layer one ``rms_norm_rows`` (ln1) and one
+   ``residual_rms_norm_rows`` (the residual add and ln2), per mamba layer
+   one ``rms_norm_rows``, one ``conv_silu`` and one
+   ``gated_rms_norm_rows``, and the final norm; quantize and dequantize
+   once per stage boundary per pass in the int8-wire runs; and nothing
+   else (the standalone ``silu`` runs on no path).
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``; the streams' and the
@@ -77,9 +87,9 @@ serving phases' numbers are on a JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the three pipelined models; ``launches_by_path`` holds the count from each
-counted run, keyed ``model/run``.  The decode kernels replace no TPU kernel
-(the reference leaves these ops to XLA): their ``replaces`` names the
-reference's op.
+counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
+replace no TPU kernel (the reference leaves these ops to XLA): their
+``replaces`` names the reference's op.
 """
 
 from __future__ import annotations
@@ -466,16 +476,56 @@ def check_ssd(torch, gen):
                                "bound_by": zb_by, "library_ms": None}}
 
 
+def sass_per_element(name, elements):
+    """SASS instructions an element of the bf16 instance of the kernel
+    ``name`` of ``csrc/silu.cu``: the instructions of its function in
+    ``cuobjdump -sass`` of the built library (the exact fallback is a
+    function of its own, not counted) over the ``elements`` one pass of its
+    unrolled loop computes.  Returns (per element, instructions)."""
+    import re
+    from repro_torch.kernels import _build
+    exe = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-sass", str(_build.library_path(
+        "silu"))], capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", out)
+    tag = f"{len(name)}{name}I13__nv_bfloat16"      # its mangled name
+    body = next(f for f in funcs[1:] if tag in f.split("\n", 1)[0])
+    n = sum(1 for line in body.splitlines()
+            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line)
+            and " NOP" not in line)
+    return n / elements, n
+
+
 def check_silu(torch, gen):
-    """The SiLU kernel bit-equal to its plain version (the four roundings
-    of the reference's bf16 SiLU under XLA on the CPU, as four torch ops)
-    at the main paths' prefill shapes: mamba2's and zamba2's z, a slice of
-    the in_proj output read in place, and their conv outputs; times beside
-    the plain version, ``F.silu`` and the bound (one read and one write of
-    each element)."""
+    """The redesigned SiLU kernel: the shared SiLU (``csrc/silu.cuh``)
+    bit-equal to its plain version (the four roundings of the reference's
+    bf16 SiLU under XLA on the CPU, as four torch ops) over all 65536 bf16
+    inputs, and the kernel bit-equal at the prefill shapes of mamba2's and
+    zamba2's z (a slice of the in_proj output read in place) and conv
+    outputs; times beside the plain version, ``F.silu``, the bytes bound
+    (one read and one write of each element) and the issue-rate bound (the
+    SASS instructions an element, ``cuobjdump -sass``, at 4 warp
+    instructions a clock an SM at the card's top SM clock)."""
     import torch.nn.functional as F
     from repro_torch.kernels.silu import ops
     from repro_torch.kernels.silu.ref import silu_ref
+    every = torch.arange(-32768, 32768, dtype=torch.int32,
+                         device="cuda").to(torch.int16).view(torch.bfloat16)
+    same = torch.equal(ops.silu(every).view(torch.int16),
+                       silu_ref(every).view(torch.int16))
+    log(f"  silu over all 65536 bf16 inputs: bit-equal to its plain version "
+        f"{same}")
+    if not same:
+        raise SystemExit("the shared SiLU disagrees with its plain version")
+    per_elem, n_sass = sass_per_element("silu_kernel", 2 * 8)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  silu_kernel<bf16>: {n_sass} SASS instructions for its 16 "
+        f"elements a thread, {per_elem:.2f} an element; {sms} SMs at "
+        f"{clock / 1e6:.0f} MHz")
     cases = {"mamba2_z": (4096, 8512), "mamba2_conv": (4352, 4352),
              "zamba2_z": (7168, 14576), "zamba2_conv": (7296, 7296)}
     rec = {}
@@ -494,23 +544,290 @@ def check_silu(torch, gen):
             if dt == torch.bfloat16:
                 xb = x
         x = xb
+        n = BATCH * PROMPT * d
         rec[key] = {"rows, d": [BATCH * PROMPT, d],
                     "ms": time_ms(lambda: ops.silu(x)),
                     "plain_ms": time_ms(lambda: silu_ref(x)),
-                    "library_ms": time_ms(lambda: F.silu(x))}
+                    "library_ms": time_ms(lambda: F.silu(x)),
+                    "issue_bound_ms": per_elem * n / (32 * 4 * sms * clock)
+                    * 1e3}
         rec[key]["bound_ms"], rec[key]["bound_by"] = bound(
-            2 * 2 * BATCH * PROMPT * d, (4.0 * BATCH * PROMPT * d, F32_PEAK))
+            2 * 2 * n, (4.0 * n, F32_PEAK))
         log(f"  silu[{key}] bf16: kernel {rec[key]['ms']:.4f} ms, plain "
             f"{rec[key]['plain_ms']:.4f} ms, F.silu "
             f"{rec[key]['library_ms']:.4f} ms, bound "
-            f"{rec[key]['bound_ms']:.4f} ms")
+            f"{rec[key]['bound_ms']:.4f} ms (bytes), issue bound "
+            f"{rec[key]['issue_bound_ms']:.4f} ms; "
+            f"{rec[key]['bound_ms'] / rec[key]['ms']:.0%} of the bytes bound")
     g = rec["mamba2_z"]
     return dict({k: g[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")},
+                                   "bound_ms", "bound_by", "issue_bound_ms")},
                 name="silu", route="cuda",
                 source="src/repro_torch/kernels/csrc/silu.cu",
                 replaces="src/repro/models/ssm.py:185", max_abs_err=0.0,
+                sass_per_element=per_elem,
                 shapes={k: v for k, v in rec.items() if k != "mamba2_z"})
+
+
+def check_conv_silu(torch, gen):
+    """The mamba block's conv pass (``conv_silu``) bit-equal to the plain
+    chain it replaces, output and the shifted ``conv_buf``, at mamba2's and
+    zamba2's widths: a decode step (s = 1) and a prefill (s = 512) into a
+    cache with history, and the cacheless forward (zero history), in bf16
+    and float32, conv_in read in place from an in_proj-shaped tensor; times
+    beside that chain at both widths, the decode step cold (each call reads
+    its own copy of the weight and the cache).  No single PyTorch call
+    computes it (``F.conv1d`` leaves out the rounding of each tap and the
+    SiLU)."""
+    from repro_torch.kernels.silu import ops
+    from repro_torch.kernels.silu.ref import conv_silu_ref
+    widths = {"mamba2": (4096, 128, 64), "zamba2": (7168, 64, 112)}
+    k = 4
+    rec = {}
+    for key, (di, n, h) in widths.items():
+        c = di + 2 * n
+        row = 2 * di + 2 * n + h
+        for s in (1, PROMPT):
+            for dt in (torch.bfloat16, torch.float32):
+                z = torch.randn(BATCH, s, row, generator=gen, device="cuda")
+                conv_in = z.to(dt)[..., di:di + c]
+                w = (torch.randn(k, c, generator=gen, device="cuda")
+                     * 0.5).to(dt)
+                b = (torch.randn(c, generator=gen, device="cuda")
+                     * 0.1).to(dt)
+                hist = torch.randn(BATCH, k - 1, c, generator=gen,
+                                   device="cuda").to(dt)
+                for cached in (True, False):
+                    hk = hist.clone() if cached else None
+                    hp = hist.clone() if cached else None
+                    got = ops.conv_silu(hk, conv_in, w, b)
+                    torch.cuda.synchronize()
+                    want = conv_silu_ref(hp, conv_in, w, b)
+                    same = torch.equal(got.view(torch.uint8),
+                                       want.contiguous().view(torch.uint8))
+                    if cached:
+                        same &= torch.equal(hk.view(torch.uint8),
+                                            hp.view(torch.uint8))
+                    log(f"  conv_silu[{key}] B={BATCH} s={s} C={c} "
+                        f"{str(dt)[6:]} {'cache' if cached else 'no cache'}"
+                        f": output{' and conv_buf' if cached else ''} "
+                        f"bit-equal to the plain chain {same}")
+                    if not same:
+                        raise SystemExit("conv_silu disagrees with its plain "
+                                         "chain")
+            # times in bf16
+            conv_in = torch.randn(BATCH, s, row, generator=gen,
+                                  device="cuda").bfloat16()[..., di:di + c]
+            nbytes = 2 * (2 * BATCH * s * c + 2 * BATCH * (k - 1) * c
+                          + k * c + c)
+            copies = cold_copies(nbytes)
+            ws = [(torch.randn(k, c, generator=gen, device="cuda")
+                   * 0.5).bfloat16() for _ in range(copies)]
+            hs = [torch.randn(BATCH, k - 1, c, generator=gen,
+                              device="cuda").bfloat16()
+                  for _ in range(copies)]
+            b = torch.zeros(c, dtype=torch.bfloat16, device="cuda")
+            r = {"B, s, C": [BATCH, s, c],
+                 "ms": time_ms(lambda: ops.conv_silu(hs[0], conv_in, ws[0],
+                                                     b)),
+                 "plain_ms": time_ms(lambda: conv_silu_ref(hs[0], conv_in,
+                                                           ws[0], b)),
+                 "library_ms": None}
+            if s == 1:
+                r["cold_ms"], _ = time_cold_ms(
+                    lambda i: ops.conv_silu(hs[i], conv_in, ws[i], b), nbytes)
+                r["plain_cold_ms"], _ = time_cold_ms(
+                    lambda i: conv_silu_ref(hs[i], conv_in, ws[i], b),
+                    nbytes)
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, ((2.0 * k + 5) * BATCH * s * c, F32_PEAK))
+            rec[f"{key}_s{s}"] = r
+            cold = (f" (cold {r['cold_ms']:.4f})", f" (cold "
+                    f"{r['plain_cold_ms']:.4f})") if s == 1 else ("", "")
+            log(f"  conv_silu[{key}] B={BATCH} s={s} C={c} bf16: kernel "
+                f"{r['ms']:.4f} ms{cold[0]}, plain chain "
+                f"{r['plain_ms']:.4f} ms{cold[1]}, "
+                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            del ws, hs
+    g = rec["mamba2_s1"]
+    return dict({key: g[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")},
+                name="conv_silu", route="cuda",
+                source="src/repro_torch/kernels/csrc/silu.cu",
+                replaces="src/repro/models/ssm.py:151", max_abs_err=0.0,
+                shapes={key: v for key, v in rec.items()
+                        if key != "mamba2_s1"})
+
+
+def check_norm(torch, gen):
+    """``rms_norm_rows`` and its fused forms.  The norm within 3e-2 (1 +
+    |plain|) of the plain float32 chain at decode rows (M = BATCH) and at a
+    prefill's rows (BATCH x PROMPT), each row's bits the same alone, in a
+    batch of 4 and among the prefill's rows; the residual form bit-equal to
+    ``h + delta`` and the norm kernel on it, the gated form bit-equal to the
+    norm kernel on the plain prologue (skip, SiLU gate), at granite's,
+    mamba2's and zamba2's widths; times beside the plain chain each
+    replaces and, for the plain norm, ``F.rms_norm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode import ops, ref
+    from repro_torch.kernels.silu.ref import silu_ref
+    bf16, tol = torch.bfloat16, 3e-2
+    rows = BATCH * PROMPT
+    records, err_max = {}, 0.0
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def bits(a, b):
+        return torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+
+    # the plain norm at decode and prefill rows
+    rn = {}
+    for key, d in (("granite", 2048), ("minicpm", 2304), ("zamba2", 3584),
+                   ("deepseek", 4096), ("llama3", 16384)):
+        x, w = randn(rows, d, scale=3.0), randn(d, scale=0.1) + 1
+        out = ops.rms_norm_rows(x, w, 1e-5)
+        torch.cuda.synchronize()
+        want = ref.rms_norm_ref(x, w, 1e-5)
+        e = (out.float() - want.float()).abs()
+        ok = bool((e <= tol * (1 + want.float().abs())).all())
+        err_max = max(err_max, e.max().item())
+        inv = all(bits(ops.rms_norm_rows(x[r:r + 1], w, 1e-5), out[r:r + 1])
+                  for r in (0, 1, 2, 3, 777, rows - 1)) and bits(
+            ops.rms_norm_rows(x[:BATCH], w, 1e-5), out[:BATCH])
+        log(f"  rms_norm_rows[{key}] ({rows}, {d}) bf16: max |kernel - "
+            f"plain| = {e.max().item():.3g} (tol {tol:g} (1 + |plain|)); a "
+            f"row alone = in a batch of {BATCH} = among {rows}: {inv}")
+        if not (ok and inv and math.isfinite(e.max().item())):
+            raise SystemExit(f"rms_norm_rows[{key}] disagrees with its plain "
+                             f"version or depends on the rows around it")
+        if key == "minicpm" or key == "deepseek":
+            continue
+        xb = x[:BATCH]
+        r = {"D": d}
+        for m, xs in ((BATCH, xb), (rows, x)):
+            sfx = "" if m == BATCH else "_prefill"
+            r["ms" + sfx] = time_ms(lambda: ops.rms_norm_rows(xs, w, 1e-5))
+            r["plain_ms" + sfx] = time_ms(lambda: ref.rms_norm_ref(xs, w,
+                                                                    1e-5))
+            r["library_ms" + sfx] = time_ms(lambda: F.rms_norm(xs, (d,), w,
+                                                               1e-5))
+            r["bound_ms" + sfx], r["bound_by" + sfx] = bound(
+                2 * (2 * m * d + d), (4.0 * m * d, F32_PEAK))
+        rn[key] = r
+        log(f"  rms_norm_rows[{key}] D={d}: ({BATCH} rows) kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, F.rms_norm "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms; "
+            f"({rows} rows) kernel {r['ms_prefill']:.4f} ms, plain "
+            f"{r['plain_ms_prefill']:.4f} ms, F.rms_norm "
+            f"{r['library_ms_prefill']:.4f} ms, bound "
+            f"{r['bound_ms_prefill']:.4f} ms")
+    records["rms_norm_rows"] = dict(
+        {k: rn["granite"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        max_abs_err=err_max,
+        shapes={k: v for k, v in rn.items() if k != "granite"} | {
+            "granite_prefill": {k: rn["granite"][k + "_prefill"]
+                                for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")}})
+
+    # the residual form: the dense block's h + attention before ln2
+    rs = {}
+    for key, d in (("granite", 2048), ("zamba2", 3584), ("llama3", 16384)):
+        w = randn(d, scale=0.1) + 1
+        for m in (BATCH, rows):
+            h, delta = randn(m, d, scale=3.0), randn(m, d)
+            hk, xk = ops.residual_rms_norm_rows(h, delta, w, 1e-5)
+            torch.cuda.synchronize()
+            hp = h + delta
+            same = bits(hk, hp) and bits(xk, ops.rms_norm_rows(hp, w, 1e-5))
+            log(f"  residual_rms_norm_rows[{key}] ({m}, {d}) bf16: h + delta "
+                f"and its norm bit-equal to the norm kernel on the plain "
+                f"add {same}")
+            if not same:
+                raise SystemExit("residual_rms_norm_rows moves a bit")
+            if m == rows and key == "llama3":
+                continue
+            sfx = "" if m == BATCH else "_prefill"
+            r = rs.setdefault(key, {"D": d})
+            r["ms" + sfx] = time_ms(lambda: ops.residual_rms_norm_rows(
+                h, delta, w, 1e-5))
+            r["plain_ms" + sfx] = time_ms(lambda: ref.residual_rms_norm_ref(
+                h, delta, w, 1e-5))
+            r["library_ms" + sfx] = None
+            r["bound_ms" + sfx], r["bound_by" + sfx] = bound(
+                2 * (4 * m * d + d), (5.0 * m * d, F32_PEAK))
+            log(f"  residual_rms_norm_rows[{key}] ({m}, {d}): kernel "
+                f"{r['ms' + sfx]:.4f} ms, plain chain "
+                f"{r['plain_ms' + sfx]:.4f} ms, bound "
+                f"{r['bound_ms' + sfx]:.5f} ms")
+    records["residual_rms_norm_rows"] = dict(
+        {k: rs["granite"][k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        max_abs_err=0.0,
+        shapes={k: v for k, v in rs.items() if k != "granite"} | {
+            "granite_prefill": {k: rs["granite"][k + "_prefill"]
+                                for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")}})
+
+    # the gated form: the mamba block's skip, SiLU gate and norm
+    gt = {}
+    for key, (h, p, n) in (("mamba2", (64, 64, 128)),
+                           ("zamba2", (112, 64, 64))):
+        di = h * p
+        row = 2 * di + 2 * n + h
+        w = randn(di, scale=0.1) + 1
+        dv = torch.rand(h, generator=gen, device="cuda") + 0.5
+        for s in (1, PROMPT):
+            for dt in (bf16, torch.float32):
+                zx = randn(BATCH, s, row, scale=3.0, dtype=dt)
+                conv = randn(BATCH, s, di + 2 * n, dtype=dt)
+                z, xh = zx[..., :di], conv[..., :di].reshape(BATCH, s, h, p)
+                y = randn(BATCH, s, h, p, dtype=dt)
+                got = ops.gated_rms_norm_rows(y, dv, xh, z, w.to(dt), 1e-5)
+                torch.cuda.synchronize()
+                g = (y + dv[None, None, :, None].to(dt) * xh).reshape(
+                    z.shape) * silu_ref(z)
+                same = bits(got, ops.rms_norm_rows(g, w.to(dt), 1e-5))
+                log(f"  gated_rms_norm_rows[{key}] B={BATCH} s={s} H={h} "
+                    f"P={p} {str(dt)[6:]}: bit-equal to the norm kernel on "
+                    f"the plain skip and gate {same}")
+                if not same:
+                    raise SystemExit("gated_rms_norm_rows moves a bit")
+            sfx = "" if s == 1 else "_prefill"
+            zx = randn(BATCH, s, row, scale=3.0)
+            conv = randn(BATCH, s, di + 2 * n)
+            z, xh = zx[..., :di], conv[..., :di].reshape(BATCH, s, h, p)
+            y = randn(BATCH, s, h, p)
+            r = gt.setdefault(key, {"H, P": [h, p]})
+            r["ms" + sfx] = time_ms(lambda: ops.gated_rms_norm_rows(
+                y, dv, xh, z, w, 1e-5))
+            r["plain_ms" + sfx] = time_ms(lambda: ref.gated_rms_norm_ref(
+                y, dv, xh, z, w, 1e-5))
+            r["library_ms" + sfx] = None
+            m = BATCH * s
+            r["bound_ms" + sfx], r["bound_by" + sfx] = bound(
+                2 * (4 * m * di + di) + 4 * h, (12.0 * m * di, F32_PEAK))
+            log(f"  gated_rms_norm_rows[{key}] ({m}, {di}): kernel "
+                f"{r['ms' + sfx]:.4f} ms, plain chain "
+                f"{r['plain_ms' + sfx]:.4f} ms, bound "
+                f"{r['bound_ms' + sfx]:.5f} ms")
+    records["gated_rms_norm_rows"] = dict(
+        {k: gt["mamba2"][k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")},
+        max_abs_err=0.0,
+        shapes={k: v for k, v in gt.items() if k != "mamba2"} | {
+            "mamba2_prefill": {k: gt["mamba2"][k + "_prefill"]
+                               for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}})
+    replaces = {"rms_norm_rows": "src/repro/models/layers.py:126",
+                "residual_rms_norm_rows": "src/repro/models/model.py:75",
+                "gated_rms_norm_rows": "src/repro/models/ssm.py:185"}
+    return [dict(r, name=name, route="cuda",
+                 source="src/repro_torch/kernels/csrc/norm.cu",
+                 replaces=replaces[name]) for name, r in records.items()]
 
 
 def rows_bits(torch, fn, xs, m_max=8):
@@ -625,33 +942,6 @@ def check_decode(torch, gen):
         {k: g[k] for k in ("ms", "plain_ms", "library_ms", "warm_ms",
                            "warm_library_ms", "bound_ms", "bound_by")},
         shapes={k: v for k, v in mm.items() if k != "granite_wg"})
-
-    # rms_norm_rows
-    rn = {}
-    for key, d in (("granite", 2048), ("zamba2", 3584), ("llama3", 16384)):
-        x, w = randn(8, d, scale=3.0), randn(d, scale=0.1) + 1
-        close(f"rms_norm_rows[{key}]", ops.rms_norm_rows(x[:BATCH], w, 1e-5),
-              ref.rms_norm_ref(x[:BATCH], w, 1e-5), bf16)
-        p_ok = invariant(f"rms_norm_rows[{key}]",
-                         lambda a: ops.rms_norm_rows(a, w, 1e-5),
-                         lambda a: ref.rms_norm_ref(a, w, 1e-5), [x])
-        xb = x[:BATCH]
-        rn[key] = {"D": d, "ms": time_ms(lambda: ops.rms_norm_rows(
-                       xb, w, 1e-5)),
-                   "plain_ms": time_ms(lambda: ref.rms_norm_ref(xb, w, 1e-5)),
-                   "library_ms": time_ms(lambda: F.rms_norm(xb, (d,), w,
-                                                            1e-5)),
-                   "plain_row_invariant": p_ok}
-        rn[key]["bound_ms"], rn[key]["bound_by"] = bound(
-            2 * (2 * BATCH * d + d), (4.0 * BATCH * d, F32_PEAK))
-        log(f"  rms_norm_rows[{key}] ({BATCH}, {d}): kernel "
-            f"{rn[key]['ms']:.4f} ms, plain {rn[key]['plain_ms']:.4f} ms, "
-            f"F.rms_norm {rn[key]['library_ms']:.4f} ms, bound "
-            f"{rn[key]['bound_ms']:.5f} ms")
-    records["rms_norm_rows"] = dict(
-        {k: rn["granite"][k] for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bound_by")},
-        shapes={k: v for k, v in rn.items() if k != "granite"})
 
     # decode_attention at the caches of the main paths: max_len rows, the
     # rows' lengths as in a stream (one freed slot at length 1)
@@ -779,7 +1069,6 @@ def check_decode(torch, gen):
     # no TPU kernel computes these: the reference leaves them to XLA, and
     # "replaces" names the reference's op
     replaces = {"rows_matmul": "src/repro/models/layers.py:364",
-                "rms_norm_rows": "src/repro/models/layers.py:126",
                 "decode_attention": "src/repro/models/layers.py:310",
                 "ssm_decode_step": "src/repro/models/ssm.py:168"}
     return [dict(r, name=name, route="cuda",
@@ -799,15 +1088,17 @@ def expected_launches(cfg, n_stages, path, steps):
     steps: per prefill, flash attention once per attention layer (the
     dense layers, zamba2's 14 call sites of its shared block) and the SSD
     scan once per mamba layer (a run with a kill prefills again in its
-    replay; the stream run once per request), then the last token's final
-    norm and head through ``rms_norm_rows`` and ``rows_matmul``; per decode
-    step, per attention layer two norms, seven projections and one
-    ``decode_attention``, per mamba layer two norms, two projections and
-    one ``ssm_decode_step``, and the final norm and head; SiLU twice per
-    mamba layer (the conv's activation and the gate) per prefill and per
-    decode step; the wire kernels
-    once per stage boundary per pass on the int8 wire (a replay repeats the
-    prefill and the decode steps before the kill)."""
+    replay; the stream run once per request); per decode step, per
+    attention layer seven ``rows_matmul`` and one ``decode_attention``, per
+    mamba layer two ``rows_matmul`` and one ``ssm_decode_step``, and the
+    head's ``rows_matmul`` (a prefill's head once, its last token); per
+    pass (a prefill or a decode step) one ``rms_norm_rows`` a layer (ln1,
+    or a mamba layer's pre-norm) and the final norm, per attention layer
+    one ``residual_rms_norm_rows`` (the residual add and ln2), per mamba
+    layer one ``conv_silu`` and one ``gated_rms_norm_rows``; the wire
+    kernels once per stage boundary per pass on the int8 wire (a replay
+    repeats the prefill and the decode steps before the kill).  The
+    standalone ``silu`` runs on no path."""
     from repro_torch import kernels
     from repro_torch.models.model import hybrid_apps
     want = dict.fromkeys(kernels.WRAPPERS, 0)
@@ -821,9 +1112,11 @@ def expected_launches(cfg, n_stages, path, steps):
     want["ssd"] = mamba * prefills
     want["decode_attention"] = attn * steps
     want["ssm_decode_step"] = mamba * steps
-    want["rms_norm_rows"] = (2 * attn + 2 * mamba + 1) * steps + prefills
+    passes = prefills + steps
+    want["rms_norm_rows"] = (attn + mamba + 1) * passes
+    want["residual_rms_norm_rows"] = attn * passes
+    want["gated_rms_norm_rows"] = want["conv_silu"] = mamba * passes
     want["rows_matmul"] = (7 * attn + 2 * mamba + 1) * steps + prefills
-    want["silu"] = 2 * mamba * (prefills + steps)
     if "int8" in path:
         want["quantize"] = want["dequantize"] = \
             (n_stages - 1) * (prefills + steps)
@@ -953,7 +1246,7 @@ def stream_phase(torch, cfg, params, timed, counted):
 # gemm, gemv or nvjet_*, a reduction, a softmax) fails the step.
 STEP_KERNELS = ("rows_matmul_kn_kernel", "rows_matmul_nk_kernel",
                 "rms_norm_rows_kernel", "decode_attention_kernel",
-                "ssm_decode_kernel", "silu_kernel", "elementwise_kernel",
+                "ssm_decode_kernel", "conv_silu_kernel", "elementwise_kernel",
                 "CatArrayBatchedCopy", "gather_kernel", "index", "Memcpy",
                 "Memset")
 
@@ -1031,7 +1324,7 @@ def decode_hunt(torch, cfg, params, batch):
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
-    first = {"dense": 10, "ssm": 5, "hybrid": 15}[cfg.family]
+    first = {"dense": 9, "ssm": 4, "hybrid": 13}[cfg.family]
     differ = []
     with torch.inference_mode():
         for i, (name, args) in enumerate(calls[:first] + calls[-2:]):
@@ -1283,7 +1576,8 @@ def main() -> int:
     gen.manual_seed(0)
     records = [check_flash(torch, gen), *check_quantize(torch, gen),
                check_ssd(torch, gen), *check_decode(torch, gen),
-               check_silu(torch, gen)]
+               *check_norm(torch, gen), check_silu(torch, gen),
+               check_conv_silu(torch, gen)]
     torch.cuda.empty_cache()
 
     log("== 4. main paths at full width")
@@ -1311,6 +1605,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
             "warm_ms", "warm_library_ms",      # the two decode kernels'
+            "issue_bound_ms", "sass_per_element",   # silu's
 
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "shapes")                          # the decode kernels'

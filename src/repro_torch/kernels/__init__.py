@@ -8,17 +8,21 @@ Each wrapper counts its launches; :func:`launch_counts` reads them all and
 from __future__ import annotations
 
 from .attention.ops import flash_attention
-from .decode.ops import (decode_attention, rms_norm_rows, rows_matmul,
+from .decode.ops import (decode_attention, gated_rms_norm_rows,
+                         residual_rms_norm_rows, rms_norm_rows, rows_matmul,
                          ssm_decode_step)
 from .quantize.ops import dequantize, quantize
-from .silu.ops import silu
+from .silu.ops import conv_silu, silu
 from .ssd.ops import ssd_scan
 
 WRAPPERS = {"flash_attention": flash_attention, "quantize": quantize,
             "dequantize": dequantize, "ssd": ssd_scan,
             "rows_matmul": rows_matmul, "rms_norm_rows": rms_norm_rows,
+            "residual_rms_norm_rows": residual_rms_norm_rows,
+            "gated_rms_norm_rows": gated_rms_norm_rows,
             "decode_attention": decode_attention,
-            "ssm_decode_step": ssm_decode_step, "silu": silu}
+            "ssm_decode_step": ssm_decode_step, "silu": silu,
+            "conv_silu": conv_silu}
 
 
 def launch_counts() -> dict[str, int]:

@@ -54,14 +54,19 @@ SIGNATURES = {
         "ssd_error_string": ([_I], ctypes.c_char_p),
     },
     "silu": {
-        "silu_launch": ([_P, _L, _P, _L, _I, _I, _P], _I),
+        "silu_launch": ([_P, _L, _P, _I, _I, _I, _P], _I),
+        "conv_silu_launch": ([_P, _P, _L, _L, _P, _P, _P] + [_I] * 5 + [_P],
+                             _I),
         "silu_error_string": ([_I], ctypes.c_char_p),
+    },
+    "norm": {
+        "rms_norm_rows_launch": ([_I, _P, _L, _P, _L, _P, _L, _P, _I, _P, _P,
+                                  _P] + [_I] * 5 + [_F, _I, _P], _I),
+        "norm_error_string": ([_I], ctypes.c_char_p),
     },
     "decode": {
         "rows_matmul_launch": ([_P, _L, _P, _L, _L, _P, _L, _P, _P]
                                + [_I] * 6 + [_P], _I),
-        "rms_norm_rows_launch": ([_P, _L, _P, _P, _L, _I, _I, _F, _I, _P],
-                                 _I),
         "decode_attention_launch": ([_P, _L, _L, _P, _P] + [_L] * 6
                                     + [_P, _P] + [_I] * 6 + [_F, _I, _I, _P],
                                     _I),

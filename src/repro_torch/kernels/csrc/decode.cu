@@ -1,11 +1,12 @@
 // Row-invariant decode kernels for Hopper (sm_90a).
 //
 // A decode step of the port's models is a handful of products and
-// reductions over one token per sequence.  The library calls it used before
-// (cuBLAS GEMMs, torch's row reductions, a masked softmax over the kv
-// bucket) pick their algorithm, and so the order of each sum, from the
-// number of rows and from the padded length: a request served in a batch
-// of four then rounded differently from the same request served alone.
+// reductions over one token per sequence (its RMSNorms are norm.cu's).
+// The library calls it used before (cuBLAS GEMMs, torch's row reductions,
+// a masked softmax over the kv bucket) pick their algorithm, and so the
+// order of each sum, from the number of rows and from the padded length: a
+// request served in a batch of four then rounded differently from the same
+// request served alone.
 // Here every output of row r is computed by the same sequence of float32
 // operations whatever the other rows are, how many there are, and how far
 // the cache is padded:
@@ -14,7 +15,6 @@
 //                      transposed view of an (N, K) matrix (a tied head's
 //                      embed.T).  Replaces cuBLAS on a decode step's
 //                      projections and LM head.
-//   * rms_norm_rows    y = x * rsqrt(mean(x^2) + eps) * w, per row.
 //   * decode_attention one query token per sequence against keys
 //                      [0, kv_len[b]) of its cache, in fixed runs of 64
 //                      keys over a cluster of blocks, merged in order.
@@ -505,41 +505,6 @@ cudaError_t dispatch_rows(const RowsArgs& a, long long wsn, int tn,
     return by_rows([&](auto mt) {
       return launch_rows_kn<T, decltype(mt)::value>(a, tn, st);
     });
-}
-
-// ---------------------------------------------------------------------------
-// rms_norm_rows: one block a row; each thread's sum of squares over the
-// elements tid, tid + 256, ... in order, a warp tree, eight warps in order.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rms_norm_rows_kernel(const T* __restrict__ x, long long xs,
-                     const T* __restrict__ w, T* __restrict__ out,
-                     long long os, int d, float eps) {
-  __shared__ float part[kThreads / 32];
-  __shared__ float scale;
-  const T* xr = x + (long long)blockIdx.x * xs;
-  T* orow = out + (long long)blockIdx.x * os;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = to_f32(xr[i]);
-    ss = fmaf(v, v, ss);
-  }
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = part[0];
-#pragma unroll
-    for (int q = 1; q < kThreads / 32; ++q) s += part[q];
-    scale = rsqrtf(s / (float)d + eps);
-  }
-  __syncthreads();
-  const float r = scale;
-  for (int i = threadIdx.x; i < d; i += kThreads)
-    orow[i] = from_f32<T>(__fmul_rn(__fmul_rn(to_f32(xr[i]), r),
-                                    to_f32(w[i])));
 }
 
 // ---------------------------------------------------------------------------
@@ -1043,25 +1008,6 @@ extern "C" int rows_matmul_launch(const void* x, long long xs, const void* w,
   if (dtype == 0) return (int)dispatch_rows<float>(a, wsn, tn, st);
   if (dtype == 1) return (int)dispatch_rows<__nv_bfloat16>(a, wsn, tn, st);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int rms_norm_rows_launch(const void* x, long long xs,
-                                    const void* w, void* out, long long os,
-                                    int m, int d, float eps, int dtype,
-                                    void* stream) {
-  if (m <= 0) return 0;
-  if (d <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    rms_norm_rows_kernel<float><<<m, kThreads, 0, st>>>(
-        (const float*)x, xs, (const float*)w, (float*)out, os, d, eps);
-  else if (dtype == 1)
-    rms_norm_rows_kernel<__nv_bfloat16><<<m, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, xs, (const __nv_bfloat16*)w,
-        (__nv_bfloat16*)out, os, d, eps);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }
 
 // q_dtype / kv_dtype: (1, 1), (0, 1) (a bf16 cache under float32 params) or

@@ -1,4 +1,5 @@
-"""Wrappers of the row-invariant decode kernels (``csrc/decode.cu``).
+"""Wrappers of the row-invariant decode kernels (``csrc/decode.cu``) and of
+the RMSNorm with its fused prologues (``csrc/norm.cu``).
 
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``, the model's code as it was); for CUDA tensors it launches the
@@ -29,6 +30,13 @@ across blocks, and the way they split it never looks at M or the bucket:
 Both kernels are bound by bytes (the weight, the cache): the plan spreads
 the weight over the SMs, and the kernel keeps three 16 KB stages of it in
 flight a block; attention's blocks are short, on the tensor cores in bf16.
+
+``rms_norm_rows`` takes any number of rows (a decode step's, a prefill's):
+its plan (:func:`norm_plan`) comes from D and the type alone.  Its fused
+forms save a launch and an intermediate tensor each:
+``residual_rms_norm_rows`` adds the residual first (the dense block's
+``h + attention`` before ``ln2``), ``gated_rms_norm_rows`` computes the
+mamba block's skip and SiLU gate first.
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ SLICE = 16                     # rows_matmul's K-slices are multiples of it
 RESIDENT = 2                   # rows_matmul blocks an SM holds at once
 FILL = 0.9                     # the share of the SMs a plan keeps busy
 BLOCK_BYTES = 32768            # the least weight a block streams: 2 stages
+NORM_UNITS = 2                 # 16-byte units a norm thread aims at
+NORM_MAX_THREADS = 512         # threads a row
+NORM_MAX_UNITS = 8             # units a thread at most
+NORM_BLOCK = 256               # threads a norm block holds at least
 
 
 def _stream(t):
@@ -202,31 +214,125 @@ def rows_matmul(x, w):
     return out.view(*lead, n)
 
 
+@functools.lru_cache(maxsize=None)
+def norm_plan(d: int, itemsize: int) -> tuple[int, int, int]:
+    """The plan of ``rms_norm_rows`` and its fused forms for rows of ``d``
+    elements of ``itemsize`` bytes: ``(threads a row, 16-byte units a
+    thread at most, threads a block)``.  A row's units go to its threads
+    round-robin, about ``NORM_UNITS`` each, held in registers; a block
+    holds ``NORM_BLOCK`` threads or one row, whichever is more.  There is
+    no M: a row's sum of squares follows from the plan, so a row gets the
+    same bits alone, in a decode batch or among a prefill's rows."""
+    units = -(-d * itemsize // 16)
+    tpr = 32
+    while tpr < NORM_MAX_THREADS and tpr * NORM_UNITS < units:
+        tpr *= 2
+    upt = -(-units // tpr)
+    if upt > NORM_MAX_UNITS:
+        raise ValueError(f"rms_norm_rows: rows of {d} elements above the "
+                         f"{NORM_MAX_THREADS * NORM_MAX_UNITS} 16-byte "
+                         f"units a row")
+    return tpr, upt, max(tpr, NORM_BLOCK)
+
+
+def _norm(mode, x, a, z, dv, p, w, eps, hout):
+    """Launch the norm kernel in ``mode`` over the rows of x (M, D)."""
+    m, d = x.shape
+    tpr, upt, threads = norm_plan(d, x.element_size())
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    lib = _build.load("norm")
+    with torch.cuda.device(x.device):
+        err = lib.rms_norm_rows_launch(
+            mode, x.data_ptr(), x.stride(0),
+            None if a is None else a.data_ptr(),
+            0 if a is None else a.stride(0),
+            None if z is None else z.data_ptr(),
+            0 if z is None else z.stride(0),
+            None if dv is None else dv.data_ptr(), p, w.data_ptr(),
+            out.data_ptr(), None if hout is None else hout.data_ptr(), m, d,
+            tpr, upt, threads, float(eps), _DTYPES[x.dtype], _stream(x))
+    _build.check("norm", "rms_norm_rows_launch", err)
+    return out
+
+
+def _rows(name, t, d):
+    """t (..., d) as (M, d) rows at one stride, its last dim dense."""
+    try:
+        r = t.view(-1, d)
+    except RuntimeError as e:
+        raise ValueError(f"{name}: strides {tuple(t.stride())} do not "
+                         f"flatten to rows") from e
+    if r.stride(1) != 1 and d > 1:
+        raise ValueError(f"{name}: the last dim must be dense")
+    return r
+
+
+def _norm_weight(name, x, w):
+    if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1]:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not agree")
+
+
 def rms_norm_rows(x, w, eps: float):
     """RMSNorm of each row of x (..., D) with weight w (D,), in float32,
-    cast back to x's dtype."""
-    if x.dim() < 1 or w.dim() != 1 or w.shape[0] != x.shape[-1]:
-        raise ValueError(f"rms_norm_rows: shapes x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)} do not agree")
+    cast back to x's dtype; any number of rows."""
+    _norm_weight("rms_norm_rows", x, w)
     if x.device.type == "cpu":
         return ref.rms_norm_ref(x, w, eps)
     _on_card("rms_norm_rows", x, w)
-    code = _dtype("rms_norm_rows", x, w)
-    shape, d = x.shape, x.shape[-1]
-    x = x.reshape(-1, d)
-    if (x.stride(1) != 1 and d > 1) or w.stride(0) != 1:
-        raise ValueError("rms_norm_rows: the last dim of x and w must be "
-                         "dense")
-    m = x.shape[0]
-    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    lib = _build.load("decode")
-    with torch.cuda.device(x.device):
-        err = lib.rms_norm_rows_launch(x.data_ptr(), x.stride(0), w.data_ptr(),
-                                       out.data_ptr(), d, m, d, float(eps),
-                                       code, _stream(x))
-    _build.check("decode", "rms_norm_rows_launch", err)
+    _dtype("rms_norm_rows", x, w)
+    d = x.shape[-1]
+    out = _norm(0, _rows("rms_norm_rows", x, d), None, None,
+                None, 0, _rows("rms_norm_rows", w, d), eps, None)
     rms_norm_rows.launches += 1
-    return out.view(shape)
+    return out.view(x.shape)
+
+
+def residual_rms_norm_rows(h, delta, w, eps: float):
+    """``h + delta`` and its RMSNorm in one launch: returns (h + delta, the
+    norm of it), both of h's shape, as ``ref.residual_rms_norm_ref``."""
+    _norm_weight("residual_rms_norm_rows", h, w)
+    if delta.shape != h.shape:
+        raise ValueError(f"residual_rms_norm_rows: h {tuple(h.shape)} and "
+                         f"delta {tuple(delta.shape)} differ")
+    if h.device.type == "cpu":
+        return ref.residual_rms_norm_ref(h, delta, w, eps)
+    name = "residual_rms_norm_rows"
+    _on_card(name, h, delta, w)
+    _dtype(name, h, delta, w)
+    d = h.shape[-1]
+    hr = _rows(name, h, d)
+    hout = torch.empty(hr.shape, dtype=h.dtype, device=h.device)
+    out = _norm(1, hr, _rows(name, delta, d), None, None, 0,
+                _rows(name, w, d), eps, hout)
+    residual_rms_norm_rows.launches += 1
+    return hout.view(h.shape), out.view(h.shape)
+
+
+def gated_rms_norm_rows(y, D, xh, z, w, eps: float):
+    """The mamba block's tail in one launch: RMSNorm of (y + D xh) * silu(z)
+    with the plain chain's roundings (``ref.gated_rms_norm_ref``).  y and xh
+    (B, S, H, P), D (H,) float32, z (B, S, H*P); xh and z are read in place
+    (slices of the conv output and of in_proj's).  Returns z's shape."""
+    name = "gated_rms_norm_rows"
+    _norm_weight(name, z, w)
+    if y.dim() != 4 or xh.shape != y.shape or D.shape != (y.shape[2],) \
+            or tuple(z.shape) != (*y.shape[:2], y.shape[2] * y.shape[3]):
+        raise ValueError(f"{name}: shapes y {tuple(y.shape)}, D "
+                         f"{tuple(D.shape)}, xh {tuple(xh.shape)}, z "
+                         f"{tuple(z.shape)} do not agree")
+    if y.device.type == "cpu":
+        return ref.gated_rms_norm_ref(y, D, xh, z, w, eps)
+    _on_card(name, y, D, xh, z, w)
+    _dtype(name, y, xh, z, w)
+    if D.dtype != torch.float32 or not D.is_contiguous():
+        raise TypeError(f"{name}: D must be contiguous float32")
+    d = z.shape[-1]
+    out = _norm(2, _rows(name, y, d), _rows(name, xh, d),
+                _rows(name, z, d), D, y.shape[3], _rows(name, w, d), eps,
+                None)
+    gated_rms_norm_rows.launches += 1
+    return out.view(z.shape)
 
 
 def decode_attention(q, k, v, kv_len):
@@ -329,5 +435,7 @@ def ssm_decode_step(state, x, dt, A, Bm, Cm):
 
 rows_matmul.launches = 0
 rms_norm_rows.launches = 0
+residual_rms_norm_rows.launches = 0
+gated_rms_norm_rows.launches = 0
 decode_attention.launches = 0
 ssm_decode_step.launches = 0

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the decode kernels (``csrc/decode.cu``).
+"""Plain PyTorch versions of the decode kernels (``csrc/decode.cu``) and
+the RMSNorm with its fused prologues (``csrc/norm.cu``).
 
-They are the model's decode-step code as it was before the kernels, moved
-here unchanged: on the CPU the port computes the same bits as before.  On
+They are the model's code as it was before the kernels, moved here
+unchanged: on the CPU the port computes the same bits as before.  On
 the card they are the yardstick each kernel is held to, and they are what
 the kernels replace there: a library matmul, torch's row reductions and a
 masked softmax over the kv bucket choose their summation order by the row
@@ -13,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..silu.ref import silu_ref
 
 NEG = -1e30
 
@@ -28,6 +31,22 @@ def rms_norm_ref(x, w, eps):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def residual_rms_norm_ref(h, delta, w, eps):
+    """The dense block's residual add and the norm after it: (h + delta,
+    its RMSNorm)."""
+    h = h + delta
+    return h, rms_norm_ref(h, w, eps)
+
+
+def gated_rms_norm_ref(y, D, xh, z, w, eps):
+    """The mamba block's tail before out_proj: the skip D xh (D (H,)
+    float32, cast to y's dtype) added to y (B,S,H,P), gated by SiLU of z
+    (B,S,H*P), then the RMSNorm."""
+    y = y + D[None, None, :, None].to(y.dtype) * xh.to(y.dtype)
+    y = y.reshape(z.shape).to(z.dtype)
+    return rms_norm_ref(y * silu_ref(z), w, eps)
 
 
 def decode_attention_ref(q, k, v, kv_len):

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the SiLU kernel (``csrc/silu.cu``).
+"""Plain PyTorch versions of the kernels of ``csrc/silu.cu``.
 
 The reference's ``jax.nn.silu`` is x * (1 / (1 + exp(-x))), and XLA on the
 CPU rounds every op to x's dtype (it computes each bf16 op in float32 and
@@ -7,10 +7,41 @@ them, so these are the CPU reference's bits, not the TPU's); ``F.silu``
 rounds once, and in bf16 the two part by an ulp on a third of the
 elements.  Each torch op on a bf16 tensor rounds its result, so this
 expression gives the CPU reference's bits.
+
+``conv_silu_ref`` is the mamba block's conv and SiLU as the model computed
+them before the fused kernel, op for op (``causal_conv`` for the cacheless
+forward, the cached branch for a prefill into a cache and a decode step):
+on the CPU the port computes the same bits as before.
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 
 def silu_ref(x):
     return x * (1.0 / (1.0 + (-x).exp()))
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv: x (B,S,C), w (K,C).  Returns (B,S,C)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i:i + s, :] * w[i][None, None, :] for i in range(k))
+    return out + b[None, None, :]
+
+
+def conv_silu_ref(conv_buf, conv_in, w, b):
+    """SiLU of the depthwise causal conv of ``conv_in`` (B,S,C) with w (K,C)
+    and bias b (C,), over the history ``conv_buf`` (B,K-1,C), which is
+    shifted in place to the last K-1 tokens, or over zeros when it is
+    None."""
+    if conv_buf is None:
+        return silu_ref(causal_conv(conv_in, w, b))
+    kw, s = w.shape[0], conv_in.shape[1]
+    buf = torch.cat([conv_buf, conv_in], dim=1)           # (B,K-1+s,C)
+    conv = sum(buf[:, i:i + s, :] * w[i][None, None, :]
+               for i in range(kw)) + b[None, None, :]
+    conv_buf.copy_(buf[:, -(kw - 1):, :])
+    return silu_ref(conv)

@@ -10,11 +10,13 @@ generate) through the continuous-batching ``SlotScheduler`` over
 unless ``--device cpu``.
 
 The flags are those of ``repro/launch/serve.py``'s monolithic, ``--stream``
-and ``--cuts`` paths, plus two: ``--wire-bits``, since the reference launcher
-never reaches the int8 wire that the served pipeline sends (the paper's
-lambda compression), and ``--profile``, which traces one prefill-only run
-and one full run with ``torch.profiler`` and prints the device busy time,
-the kernel launches and the kernels that took the most device time.
+and ``--cuts`` paths, plus three: ``--wire-bits``, since the reference
+launcher never reaches the int8 wire that the served pipeline sends (the
+paper's lambda compression), ``--profile``, which traces one prefill-only
+run and one full run with ``torch.profiler`` and prints the device busy
+time, the kernel launches and the kernels that took the most device time,
+and ``--layers``, which cuts the depth (llama3-405b's 126 layers are about
+810 GB in bf16; ``chip_smoke.py`` serves 4 of them).
 
 Timing: the first generate is a warm-up (it builds the kernels on first
 use) and is reported separately; every reported time ends in
@@ -70,6 +72,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' to run on the "
                          "CPU)")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="serve the first N layers only (a cut depth, for "
+                         "a model whose weights do not fit one card)")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed run, trace a prefill-only run and "
                          "a full run with torch.profiler and print device "
@@ -81,6 +86,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     rng = torch.Generator(device=device)
     rng.manual_seed(0)
     params = init_params(cfg, rng, device=device)

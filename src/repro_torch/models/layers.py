@@ -11,12 +11,13 @@ Attention over a fresh prompt (prefill at cache offset 0, and the cacheless
 cache that already holds rows writes at the rows' length and attends over
 the cache in plain torch ops, as the reference does.  Rows of one token per
 sequence (a decode step, and the last prompt token's head) go through the
-row-invariant decode kernels (``kernels.decode``): the projections, the
-RMSNorms and decode attention, so that on the card a row gets the same
-bits in a batch of any size and against a cache cut to any bucket.  Every
-other product is ``torch.matmul``.  The MLP's SiLU is torch's own: the
-``silu`` kernel, with the reference's bf16 rounding points, serves the
-mamba blocks (``ssm.py``), where that rounding was the measured fault.
+row-invariant decode kernels (``kernels.decode``): the projections and
+decode attention, so that on the card a row gets the same bits in a batch
+of any size and against a cache cut to any bucket.  Every other product is
+``torch.matmul``.  Every RMSNorm, of any number of rows, goes through
+``rms_norm_rows``, row-invariant too.  The MLP's SiLU is torch's own: the
+SiLU with the reference's bf16 rounding points serves the mamba blocks'
+fused kernels (``ssm.py``), where that rounding was the measured fault.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.attention.ops import flash_attention
-from repro_torch.kernels.decode import ref as decode_ref
 from repro_torch.kernels.decode.ops import (decode_attention, rms_norm_rows,
                                             rows_matmul)
 
@@ -59,9 +59,7 @@ def _one_token(x):
 
 
 def rms_norm(x, w, eps):
-    if _one_token(x):
-        return rms_norm_rows(x, w, eps)
-    return decode_ref.rms_norm_ref(x, w, eps)
+    return rms_norm_rows(x, w, eps)
 
 
 def linear(x, w):

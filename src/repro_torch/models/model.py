@@ -24,6 +24,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.kernels.decode.ops import residual_rms_norm_rows
 
 from .config import ModelConfig
 from .layers import (attention, cache_offset, dtype_of, init_attention,
@@ -95,9 +96,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def apply_dense_block(p, h, cfg: ModelConfig, positions, cache=None,
                       kv_bucket=None, offset=None):
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    h = h + attention(p["attn"], x, cfg, positions, cache=cache,
-                      kv_bucket=kv_bucket, offset=offset)
-    return h + mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    h, x = residual_rms_norm_rows(
+        h, attention(p["attn"], x, cfg, positions, cache=cache,
+                     kv_bucket=kv_bucket, offset=offset), p["ln2"],
+        cfg.norm_eps)
+    return h + mlp(p["mlp"], x)
 
 
 def embed_tokens(params, cfg, tokens):

@@ -8,11 +8,14 @@ The scan from a zero state, which is the cacheless forward and the prefill
 into a fresh cache, goes through the SSD kernel (``kernels.ssd.ops``);
 decode at s == 1 is the O(1) recurrence, through the row-invariant
 ``ssm_decode_step`` kernel, with the block's projections and norms through
-the other decode kernels (``layers.linear``, ``layers.rms_norm``).  The
-conv's activation and the gate use the ``silu`` kernel, which rounds each
-of its four ops as the reference's ``jax.nn.silu`` does under XLA on the
-CPU (torch's one rounding put these blocks over 2 bf16 ulps off the
-reference).  Caches are updated in place.
+the other decode kernels (``layers.linear``, ``layers.rms_norm``).  Two
+fused kernels take the element-wise chains around the scan, at any s: the
+conv with its bias and SiLU, shifting the cache's conv_buf in place
+(``conv_silu``), and the skip, the SiLU gate and the norm
+(``gated_rms_norm_rows``).  Their SiLU rounds each of its four ops as the
+reference's ``jax.nn.silu`` does under XLA on the CPU (torch's one
+rounding put these blocks over 2 bf16 ulps off the reference).  Caches are
+updated in place.
 """
 
 from __future__ import annotations
@@ -20,14 +23,14 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.decode.ops import ssm_decode_step
-from repro_torch.kernels.silu.ops import silu
+from repro_torch.kernels.decode.ops import (gated_rms_norm_rows,
+                                            ssm_decode_step)
+from repro_torch.kernels.silu.ops import conv_silu
 from repro_torch.kernels.ssd.ops import ssd_scan
 
 from .config import ModelConfig
-from .layers import dtype_of, linear, ninit, rms_norm
+from .layers import dtype_of, linear, ninit
 
 
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, n_layers: int):
@@ -58,14 +61,6 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, n_layers: int):
     }
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv: x (B,S,C), w (K,C).  Returns (B,S,C)."""
-    k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    out = sum(xp[:, i:i + s, :] * w[i][None, None, :] for i in range(k))
-    return out + b[None, None, :]
-
-
 def _softplus(x):
     """The reference's ``logaddexp(x, 0)``."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
@@ -86,15 +81,8 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
     conv_in = zxbcdt[..., di:2 * di + 2 * n]          # x, B, C
     dt = zxbcdt[..., 2 * di + 2 * n:]
 
-    if cache is None:
-        conv = _causal_conv(conv_in, params["conv_w"], params["conv_b"])
-    else:
-        kw = cfg.ssm_conv
-        buf = torch.cat([cache["conv_buf"], conv_in], dim=1)  # (B,K-1+s,C)
-        conv = sum(buf[:, i:i + s, :] * params["conv_w"][i][None, None, :]
-                   for i in range(kw)) + params["conv_b"][None, None, :]
-        cache["conv_buf"].copy_(buf[:, -(kw - 1):, :])
-    conv = silu(conv)
+    conv = conv_silu(None if cache is None else cache["conv_buf"], conv_in,
+                     params["conv_w"], params["conv_b"])
 
     xh = conv[..., :di].reshape(b, s, h, p)
     b2 = conv[..., di:di + n]
@@ -112,9 +100,8 @@ def mamba_block(params, x, cfg: ModelConfig, cache=None):
     if cache is not None:
         cache["len"] += s
 
-    y = y + params["D"][None, None, :, None].to(y.dtype) * xh.to(y.dtype)
-    y = y.reshape(b, s, di).to(x.dtype)
-    y = rms_norm(y * silu(z), params["norm_w"], cfg.norm_eps)
+    y = gated_rms_norm_rows(y, params["D"], xh, z, params["norm_w"],
+                            cfg.norm_eps)
     return linear(y, params["out_proj"])
 
 

@@ -31,7 +31,7 @@ from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.decode import ref as dec_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.silu import ops as silu_ops
-from repro_torch.kernels.silu.ref import silu_ref
+from repro_torch.kernels.silu.ref import conv_silu_ref, silu_ref
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked
@@ -526,6 +526,101 @@ def test_silu_kernel_bit_equal(cuda, shape, cut, dtype):
     bits_equal(y, silu_ref(x))
 
 
+def test_silu_every_bf16_input(cuda):
+    """The shared SiLU (approximate exp and reciprocal, the exact chain
+    where a rounding could differ) against the plain version over all
+    65536 bf16 inputs, NaNs and infinities included."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).to(cuda)
+    bits_equal(silu_ops.silu(x), silu_ref(x))
+
+
+@pytest.mark.parametrize("c,s,off,k", [
+    (4352, 1, 16, 4), (4352, 512, 16, 4), (7296, 1, 16, 4),
+    (7296, 512, 16, 4), (160, 9, 16, 4), (160, 20, 1, 4), (36, 3, 1, 4),
+    (36, 1, 0, 4), (160, 9, 16, 3), (160, 1, 16, 2), (36, 5, 1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_silu_bit_equal(cuda, c, s, off, k, dtype):
+    """The conv pass against the plain chain, bit for bit: output and the
+    shifted conv_buf, with a cache and without, conv_in read in place from
+    a wider row (16-byte units at an offset of 16 elements, single
+    elements otherwise), zero inputs against negative weights included
+    (the chain's sum from 0 turns their -0 products into +0); conv widths
+    4 (the models'), 3 and 2."""
+    b = 4
+    row = randn(cuda, 1, b, s, c + 40, dtype=dtype) * 2
+    row[..., ::5] = 0
+    conv_in = row[..., off:off + c]
+    w = randn(cuda, 2, k, c, dtype=dtype) * 0.5
+    bias = randn(cuda, 3, c, dtype=dtype) * 0.1
+    bias[::3] = 0
+    hist = randn(cuda, 4, b, k - 1, c, dtype=dtype)
+    before = silu_ops.conv_silu.launches
+    hk, hp = hist.clone(), hist.clone()
+    bits_equal(silu_ops.conv_silu(hk, conv_in, w, bias),
+               conv_silu_ref(hp, conv_in, w, bias))
+    bits_equal(hk, hp)
+    bits_equal(silu_ops.conv_silu(None, conv_in, w, bias),
+               conv_silu_ref(None, conv_in, w, bias))
+    assert silu_ops.conv_silu.launches == before + 2
+
+
+@pytest.mark.parametrize("d", [2048, 2304, 3584, 4096, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_rows_at_model_widths(cuda, d, dtype):
+    """Within 3e-2 (1 + |plain|) (bf16; float32 2e-5) of the plain float32
+    chain over a prefill's 2048 rows, and a row's bits the same alone, in
+    a batch of 4 and among the 2048."""
+    x = randn(cuda, 3, 2048, d, dtype=dtype) * 3
+    w = (1 + 0.1 * randn(cuda, 4, d)).to(dtype)
+    out = dec_ops.rms_norm_rows(x, w, 1e-5)
+    want = dec_ref.rms_norm_ref(x, w, 1e-5).float()
+    assert ((out.float() - want).abs()
+            <= TOL[dtype] * (1 + want.abs())).all()
+    bits_equal(dec_ops.rms_norm_rows(x[:4], w, 1e-5), out[:4])
+    for r in (0, 3, 1000, 2047):
+        bits_equal(dec_ops.rms_norm_rows(x[r:r + 1], w, 1e-5), out[r:r + 1])
+
+
+@pytest.mark.parametrize("d", [64, 1000, 2048, 3584, 16384])
+@pytest.mark.parametrize("m", [1, 4, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_norm_moves_no_bit(cuda, d, m, dtype):
+    """h + delta and its norm in one launch: h' bit-equal to the plain add,
+    the normed rows bit-equal to the norm kernel on h'."""
+    h = randn(cuda, 5, m, d, dtype=dtype) * 3
+    delta = randn(cuda, 6, m, d, dtype=dtype)
+    w = (1 + 0.1 * randn(cuda, 7, d)).to(dtype)
+    before = dec_ops.residual_rms_norm_rows.launches
+    hk, xk = dec_ops.residual_rms_norm_rows(h, delta, w, 1e-5)
+    assert dec_ops.residual_rms_norm_rows.launches == before + 1
+    bits_equal(hk, h + delta)
+    bits_equal(xk, dec_ops.rms_norm_rows(h + delta, w, 1e-5))
+
+
+@pytest.mark.parametrize("h,p,n,s", [(64, 64, 128, 1), (64, 64, 128, 512),
+                                     (112, 64, 64, 1), (112, 64, 64, 512),
+                                     (8, 16, 16, 9), (6, 12, 16, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_norm_moves_no_bit(cuda, h, p, n, s, dtype):
+    """The mamba block's tail in one launch, bit-equal to the norm kernel on
+    the plain skip and gate; z and xh read in place from their slices
+    (head sizes of whole 16-byte units, and not)."""
+    b, di = 4, h * p
+    zx = randn(cuda, 8, b, s, 2 * di + 2 * n + h, dtype=dtype) * 3
+    conv = randn(cuda, 9, b, s, di + 2 * n, dtype=dtype)
+    z, xh = zx[..., :di], conv[..., :di].reshape(b, s, h, p)
+    y = randn(cuda, 10, b, s, h, p, dtype=dtype)
+    D = 1 + 0.5 * randn(cuda, 11, h)
+    w = (1 + 0.1 * randn(cuda, 12, di)).to(dtype)
+    got = dec_ops.gated_rms_norm_rows(y, D, xh, z, w, 1e-5)
+    g = (y + D[None, None, :, None].to(dtype) * xh).reshape(z.shape) \
+        * silu_ref(z)
+    bits_equal(got, dec_ops.rms_norm_rows(g, w, 1e-5))
+    bits_equal(dec_ops.gated_rms_norm_rows(y[:1], D, xh[:1], z[:1], w, 1e-5),
+               got[:1])
+
+
 def test_decode_kernels_refuse_what_they_do_not_take(cuda):
     x = randn(cuda, 0, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="dtypes"):
@@ -621,10 +716,10 @@ def test_pipelines_on_card(smoke):
     clean = i8.generate(batch, GEN)
     np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill), clean)
     counts = kernels.launch_counts()
-    mixers = {"dense": {"flash_attention", "decode_attention"},
-              "ssm": {"ssd", "ssm_decode_step", "silu"},
-              "hybrid": {"flash_attention", "ssd", "decode_attention",
-                         "ssm_decode_step", "silu"}}[cfg.family]
+    attn = {"flash_attention", "decode_attention", "residual_rms_norm_rows"}
+    mamba = {"ssd", "ssm_decode_step", "conv_silu", "gated_rms_norm_rows"}
+    mixers = {"dense": attn, "ssm": mamba,
+              "hybrid": attn | mamba}[cfg.family]
     assert {n for n, c in counts.items() if c} == mixers | {
         "quantize", "dequantize", "rows_matmul", "rms_norm_rows"}, counts
 

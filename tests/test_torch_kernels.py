@@ -298,7 +298,14 @@ class TestFlashAttention:
                  torch.ones(1, 4, 8), torch.ones(1, 4, 8), 16)
         kernels.rows_matmul(torch.ones(2, 8), torch.ones(8, 4))
         kernels.silu(torch.ones(2, 8))
+        kernels.conv_silu(torch.ones(2, 3, 8), torch.ones(2, 5, 8),
+                          torch.ones(4, 8), torch.ones(8))
         kernels.rms_norm_rows(torch.ones(2, 8), torch.ones(8), 1e-5)
+        kernels.residual_rms_norm_rows(torch.ones(2, 8), torch.ones(2, 8),
+                                       torch.ones(8), 1e-5)
+        kernels.gated_rms_norm_rows(torch.ones(2, 1, 2, 4), torch.ones(2),
+                                    torch.ones(2, 1, 2, 4),
+                                    torch.ones(2, 1, 8), torch.ones(8), 1e-5)
         kernels.decode_attention(torch.ones(2, 1, 4, 8),
                                  torch.ones(2, 6, 2, 8),
                                  torch.ones(2, 6, 2, 8),
@@ -310,5 +317,8 @@ class TestFlashAttention:
                                            "quantize": 0, "dequantize": 0,
                                            "ssd": 0, "rows_matmul": 0,
                                            "rms_norm_rows": 0,
+                                           "residual_rms_norm_rows": 0,
+                                           "gated_rms_norm_rows": 0,
                                            "decode_attention": 0,
-                                           "ssm_decode_step": 0, "silu": 0}
+                                           "ssm_decode_step": 0, "silu": 0,
+                                           "conv_silu": 0}

@@ -43,6 +43,7 @@ from repro.serve import PipelineServeEngine as JaxPipelineServeEngine
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch import core
 from repro_torch.configs import get_config
+from repro_torch.kernels.silu.ref import causal_conv
 from repro_torch.kernels.ssd import ref as ssd_ref_mod
 from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.launch import serve as launch_serve
@@ -256,7 +257,7 @@ def test_causal_conv():
     x = r.standard_normal((2, 9, 12), dtype=np.float32)
     w = r.standard_normal((4, 12), dtype=np.float32)
     b = r.standard_normal(12, dtype=np.float32)
-    close(ssm._causal_conv(*map(torch.from_numpy, (x, w, b))),
+    close(causal_conv(*map(torch.from_numpy, (x, w, b))),
           jax_ssm._causal_conv(*map(jnp.asarray, (x, w, b))), 1e-6)
 
 
