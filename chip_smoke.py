@@ -10,17 +10,24 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels/csrc`` (one process per source, all at once);
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the main paths' shapes: flash attention within 3e-2 (bf16, every head
-   dim, 112 on the 128 tile included, ragged S, and a 4096-token prompt)
-   and 2e-5 (float32), with no copy of its inputs or output in its wrapper,
+   dim, 112 on the 128 tile included, ragged S, a 4096-token prompt, and
+   whisper's non-causal encoder: 1500 frames, 20 heads of 64) and 2e-5
+   (float32), with no copy of its inputs or output in its wrapper,
    quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
    rowwise path), the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); the three row-invariant
    decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
-   in_proj and llama3-405b's wg, ``decode_attention`` at granite's,
-   zamba2's and llama3-405b's caches, ``ssm_decode_step`` at mamba2's and
+   in_proj, llama3-405b's wg, whisper's wg and head and the VLM's wq and
+   wg, ``decode_attention`` at granite's, zamba2's and llama3-405b's
+   caches and over whisper's and the VLM's fixed cross caches (every key
+   read: 1500 and 6400 rows), ``ssm_decode_step`` at mamba2's and
    zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
-   |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state, each
+   |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state (whisper's
+   encoder flash and both cross caches also within 2^-6 of the largest
+   plain output, a bound that must refuse the kernel's own output with
+   the last run of 64 keys dropped: attention over 1500 or 6400 keys
+   averages its outputs down to a few hundredths), each
    row's bits the same alone and within batches of 2, 4 and 8, and
    attention's the same over the fast loop's bucket, and over one that
    ends inside a split of 64 keys, as over the whole cache (the plain
@@ -52,7 +59,14 @@ Phases, in order; any failure exits non-zero before the result line:
    sites), minicpm-2b (40 layers, d_model 2304, 36 heads of 64, tied head,
    vocab 122753), deepseek-7b (30 layers, d_model 4096, 32 heads of 128)
    and llama3-405b at full width (d_model 16384, 128 q heads over 8 kv
-   heads of 128, d_ff 53248, vocab 128256) and 4 of its 126 layers.  Each
+   heads of 128, d_ff 53248, vocab 128256) and 4 of its 126 layers;
+   whisper-large-v3 at full depth (32 encoder and 32 decoder layers,
+   d_model 1280, 20 heads of 64, 2.02 B params) over 1500 frames with a
+   224-token prompt, and llama-3.2-vision-90b at full width (d_model 8192,
+   64 q heads over 8 kv heads of 128, d_ff 28672, vocab 128256, 6400
+   vision tokens) and 10 of its 100 layers (2 groups of 4 self blocks and
+   a cross block; 10.66 B params, 21.3 GB), each request with its own side
+   input (frames or vision embeddings, bf16 from the seed).  Each
    is served by both ``ServeEngine`` loops, whose tokens and every step's
    logits must be bit-identical; one decode step is traced and must run
    only the kinds of ``STEP_KERNELS`` (the port's kernels and torch's
@@ -60,24 +74,37 @@ Phases, in order; any failure exits non-zero before the result line:
    reduction); then a stream of 6 staggered
    requests over 4 slots of the ``SlotScheduler``, each request's tokens
    and every decode step's logits bit-identical to the same request served
-   alone (see ``stream_phase``).  The first three are also planned by the
-   SEIFER planner onto a 10-node edge cluster into 4 stages (zamba2: each
-   stage holds call sites and its own copy of the shared block) and
-   served by the raw-wire ``PipelineServeEngine`` (bit-identical tokens,
-   also across a stage kill) and by the int8-wire one (a kill and restore
-   gives the same tokens as the run without it).  The kernel launch
+   alone (see ``stream_phase``).  granite, mamba2, zamba2 and whisper are
+   also planned by the SEIFER planner onto a 10-node edge cluster into 4
+   stages (zamba2: each stage holds call sites and its own copy of the
+   shared block; whisper: the planner charges the encoder as layers
+   enc0..enc31, its cut inside them leaves block-free stages, and the
+   first runs the whole encoder and ships its output raw to the others),
+   the VLM cut at block 5 (a group boundary: the planner is not
+   group-aware); each is served by the raw-wire ``PipelineServeEngine``
+   (bit-identical tokens, also across a stage kill) and by the int8-wire
+   one (a kill and restore gives the same tokens as the run without it).
+   The kill takes stage 1 after decode step 3; whisper's stage 1 holds
+   nothing, so there the encoder's stage 0 and the first stage with
+   decoder blocks die together (``kill_specs``).
+   For the two new models the plain cross-attention of a prefill (the
+   reference leaves it to XLA) is timed alone.  The kernel launch
    counters are zeroed just before each counted run (a model's monolithic
    run, its four pipeline runs, its stream) and read just after it, and
    each run must launch exactly what it runs: per prefill, flash attention
-   once per attention layer (the dense layers, zamba2's 14 call sites) and
-   the SSD scan once per mamba layer, and the head of the last token; per
-   decode step, per attention layer seven ``rows_matmul`` and one
-   ``decode_attention``, per mamba layer two ``rows_matmul`` and one
-   ``ssm_decode_step``, and the head; per pass (a prefill or a decode
-   step), per attention layer one ``rms_norm_rows`` (ln1) and one
-   ``residual_rms_norm_rows`` (the residual add and ln2), per mamba layer
-   one ``rms_norm_rows``, one ``conv_silu`` and one
-   ``gated_rms_norm_rows``, and the final norm; quantize and dequantize
+   once per self-attention layer (the dense layers, zamba2's 14 call
+   sites, the VLM's self blocks, whisper's decoder layers) and encoder
+   layer, never for cross-attention, the SSD scan once per mamba layer,
+   and the head of the last token; per decode step, per self-attention
+   layer seven ``rows_matmul`` and one ``decode_attention``, per VLM
+   cross block five and one, per whisper decoder layer nine and two, per
+   mamba layer two ``rows_matmul`` and one ``ssm_decode_step``, and the
+   head; per pass (a prefill or a decode step), per self-attention layer
+   and cross block one ``rms_norm_rows`` and one
+   ``residual_rms_norm_rows`` (the residual add and the next norm), per
+   decoder layer one and two, per mamba layer one ``rms_norm_rows``, one
+   ``conv_silu`` and one ``gated_rms_norm_rows``, and the final norm (the
+   encoder's layers and final norm once a prefill); quantize and dequantize
    once per stage boundary per pass in the int8-wire runs; and nothing
    else (the standalone ``silu`` runs on no path).
 
@@ -86,7 +113,7 @@ per kernel, and ``{"ok": true, "device": {...}}``; the streams' and the
 serving phases' numbers are on a JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
-the three pipelined models; ``launches_by_path`` holds the count from each
+the five pipelined models; ``launches_by_path`` holds the count from each
 counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
 replace no TPU kernel (the reference leaves these ops to XLA): their
 ``replaces`` names the reference's op.
@@ -114,14 +141,23 @@ HBM_BW = 3.35e12        # bytes/s
 PROMPT, BATCH, GEN = 512, 4, 32
 LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
 COLD_BYTES = 100e6      # copies a cold timing rotates over, in total
+SCALE_TOL = 2 ** -6     # scaled_check: of the largest output
 KILL = {"after_step": 3, "stage": 1}
-# planned and served pipelined as well as monolithic
-PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b")
+# served pipelined as well as monolithic: planned by the planner, or cut
+# at CUTS (the VLM's group-aligned cut: the planner is not group-aware)
+PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
+             "llama-3.2-vision-90b")
+CUTS = {"llama-3.2-vision-90b": [5]}
 # served by both ServeEngine loops and the stream only; llama3-405b at full
 # width and a cut depth (its 126 layers are about 810 GB of bf16)
 SERVED = ("minicpm-2b", "deepseek-7b", "llama3-405b")
 ARCHS = PIPELINED + SERVED
-DEPTH = {"llama3-405b": 4}
+# the VLM's 100 layers are about 175 GB of bf16: 10 layers, 2 groups
+DEPTH = {"llama3-405b": 4, "llama-3.2-vision-90b": 10}
+# whisper: a decoder prompt of its prompt-conditioning length (224), over
+# the 1500 frames of its 30-second window after the conv stem
+PROMPT_OF = {"whisper-large-v3": 224}
+FRAMES = 1500
 # the stream phase: the serve-equivalence fixture's staggered requests
 # ((8, 6), (8, 4), (12, 7), (8, 5), (12, 3), (8, 6)) at full width, as
 # (prompt, generated tokens)
@@ -178,6 +214,37 @@ def cold_copies(nbytes):
     return int(COLD_BYTES // nbytes) + 1
 
 
+def scaled_check(name, got, want, fault):
+    """Hold a kernel's bf16 output to a bound on the output's own scale:
+    max |kernel - plain| <= SCALE_TOL max |plain| (two bf16 ulps of the
+    largest output).  Attention over thousands of keys averages its values
+    down to about sqrt(e / keys), well below the absolute tolerance, so
+    this is the bound that sees a key left out.  ``fault`` is the kernel's
+    output for the same work with the last run of 64 keys dropped; the
+    check must refuse it.  Returns the error."""
+    want = want.float()
+    lim = SCALE_TOL * want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    f_err = (fault.float() - want).abs().max().item()
+    ok = math.isfinite(err) and err <= lim
+    log(f"  {name}: max |kernel - plain| = {err:.3g} <= 2^-6 max |plain| "
+        f"= {lim:.3g}: {'ok' if ok else 'FAIL'}; the kernel with the last "
+        f"run of 64 keys dropped: {f_err:.3g} ({f_err / lim:.1f}x the "
+        f"bound, {'refused' if f_err > lim else 'NOT refused'})")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version on the "
+                         f"output's scale: {err} > {lim}")
+    if not f_err > lim:
+        raise SystemExit(f"{name}: the check passes a kernel that drops "
+                         f"the last run of keys")
+    return err
+
+
+def last_run(keys):
+    """Keys in the last run of 64 of ``keys`` (the partial one if any)."""
+    return (keys - 1) % 64 + 1
+
+
 def bound(nbytes, *work):
     """Least ms for moving ``nbytes`` and doing ``work``, pairs (FLOP, peak
     FLOP/s) for operand types that run on separate units (float32 FMA,
@@ -209,6 +276,7 @@ def check_flash(torch, gen):
         (BATCH, PROMPT, 32, 32, 112, bf16, True),  # zamba2 prefill
         (BATCH, 300, 32, 32, 112, bf16, True),     # ragged S
         (BATCH, PROMPT, 32, 32, 112, f32, True),
+        (BATCH, FRAMES, 20, 20, 64, bf16, False),  # whisper's encoder
     ]
     inputs = {}
     err_max = 0.0
@@ -220,6 +288,10 @@ def check_flash(torch, gen):
         torch.cuda.synchronize()
         ref = flash_ref(q, k, v, causal=causal)
         err = (out.float() - ref.float()).abs().max().item()
+        if s == FRAMES:
+            scaled_check(f"flash B={b} S={s} H={h} KV={kv} hd={hd} "
+                         f"non-causal", out, ref,
+                         ops._launch(q, k, v, False, s - last_run(s)))
         del ref
         ok = math.isfinite(err) and err <= tol[dt]
         log(f"  flash B={b} S={s} H={h} KV={kv} hd={hd} {str(dt)[6:]} "
@@ -229,19 +301,21 @@ def check_flash(torch, gen):
             raise SystemExit(f"flash attention disagrees with its plain "
                              f"version: {err} > {tol[dt]}")
         err_max = max(err_max, err)
-        if dt == bf16 and causal and s in (PROMPT, LONG_PROMPT):
+        if dt == bf16 and (s in (PROMPT, LONG_PROMPT) and causal
+                           or s == FRAMES):
             inputs[s, hd] = (q, k, v)
 
-    def bound_of(q, k, v):
+    def bound_of(q, k, v, causal=True):
         b, s, h, hd = q.shape
-        flops = 4.0 * b * h * hd * s * (s + 1) / 2      # QK^T and PV, causal
+        # QK^T and PV over the keys each query reads
+        flops = 4.0 * b * h * hd * s * ((s + 1) / 2 if causal else s)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         return bound(nbytes, (flops, BF16_PEAK)), flops, nbytes
 
-    def library(q, k, v):
+    def library(q, k, v, causal=True):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         return time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
 
     q, k, v = inputs[PROMPT, 64]
     # the wrapper allocates its output and nothing else: no padded,
@@ -283,6 +357,16 @@ def check_flash(torch, gen):
         f"{zp_ms:.4f} ms, F.scaled_dot_product_attention {zl_ms:.4f} ms, "
         f"bound {zb_ms:.4f} ms ({zb_by}; {zflops / 1e9:.2f} GFLOP, "
         f"{zbytes / 1e6:.2f} MB)")
+    wq, wk, wv = inputs[FRAMES, 64]
+    wk_ms = time_ms(lambda: ops._launch(wq, wk, wv, False, FRAMES))
+    wp_ms = time_ms(lambda: flash_ref(wq, wk, wv, causal=False))
+    wl_ms = library(wq, wk, wv, causal=False)
+    (wb_ms, wb_by), wflops, wbytes = bound_of(wq, wk, wv, causal=False)
+    log(f"  flash at whisper's encoder shape (B={BATCH}, S={FRAMES}, "
+        f"H=KV=20, hd=64, non-causal): kernel {wk_ms:.4f} ms, plain "
+        f"{wp_ms:.4f} ms, F.scaled_dot_product_attention {wl_ms:.4f} ms, "
+        f"bound {wb_ms:.4f} ms ({wb_by}; {wflops / 1e9:.2f} GFLOP, "
+        f"{wbytes / 1e6:.2f} MB)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:44",
@@ -296,7 +380,12 @@ def check_flash(torch, gen):
                                                    zk.shape[2], zq.shape[3]],
                                "ms": zk_ms, "wrapper_ms": zw_ms,
                                "plain_ms": zp_ms, "library_ms": zl_ms,
-                               "bound_ms": zb_ms, "bound_by": zb_by}}
+                               "bound_ms": zb_ms, "bound_by": zb_by},
+            "whisper_encoder": {"B, S, H, KV, hd": [BATCH, FRAMES, 20, 20,
+                                                    64], "causal": False,
+                                "ms": wk_ms, "plain_ms": wp_ms,
+                                "library_ms": wl_ms, "bound_ms": wb_ms,
+                                "bound_by": wb_by}}
 
 
 def check_quantize(torch, gen):
@@ -892,14 +981,19 @@ def check_decode(torch, gen):
                 * scale).to(dtype)
 
     # rows_matmul: granite's wg, wk, wd and tied head (embed.T), mamba2's
-    # in_proj, llama3's wg; timed cold (a copy of the weight a call) and
+    # in_proj, llama3's wg, whisper's wg and head (N = 51866: no 16-byte
+    # rows, the element-wise path), the VLM's wq and wg; timed cold (a copy of the weight a call) and
     # warm (one weight), beside x @ w the same two ways
     shapes = {"granite_wg": (2048, 8192, False),
               "granite_wk": (2048, 512, False),
               "granite_wd": (8192, 2048, False),
               "granite_head": (2048, 49155, True),
               "mamba2_in_proj": (2048, 8512, False),
-              "llama3_wg": (16384, 53248, False)}
+              "llama3_wg": (16384, 53248, False),
+              "whisper_wg": (1280, 5120, False),
+              "whisper_head": (1280, 51866, False),   # rows not 16-B aligned
+              "vlm_wq": (8192, 8192, False),
+              "vlm_wg": (8192, 28672, False)}
     mm = {}
     for key, (k, n, tied) in shapes.items():
         def draw():
@@ -943,6 +1037,49 @@ def check_decode(torch, gen):
                            "warm_library_ms", "bound_ms", "bound_by")},
         shapes={k: v for k, v in mm.items() if k != "granite_wg"})
 
+    def attention_times(key, q, k, v, lens, h, kv, hd, s):
+        """Cold and warm times of decode attention over (B, s) caches at
+        the rows' lengths ``lens``, beside the masked SDPA, the plain
+        version and the bound."""
+        qb, lb = q[:BATCH], lens[:BATCH]
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lb[:, None])[:, None, None, :]
+        qt = qb.transpose(1, 2).contiguous()
+        cache_bytes = 2 * 2 * BATCH * s * kv * hd
+        kvs = [(k[:BATCH], v[:BATCH])] + [
+            (randn(BATCH, s, kv, hd), randn(BATCH, s, kv, hd))
+            for _ in range(cold_copies(cache_bytes) - 1)]
+        kvt = [tuple(t.transpose(1, 2).contiguous() for t in pair)
+               for pair in kvs]
+        n_keys = int(lb.clamp(max=s).sum())
+        k_ms, copies = time_cold_ms(
+            lambda c: ops.decode_attention(qb, *kvs[c], lb), cache_bytes)
+        l_ms, _ = time_cold_ms(lambda c: F.scaled_dot_product_attention(
+            qt, *kvt[c], attn_mask=mask, enable_gqa=True), cache_bytes)
+        kb, vb = kvs[0]
+        kt, vt = kvt[0]
+        r = {"B, S, H, KV, hd": [BATCH, s, h, kv, hd],
+             "kv_len": lb.tolist(), "ms": k_ms, "library_ms": l_ms,
+             "warm_ms": time_ms(lambda: ops.decode_attention(qb, kb, vb,
+                                                             lb)),
+             "warm_library_ms": time_ms(
+                 lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+             "plain_ms": time_ms(lambda: ref.decode_attention_ref(
+                 qb, kb, vb, lb)),
+             "cold_copies": copies}
+        r["bound_ms"], r["bound_by"] = bound(
+            2 * (2 * BATCH * h * hd + 2 * n_keys * kv * hd) + 4 * BATCH,
+            (4.0 * n_keys * h * hd, BF16_PEAK))
+        log(f"  decode_attention[{key}] B={BATCH} S={s} H={h} KV={kv} "
+            f"hd={hd}: kernel cold {k_ms:.4f} ms (warm "
+            f"{r['warm_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"F.scaled_dot_product_attention cold {l_ms:.4f} ms (warm "
+            f"{r['warm_library_ms']:.4f}), bound {r['bound_ms']:.5f} ms "
+            f"({copies} copies)")
+        del kvs, kvt
+        return r
+
     # decode_attention at the caches of the main paths: max_len rows, the
     # rows' lengths as in a stream (one freed slot at length 1)
     max_len = PROMPT + GEN
@@ -978,47 +1115,33 @@ def check_decode(torch, gen):
                 f"(split {bucket // ops.SPLIT} cut at key "
                 f"{bucket % ops.SPLIT}) = the whole cache of {max_len}: "
                 f"kernel {same['kernel']}, plain {same['plain']}")
-        p_bucket = same["plain"]
         if not same["kernel"]:
             raise SystemExit("decode attention depends on the bucket")
-        qb, lb = q[:BATCH], lens[:BATCH]
-        mask = (torch.arange(max_len, device="cuda")[None, :]
-                < lb[:, None])[:, None, None, :]
-        qt = qb.transpose(1, 2).contiguous()
-        cache_bytes = 2 * 2 * BATCH * max_len * kv * hd
-        kvs = [(k[:BATCH], v[:BATCH])] + [
-            (randn(BATCH, max_len, kv, hd), randn(BATCH, max_len, kv, hd))
-            for _ in range(cold_copies(cache_bytes) - 1)]
-        kvt = [tuple(t.transpose(1, 2).contiguous() for t in pair)
-               for pair in kvs]
-        n_keys = int(lb.clamp(max=max_len).sum())
-        k_ms, copies = time_cold_ms(
-            lambda c: ops.decode_attention(qb, *kvs[c], lb), cache_bytes)
-        l_ms, _ = time_cold_ms(lambda c: F.scaled_dot_product_attention(
-            qt, *kvt[c], attn_mask=mask, enable_gqa=True), cache_bytes)
-        kb, vb = kvs[0]
-        kt, vt = kvt[0]
-        at[key] = {
-            "B, S, H, KV, hd": [BATCH, max_len, h, kv, hd],
-            "kv_len": lb.tolist(), "ms": k_ms, "library_ms": l_ms,
-            "warm_ms": time_ms(lambda: ops.decode_attention(qb, kb, vb, lb)),
-            "warm_library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-            "plain_ms": time_ms(lambda: ref.decode_attention_ref(
-                qb, kb, vb, lb)),
-            "cold_copies": copies,
-            "plain_row_invariant": p_ok, "plain_bucket_invariant": p_bucket}
-        at[key]["bound_ms"], at[key]["bound_by"] = bound(
-            2 * (2 * BATCH * h * hd + 2 * n_keys * kv * hd) + 4 * BATCH,
-            (4.0 * n_keys * h * hd, BF16_PEAK))
-        log(f"  decode_attention[{key}] B={BATCH} S={max_len} H={h} KV={kv} "
-            f"hd={hd}: kernel cold {k_ms:.4f} ms (warm "
-            f"{at[key]['warm_ms']:.4f}), plain {at[key]['plain_ms']:.4f} "
-            f"ms, F.scaled_dot_product_attention cold {l_ms:.4f} ms (warm "
-            f"{at[key]['warm_library_ms']:.4f}), bound "
-            f"{at[key]['bound_ms']:.5f} ms ({copies} copies)")
-        del kvs, kvt
+        at[key] = attention_times(key, q, k, v, lens, h, kv, hd, max_len)
+        at[key].update(plain_row_invariant=p_ok,
+                       plain_bucket_invariant=same["plain"])
+
+    # cross-attention at decode: every row reads the whole fixed cross
+    # cache, kv_len its length (whisper's encoder output, the VLM's vision
+    # embeddings); held on the output's scale as well
+    for key, (h, kv, hd, s) in (("whisper_cross", (20, 20, 64, FRAMES)),
+                                ("vlm_cross", (64, 8, 128, 6400))):
+        q = randn(8, 1, h, hd)
+        k, v = randn(8, s, kv, hd), randn(8, s, kv, hd)
+        lens = torch.full((8,), s, dtype=torch.int32, device="cuda")
+        qb, kb, vb, lb = q[:BATCH], k[:BATCH], v[:BATCH], lens[:BATCH]
+        got = ops.decode_attention(qb, kb, vb, lb)
+        want = ref.decode_attention_ref(qb, kb, vb, lb)
+        close(f"decode_attention[{key}]", got, want, bf16)
+        scaled_check(f"decode_attention[{key}]", got, want,
+                     ops.decode_attention(qb, kb, vb, lb - last_run(s)))
+        del qb, kb, vb, lb, got, want
+        p_ok = invariant(f"decode_attention[{key}]", ops.decode_attention,
+                         ref.decode_attention_ref, [q, k, v, lens])
+        at[key] = attention_times(key, q, k, v, lens, h, kv, hd, s)
+        at[key]["plain_row_invariant"] = p_ok
+        del q, k, v
+    torch.cuda.empty_cache()
     records["decode_attention"] = dict(
         {k: at["granite"][k] for k in ("ms", "plain_ms", "library_ms",
                                        "warm_ms", "warm_library_ms",
@@ -1085,17 +1208,22 @@ def check_decode(torch, gen):
 
 def expected_launches(cfg, n_stages, path, steps):
     """Launches of every kernel in one counted run of ``steps`` decode
-    steps: per prefill, flash attention once per attention layer (the
-    dense layers, zamba2's 14 call sites of its shared block) and the SSD
-    scan once per mamba layer (a run with a kill prefills again in its
-    replay; the stream run once per request); per decode step, per
-    attention layer seven ``rows_matmul`` and one ``decode_attention``, per
-    mamba layer two ``rows_matmul`` and one ``ssm_decode_step``, and the
-    head's ``rows_matmul`` (a prefill's head once, its last token); per
-    pass (a prefill or a decode step) one ``rms_norm_rows`` a layer (ln1,
-    or a mamba layer's pre-norm) and the final norm, per attention layer
-    one ``residual_rms_norm_rows`` (the residual add and ln2), per mamba
-    layer one ``conv_silu`` and one ``gated_rms_norm_rows``; the wire
+    steps.  Per prefill, flash attention once per self-attention layer
+    (the dense layers, zamba2's 14 call sites of its shared block, the
+    VLM's self blocks, whisper's decoder blocks) and per encoder layer,
+    none for cross-attention, and the SSD scan once per mamba layer (a run
+    with a kill prefills again in its replay; the stream run once per
+    request).  Per decode step, per self-attention layer seven
+    ``rows_matmul`` and one ``decode_attention``, per VLM cross block five
+    and one, per decoder block nine and two (self and cross), per mamba
+    layer two ``rows_matmul`` and one ``ssm_decode_step``, and the head's
+    ``rows_matmul`` (a prefill's head once, its last token).  Per pass (a
+    prefill or a decode step) one ``rms_norm_rows`` a layer (ln1, lnq, or
+    a mamba layer's pre-norm) and the final norm, per self-attention layer
+    and cross block one ``residual_rms_norm_rows`` (the residual add and
+    the next norm), per decoder block two, per mamba layer one
+    ``conv_silu`` and one ``gated_rms_norm_rows``; per prefill the
+    encoder's layers as dense blocks, and its final norm.  The wire
     kernels once per stage boundary per pass on the int8 wire (a replay
     repeats the prefill and the decode steps before the kill).  The
     standalone ``silu`` runs on no path."""
@@ -1104,19 +1232,29 @@ def expected_launches(cfg, n_stages, path, steps):
     want = dict.fromkeys(kernels.WRAPPERS, 0)
     prefills = (len(STREAM) if path == "stream"
                 else 2 if path.endswith("_kill") else 1)
+    n = cfg.n_layers
+    attn = cross = dec = mamba = enc = 0
     if cfg.family == "dense":
-        attn, mamba = cfg.n_layers, 0
+        attn = n
+    elif cfg.family == "vlm":
+        cross = n // (cfg.cross_attn_every + 1)
+        attn = n - cross
+    elif cfg.family == "encdec":
+        dec, enc = n, cfg.n_enc_layers
     else:
-        attn, mamba = hybrid_apps(cfg, 0, cfg.n_layers)[1], cfg.n_layers
-    want["flash_attention"] = attn * prefills
+        attn, mamba = hybrid_apps(cfg, 0, n)[1], n
+    want["flash_attention"] = (attn + dec + enc) * prefills
     want["ssd"] = mamba * prefills
-    want["decode_attention"] = attn * steps
+    want["decode_attention"] = (attn + cross + 2 * dec) * steps
     want["ssm_decode_step"] = mamba * steps
     passes = prefills + steps
-    want["rms_norm_rows"] = (attn + mamba + 1) * passes
-    want["residual_rms_norm_rows"] = attn * passes
+    want["rms_norm_rows"] = ((attn + cross + dec + mamba + 1) * passes
+                             + (enc + (enc > 0)) * prefills)
+    want["residual_rms_norm_rows"] = ((attn + cross + 2 * dec) * passes
+                                      + enc * prefills)
     want["gated_rms_norm_rows"] = want["conv_silu"] = mamba * passes
-    want["rows_matmul"] = (7 * attn + 2 * mamba + 1) * steps + prefills
+    want["rows_matmul"] = ((7 * attn + 5 * cross + 9 * dec + 2 * mamba + 1)
+                           * steps + prefills)
     if "int8" in path:
         want["quantize"] = want["dequantize"] = \
             (n_stages - 1) * (prefills + steps)
@@ -1150,8 +1288,10 @@ def stream_schedule(requests, slots):
     return maps
 
 
-def stream_phase(torch, cfg, params, timed, counted):
-    """Continuous batching: STREAM requests over SLOTS slots, each stream
+def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
+    """Continuous batching: STREAM requests (prompts scaled to ``prompt``;
+    each with its own side input: vision embeddings, or FRAMES frames)
+    over SLOTS slots, each stream
     held against the same request served alone, bit for bit: its tokens
     equal to the per-request reference loop's, and the logits of each of
     its batched decode steps (recorded as the scheduler's decode steps
@@ -1161,19 +1301,22 @@ def stream_phase(torch, cfg, params, timed, counted):
     import numpy as np
     from repro_torch.models import decode_step, init_serve_cache, prefill
     from repro_torch.serve import scheduler
-    from repro_torch.serve.engine import ServeEngine, make_batch
+    from repro_torch.serve.engine import ServeEngine, as_batch, make_batch
 
-    eng = ServeEngine(cfg, params, max_len=PROMPT + GEN, kv_block=32)
+    eng = ServeEngine(cfg, params, max_len=prompt + GEN, kv_block=32)
     sched = scheduler.SlotScheduler(eng, SLOTS)
-    reqs = [scheduler.Request(i, make_batch(cfg, 1, pl, seed=1000 + i)[
-        "tokens"], gl) for i, (pl, gl) in enumerate(STREAM)]
+    shapes = [(pl * prompt // PROMPT, gl) for pl, gl in STREAM]
+    reqs = []
+    for i, (pl, gl) in enumerate(shapes):
+        one = make_batch(cfg, 1, pl, seed=1000 + i, frames_len=FRAMES)
+        reqs.append(scheduler.Request(i, one.pop("tokens"), gl, extras=one))
     sched.run(reqs[:1])                                   # warm-up
     (streams, stats), wall = timed(lambda: counted(
         "stream", lambda: sched.run(reqs)))
     n_tok = sum(len(t) for t in streams)
     (ref_streams, _), ref_wall = timed(lambda: sched.run(
         reqs, engine="reference"))
-    log(f"  stream of {len(reqs)} requests (prompt, gen) {STREAM} over "
+    log(f"  stream of {len(reqs)} requests (prompt, gen) {shapes} over "
         f"{SLOTS} slots: {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
         f"tok/s), {stats['decode_steps']} decode steps, slot utilisation "
         f"{stats['slot_utilization']:.3f}; the requests served alone "
@@ -1202,9 +1345,10 @@ def stream_phase(torch, cfg, params, timed, counted):
     def solo_run(r, toks):
         """One request alone, fed the stream's tokens: (gen_len - 1, V)
         decode logits."""
-        cache = init_serve_cache(cfg, 1, eng.max_len, device=DEVICE)
-        _, cache = prefill(cfg, params, {"tokens": torch.as_tensor(
-            r.tokens, device=DEVICE)}, cache)
+        batch = as_batch({"tokens": r.tokens, **r.extras}, DEVICE)
+        cache = init_serve_cache(cfg, 1, eng.max_len, batch=batch,
+                                 device=DEVICE)
+        _, cache = prefill(cfg, params, batch, cache)
         out = []
         for j in range(1, r.gen_len):
             fed = torch.tensor([[int(toks[j - 1])]], dtype=torch.int32,
@@ -1251,7 +1395,7 @@ STEP_KERNELS = ("rows_matmul_kn_kernel", "rows_matmul_nk_kernel",
                 "Memset")
 
 
-def decode_step_kernels(torch, cfg, params, batch):
+def decode_step_kernels(torch, cfg, params, batch, prompt=PROMPT):
     """Device kernels of one decode step at batch BATCH (after a prefill,
     untraced), traced with torch.profiler: every kind on the allow-list
     ``STEP_KERNELS``, so no library GEMM, GEMV or reduction is left in
@@ -1261,12 +1405,14 @@ def decode_step_kernels(torch, cfg, params, batch):
     from repro_torch.models import decode_step, init_serve_cache, prefill
     from repro_torch.serve.engine import as_batch
     with torch.inference_mode():
-        cache = init_serve_cache(cfg, BATCH, PROMPT + GEN, device=DEVICE)
-        logits, cache = prefill(cfg, params, as_batch(batch, DEVICE), cache)
+        batch = as_batch(batch, DEVICE)
+        cache = init_serve_cache(cfg, BATCH, prompt + GEN, batch=batch,
+                                 device=DEVICE)
+        logits, cache = prefill(cfg, params, batch, cache)
         tok = logits.argmax(-1).int()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            decode_step(cfg, params, tok, cache, kv_bucket=PROMPT + 32)
+            decode_step(cfg, params, tok, cache, kv_bucket=prompt + 32)
             torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -1283,7 +1429,7 @@ def decode_step_kernels(torch, cfg, params, batch):
     return launches
 
 
-def decode_hunt(torch, cfg, params, batch):
+def decode_hunt(torch, cfg, params, batch, prompt=PROMPT):
     """The ops at fault, found on the card: every row-kernel call of one
     decode step at batch BATCH is recorded, and those of the first layer
     (the hybrid's first call site of its shared block and mamba layer)
@@ -1316,15 +1462,17 @@ def decode_hunt(torch, cfg, params, batch):
         setattr(mod, name, rec)
     try:
         with torch.inference_mode():
-            cache = init_serve_cache(cfg, BATCH, PROMPT + GEN, device=DEVICE)
-            logits, cache = prefill(cfg, params, as_batch(batch, DEVICE),
-                                    cache)
+            batch = as_batch(batch, DEVICE)
+            cache = init_serve_cache(cfg, BATCH, prompt + GEN, batch=batch,
+                                     device=DEVICE)
+            logits, cache = prefill(cfg, params, batch, cache)
             calls.clear()
             decode_step(cfg, params, logits.argmax(-1).int(), cache)
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
-    first = {"dense": 9, "ssm": 4, "hybrid": 13}[cfg.family]
+    first = {"dense": 9, "ssm": 4, "hybrid": 13, "vlm": 9,
+             "encdec": 12}[cfg.family]
     differ = []
     with torch.inference_mode():
         for i, (name, args) in enumerate(calls[:first] + calls[-2:]):
@@ -1355,17 +1503,18 @@ def decode_hunt(torch, cfg, params, batch):
     return differ
 
 
-def main_path(torch, tmp, cfg, pipelined):
+def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     """One model at full width: random bf16 weights from seed 0, both
     ServeEngine loops (bit-identical logits), one decode step's kernels,
-    for a PIPELINED model the planner and the raw and int8 pipelines with
-    a stage kill, and the stream.  Returns ({run: launches}, {run: decode
-    steps}, the stream's numbers, {timings})."""
+    for a PIPELINED model the planner (or ``cuts``) and the raw and int8
+    pipelines with a stage kill, and the stream; prompts of ``prompt``
+    tokens.  Returns ({run: launches}, {run: decode steps}, the stream's
+    numbers, {timings})."""
     from repro_torch import kernels
     from repro_torch._tree import tree_leaves
     from repro_torch.models import init_params
     from repro_torch.models.model import hybrid_apps
-    from repro_torch.serve.engine import ServeEngine, make_batch
+    from repro_torch.serve.engine import ServeEngine, as_batch, make_batch
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1385,14 +1534,21 @@ def main_path(torch, tmp, cfg, pipelined):
     mixer = {"dense": attn, "ssm": ssm,
              "hybrid": f"{ssm}; one shared block of {attn} at "
                        f"{hybrid_apps(cfg, 0, cfg.n_layers)[1]} call sites, "
-                       f"every {cfg.hybrid_attn_every} layers"}[cfg.family]
+                       f"every {cfg.hybrid_attn_every} layers",
+             "vlm": f"{attn}; groups of {cfg.cross_attn_every} self blocks "
+                    f"and one cross block over {cfg.vision_tokens} vision "
+                    f"tokens",
+             "encdec": f"{attn}; {cfg.n_enc_layers} encoder layers over "
+                       f"{FRAMES} frames, each decoder layer cross-attending "
+                       f"to their output"}[cfg.family]
     head = "tied head (embed.T)" if cfg.tie_embeddings else "untied head"
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{mixer}, vocab {cfg.vocab}, {head}: {n_par / 1e9:.3f} B params "
         f"({2 * n_par / 1e9:.2f} GB bf16) initialised in {dt:.1f}s")
 
-    batch = make_batch(cfg, BATCH, PROMPT, seed=0)
-    max_len = PROMPT + GEN
+    batch = as_batch(make_batch(cfg, BATCH, prompt, seed=0,
+                                frames_len=FRAMES), DEVICE)
+    max_len = prompt + GEN
     by_path, steps = {}, {}   # run -> {kernel: launches}, decode steps
 
     def counted(path, fn):
@@ -1414,7 +1570,7 @@ def main_path(torch, tmp, cfg, pipelined):
             bool(torch.isfinite(torch.from_numpy(logits)).all()):
         raise SystemExit(f"prefill logits {logits.shape} not finite")
     decode_ms = (gen_s - pre_s) / (GEN - 1) * 1e3
-    log(f"  ServeEngine: prefill (B={BATCH}, S={PROMPT}) {pre_s * 1e3:.1f} "
+    log(f"  ServeEngine: prefill (B={BATCH}, S={prompt}) {pre_s * 1e3:.1f} "
         f"ms; generate {GEN} tokens {gen_s:.3f}s, decode {decode_ms:.2f} "
         f"ms/step")
     (toks_ref, logits_ref), ref_s = timed(lambda: mono.generate(
@@ -1429,55 +1585,128 @@ def main_path(torch, tmp, cfg, pipelined):
     if not same:
         raise SystemExit("fast and reference loops disagree")
     del logits_ref, logits_fast
-    step_launches = decode_step_kernels(torch, cfg, params, batch)
-    at_fault = decode_hunt(torch, cfg, params, batch)
+    step_launches = decode_step_kernels(torch, cfg, params, batch, prompt)
+    at_fault = decode_hunt(torch, cfg, params, batch, prompt)
+    extra = {}
+    if cfg.family in ("vlm", "encdec"):
+        extra["cross_prefill_ms"] = cross_prefill_ms(torch, cfg, params,
+                                                     batch, prompt)
 
     n_stages = 1
     if pipelined:
         n_stages = pipeline_runs(torch, tmp, cfg, params, batch, toks_mono,
-                                 timed, counted)
+                                 timed, counted, prompt, cuts)
         steps.update(pipeline_raw=GEN - 1, pipeline_int8=GEN - 1,
                      pipeline_raw_kill=GEN - 1 + KILL["after_step"],
                      pipeline_int8_kill=GEN - 1 + KILL["after_step"])
     stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
-                                           counted)
+                                           counted, prompt)
     for path, got in by_path.items():
         want = expected_launches(cfg, n_stages, path, steps[path])
         if got != want:
             raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
                              f"expected {want}")
-    return by_path, stream, {"prefill_ms": pre_s * 1e3,
-                             "decode_ms_per_step": decode_ms,
-                             "decode_step_launches": step_launches,
-                             "plain_ops_at_fault": at_fault}
+    return by_path, stream, dict({"prefill_ms": pre_s * 1e3,
+                                  "decode_ms_per_step": decode_ms,
+                                  "decode_step_launches": step_launches,
+                                  "plain_ops_at_fault": at_fault}, **extra)
+
+
+def cross_prefill_ms(torch, cfg, params, batch, prompt):
+    """Device ms of one cross-attention at prefill (the first cross block's,
+    q from ``prompt`` rows against the whole cross cache), in plain torch
+    as the reference leaves it to XLA: the mean of 3 calls between CUDA
+    events, after one untimed."""
+    from repro_torch.models import layers, model
+    with torch.inference_mode():
+        cache = model.init_serve_cache(cfg, BATCH, prompt + GEN,
+                                       batch=batch, device=DEVICE)
+        model.fill_cross_caches(cfg, params, cache,
+                                model._side_inputs(cfg, params, batch))
+        blocks = (params["groups"]["cross"] if cfg.family == "vlm"
+                  else params["dec_blocks"])
+        p = model.layer_view(blocks, 0)["xattn"]
+        x = torch.randn(BATCH, prompt, cfg.d_model, device=DEVICE).to(
+            torch.bfloat16)
+        xc = model.layer_view(cache["cross"], 0)
+
+        def run():
+            return layers.cross_attention(p, x, cfg, xc)
+        run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            run()
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end) / 3
+    s_kv = xc["k"].shape[1]
+    log(f"  plain cross-attention at prefill: q ({BATCH}, {prompt}) against "
+        f"{s_kv} keys, {cfg.n_heads} heads of {cfg.resolved_head_dim}: "
+        f"{ms:.3f} ms a block (float32 scores "
+        f"{4 * BATCH * cfg.n_heads * prompt * s_kv / 1e9:.2f} GB)")
+    return ms
+
+
+def kill_specs(ranges):
+    """KILL: stage 1 dies after decode step 3.  Where stage 1 holds no
+    block (whisper: the planner's cuts fall inside the encoder's layers),
+    the encoder's stage 0 and the first stage that holds blocks (and cross
+    caches) die instead, after the same step: one restore each, one
+    replay."""
+    if ranges[1][0] < ranges[1][1]:
+        return [dict(KILL)]
+    first = next(k for k, (lo, hi) in enumerate(ranges) if lo < hi)
+    return [dict(KILL, stage=0), dict(KILL, stage=first)]
 
 
 def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
-                  counted):
-    """The planner's 4 stages, the raw-wire pipeline (bit-identical to
-    ServeEngine, also across a stage kill) and the int8-wire one (a kill
-    gives the tokens of the run without it).  Returns the stage count."""
-    from repro_torch.core import (lm_block_graph, partition_and_place,
+                  counted, prompt=PROMPT, cuts=None):
+    """The planner's 4 stages (or the stages of ``cuts``), the raw-wire
+    pipeline (bit-identical to ServeEngine, also across a stage kill) and
+    the int8-wire one (a kill gives the tokens of the run without it).
+    Returns the stage count."""
+    from repro_torch.core import (from_block_cuts, lm_block_graph,
+                                  partition_and_place,
                                   random_geometric_cluster)
     from repro_torch.models.config import ShapeConfig
     from repro_torch.serve.pipeline import PipelineServeEngine
 
-    graph = lm_block_graph(cfg, ShapeConfig("serve", PROMPT, BATCH,
-                                            "prefill"))
-    cluster = random_geometric_cluster(10, rng=7)
-    pts = graph.candidate_partition_points()
-    segs = graph.segment_layers(pts)
-    min_cap = max(graph.run_memory_bytes(pts, segs, i, i)
-                  for i in range(len(pts)))
-    cap = max(graph.total_param_bytes() / 3.5, min_cap * 1.2)
-    plan = partition_and_place(graph, cluster, cap, n_classes=3, rng=8)
-    ep_raw = plan.execution_plan(cluster, wire_bits=0, arch=cfg.name)
-    ep_int8 = plan.execution_plan(cluster, wire_bits=8, arch=cfg.name)
-    log(plan.describe())
+    if cuts:
+        cluster = None
+        ep_raw, ep_int8 = (from_block_cuts(cfg, cuts, spare_nodes=(8, 9),
+                                           wire_bits=bits)
+                           for bits in (0, 8))
+        log(f"  cut at blocks {cuts} (group-aligned: stage granularity "
+            f"{cfg.cross_attn_every + 1})")
+    else:
+        graph = lm_block_graph(cfg, ShapeConfig("serve", prompt, BATCH,
+                                                "prefill"))
+        cluster = random_geometric_cluster(10, rng=7)
+        pts = graph.candidate_partition_points()
+        segs = graph.segment_layers(pts)
+        min_cap = max(graph.run_memory_bytes(pts, segs, i, i)
+                      for i in range(len(pts)))
+        cap = max(graph.total_param_bytes() / 3.5, min_cap * 1.2)
+        plan = partition_and_place(graph, cluster, cap, n_classes=3, rng=8)
+        ep_raw = plan.execution_plan(cluster, wire_bits=0, arch=cfg.name)
+        ep_int8 = plan.execution_plan(cluster, wire_bits=8, arch=cfg.name)
+        log(plan.describe())
     log(ep_int8.describe())
     ranges = ep_raw.block_ranges(cfg.n_layers)
     log(f"  stage block ranges: {ranges}")
-    if len(ranges) != 4:
+    if cfg.family == "encdec":
+        # the planner charges the encoder as layers enc0..enc{N-1}; a cut
+        # inside them leaves block-free stages, and the first runs the
+        # whole encoder
+        log("  stages' planner layers (first, last): "
+            + ", ".join(f"({st.layers[0]}, {st.layers[-1]})"
+                        for st in ep_raw.stages)
+            + "; the encoder runs on stage 0, its output shipped raw to "
+              "stages 1.." + str(len(ranges) - 1))
+    if not cuts and len(ranges) != 4:
         raise SystemExit(f"planner gave {len(ranges)} stages, expected 4")
     if cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
@@ -1488,7 +1717,12 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         if sum(1 for x in sites if x) < 2:
             raise SystemExit("fewer than two stages hold a call site of the "
                              "shared block")
-    max_len = PROMPT + GEN
+    kill = kill_specs(ranges)
+    killed = (f"stage{'s' if len(kill) > 1 else ''} "
+              f"{' and '.join(str(k['stage']) for k in kill)} killed after "
+              f"step {KILL['after_step']}")
+    log(f"  the kill runs: {killed}")
+    max_len = prompt + GEN
     free = shutil.disk_usage(tmp).free
     log(f"  stage checkpoints go to a temporary directory "
         f"({free / 1e9:.1f} GB free there)")
@@ -1506,10 +1740,10 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         raise SystemExit("raw-wire pipeline tokens differ from ServeEngine")
     toks_rk, rk_s = timed(lambda: counted(
         "pipeline_raw_kill", lambda: raw.generate(
-            batch, GEN, kill=KILL)))
+            batch, GEN, kill=kill)))
     same = bool((toks_rk == toks_mono).all())
-    log(f"  raw-wire pipeline with stage 1 killed after step 3: "
-        f"{rk_s:.3f}s, bit-identical to ServeEngine: {same}")
+    log(f"  raw-wire pipeline with {killed}: {rk_s:.3f}s, bit-identical "
+        f"to ServeEngine: {same}")
     for t, msg in raw.events:
         log(f"    t={t:7.2f}s  {msg}")
     if not same:
@@ -1525,18 +1759,21 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         "pipeline_int8", lambda: i8.generate(batch, GEN)))
     toks_i8k, i8k_s = timed(lambda: counted(
         "pipeline_int8_kill", lambda: i8.generate(
-            batch, GEN, kill=KILL)))
+            batch, GEN, kill=kill)))
     same = bool((toks_i8k == toks_i8).all())
     agree = float((toks_i8 == toks_mono).mean())
-    log(f"  int8-wire pipeline {i8_s:.3f}s, with stage 1 killed after step "
-        f"3 {i8k_s:.3f}s: identical streams: {same}; share of tokens equal "
-        f"to the raw wire's: {agree:.3f}")
+    log(f"  int8-wire pipeline {i8_s:.3f}s, with {killed} {i8k_s:.3f}s: "
+        f"identical streams: {same}; share of tokens equal to the raw "
+        f"wire's: {agree:.3f}")
     for t, msg in i8.events:
         log(f"    t={t:7.2f}s  {msg}")
     if not same:
         raise SystemExit("int8-wire kill/restore changed the tokens")
-    if not any("restored from checkpoint" in m for _, m in i8.events):
-        raise SystemExit("the int8-wire kill logged no restore")
+    for spec in kill:
+        if not any(f"stage {spec['stage']}: pod rescheduled" in m
+                   and "restored from checkpoint" in m for _, m in i8.events):
+            raise SystemExit(f"the int8-wire kill logged no restore of "
+                             f"stage {spec['stage']}")
     del i8
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
     return len(ranges)
@@ -1591,7 +1828,8 @@ def main() -> int:
             log(f"-- {arch}")
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
             counts, streams[arch], timings[arch] = main_path(
-                torch, tmp, cfg, arch in PIPELINED)
+                torch, tmp, cfg, arch in PIPELINED,
+                PROMPT_OF.get(arch, PROMPT), CUTS.get(arch))
         for path, got in counts.items():
             by_path[f"{arch}/{path}"] = got
         gc.collect()                  # this model's weights and caches
@@ -1608,6 +1846,7 @@ def main() -> int:
             "issue_bound_ms", "sass_per_element",   # silu's
 
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
+            "whisper_encoder",                 # flash's
             "shapes")                          # the decode kernels'
     log(json.dumps({"streams": streams, "serving": timings}))
     print(smi)

@@ -1,13 +1,15 @@
 """Architecture configs of the port: the dense models (granite-3-2b,
-minicpm-2b, deepseek-7b, llama3-405b), the SSM model (mamba2-1.3b) and the
-hybrid (zamba2-7b)."""
+minicpm-2b, deepseek-7b, llama3-405b), the SSM model (mamba2-1.3b), the
+hybrid (zamba2-7b), the encoder-decoder (whisper-large-v3) and the
+cross-attention VLM (llama-3.2-vision-90b)."""
 
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ["granite-3-2b", "minicpm-2b", "deepseek-7b", "llama3-405b",
-            "mamba2-1.3b", "zamba2-7b"]
+            "mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
+            "llama-3.2-vision-90b"]
 
 
 def get_config(arch_id: str, preset: str = "full"):

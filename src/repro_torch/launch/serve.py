@@ -6,7 +6,11 @@ sequential ``PipelineServeEngine`` over those block cuts (``--wire-bits 8``
 sends stage boundaries as rowwise int8).  ``--stream N`` serves N
 requests (each ``--prompt-len`` tokens long, ``--gen-len`` tokens to
 generate) through the continuous-batching ``SlotScheduler`` over
-``--batch`` slots instead of one synchronized batch.  Runs on the card
+``--batch`` slots instead of one synchronized batch.  Every request of
+the VLM (llama-3.2-vision-90b) and the encoder-decoder (whisper-large-v3)
+brings its side input from ``make_batch``: vision embeddings, or the
+``FRAMES`` frame embeddings of whisper's 30-second window (where the
+reference's launcher makes them as long as the prompt).  Runs on the card
 unless ``--device cpu``.
 
 The flags are those of ``repro/launch/serve.py``'s monolithic, ``--stream``
@@ -35,6 +39,10 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import init_params
 from repro_torch.serve.engine import ServeEngine, make_batch
+
+# the encoder-decoder's frames: whisper's 30-second window after its conv
+# stem (arXiv:2212.04356), whatever the prompt's length
+FRAMES = 1500
 
 
 def _sync(device):
@@ -97,8 +105,10 @@ def main(argv=None):
         from repro_torch.serve.scheduler import Request, SlotScheduler
         eng = ServeEngine(cfg, params, max_len=pl + gl, kv_block=32)
         sched = SlotScheduler(eng, slots=b)
-        reqs = [Request(i, make_batch(cfg, 1, pl, seed=1000 + i)["tokens"],
-                        gl) for i in range(args.stream)]
+        reqs = []
+        for i in range(args.stream):
+            one = make_batch(cfg, 1, pl, seed=1000 + i, frames_len=FRAMES)
+            reqs.append(Request(i, one.pop("tokens"), gl, extras=one))
         def run():
             return sched.run(reqs, engine=args.engine)
         _, warm_s = _timed(run, device)
@@ -114,7 +124,7 @@ def main(argv=None):
             _profile(f"stream-{args.engine}", run, device)
         return streams
 
-    batch = make_batch(cfg, b, pl, seed=0)
+    batch = make_batch(cfg, b, pl, seed=0, frames_len=FRAMES)
     if args.cuts:
         from repro_torch.core.stageplan import from_block_cuts
         from repro_torch.serve.pipeline import PipelineServeEngine

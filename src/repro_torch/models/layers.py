@@ -6,8 +6,12 @@ of returning a new one), which keeps serving free of per-step cache copies.
 The length-aware decode bound ``kv_bucket`` is an argument here, not a
 module global.
 
-Attention over a fresh prompt (prefill at cache offset 0, and the cacheless
-``forward``) goes through the flash-attention kernel.  A prefill into a
+Self-attention over a fresh prompt (prefill at cache offset 0, the
+cacheless ``forward``, and the encoder's non-causal blocks) goes through the
+flash-attention kernel.  Cross-attention (queries against keys from another
+sequence: the vision embeddings or the encoder output) goes through plain
+torch ops over a prompt's rows, as the reference's ``_sdpa`` (flash takes
+no Sq != Sk), and through the decode kernels at a decode step.  A prefill into a
 cache that already holds rows writes at the rows' length and attends over
 the cache in plain torch ops, as the reference does.  Rows of one token per
 sequence (a decode step, and the last prompt token's head) go through the
@@ -208,6 +212,25 @@ def attention(params, x, cfg: ModelConfig, positions, *, causal=True,
         out = flash_attention(q, k, v, causal=causal)
     else:
         out = _sdpa(q, k, v, causal)
+    return linear(out.reshape(b, s, cfg.n_heads * hd), params["wo"])
+
+
+def cross_attention(params, x, cfg: ModelConfig, kv, kv_len=None):
+    """x's queries against cross-attention keys and values ``kv`` ({k, v}
+    (B, S_kv, KV, hd): a filled cross cache, or the model's ``cross_kv``
+    over the source without one): no RoPE, no mask, every key read (the
+    reference's ``_cross_attend``).  Given ``kv_len`` (int32 (B,) on the
+    device, the cache's length), one token per sequence goes through the
+    decode kernels, row-invariant as a decode step's self-attention; a
+    prompt's rows go through plain attention, as the reference's ``_sdpa``
+    (flash takes no Sq != Sk)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    if kv_len is not None:
+        out = decode_attention(q, kv["k"], kv["v"], kv_len)
+    else:
+        out = _sdpa(q, kv["k"], kv["v"], causal=False)
     return linear(out.reshape(b, s, cfg.n_heads * hd), params["wo"])
 
 

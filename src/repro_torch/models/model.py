@@ -1,21 +1,37 @@
 """Models of the port: params, forward, and serving steps.
 
 Counterpart of ``repro/models/model.py`` for the dense family, the pure
-SSM family (mamba2) and the hybrid family (zamba2: mamba2 blocks with one
+SSM family (mamba2), the hybrid family (zamba2: mamba2 blocks with one
 weight-shared attention+MLP block applied before every
-``hybrid_attn_every``-th of them); the other families are not ported yet
-and raise.  Params keep the reference's tree layout, with the blocks
-stacked on a leading layer axis (``blocks/attn/wq`` is (L, D, H*hd),
-``blocks/in_proj`` (L, D, ...)) and the hybrid's ``shared_attn`` unstacked,
-so ``models.bridge`` and the checkpoint map leaf for leaf.  The layer loop
-is a Python loop over views of the stacked tensors, and the serving cache
-is updated in place.
+``hybrid_attn_every``-th of them), the cross-attention VLM (llama-3.2-
+vision: groups of ``cross_attn_every`` self blocks and one block that
+attends to the vision embeddings) and the encoder-decoder (whisper: a
+non-causal encoder over frame embeddings, and decoder blocks of causal
+self-attention, cross-attention to the encoder output and an MLP); MoE
+is not ported yet and raises.  Params keep the reference's tree layout,
+with the blocks stacked on a leading layer axis (``blocks/attn/wq`` is
+(L, D, H*hd), ``blocks/in_proj`` (L, D, ...), the VLM's
+``groups/self/attn/wq`` (G, k, D, H*hd) and ``groups/cross/xattn/wq`` (G,
+D, H*hd)) and the hybrid's ``shared_attn`` unstacked, so ``models.bridge``
+and the checkpoint map leaf for leaf.  The layer loop is a Python loop
+over views of the stacked tensors, and the serving cache is updated in
+place.
 
-  init_params(cfg, generator, device=)             -> params
-  forward(cfg, params, batch)                      -> (logits, (h, aux))
-  init_serve_cache(cfg, batch_size, max_len, device=) -> cache
-  prefill(cfg, params, batch, cache)               -> (last logits, cache)
-  decode_step(cfg, params, tokens, cache, kv_bucket=) -> (logits, cache)
+The VLM's and the encoder-decoder's serving caches are ``{"self": ...,
+"cross": {"k", "v"}}``: the self-attention caches stacked like the
+blocks, and one cross-attention k/v per cross block, filled once per
+request at prefill (from the vision embeddings, or from the encoder
+output) and read whole by every decode step.
+
+  init_params(cfg, generator, device=)                    -> params
+  forward(cfg, params, batch)                             -> (logits, (h, aux))
+  init_serve_cache(cfg, batch_size, max_len, batch=, device=) -> cache
+  prefill(cfg, params, batch, cache)                      -> (last logits, cache)
+  decode_step(cfg, params, tokens, cache, kv_bucket=)     -> (logits, cache)
+
+``batch`` holds ``tokens`` (B, S) and, by family, ``vision`` (B,
+vision_tokens, D) or ``frames`` (B, S_enc, D); a forward of the
+encoder-decoder may pass ``enc_out`` in place of ``frames``.
 """
 
 from __future__ import annotations
@@ -27,11 +43,12 @@ from repro_torch._tree import tree_map
 from repro_torch.kernels.decode.ops import residual_rms_norm_rows
 
 from .config import ModelConfig
-from .layers import (attention, cache_offset, dtype_of, init_attention,
-                     init_cache, init_mlp, linear, mlp, ninit, rms_norm)
+from .layers import (attention, cache_offset, cross_attention, dtype_of,
+                     init_attention, init_cache, init_mlp, linear, mlp, ninit,
+                     rms_norm)
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -81,6 +98,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         p["lm_head"] = ninit(gen, (d, cfg.vocab), dt, fan_in=d)
     if fam == "dense":
         p["blocks"] = dense_blocks(n)
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        g = n // (k + 1)
+        p["groups"] = {
+            "self": tree_map(lambda a: a.view(g, k, *a.shape[1:]),
+                             dense_blocks(g * k)),
+            "cross": {"lnq": ones(g, d), "xattn": init_attention(gen, cfg, g),
+                      "lnf": ones(g, d), "xmlp": init_mlp(gen, cfg, g)}}
+    elif fam == "encdec":
+        # the conv frontend's stub: one projection of the frame embeddings
+        p["frontend"] = ninit(gen, (d, d), dt, fan_in=d)
+        p["enc_blocks"] = dense_blocks(cfg.n_enc_layers)
+        p["enc_norm"] = ones(d)
+        p["dec_blocks"] = {"ln1": ones(n, d),
+                           "attn": init_attention(gen, cfg, n),
+                           "lnq": ones(n, d),
+                           "xattn": init_attention(gen, cfg, n),
+                           "ln2": ones(n, d), "mlp": init_mlp(gen, cfg, n)}
     else:
         p["blocks"] = init_mamba_block(gen, cfg, n)
     if fam == "hybrid":
@@ -94,13 +129,50 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 def apply_dense_block(p, h, cfg: ModelConfig, positions, cache=None,
-                      kv_bucket=None, offset=None):
+                      kv_bucket=None, offset=None, causal=True):
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    h, x = residual_rms_norm_rows(
+        h, attention(p["attn"], x, cfg, positions, causal=causal,
+                     cache=cache, kv_bucket=kv_bucket, offset=offset),
+        p["ln2"], cfg.norm_eps)
+    return h + mlp(p["mlp"], x)
+
+
+def apply_cross_block(p, h, cfg: ModelConfig, kv, kv_len=None):
+    """The VLM's cross block: cross-attention to the vision embeddings'
+    keys and values ``kv`` (its filled cross cache, or ``cross_kv``'s),
+    then its own MLP (pre-norm, residual)."""
+    x = rms_norm(h, p["lnq"], cfg.norm_eps)
+    h, x = residual_rms_norm_rows(
+        h, cross_attention(p["xattn"], x, cfg, kv, kv_len), p["lnf"],
+        cfg.norm_eps)
+    return h + mlp(p["xmlp"], x)
+
+
+def apply_decoder_block(p, h, cfg: ModelConfig, positions, kv, cache=None,
+                        kv_len=None, kv_bucket=None, offset=None):
+    """The encoder-decoder's decoder block: causal self-attention, then
+    cross-attention to the encoder output's keys and values ``kv`` (the
+    block's filled cross cache, or ``cross_kv``'s), then the MLP."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     h, x = residual_rms_norm_rows(
         h, attention(p["attn"], x, cfg, positions, cache=cache,
-                     kv_bucket=kv_bucket, offset=offset), p["ln2"],
+                     kv_bucket=kv_bucket, offset=offset), p["lnq"],
+        cfg.norm_eps)
+    h, x = residual_rms_norm_rows(
+        h, cross_attention(p["xattn"], x, cfg, kv, kv_len), p["ln2"],
         cfg.norm_eps)
     return h + mlp(p["mlp"], x)
+
+
+def cross_kv(p, cfg: ModelConfig, kv_x):
+    """The cross-attention k/v of block ``p`` (its ``xattn``) over
+    ``kv_x`` (B, S_kv, D)."""
+    b, skv, _ = kv_x.shape
+    hd = cfg.resolved_head_dim
+    k = linear(kv_x, p["xattn"]["wk"]).reshape(b, skv, cfg.n_kv_heads, hd)
+    v = linear(kv_x, p["xattn"]["wv"]).reshape(b, skv, cfg.n_kv_heads, hd)
+    return {"k": k, "v": v}
 
 
 def embed_tokens(params, cfg, tokens):
@@ -166,13 +238,96 @@ def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
     return h, cache
 
 
+def _cross_len(h, cache):
+    """A decode step's cross-attention lengths: the cross cache's length for
+    every row, int32 (B,) on the device (made once a pass); None for a
+    multi-token pass or without a cache."""
+    if cache is None or h.shape[1] != 1:
+        return None
+    xk = cache["cross"]["k"]
+    return torch.full((h.shape[0],), xk.shape[2], dtype=torch.int32,
+                      device=xk.device)
+
+
+def _vlm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
+               vision=None):
+    """The VLM's groups over ``h``: ``cross_attn_every`` self blocks, then
+    the cross block, which reads the group's filled cross cache or, without
+    a cache, attends to ``vision``.  Returns (h, cache)."""
+    groups = params["groups"]
+    offset = kv_len = None
+    if cache is not None:
+        offset = _write_offset(h, cache["self"])
+        kv_len = _cross_len(h, cache)
+    for g in range(groups["cross"]["lnq"].shape[0]):
+        gp = layer_view(groups, g)
+        sc = None if cache is None else layer_view(cache["self"], g)
+        for i in range(gp["self"]["ln1"].shape[0]):
+            h = apply_dense_block(layer_view(gp["self"], i), h, cfg,
+                                  positions,
+                                  cache=None if sc is None
+                                  else layer_view(sc, i),
+                                  kv_bucket=kv_bucket, offset=offset)
+        kv = (cross_kv(gp["cross"], cfg, vision) if cache is None
+              else layer_view(cache["cross"], g))
+        h = apply_cross_block(gp["cross"], h, cfg, kv, kv_len)
+    return h, cache
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """The encoder over frame embeddings (B, S_enc, D): the frontend's
+    projection, non-causal dense blocks with RoPE over the frame positions,
+    and ``enc_norm``."""
+    h = linear(frames.to(params["frontend"].dtype), params["frontend"])
+    b, s = frames.shape[:2]
+    pos = _positions(b, s, frames.device)
+    blocks = params["enc_blocks"]
+    for i in range(blocks["ln1"].shape[0]):
+        h = apply_dense_block(layer_view(blocks, i), h, cfg, pos,
+                              causal=False)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _encdec_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
+                  enc_out=None):
+    """The decoder blocks over ``h``: each cross-attends to its filled
+    cross cache or, without a cache, to ``enc_out``.  Returns (h,
+    cache)."""
+    blocks = params["dec_blocks"]
+    offset = kv_len = None
+    if cache is not None:
+        offset = _write_offset(h, cache["self"])
+        kv_len = _cross_len(h, cache)
+    for i in range(blocks["ln1"].shape[0]):
+        bp = layer_view(blocks, i)
+        if cache is None:
+            kv, c = cross_kv(bp, cfg, enc_out), None
+        else:
+            kv, c = (layer_view(cache["cross"], i),
+                     layer_view(cache["self"], i))
+        h = apply_decoder_block(bp, h, cfg, positions, kv, cache=c,
+                                kv_len=kv_len, kv_bucket=kv_bucket,
+                                offset=offset)
+    return h, cache
+
+
 def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
-              layer_offset=0, app_offset=0):
+              layer_offset=0, app_offset=0, side=None):
     """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds decode
-    attention (dense, and the hybrid's shared block); the offsets place a
-    stage's blocks in the hybrid's call-site order (``_ssm_apply``)."""
-    if family(cfg) == "dense":
+    self-attention (dense, the VLM's and the decoder's self blocks, and
+    the hybrid's shared block); the offsets place a stage's blocks in the
+    hybrid's call-site order (``_ssm_apply``); ``side`` holds a cacheless
+    pass's cross-attention source (``vision`` or ``enc_out``)."""
+    fam = family(cfg)
+    side = side or {}
+    if fam == "dense":
         return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+    if fam == "vlm":
+        return _vlm_apply(cfg, params, h, positions, cache, kv_bucket,
+                          side.get("vision"))
+    if fam == "encdec":
+        return _encdec_apply(cfg, params, h, positions, cache, kv_bucket,
+                             side.get("enc_out"))
     return _ssm_apply(cfg, params, h, positions, cache, kv_bucket,
                       layer_offset, app_offset)
 
@@ -182,22 +337,43 @@ def _positions(b, s, device):
 
 
 def forward(cfg: ModelConfig, params, batch):
-    """Full-sequence causal forward -> (logits, (h, aux))."""
+    """Full-sequence causal forward -> (logits, (h, aux)).  The VLM attends
+    to ``batch["vision"]``; the encoder-decoder to ``batch["enc_out"]`` or,
+    without it, to the encoding of ``batch["frames"]``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
-    h, _ = _backbone(cfg, params, h, _positions(b, s, tokens.device))
+    h, _ = _backbone(cfg, params, h, _positions(b, s, tokens.device),
+                     side=_side_inputs(cfg, params, batch))
     return lm_logits(params, cfg, h), (h, 0.0)
+
+
+def _side_inputs(cfg: ModelConfig, params, batch):
+    """A request batch's cross-attention source: the VLM's ``vision``, or
+    the encoder-decoder's ``enc_out`` (the batch's, else the encoding of
+    its ``frames``); empty for the other families."""
+    if family(cfg) == "vlm":
+        return {"vision": batch["vision"].to(dtype_of(cfg))}
+    if cfg.family == "encdec":
+        enc_out = batch.get("enc_out")
+        if enc_out is None:
+            enc_out = encode(cfg, params, batch["frames"])
+        return {"enc_out": enc_out}
+    return {}
 
 
 # ---- serving ---------------------------------------------------------------
 
 def init_serve_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
-                     device=None):
+                     batch=None, device=None):
     """An empty decode cache (zeros); prefill fills it in place.  The SSM
-    cache has a fixed size: ``max_len`` only bounds attention caches."""
+    cache has a fixed size: ``max_len`` only bounds attention caches.  The
+    encoder-decoder's cross caches hold ``batch["frames"].shape[1]`` rows
+    (``max_len`` without a batch), the VLM's ``cfg.vision_tokens``."""
+    enc_len = (batch["frames"].shape[1] if batch and "frames" in batch
+               else max_len)
     return _init_cache(cfg, 0, cfg.n_layers, batch_size, max_len,
-                       resolve_device(device))
+                       resolve_device(device), enc_len)
 
 
 def hybrid_apps(cfg: ModelConfig, lo: int, hi: int) -> tuple[int, int]:
@@ -210,13 +386,37 @@ def hybrid_apps(cfg: ModelConfig, lo: int, hi: int) -> tuple[int, int]:
     return before, -(-hi // every) - before
 
 
-def _init_cache(cfg, lo, hi, batch_size, max_len, device):
+def _cross_cache(cfg, n, batch_size, kv_len, device):
+    """``n`` empty cross-attention caches of ``kv_len`` rows, bf16 as the
+    reference's."""
+    shape = (n, batch_size, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def _init_cache(cfg, lo, hi, batch_size, max_len, device, enc_len=None):
     """The family's empty cache for blocks ``[lo, hi)``: the hybrid's
     ``shared`` holds one attention cache per call site inside the range,
-    and is left out where there is none."""
+    and is left out where there is none; the VLM's ``self`` is stacked
+    (groups, self blocks), its ``cross`` by group; the encoder-decoder's
+    cross caches hold ``enc_len`` rows."""
     n_layers = hi - lo
-    if family(cfg) == "dense":
+    fam = family(cfg)
+    if fam == "dense":
         return init_cache(cfg, n_layers, batch_size, max_len, device=device)
+    if fam == "vlm":
+        k = cfg.cross_attn_every
+        g = n_layers // (k + 1)
+        sc = init_cache(cfg, g * k, batch_size, max_len, device=device)
+        return {"self": tree_map(lambda a: a.view(g, k, *a.shape[1:]), sc),
+                "cross": _cross_cache(cfg, g, batch_size, cfg.vision_tokens,
+                                      device)}
+    if fam == "encdec":
+        return {"self": init_cache(cfg, n_layers, batch_size, max_len,
+                                   device=device),
+                "cross": _cross_cache(cfg, n_layers, batch_size,
+                                      max_len if enc_len is None else enc_len,
+                                      device)}
     out = {"mamba": init_mamba_cache(cfg, n_layers, batch_size,
                                      device=device)}
     apps = hybrid_apps(cfg, lo, hi)[1]
@@ -226,12 +426,45 @@ def _init_cache(cfg, lo, hi, batch_size, max_len, device):
     return out
 
 
+def fill_cross(cfg: ModelConfig, blocks, cross, src):
+    """Fill the cross caches ``cross`` ({k, v}, one per block) in place
+    with the k/v of the stacked ``blocks`` (their ``xattn``) over ``src``
+    (B, S_kv, D): the vision embeddings (the VLM's cross blocks) or the
+    encoder output (the decoder blocks).  Any contiguous slice of the
+    blocks and its caches will do (a pipeline stage passes its own)."""
+    src = src.to(blocks["xattn"]["wk"].dtype)
+    for i in range(cross["k"].shape[0]):
+        new = cross_kv(layer_view(blocks, i), cfg, src)
+        cross["k"][i].copy_(new["k"])
+        cross["v"][i].copy_(new["v"])
+    return cross
+
+
+def fill_cross_caches(cfg: ModelConfig, params, cache, side):
+    """Compute a request's cross-attention k/v once, at prefill: the VLM's
+    from ``side["vision"]``, the encoder-decoder's from ``side["enc_out"]``.
+    A cache without cross caches (another family, a block-free stage) is
+    left as it is."""
+    if not cache or "cross" not in cache:
+        return cache
+    if cfg.family == "vlm":
+        fill_cross(cfg, params["groups"]["cross"], cache["cross"],
+                   side["vision"])
+    else:
+        fill_cross(cfg, params["dec_blocks"], cache["cross"],
+                   side["enc_out"])
+    return cache
+
+
 def prefill(cfg: ModelConfig, params, batch, cache):
     """Run the prompt through the model, writing its k/v at the cache's
-    length (0 for a fresh cache; positions start at 0, as the reference's).
-    Returns (last-token logits (B, 1, V) float32, cache)."""
+    length (0 for a fresh cache; positions start at 0, as the reference's)
+    and, for the VLM and the encoder-decoder, filling the cross caches
+    first.  Returns (last-token logits (B, 1, V) float32, cache)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    cache = fill_cross_caches(cfg, params, cache,
+                              _side_inputs(cfg, params, batch))
     h = embed_tokens(params, cfg, tokens)
     h, cache = _backbone(cfg, params, h, _positions(b, s, tokens.device),
                          cache)
@@ -242,9 +475,10 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
                 kv_bucket: int | None = None):
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
-    kv_bucket: attention reads only rows [0, kv_bucket) of the cache;
+    kv_bucket: self-attention reads only rows [0, kv_bucket) of the cache;
     callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows.
-    The pure SSM family has no attention and ignores it."""
+    Cross-attention always reads the whole cross cache.  The pure SSM
+    family has no attention and ignores it."""
     b = tokens.shape[0]
     h = embed_tokens(params, cfg, tokens)
     positions = _cache_len(cfg, cache)[:, None].expand(b, 1)
@@ -255,6 +489,11 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
 def _cache_len(cfg, cache):
     """Current per-row sequence length (layer 0's counter), as a copy: the
     layers advance the counters in place."""
-    if family(cfg) == "dense":
+    fam = family(cfg)
+    if fam == "dense":
         return cache["len"][0].clone()
+    if fam == "vlm":
+        return cache["self"]["len"][0, 0].clone()
+    if fam == "encdec":
+        return cache["self"]["len"][0].clone()
     return cache["mamba"]["len"][0].clone()

@@ -1,16 +1,29 @@
 """Per-stage views of the model (the model half of pipelined serving).
 
-Counterpart of ``repro/models/staging.py`` for the dense, pure SSM and
-hybrid families, which all take any cut between blocks.  A pipeline stage
-owns a contiguous block range ``[lo, hi)``, plus the embedding when it is
-the first stage and the final norm and LM head when it is the last.  A
-chain of stages runs the same op sequence as the monolithic model, so
-greedy tokens through a raw wire are bit-identical to ``ServeEngine``'s.
+Counterpart of ``repro/models/staging.py``.  A pipeline stage owns a
+contiguous block range ``[lo, hi)``, plus the embedding (and the
+encoder-decoder's encoder) when it is the first stage and the final norm
+and LM head when it is the last.  A chain of stages runs the same op
+sequence as the monolithic model, so greedy tokens through a raw wire are
+bit-identical to ``ServeEngine``'s.
 
-Hybrid (zamba2): the shared attention params ride along into *every* stage
-that holds a call site of them (a cut between call sites duplicates the
-shared weights, as the partitioner's omega charges them), and the shared
-kv cache is sliced per stage by call-site index.
+Family notes:
+
+* dense / ssm — any cut between blocks.
+* hybrid (zamba2) — the shared attention params ride along into *every*
+  stage that holds a call site of them (a cut between call sites
+  duplicates the shared weights, as the partitioner's omega charges them),
+  and the shared kv cache is sliced per stage by call-site index.
+* vlm (llama-3.2-vision) — cuts fall on group boundaries
+  (``cross_attn_every + 1`` blocks): a stage holds whole groups, and every
+  stage fills its cross caches from the vision embeddings, a side input
+  each stage receives.
+* encdec (whisper) — the encoder (``frontend``, ``enc_blocks``,
+  ``enc_norm``) runs with the first stage, whatever its decoder blocks (a
+  plan that cuts inside the planner's encoder layers gives a block-free
+  first stage that runs the whole encoder); its output is a side input
+  shipped to every later stage once per request, where it fills that
+  stage's cross caches at prefill.
 """
 
 from __future__ import annotations
@@ -18,14 +31,18 @@ from __future__ import annotations
 from repro_torch._tree import tree_map
 
 from .config import ModelConfig
-from .model import (_backbone, _cache_len, _init_cache, embed_tokens, family,
-                    hybrid_apps as _hybrid_apps, lm_logits)
+# a stage fills its own cross caches at prefill from its side input
+# (``side["vision"]``, or ``side["enc_out"]`` shipped by the first stage)
+from .model import (_backbone, _cache_len, _init_cache, embed_tokens, encode,
+                    family, fill_cross_caches, hybrid_apps as _hybrid_apps,
+                    lm_logits)
 
 
 def stage_granularity(cfg: ModelConfig) -> int:
-    """Smallest block count a stage boundary must align to (1: dense, ssm
-    and hybrid)."""
-    family(cfg)
+    """Smallest block count a stage boundary must align to (the VLM's
+    group, 1 for the other families)."""
+    if family(cfg) == "vlm":
+        return cfg.cross_attn_every + 1
     return 1
 
 
@@ -38,15 +55,29 @@ def check_stage_ranges(cfg: ModelConfig, ranges) -> None:
                 f"family's stacking granularity {g}")
 
 
+def _slice(tree, lo, hi):
+    return tree_map(lambda a: a[lo:hi], tree)
+
+
 def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
                          first: bool, last: bool):
     """The param subtree stage ``[lo, hi)`` needs — and nothing else.
 
     Leaves are views of ``params`` (no copy).  A tied embedding goes to the
-    last stage as well (its head reads it), and the hybrid's shared block
-    to every stage with a call site in ``[lo, hi)``."""
-    stage_granularity(cfg)
-    sp = {"blocks": tree_map(lambda a: a[lo:hi], params["blocks"])}
+    last stage as well (its head reads it), the hybrid's shared block to
+    every stage with a call site in ``[lo, hi)``, the encoder to the first
+    stage."""
+    fam = family(cfg)
+    g = stage_granularity(cfg)
+    if fam == "vlm":
+        sp = {"groups": _slice(params["groups"], lo // g, hi // g)}
+    elif fam == "encdec":
+        sp = {"dec_blocks": _slice(params["dec_blocks"], lo, hi)}
+        if first:
+            for key in ("frontend", "enc_blocks", "enc_norm"):
+                sp[key] = params[key]
+    else:
+        sp = {"blocks": _slice(params["blocks"], lo, hi)}
     if _hybrid_apps(cfg, lo, hi)[1]:
         sp["shared_attn"] = params["shared_attn"]
     if first:
@@ -61,12 +92,14 @@ def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
 
 
 def init_stage_cache(cfg: ModelConfig, lo: int, hi: int, batch_size: int,
-                     max_len: int, *, device):
+                     max_len: int, *, device, enc_len: int | None = None):
     """Empty decode cache for blocks ``[lo, hi)`` (``{}`` for a block-free
-    stage; the hybrid's ``shared`` sized to the call sites inside)."""
+    stage; the hybrid's ``shared`` sized to the call sites inside; the
+    encoder-decoder's cross caches to ``enc_len`` rows, the frames'
+    length)."""
     if lo == hi:
         return {}
-    return _init_cache(cfg, lo, hi, batch_size, max_len, device)
+    return _init_cache(cfg, lo, hi, batch_size, max_len, device, enc_len)
 
 
 def stage_backbone(cfg: ModelConfig, sparams, h, positions, cache, lo: int,
@@ -84,6 +117,7 @@ def stage_cache_len(cfg: ModelConfig, cache):
     return _cache_len(cfg, cache)
 
 
-__all__ = ["check_stage_ranges", "embed_tokens", "extract_stage_params",
-           "init_stage_cache", "lm_logits", "stage_backbone",
-           "stage_cache_len", "stage_granularity"]
+__all__ = ["check_stage_ranges", "embed_tokens", "encode",
+           "extract_stage_params", "fill_cross_caches", "init_stage_cache",
+           "lm_logits", "stage_backbone", "stage_cache_len",
+           "stage_granularity"]

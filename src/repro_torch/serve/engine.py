@@ -23,18 +23,34 @@ import numpy as np
 import torch
 
 from repro_torch.models import decode_step, init_serve_cache, prefill
+from repro_torch.models.bridge import tensor_from_numpy
 
 
-def make_batch(cfg, b: int, s: int, seed: int) -> dict:
-    """A synthetic request batch: uniform random prompt tokens (numpy,
-    seeded)."""
+def make_batch(cfg, b: int, s: int, seed: int, *,
+               frames_len: int | None = None) -> dict:
+    """A synthetic request batch from a numpy seed: uniform random prompt
+    tokens (B, S), and the family's side input, standard normal in bf16
+    (numpy ``ml_dtypes.bfloat16``) shaped as the reference's
+    ``serve.equivalence.make_batch`` shapes it: the VLM's ``vision`` (B,
+    vision_tokens, D), the encoder-decoder's ``frames`` (B, S, D), or (B,
+    ``frames_len``, D) when given."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab, (b, s), dtype=np.int64)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s), dtype=np.int64)}
+    side = {"vlm": ("vision", cfg.vision_tokens),
+            "encdec": ("frames", frames_len or s)}.get(cfg.family)
+    if side is not None:
+        import ml_dtypes    # numpy's bfloat16
+        batch[side[0]] = rng.standard_normal(
+            (b, side[1], cfg.d_model), dtype=np.float32).astype(
+            ml_dtypes.bfloat16)
+    return batch
 
 
 def as_batch(batch, device):
-    """A request batch with its tensors on ``device`` (numpy accepted)."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """A request batch with its tensors on ``device`` (numpy accepted,
+    ``ml_dtypes.bfloat16`` arrays as bf16 tensors)."""
+    return {k: tensor_from_numpy(v, device) if isinstance(v, np.ndarray)
+            else torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 class ServeEngine:
@@ -68,7 +84,8 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, batch, gen_len: int, engine: str = "fast",
                  collect_logits: bool = False):
-        """Greedy-decode a synchronized batch for `gen_len` tokens.
+        """Greedy-decode a synchronized batch for `gen_len` tokens (the
+        batch holds the family's side input beside ``tokens``).
 
         Returns np tokens (B, gen_len) int32 — or (tokens, logits
         (B, gen_len, V) float32) when collect_logits."""
@@ -77,7 +94,7 @@ class ServeEngine:
         batch = as_batch(batch, self.device)
         b, prompt_len = batch["tokens"].shape
         self._check_fit(prompt_len, gen_len)
-        cache = init_serve_cache(self.cfg, b, self.max_len,
+        cache = init_serve_cache(self.cfg, b, self.max_len, batch=batch,
                                  device=self.device)
         logits, cache = prefill(self.cfg, self.params, batch, cache)
         toks = logits.argmax(-1).int()

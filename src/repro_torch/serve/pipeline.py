@@ -15,6 +15,13 @@ to ``ServeEngine``'s, across a mid-stream stage kill and restore too.  The
 int8 wire is lossy, so there the contract is that a run with a kill gives
 the same tokens as the same run without it.
 
+**Side inputs.**  Every VLM stage reads the request's vision embeddings,
+and the encoder-decoder's first stage encodes the frames and ships the
+encoder output to every later stage, once per request (the planner's
+``side_in_bytes``).  Each stage fills its own cross caches from them at
+prefill.  Side inputs travel raw on both wires: only the residual
+boundary goes through the int8 wire, as in the reference.
+
 **Fault tolerance.**  At construction every stage's param subtree is
 checkpointed (``repro_torch.checkpoint``, the NFS analogue); a hybrid
 stage that holds a call site of the shared attention block checkpoints its
@@ -122,10 +129,11 @@ class PipelineServeEngine:
 
     # -- per-stage steps ----------------------------------------------------
 
-    def _stage_step(self, k, x_in, cache, kv_bucket=None, *, prefill):
+    def _stage_step(self, k, x_in, cache, kv_bucket=None, *, prefill,
+                    side=None):
         """Stage ``k`` on its input: tokens (first stage) or the wire
-        payload.  Returns the wire payload, or (tokens, logits) from the
-        last stage."""
+        payload; at prefill ``side`` fills its cross caches first.  Returns
+        the wire payload, or (tokens, logits) from the last stage."""
         cfg = self.cfg
         lo, hi = self.ranges[k]
         sp = self.stage_params[k]
@@ -133,6 +141,7 @@ class PipelineServeEngine:
              else self._wire_in(x_in))
         b, s = h.shape[:2]
         if prefill:
+            staging.fill_cross_caches(cfg, sp, cache, side)
             positions = torch.arange(s, device=h.device)[None].expand(b, s)
             kv_bucket = None
         elif lo < hi:
@@ -159,10 +168,19 @@ class PipelineServeEngine:
                             "is down — restore it first")
 
     def _chain_prefill(self, batch, caches):
+        """Prefill through every stage, each given its side input: the
+        VLM's vision embeddings, or the encoder output that the first stage
+        computes from the frames (a replay computes it again)."""
         x = batch["tokens"]
+        side = None
+        if self.cfg.family == "vlm":
+            side = {"vision": batch["vision"]}
         for k in range(self.n_stages):
             self._require_up(k)
-            x = self._stage_step(k, x, caches[k], prefill=True)
+            if k == 0 and self.cfg.family == "encdec":
+                side = {"enc_out": staging.encode(
+                    self.cfg, self.stage_params[0], batch["frames"])}
+            x = self._stage_step(k, x, caches[k], prefill=True, side=side)
         return x
 
     def _chain_decode(self, toks, caches, bucket):
@@ -172,10 +190,18 @@ class PipelineServeEngine:
             x = self._stage_step(k, x, caches[k], bucket, prefill=False)
         return x
 
-    def _fresh_caches(self, b):
+    def _fresh_caches(self, b, enc_len=None):
+        """Empty stage caches for ``b`` rows (the encoder-decoder's cross
+        caches of ``enc_len`` rows, the frames' length)."""
         return [staging.init_stage_cache(self.cfg, lo, hi, b, self.max_len,
-                                         device=self.device)
+                                         device=self.device, enc_len=enc_len)
                 for lo, hi in self.ranges]
+
+    def _batch_caches(self, batch):
+        """Empty stage caches for a request batch."""
+        return self._fresh_caches(
+            batch["tokens"].shape[0],
+            batch["frames"].shape[1] if "frames" in batch else None)
 
     # -- synchronized-batch generation with deterministic fault injection ---
 
@@ -196,7 +222,7 @@ class PipelineServeEngine:
                  else [kill] if isinstance(kill, dict) else list(kill))
         for k in sorted(self.down):        # e.g. killed between calls
             self.restore_stage(k)
-        caches = self._fresh_caches(b)
+        caches = self._batch_caches(batch)
         toks, _ = self._chain_prefill(batch, caches)
         outs = [toks]
         cur = prompt_len
@@ -216,11 +242,12 @@ class PipelineServeEngine:
 
     def _replay_sync(self, batch, steps_done):
         """Replay the in-flight batch after a restore: fresh caches,
-        prefill, and the ``steps_done`` decode steps already emitted
+        prefill (every stage gets its side input again), and the
+        ``steps_done`` decode steps already emitted
         (greedy decoding is deterministic, so the replay rebuilds the lost
         stage state exactly)."""
         b, prompt_len = batch["tokens"].shape
-        caches = self._fresh_caches(b)
+        caches = self._batch_caches(batch)
         toks, _ = self._chain_prefill(batch, caches)
         cur = prompt_len
         for _ in range(steps_done):

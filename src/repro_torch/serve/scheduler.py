@@ -27,6 +27,12 @@ changes no active row.  Admission scatters a batch-1 cache into the bank
 at offset 0 along every axis but the batch axis; stale rows past the new
 request's length are masked by its length until overwritten.
 
+A request of the VLM brings its own vision embeddings, one of the
+encoder-decoder its own frames (``Request.extras``); admission fills the
+slot's cross caches from them, and every decode step reads each slot's
+own.  The encoder-decoder's requests must share one frames length: the
+bank's cross caches have one shape.
+
 Like the engine's, the decode loop never reads a device value (an
 admission's prefill reads its fresh cache's length once): the schedule
 depends only on the known prompt and generation lengths, and every token
@@ -45,17 +51,19 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.models import decode_step, init_serve_cache, prefill
 
-from .engine import ServeEngine
+from .engine import ServeEngine, as_batch
 
 
 @dataclasses.dataclass
 class Request:
     """One serving request: prompt tokens (1, S) int + a fixed greedy
-    generation budget.  (The ported families take no per-request modal
-    inputs, so there is no ``extras``.)"""
+    generation budget.  extras: per-request modal inputs with leading dim
+    1 (vlm: ``vision``; encdec: ``frames``, one length for every request
+    of a stream), numpy (bf16 as ``ml_dtypes.bfloat16``) or tensors."""
     rid: int
     tokens: np.ndarray
     gen_len: int
+    extras: dict | None = None
 
 
 def leaf_batch_axes(shapes):
@@ -77,8 +85,16 @@ def _insert_leaf(full, one, slot, b_ax):
         src)
 
 
+def _meta_batch(extras, b):
+    """Side inputs shaped like ``extras`` (leading dim 1) for ``b`` rows,
+    on the meta device: what sizes a cache."""
+    return {k: torch.empty((b, *v.shape[1:]), device="meta")
+            for k, v in extras.items()}
+
+
 def _zero_lens(cache, axes, slot):
-    """Every length counter of slot ``slot`` back to 0, in place."""
+    """Every length counter of slot ``slot`` back to 0, in place (cross
+    caches have none)."""
     for key, leaf in cache.items():
         if isinstance(leaf, dict):
             _zero_lens(leaf, axes[key], slot)
@@ -95,19 +111,23 @@ class SlotScheduler:
         self.slots = int(slots)
         self._batch_axes = None
 
-    def _leaf_batch_axes(self):
+    def _leaf_batch_axes(self, proto=None):
+        """Each cache leaf's batch axis, from caches shaped on the meta
+        device by a batch like ``proto`` (its side inputs' shapes)."""
         cfg, ml = self.engine.cfg, self.engine.max_len
-        return leaf_batch_axes(
-            lambda b: init_serve_cache(cfg, b, ml, device="meta"))
+        return leaf_batch_axes(lambda b: init_serve_cache(
+            cfg, b, ml, batch=_meta_batch(proto or {}, b), device="meta"))
 
-    def _admit(self, tokens, cache, slot_tokens, slot):
-        """Prefill one request into a batch-1 cache of its prompt length,
-        scatter it into ``slot`` of the bank, and put its first token in
-        ``slot_tokens`` (a new tensor: the old one holds a recorded step).
-        Returns (first token (1, 1), slot_tokens)."""
+    def _admit(self, batch, cache, slot_tokens, slot):
+        """Prefill one request (its tokens and side input, on the device)
+        into a batch-1 cache of its prompt length, scatter it into ``slot``
+        of the bank, and put its first token in ``slot_tokens`` (a new
+        tensor: the old one holds a recorded step).  Returns (first token
+        (1, 1), slot_tokens)."""
         eng = self.engine
-        c1 = init_serve_cache(eng.cfg, 1, tokens.shape[1], device=eng.device)
-        logits, c1 = prefill(eng.cfg, eng.params, {"tokens": tokens}, c1)
+        c1 = init_serve_cache(eng.cfg, 1, batch["tokens"].shape[1],
+                              batch=batch, device=eng.device)
+        logits, c1 = prefill(eng.cfg, eng.params, batch, c1)
         tok = logits.argmax(-1).int()
         tree_map(lambda full, one, ax: _insert_leaf(full, one, slot, ax),
                  cache, c1, self._batch_axes)
@@ -135,20 +155,28 @@ class SlotScheduler:
                         "slot_utilization": 0.0}
         for r in requests:
             eng._check_fit(r.tokens.shape[1], r.gen_len)
+        proto = requests[0].extras or {}
+        for r in requests:
+            extras = r.extras or {}
+            if {k: tuple(v.shape) for k, v in extras.items()} != {
+                    k: tuple(v.shape) for k, v in proto.items()}:
+                raise ValueError(f"request {r.rid}: side inputs "
+                                 f"{list(extras)} shaped unlike the first "
+                                 "request's: a stream shares one shape")
 
         if engine == "reference":
             t0 = time.perf_counter()
-            streams = [eng.generate({"tokens": r.tokens}, r.gen_len,
-                                    engine="reference")[0]
+            streams = [eng.generate({"tokens": r.tokens, **(r.extras or {})},
+                                    r.gen_len, engine="reference")[0]
                        for r in requests]
             stats = {"wall_s": time.perf_counter() - t0, "decode_steps": 0,
                      "slot_utilization": 1.0}
             return streams, stats
 
         cfg, B = eng.cfg, self.slots
-        if self._batch_axes is None:
-            self._batch_axes = self._leaf_batch_axes()
-        cache = init_serve_cache(cfg, B, eng.max_len, device=eng.device)
+        self._batch_axes = self._leaf_batch_axes(proto)
+        cache = init_serve_cache(cfg, B, eng.max_len, device=eng.device,
+                                 batch=_meta_batch(proto, B))
         slot_tokens = torch.zeros((B, 1), dtype=torch.int32,
                                   device=eng.device)
 
@@ -166,9 +194,9 @@ class SlotScheduler:
                 r = requests[next_idx]
                 next_idx += 1
                 slot = free.pop(0)
-                tokens = torch.tensor(r.tokens, device=eng.device)
                 first_tok[r.rid], slot_tokens = self._admit(
-                    tokens, cache, slot_tokens, slot)
+                    as_batch({"tokens": r.tokens, **(r.extras or {})},
+                             eng.device), cache, slot_tokens, slot)
                 slot_len[slot] = r.tokens.shape[1]
                 if r.gen_len > 1:
                     active[slot] = [r, 1]

@@ -862,3 +862,131 @@ def test_stream_bit_identical_to_solo_on_card(smoke, monkeypatch):
         steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
                              for slot, rid in m.items() if rid == r.rid])
         assert steps.numpy().tobytes() == logits[0, 1:].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and the VLM: the new shapes and the smoke models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [1500, 333])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_non_causal_encoder(cuda, s, dtype):
+    """The whisper encoder's self-attention: non-causal, H = KV = 20 heads
+    of 64, S ragged against every tile."""
+    q = randn(cuda, 20, 2, s, 20, 64, dtype=dtype)
+    k = randn(cuda, 21, 2, s, 20, 64, dtype=dtype)
+    v = randn(cuda, 22, 2, s, 20, 64, dtype=dtype)
+    out = attn_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               flash_ref(q, k, v, causal=False).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("h,kv,hd,s", [(20, 20, 64, 1500),
+                                       (64, 8, 128, 640)])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
+def test_decode_attention_over_a_cross_cache(cuda, h, kv, hd, s, qdt):
+    """Cross-attention at decode: every row reads the whole fixed cache
+    (``kv_len`` = its length); within 3e-2 (1 + |plain|) of the plain
+    version, and a row's bits the same alone and in batches of 2, 4 and
+    8."""
+    q = randn(cuda, 23, 8, 1, h, hd, dtype=qdt)
+    k = randn(cuda, 24, 8, s, kv, hd, dtype=torch.bfloat16)
+    v = randn(cuda, 25, 8, s, kv, hd, dtype=torch.bfloat16)
+    lens = torch.full((8,), s, dtype=torch.int32, device=cuda)
+    out = dec_ops.decode_attention(q, k, v, lens)
+    check_rows(out, dec_ref.decode_attention_ref(q, k, v, lens), qdt)
+    for m in (1, 2, 4):
+        for r in range(0, 8, m):
+            bits_equal(dec_ops.decode_attention(q[r:r + m], k[r:r + m],
+                                                v[r:r + m], lens[r:r + m]),
+                       out[r:r + m])
+
+
+def side_launches(cfg, prefills, steps):
+    """Kernel launches of ``prefills`` prefills and ``steps`` decode steps
+    of the VLM or the encoder-decoder (``chip_smoke.expected_launches``):
+    flash once a self-attention layer and an encoder layer a prefill, none
+    for cross-attention; a decode step's self layers 7 ``rows_matmul`` and
+    one ``decode_attention``, the VLM's cross blocks 5 and one, the
+    decoder blocks 9 and two; norms as in the dense block (the decoder
+    block has two residual norms), the encoder's once a prefill with its
+    final norm; the head's ``rows_matmul`` a step and a prefill."""
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    n, enc = cfg.n_layers, cfg.n_enc_layers
+    if cfg.family == "vlm":
+        cross = n // (cfg.cross_attn_every + 1)
+        selfs, dec, enc = n - cross, 0, 0
+    else:
+        selfs, cross, dec = 0, 0, n
+    passes = prefills + steps
+    want["flash_attention"] = (selfs + dec + enc) * prefills
+    want["decode_attention"] = (selfs + cross + 2 * dec) * steps
+    want["rows_matmul"] = (7 * selfs + 5 * cross + 9 * dec + 1) * steps \
+        + prefills
+    want["rms_norm_rows"] = (selfs + cross + dec + 1) * passes \
+        + (enc + (dec > 0)) * prefills
+    want["residual_rms_norm_rows"] = (selfs + cross + 2 * dec) * passes \
+        + enc * prefills
+    return want
+
+
+@pytest.fixture(params=["whisper-large-v3", "llama-3.2-vision-90b"])
+def side_smoke(cuda, request):
+    cfg = get_config(request.param, "smoke")
+    if cfg.family == "vlm":
+        cfg = cfg.replace(n_layers=10)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu = init_params(cfg, gen, device="cpu")
+    return cfg, cpu, tree_map(lambda t: t.to(cuda), cpu)
+
+
+def test_side_input_models_on_card(side_smoke, monkeypatch):
+    """Both loops bit-identical with exact launch counts; the raw-wire
+    pipeline equal to ServeEngine across a kill; a stream (each request
+    with its own side input) bit-identical, tokens and every step's
+    logits, to each request served alone."""
+    cfg, _, gpu = side_smoke
+    eng = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8)
+    batch = make_batch(cfg, 3, PROMPT, seed=3, frames_len=50)
+    kernels.reset_launch_counts()
+    fast = eng.generate(batch, GEN, collect_logits=True)
+    assert kernels.launch_counts() == side_launches(cfg, 1, GEN - 1)
+    ref = eng.generate(batch, GEN, engine="reference", collect_logits=True)
+    np.testing.assert_array_equal(fast[0], ref[0])
+    assert fast[1].tobytes() == ref[1].tobytes()
+    cut = [5] if cfg.family == "vlm" else [1]
+    raw = PipelineServeEngine(cfg, gpu, from_block_cuts(
+        cfg, cut, spare_nodes=(9,)), max_len=PROMPT + GEN, kv_block=8)
+    np.testing.assert_array_equal(
+        raw.generate(batch, GEN, kill={"after_step": 2, "stage": 1}),
+        fast[0])
+
+    reqs = []
+    for i, (pl, gl) in enumerate([(24, 6), (24, 4), (36, 7), (24, 5),
+                                  (40, 3), (24, 6)]):
+        one = make_batch(cfg, 1, pl, seed=40 + i, frames_len=50)
+        reqs.append(scheduler.Request(i, one.pop("tokens"), gl, extras=one))
+    recorded, decode = [], scheduler.decode_step
+
+    def recording(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        recorded.append(logits[:, 0].cpu())
+        return logits, cache
+
+    monkeypatch.setattr(scheduler, "decode_step", recording)
+    kernels.reset_launch_counts()
+    streams, stats = scheduler.SlotScheduler(eng, 4).run(reqs)
+    assert kernels.launch_counts() == side_launches(
+        cfg, len(reqs), stats["decode_steps"])
+    maps = slot_schedule(reqs, 4)
+    for r, got in zip(reqs, streams):
+        toks, logits = eng.generate({"tokens": r.tokens, **r.extras},
+                                    r.gen_len, engine="reference",
+                                    collect_logits=True)
+        np.testing.assert_array_equal(got, toks[0])
+        steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
+                             for slot, rid in m.items() if rid == r.rid])
+        assert steps.numpy().tobytes() == logits[0, 1:].tobytes()

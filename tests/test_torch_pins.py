@@ -6,7 +6,9 @@ Each cell of ``tests/data/serve_equivalence.json`` pins the reference's
 greedy tokens.  Reference params and inputs come from
 ``repro.models.init_params`` and ``repro.serve.equivalence.make_batch``
 under ``jax.threefry_partitionable(False)``, the setting the pins were
-captured under, and cross to torch through ``params_from_jax``.  Per cell:
+captured under, and cross to torch through ``params_from_jax``; the
+whole batch (tokens, and whisper's frames or the VLM's vision embeddings
+as bf16) goes to both packages' engines and caches.  Per cell:
 
 1. the port's teacher-forced logits along the pin against the
    reference's (``ServeEngine.generate(..., collect_logits=True)``, whose
@@ -45,7 +47,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import from_block_cuts
 from repro_torch.models import decode_step, init_serve_cache, prefill
 from repro_torch.models.bridge import params_from_jax
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, as_batch
 from repro_torch.serve.pipeline import PipelineServeEngine
 
 torch.set_num_threads(2)
@@ -55,15 +57,18 @@ TOL = 3e-2
 PINS = json.loads((ROOT / "tests/data/serve_equivalence.json").read_text())
 SCENARIOS = {s["id"]: s for s in scenarios()}
 SYNC = [f"sync/{a}" for a in ("granite-3-2b", "minicpm-2b", "deepseek-7b",
-                              "llama3-405b", "mamba2-1.3b", "zamba2-7b")]
-PIPELINE = [f"pipeline/{a}/{c}" for a in ("granite-3-2b", "mamba2-1.3b")
+                              "llama3-405b", "mamba2-1.3b", "zamba2-7b",
+                              "whisper-large-v3", "llama-3.2-vision-90b")]
+PIPELINE = [f"pipeline/{a}/{c}" for a in ("granite-3-2b", "mamba2-1.3b",
+                                          "whisper-large-v3")
             for c in ("cut1", "cut2", "cut3", "cut2-kill")]
-PIPELINE.append("pipeline/zamba2-7b/cut1-3")
+PIPELINE += ["pipeline/zamba2-7b/cut1-3",
+             "pipeline/llama-3.2-vision-90b/cut5"]
 
 
 def cell(cid):
     """(scenario, reference config and params, port config and params,
-    the cell's batch as numpy)."""
+    the cell's batch as numpy: tokens, and the side input as bf16)."""
     sc = SCENARIOS[cid]
     jcfg = jax_get_config(sc["arch"], "smoke")
     cfg = get_config(sc["arch"], "smoke")
@@ -75,25 +80,27 @@ def cell(cid):
         batch = jax_make_batch(jcfg, sc["batch"], sc["prompt_len"],
                                sc["seed"])
     params = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
-    return sc, jcfg, jp, cfg, params, np.asarray(batch["tokens"])
+    return sc, jcfg, jp, cfg, params, {k: np.asarray(v)
+                                       for k, v in batch.items()}
 
 
-def reference_logits(jcfg, jp, sc, toks):
+def reference_logits(jcfg, jp, sc, batch):
     """The reference's tokens and logits (B, gen_len, V) of its own greedy
     run, which the pin records."""
     eng = JaxServeEngine(jcfg, jp, max_len=sc["max_len"],
                          kv_block=sc["kv_block"])
-    out, logits = eng.generate({"tokens": jnp.asarray(toks)}, sc["gen_len"],
-                               engine="reference", collect_logits=True)
+    out, logits = eng.generate(batch, sc["gen_len"], engine="reference",
+                               collect_logits=True)
     return np.asarray(out), np.asarray(logits, np.float32)
 
 
-def port_teacher_forced(cfg, params, sc, toks, pin):
+def port_teacher_forced(cfg, params, sc, batch, pin):
     """The port's logits (B, gen_len, V) fed the pinned tokens."""
-    cache = init_serve_cache(cfg, toks.shape[0], sc["max_len"], device="cpu")
+    tb = as_batch(batch, "cpu")
+    cache = init_serve_cache(cfg, pin.shape[0], sc["max_len"], batch=tb,
+                             device="cpu")
     with torch.inference_mode():
-        logits, cache = prefill(cfg, params, {"tokens": torch.as_tensor(toks)},
-                                cache)
+        logits, cache = prefill(cfg, params, tb, cache)
         out = [logits]
         for j in range(pin.shape[1] - 1):
             logits, cache = decode_step(
@@ -103,18 +110,18 @@ def port_teacher_forced(cfg, params, sc, toks, pin):
     return torch.cat(out, dim=1).numpy()
 
 
-def hold_to_pin(cid, jcfg, jp, cfg, params, sc, toks, got_tokens):
+def hold_to_pin(cid, jcfg, jp, cfg, params, sc, batch, got_tokens):
     pin = np.asarray(PINS[cid]["tokens"])
-    jtoks, jl = reference_logits(jcfg, jp, sc, toks)
+    jtoks, jl = reference_logits(jcfg, jp, sc, batch)
     np.testing.assert_array_equal(jtoks, pin)       # the reference replays it
-    tl = port_teacher_forced(cfg, params, sc, toks, pin)
+    tl = port_teacher_forced(cfg, params, sc, batch, pin)
     diff = float(np.abs(tl - jl).max())
     if cfg.tie_embeddings:
         np.testing.assert_allclose(tl, jl, rtol=TOL, atol=TOL)
     else:
         ecfg = jcfg.replace(param_dtype="float32")
         ep = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
-        el = teacher_forced_exact(ecfg, ep, sc, toks, pin)
+        el = teacher_forced_exact(ecfg, ep, sc, batch, pin)
         port, ref = (float(np.abs(x - el).max()) for x in (tl, jl))
         assert port <= 2 * ref, (port, ref)
     top2 = np.sort(jl, axis=-1)[..., -2:]
@@ -132,13 +139,12 @@ def hold_to_pin(cid, jcfg, jp, cfg, params, sc, toks, got_tokens):
         np.testing.assert_array_equal(got_tokens[r, :upto], pin[r, :upto])
 
 
-def teacher_forced_exact(ecfg, ep, sc, toks, pin):
+def teacher_forced_exact(ecfg, ep, sc, batch, pin):
     """The reference's float32 run (float32 caches) fed the pin."""
     cache = jax.tree.map(
         lambda a: a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a,
-        jax_init_serve_cache(ecfg, toks.shape[0], sc["max_len"]))
-    logits, cache = jax_prefill(ecfg, ep, {"tokens": jnp.asarray(toks)},
-                                cache)
+        jax_init_serve_cache(ecfg, pin.shape[0], sc["max_len"], batch=batch))
+    logits, cache = jax_prefill(ecfg, ep, batch, cache)
     out = [logits]
     for j in range(pin.shape[1] - 1):
         logits, cache = jax_decode_step(ecfg, ep,
@@ -150,29 +156,27 @@ def teacher_forced_exact(ecfg, ep, sc, toks, pin):
 @pytest.mark.parametrize("cid", SYNC)
 def test_sync_cell_holds_its_pin(cid):
     """Both ``ServeEngine`` loops: the same tokens, held to the pin."""
-    sc, jcfg, jp, cfg, params, toks = cell(cid)
+    sc, jcfg, jp, cfg, params, batch = cell(cid)
     eng = ServeEngine(cfg, params, max_len=sc["max_len"],
                       kv_block=sc["kv_block"])
-    fast = eng.generate({"tokens": toks}, sc["gen_len"])
+    fast = eng.generate(batch, sc["gen_len"])
     np.testing.assert_array_equal(
-        fast, eng.generate({"tokens": toks}, sc["gen_len"],
-                           engine="reference"))
-    hold_to_pin(cid, jcfg, jp, cfg, params, sc, toks, fast)
+        fast, eng.generate(batch, sc["gen_len"], engine="reference"))
+    hold_to_pin(cid, jcfg, jp, cfg, params, sc, batch, fast)
 
 
 @pytest.mark.parametrize("cid", PIPELINE)
 def test_pipeline_cell_holds_its_pin(cid):
     """The raw-wire pipeline over the cell's cuts (with its stage kill):
     bit-identical to the port's ``ServeEngine``, held to the pin."""
-    sc, jcfg, jp, cfg, params, toks = cell(cid)
+    sc, jcfg, jp, cfg, params, batch = cell(cid)
     peng = PipelineServeEngine(cfg, params, from_block_cuts(
         cfg, sc["cuts"], spare_nodes=(900, 901)), max_len=sc["max_len"],
         kv_block=sc["kv_block"])
-    got = peng.generate({"tokens": toks}, sc["gen_len"], kill=sc["kill"])
+    got = peng.generate(batch, sc["gen_len"], kill=sc["kill"])
     if sc["kill"]:
         assert any("restored from checkpoint" in m for _, m in peng.events)
     mono = ServeEngine(cfg, params, max_len=sc["max_len"],
                        kv_block=sc["kv_block"])
-    np.testing.assert_array_equal(got, mono.generate({"tokens": toks},
-                                                     sc["gen_len"]))
-    hold_to_pin(cid, jcfg, jp, cfg, params, sc, toks, got)
+    np.testing.assert_array_equal(got, mono.generate(batch, sc["gen_len"]))
+    hold_to_pin(cid, jcfg, jp, cfg, params, sc, batch, got)

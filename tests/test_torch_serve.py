@@ -78,7 +78,8 @@ def leaves_equal(a, b):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-7b",
                                   "mamba2-1.3b", "minicpm-2b",
-                                  "llama3-405b"])
+                                  "llama3-405b", "whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
 def test_bridge_round_trips_every_leaf(arch):
     nparams = jax.tree.map(np.asarray, jax_init_params(
         jax_get_config(arch, "smoke"), jax.random.PRNGKey(0)))
@@ -340,7 +341,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert {'repro_torch.launch.serve', 'repro_torch.serve.scheduler',"
         " 'repro_torch.configs.zamba2_7b', 'repro_torch.kernels.decode.ops',"
         " 'repro_torch.configs.minicpm_2b', 'repro_torch.configs.deepseek_7b',"
-        " 'repro_torch.configs.llama3_405b'} <= set(sys.modules)\n"
+        " 'repro_torch.configs.llama3_405b',"
+        " 'repro_torch.configs.whisper_large_v3',"
+        " 'repro_torch.configs.llama_3_2_vision_90b',"
+        " 'repro_torch.models.staging'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
