@@ -11,18 +11,22 @@ Phases, in order; any failure exits non-zero before the result line:
 3. kernels — each kernel against its plain PyTorch version on the card,
    at the main paths' shapes: flash attention within 3e-2 (bf16, every head
    dim, 112 on the 128 tile included, ragged S, a 4096-token prompt, and
-   whisper's non-causal encoder: 1500 frames, 20 heads of 64) and 2e-5
+   whisper's non-causal encoder: 1500 frames, 20 heads of 64, and
+   llama4's prefill: 40 q heads over 8 kv heads of 128) and 2e-5
    (float32), with no copy of its inputs or output in its wrapper,
    quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
-   rowwise path), the SSD scan within
+   rowwise path, deepseek-v3's 7168-wide ones, past its ROW_MAX, on the
+   general path), the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); the three row-invariant
    decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
-   in_proj, llama3-405b's wg, whisper's wg and head and the VLM's wq and
-   wg, ``decode_attention`` at granite's, zamba2's and llama3-405b's
-   caches and over whisper's and the VLM's fixed cross caches (every key
-   read: 1500 and 6400 rows), ``ssm_decode_step`` at mamba2's and
-   zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
+   in_proj, llama3-405b's wg, whisper's wg and head, the VLM's wq and
+   wg, deepseek-v3's wdq, wuq, wdkv, wo, shared expert and head, and
+   llama4's wq, wk, dense and shared-expert MLPs and head,
+   ``decode_attention`` at granite's, zamba2's, llama3-405b's and
+   llama4's caches and over whisper's and the VLM's fixed cross caches
+   (every key read: 1500 and 6400 rows), ``ssm_decode_step`` at mamba2's
+   and zamba2's shapes, all at M = 4 rows) within 3e-2 (1 +
    |plain|) in bf16 and 2e-5 (1 + |plain|) on the float32 state (whisper's
    encoder flash and both cross caches also within 2^-6 of the largest
    plain output, a bound that must refuse the kernel's own output with
@@ -41,9 +45,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``x @ w`` for ``rows_matmul``, ``F.rms_norm``; no PyTorch call computes
    the SSD scan or the SSM step), flash and the SSD scan at granite's,
    mamba2's and zamba2's prefill shapes and at B=1 and a 4096-token
-   prompt; ``rms_norm_rows`` at five model widths, at decode rows and a
-   prefill's 2048, within 3e-2 (1 + |plain|) and each row's bits the same
-   alone, in a batch of 4 and among the 2048, its residual and gated forms
+   prompt; ``rms_norm_rows`` at eight model widths (deepseek-v3's q_norm
+   at 1536 among them) and on MLA's kv_norm rows (512 wide at a row stride
+   of 576, read in place), at decode rows and a prefill's 2048, within
+   3e-2 (1 + |plain|) and each row's bits the same alone, in a batch of 4
+   and among the 2048, its residual and gated forms
    bit-equal to the norm kernel on their plain prologues, beside the plain
    chains and ``F.rms_norm``; the SiLU bit-equal to its plain version over
    all 65536 bf16 inputs and at mamba2's and zamba2's gate and conv shapes,
@@ -66,22 +72,46 @@ Phases, in order; any failure exits non-zero before the result line:
    64 q heads over 8 kv heads of 128, d_ff 28672, vocab 128256, 6400
    vision tokens) and 10 of its 100 layers (2 groups of 4 self blocks and
    a cross block; 10.66 B params, 21.3 GB), each request with its own side
-   input (frames or vision embeddings, bf16 from the seed).  Each
+   input (frames or vision embeddings, bf16 from the seed); the MoE
+   family at full width: deepseek-v3-671b (d_model 7168, MLA over 128
+   heads, 256 routed experts top-8 and a shared one, expert d_ff 2048,
+   untied head over 129280) at 2 of its 61 layers (24.87 B params and
+   0.69 B of multi-token-prediction weights, 51.1 GB), and
+   llama4-maverick-400b-a17b (d_model 5120, 40 q heads over 8 kv heads of
+   128, a dense block and a MoE block of 128 experts top-1 and a shared
+   one) at 2 of its 48 layers (one group; 18.68 B params, 37.4 GB).  Each
    is served by both ``ServeEngine`` loops, whose tokens and every step's
    logits must be bit-identical; one decode step is traced and must run
    only the kinds of ``STEP_KERNELS`` (the port's kernels and torch's
    element-wise, copy, gather and indexing ones: no library GEMM, GEMV or
-   reduction); then a stream of 6 staggered
+   reduction); for the MoE family a kind off that list may run only
+   inside ``moe_ffn`` or ``mla_attention`` (the router's GEMM, softmax,
+   top-k and sorts, the expert buffer's GEMMs, MLA's decompression and
+   plain attention: every such launch is linked through the profiler to
+   an op inside a range of one of those names, and logged by kind); then a
+   stream
+   of 6 staggered
    requests over 4 slots of the ``SlotScheduler``, each request's tokens
    and every decode step's logits bit-identical to the same request served
-   alone (see ``stream_phase``).  granite, mamba2, zamba2 and whisper are
+   alone (see ``stream_phase``); the MoE family has no stream (the
+   scheduler refuses it: expert capacity couples the rows of a batch).
+   granite, mamba2, zamba2 and whisper are
    also planned by the SEIFER planner onto a 10-node edge cluster into 4
    stages (zamba2: each stage holds call sites and its own copy of the
    shared block; whisper: the planner charges the encoder as layers
    enc0..enc31, its cut inside them leaves block-free stages, and the
    first runs the whole encoder and ships its output raw to the others),
-   the VLM cut at block 5 (a group boundary: the planner is not
-   group-aware); each is served by the raw-wire ``PipelineServeEngine``
+   the VLM cut at block 5 and deepseek-v3 at block 1 (group boundaries:
+   the planner is not group-aware; deepseek-v3's cut is the fixture
+   cell's, its MLA caches split across the stages, the whole model
+   served, its peak device memory beside a restored stage 1 logged; the
+   stage checkpoints go to a tmpfs, ``CKPT_ROOT``, since its two stages
+   are 46.3 GiB and the card's machine ends a run that writes more than
+   45 GiB to its disk); llama4 needs two
+   groups for a pipeline, and 4 layers (70.6 GB) beside a restored stage
+   (about 35 GB) do not fit the card, so its pipeline is held on the CPU
+   only (``tests/test_torch_pins.py``, ``tests/test_torch_moe.py``); each
+   is served by the raw-wire ``PipelineServeEngine``
    (bit-identical tokens, also across a stage kill) and by the int8-wire
    one (a kill and restore gives the same tokens as the run without it).
    The kill takes stage 1 after decode step 3; whisper's stage 1 holds
@@ -93,27 +123,31 @@ Phases, in order; any failure exits non-zero before the result line:
    run, its four pipeline runs, its stream) and read just after it, and
    each run must launch exactly what it runs: per prefill, flash attention
    once per self-attention layer (the dense layers, zamba2's 14 call
-   sites, the VLM's self blocks, whisper's decoder layers) and encoder
-   layer, never for cross-attention, the SSD scan once per mamba layer,
-   and the head of the last token; per decode step, per self-attention
-   layer seven ``rows_matmul`` and one ``decode_attention``, per VLM
-   cross block five and one, per whisper decoder layer nine and two, per
-   mamba layer two ``rows_matmul`` and one ``ssm_decode_step``, and the
-   head; per pass (a prefill or a decode step), per self-attention layer
-   and cross block one ``rms_norm_rows`` and one
-   ``residual_rms_norm_rows`` (the residual add and the next norm), per
-   decoder layer one and two, per mamba layer one ``rms_norm_rows``, one
-   ``conv_silu`` and one ``gated_rms_norm_rows``, and the final norm (the
-   encoder's layers and final norm once a prefill); quantize and dequantize
-   once per stage boundary per pass in the int8-wire runs; and nothing
-   else (the standalone ``silu`` runs on no path).
+   sites, the VLM's self blocks, whisper's decoder layers, llama4's
+   blocks) and encoder layer, never for cross-attention or MLA, the SSD
+   scan once per mamba layer, and the head of the last token; per decode
+   step, per self-attention layer seven ``rows_matmul`` and one
+   ``decode_attention`` (an MLA layer seven and none: wdq, wuq, wdkv, wo
+   and the shared expert's three), per VLM cross block five and one, per
+   whisper decoder layer nine and two, per mamba layer two
+   ``rows_matmul`` and one ``ssm_decode_step``, and the head; per pass (a
+   prefill or a decode step), per self-attention layer and cross block
+   one ``rms_norm_rows`` (an MLA layer three: ln1, q_norm, kv_norm) and
+   one ``residual_rms_norm_rows`` (the residual add and the next norm),
+   per decoder layer one and two, per mamba layer one ``rms_norm_rows``,
+   one ``conv_silu`` and one ``gated_rms_norm_rows``, and the final norm
+   (the encoder's layers and final norm once a prefill); quantize and
+   dequantize once per stage boundary per pass in the int8-wire runs; and
+   nothing else (the standalone ``silu`` runs on no path; the router and
+   the experts are plain matmuls, as in the reference).  Each model's
+   peak device memory and the seconds of each of its phases are logged.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``; the streams' and the
 serving phases' numbers are on a JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
-the five pipelined models; ``launches_by_path`` holds the count from each
+the six pipelined models; ``launches_by_path`` holds the count from each
 counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
 replace no TPU kernel (the reference leaves these ops to XLA): their
 ``replaces`` names the reference's op.
@@ -144,16 +178,30 @@ COLD_BYTES = 100e6      # copies a cold timing rotates over, in total
 SCALE_TOL = 2 ** -6     # scaled_check: of the largest output
 KILL = {"after_step": 3, "stage": 1}
 # served pipelined as well as monolithic: planned by the planner, or cut
-# at CUTS (the VLM's group-aligned cut: the planner is not group-aware)
+# at CUTS (group-aligned cuts: the planner is not group-aware); the VLM at
+# a group boundary, deepseek-v3 at block 1 (the fixture cell's cut: the
+# MLA caches split across the stages)
 PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
-             "llama-3.2-vision-90b")
-CUTS = {"llama-3.2-vision-90b": [5]}
-# served by both ServeEngine loops and the stream only; llama3-405b at full
-# width and a cut depth (its 126 layers are about 810 GB of bf16)
-SERVED = ("minicpm-2b", "deepseek-7b", "llama3-405b")
+             "llama-3.2-vision-90b", "deepseek-v3-671b")
+CUTS = {"llama-3.2-vision-90b": [5], "deepseek-v3-671b": [1]}
+# served by both ServeEngine loops and the stream only (the MoE model by
+# the loops only: the scheduler refuses MoE); llama3-405b at full width
+# and a cut depth (its 126 layers are about 810 GB of bf16); llama4 is not
+# pipelined here: a pipeline needs two of its groups, 4 layers (70.6 GB),
+# and beside a restored stage (about 35 GB) they do not fit the card
+SERVED = ("minicpm-2b", "deepseek-7b", "llama3-405b",
+          "llama4-maverick-400b-a17b")
 ARCHS = PIPELINED + SERVED
-# the VLM's 100 layers are about 175 GB of bf16: 10 layers, 2 groups
-DEPTH = {"llama3-405b": 4, "llama-3.2-vision-90b": 10}
+# the VLM's 100 layers are about 175 GB of bf16: 10 layers, 2 groups;
+# deepseek-v3's 61 about 1.4 TB: 2 layers (51.1 GB with its MTP weights);
+# llama4's 48 about 800 GB: 2 layers, one group (37.4 GB)
+DEPTH = {"llama3-405b": 4, "llama-3.2-vision-90b": 10,
+         "deepseek-v3-671b": 2, "llama4-maverick-400b-a17b": 2}
+# a pipeline checkpoints every stage at construction: the checkpoints go
+# to a tmpfs (host memory) where the machine has one, since the card's
+# machine ends a run that writes more than 45 GiB to its disk and
+# deepseek-v3's two stages at 2 layers are 46.3 GiB
+CKPT_ROOT = Path("/dev/shm")
 # whisper: a decoder prompt of its prompt-conditioning length (224), over
 # the 1500 frames of its 30-second window after the conv stem
 PROMPT_OF = {"whisper-large-v3": 224}
@@ -277,6 +325,7 @@ def check_flash(torch, gen):
         (BATCH, 300, 32, 32, 112, bf16, True),     # ragged S
         (BATCH, PROMPT, 32, 32, 112, f32, True),
         (BATCH, FRAMES, 20, 20, 64, bf16, False),  # whisper's encoder
+        (BATCH, PROMPT, 40, 8, 128, bf16, True),   # llama4 prefill, group 5
     ]
     inputs = {}
     err_max = 0.0
@@ -303,7 +352,7 @@ def check_flash(torch, gen):
         err_max = max(err_max, err)
         if dt == bf16 and (s in (PROMPT, LONG_PROMPT) and causal
                            or s == FRAMES):
-            inputs[s, hd] = (q, k, v)
+            inputs[s, hd, h] = (q, k, v)
 
     def bound_of(q, k, v, causal=True):
         b, s, h, hd = q.shape
@@ -317,7 +366,7 @@ def check_flash(torch, gen):
         return time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
 
-    q, k, v = inputs[PROMPT, 64]
+    q, k, v = inputs[PROMPT, 64, 32]
     # the wrapper allocates its output and nothing else: no padded,
     # transposed or contiguous copy of q, k, v or the output
     torch.cuda.reset_peak_memory_stats()
@@ -338,7 +387,7 @@ def check_flash(torch, gen):
         f"wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
         f"F.scaled_dot_product_attention {l_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    q, k, v = inputs[LONG_PROMPT, 64]
+    q, k, v = inputs[LONG_PROMPT, 64, 32]
     lk_ms = time_ms(lambda: ops._launch(q, k, v, True, LONG_PROMPT))
     ll_ms = library(q, k, v)
     (lb_ms, lb_by), lflops, lbytes = bound_of(q, k, v)
@@ -346,7 +395,7 @@ def check_flash(torch, gen):
         f"{lk_ms:.4f} ms ({lflops / lk_ms / 1e9:.1f} TFLOP/s), "
         f"F.scaled_dot_product_attention {ll_ms:.4f} ms, bound {lb_ms:.4f} "
         f"ms ({lb_by}; {lflops / 1e9:.2f} GFLOP, {lbytes / 1e6:.2f} MB)")
-    zq, zk, zv = inputs[PROMPT, 112]
+    zq, zk, zv = inputs[PROMPT, 112, 32]
     zk_ms = time_ms(lambda: ops._launch(zq, zk, zv, True, PROMPT))
     zw_ms = time_ms(lambda: ops.flash_attention(zq, zk, zv, causal=True))
     zp_ms = time_ms(lambda: flash_ref(zq, zk, zv, causal=True))
@@ -357,7 +406,7 @@ def check_flash(torch, gen):
         f"{zp_ms:.4f} ms, F.scaled_dot_product_attention {zl_ms:.4f} ms, "
         f"bound {zb_ms:.4f} ms ({zb_by}; {zflops / 1e9:.2f} GFLOP, "
         f"{zbytes / 1e6:.2f} MB)")
-    wq, wk, wv = inputs[FRAMES, 64]
+    wq, wk, wv = inputs[FRAMES, 64, 20]
     wk_ms = time_ms(lambda: ops._launch(wq, wk, wv, False, FRAMES))
     wp_ms = time_ms(lambda: flash_ref(wq, wk, wv, causal=False))
     wl_ms = library(wq, wk, wv, causal=False)
@@ -367,6 +416,15 @@ def check_flash(torch, gen):
         f"{wp_ms:.4f} ms, F.scaled_dot_product_attention {wl_ms:.4f} ms, "
         f"bound {wb_ms:.4f} ms ({wb_by}; {wflops / 1e9:.2f} GFLOP, "
         f"{wbytes / 1e6:.2f} MB)")
+    mq, mk, mv = inputs[PROMPT, 128, 40]
+    mk_ms = time_ms(lambda: ops._launch(mq, mk, mv, True, PROMPT))
+    mp_ms = time_ms(lambda: flash_ref(mq, mk, mv, causal=True))
+    ml_ms = library(mq, mk, mv)
+    (mb_ms, mb_by), mflops, mbytes = bound_of(mq, mk, mv)
+    log(f"  flash at llama4's prefill shape (B={BATCH}, S={PROMPT}, H=40, "
+        f"KV=8, hd=128): kernel {mk_ms:.4f} ms, plain {mp_ms:.4f} ms, "
+        f"F.scaled_dot_product_attention {ml_ms:.4f} ms, bound {mb_ms:.4f} "
+        f"ms ({mb_by}; {mflops / 1e9:.2f} GFLOP, {mbytes / 1e6:.2f} MB)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/attention/kernel.py:44",
@@ -385,20 +443,28 @@ def check_flash(torch, gen):
                                                     64], "causal": False,
                                 "ms": wk_ms, "plain_ms": wp_ms,
                                 "library_ms": wl_ms, "bound_ms": wb_ms,
-                                "bound_by": wb_by}}
+                                "bound_by": wb_by},
+            "llama4_prefill": {"B, S, H, KV, hd": [BATCH, PROMPT, 40, 8, 128],
+                               "ms": mk_ms, "plain_ms": mp_ms,
+                               "library_ms": ml_ms, "bound_ms": mb_ms,
+                               "bound_by": mb_by}}
 
 
 def check_quantize(torch, gen):
     from repro_torch.kernels.quantize import ops, ref
     cases = [((BATCH * PROMPT, 2048), 1, 2048),      # the wire at prefill
              ((BATCH * PROMPT, 3584), 1, 3584),      # zamba2's wire
+             ((BATCH * PROMPT, 7168), 1, 7168),      # deepseek-v3's wire,
+             ((BATCH, 7168), 1, 7168),               # a decode step's too
              ((2048, 2048), 256, 256), ((300, 520), 256, 256)]
     q_err = d_err = 0.0
     for shape, bm, bn in cases:
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            # a wire row of at most ROW_MAX takes the rowwise path;
+            # deepseek-v3's 7168 the general one
             rowwise = ops.rowwise_path(x, bm, bn)
-            if rowwise != (bm == 1):
+            if rowwise != (bm == 1 and shape[1] <= ops.ROW_MAX):
                 raise SystemExit(f"quantize {shape} tile ({bm}, {bn}) takes "
                                  f"the {'rowwise' if rowwise else 'general'} "
                                  f"path")
@@ -419,34 +485,51 @@ def check_quantize(torch, gen):
             if not (same_q and same_s and same_d):
                 raise SystemExit("quantize/dequantize disagree with their "
                                  "plain versions")
-    # times at the wire's prefill shape: (B*S, D) rows, one scale per row
-    x2 = torch.randn(BATCH * PROMPT, 2048, generator=gen,
-                     device="cuda").bfloat16()
-    q, s = ops.quantize(x2, 1, 2048)
-    m, n = x2.shape
-    qk_ms = time_ms(lambda: ops.quantize(x2, 1, 2048))
-    qp_ms = time_ms(lambda: ref.quantize_ref(x2, 1, 2048))
-    dk_ms = time_ms(lambda: ops.dequantize(q, s, 1, 2048))
-    dp_ms = time_ms(lambda: ref.dequantize_ref(q, s, 1, 2048))
-    # float32 operations per element: quantize |x|, max, x * (1/scale),
-    # round, and the clip's two compares; dequantize one multiply
-    qb_ms, qb_by = bound(2 * m * n + m * n + 4 * m, (6.0 * m * n, F32_PEAK))
-    db_ms, db_by = bound(m * n + 4 * m + 2 * m * n, (1.0 * m * n, F32_PEAK))
-    log(f"  quantize ({m}, {n}) bf16 rowwise: kernel {qk_ms:.4f} ms, plain "
-        f"{qp_ms:.4f} ms, bound {qb_ms:.4f} ms ({qb_by})")
-    log(f"  dequantize ({m}, {n}) -> bf16 rowwise: kernel {dk_ms:.4f} ms, "
-        f"plain {dp_ms:.4f} ms, bound {db_ms:.4f} ms ({db_by})")
+    # times at the wire's prefill shape: (B*S, D) rows, one scale per row;
+    # granite's 2048 (the record) and deepseek-v3's 7168
+    t = {}
+    for n in (2048, 7168):
+        m = BATCH * PROMPT
+        x2 = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+        q, s = ops.quantize(x2, 1, n)
+        r = t[n] = {"M, D": [m, n],
+                    "q_ms": time_ms(lambda: ops.quantize(x2, 1, n)),
+                    "q_plain_ms": time_ms(lambda: ref.quantize_ref(x2, 1, n)),
+                    "d_ms": time_ms(lambda: ops.dequantize(q, s, 1, n)),
+                    "d_plain_ms": time_ms(lambda: ref.dequantize_ref(q, s, 1,
+                                                                     n))}
+        # float32 operations per element: quantize |x|, max, x * (1/scale),
+        # round, and the clip's two compares; dequantize one multiply
+        r["q_bound_ms"], r["q_bound_by"] = bound(2 * m * n + m * n + 4 * m,
+                                                 (6.0 * m * n, F32_PEAK))
+        r["d_bound_ms"], r["d_bound_by"] = bound(m * n + 4 * m + 2 * m * n,
+                                                 (1.0 * m * n, F32_PEAK))
+        r["path"] = "rowwise" if ops.rowwise_path(x2, 1, n) else "general"
+        log(f"  quantize ({m}, {n}) bf16 {r['path']}: kernel "
+            f"{r['q_ms']:.4f} ms, plain {r['q_plain_ms']:.4f} ms, bound "
+            f"{r['q_bound_ms']:.4f} ms ({r['q_bound_by']})")
+        log(f"  dequantize ({m}, {n}) -> bf16 {r['path']}: kernel "
+            f"{r['d_ms']:.4f} ms, plain {r['d_plain_ms']:.4f} ms, bound "
+            f"{r['d_bound_ms']:.4f} ms ({r['d_bound_by']})")
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/quantize.cu",
               "library_ms": None}
+
+    def of(kind, n):
+        return {k: t[n][kind + "_" + k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
+
+    def wire(kind):
+        return {"deepseek_v3_wire": dict(of(kind, 7168),
+                                         **{"M, D": t[7168]["M, D"],
+                                            "path": t[7168]["path"]})}
     return [dict(common, name="quantize",
                  replaces="src/repro/kernels/quantize/kernel.py:22",
-                 max_abs_err=float(q_err), ms=qk_ms, plain_ms=qp_ms,
-                 bound_ms=qb_ms, bound_by=qb_by),
+                 max_abs_err=float(q_err), **of("q", 2048),
+                 shapes=wire("q")),
             dict(common, name="dequantize",
                  replaces="src/repro/kernels/quantize/kernel.py:34",
-                 max_abs_err=d_err, ms=dk_ms, plain_ms=dp_ms,
-                 bound_ms=db_ms, bound_by=db_by)]
+                 max_abs_err=d_err, **of("d", 2048), shapes=wire("d"))]
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
@@ -775,7 +858,9 @@ def check_norm(torch, gen):
     # the plain norm at decode and prefill rows
     rn = {}
     for key, d in (("granite", 2048), ("minicpm", 2304), ("zamba2", 3584),
-                   ("deepseek", 4096), ("llama3", 16384)):
+                   ("deepseek", 4096), ("llama3", 16384),
+                   ("deepseek_v3", 7168), ("llama4", 5120),
+                   ("deepseek_v3_q_norm", 1536)):
         x, w = randn(rows, d, scale=3.0), randn(d, scale=0.1) + 1
         out = ops.rms_norm_rows(x, w, 1e-5)
         torch.cuda.synchronize()
@@ -821,6 +906,43 @@ def check_norm(torch, gen):
             "granite_prefill": {k: rn["granite"][k + "_prefill"]
                                 for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}})
+
+    # MLA's kv_norm: the first 512 of each 576-wide row of wdkv's output,
+    # read in place at the row stride 576; the bits of the norm of the
+    # same rows made contiguous
+    kl, row = 512, 576
+    w = randn(kl, scale=0.1) + 1
+    r = {"D, row stride": [kl, row]}
+    for m, s_ in ((BATCH, 1), (rows, PROMPT)):
+        x = randn(BATCH, s_, row, scale=3.0)[..., :kl]
+        out = ops.rms_norm_rows(x, w, 1e-5)
+        torch.cuda.synchronize()
+        want = ref.rms_norm_ref(x, w, 1e-5)
+        e = (out.float() - want.float()).abs()
+        ok = bool((e <= tol * (1 + want.float().abs())).all())
+        err_max = max(err_max, e.max().item())
+        same = bits(out, ops.rms_norm_rows(x.contiguous(), w, 1e-5)) and \
+            bits(ops.rms_norm_rows(x[:1], w, 1e-5), out[:1])
+        log(f"  rms_norm_rows[kv_norm] ({m}, {kl}) at row stride {row} bf16: "
+            f"max |kernel - plain| = {e.max().item():.3g} (tol {tol:g} (1 + "
+            f"|plain|)); bit-equal to the norm of the contiguous rows, a "
+            f"row alone = among {m}: {same}")
+        if not (ok and same and math.isfinite(e.max().item())):
+            raise SystemExit("rms_norm_rows on MLA's strided kv_norm rows "
+                             "disagrees with its plain version")
+        sfx = "" if m == BATCH else "_prefill"
+        r["ms" + sfx] = time_ms(lambda: ops.rms_norm_rows(x, w, 1e-5))
+        r["plain_ms" + sfx] = time_ms(lambda: ref.rms_norm_ref(x, w, 1e-5))
+        r["library_ms" + sfx] = time_ms(lambda: F.rms_norm(x, (kl,), w,
+                                                           1e-5))
+        r["bound_ms" + sfx], r["bound_by" + sfx] = bound(
+            2 * (2 * m * kl + kl), (4.0 * m * kl, F32_PEAK))
+        log(f"  rms_norm_rows[kv_norm] ({m}, {kl}): kernel "
+            f"{r['ms' + sfx]:.4f} ms, plain {r['plain_ms' + sfx]:.4f} ms, "
+            f"F.rms_norm {r['library_ms' + sfx]:.4f} ms, bound "
+            f"{r['bound_ms' + sfx]:.5f} ms")
+    records["rms_norm_rows"]["shapes"]["deepseek_v3_kv_norm"] = r
+    records["rms_norm_rows"]["max_abs_err"] = err_max
 
     # the residual form: the dense block's h + attention before ln2
     rs = {}
@@ -982,7 +1104,8 @@ def check_decode(torch, gen):
 
     # rows_matmul: granite's wg, wk, wd and tied head (embed.T), mamba2's
     # in_proj, llama3's wg, whisper's wg and head (N = 51866: no 16-byte
-    # rows, the element-wise path), the VLM's wq and wg; timed cold (a copy of the weight a call) and
+    # rows, the element-wise path), the VLM's wq and wg, the MoE models'
+    # projections and heads; timed cold (a copy of the weight a call) and
     # warm (one weight), beside x @ w the same two ways
     shapes = {"granite_wg": (2048, 8192, False),
               "granite_wk": (2048, 512, False),
@@ -993,7 +1116,25 @@ def check_decode(torch, gen):
               "whisper_wg": (1280, 5120, False),
               "whisper_head": (1280, 51866, False),   # rows not 16-B aligned
               "vlm_wq": (8192, 8192, False),
-              "vlm_wg": (8192, 28672, False)}
+              "vlm_wg": (8192, 28672, False),
+              # deepseek-v3's MLA projections (wdkv's N = 512 + 64), shared
+              # expert and head
+              "deepseek_v3_wdq": (7168, 1536, False),
+              "deepseek_v3_wuq": (1536, 24576, False),
+              "deepseek_v3_wdkv": (7168, 576, False),
+              "deepseek_v3_wo": (16384, 7168, False),
+              "deepseek_v3_shared_wg": (7168, 2048, False),
+              "deepseek_v3_shared_wd": (2048, 7168, False),
+              "deepseek_v3_head": (7168, 129280, False),
+              # llama4's 5120-wide projections, dense and shared-expert
+              # MLPs and head
+              "llama4_wq": (5120, 5120, False),
+              "llama4_wk": (5120, 1024, False),
+              "llama4_wg": (5120, 16384, False),
+              "llama4_wd": (16384, 5120, False),
+              "llama4_shared_wg": (5120, 8192, False),
+              "llama4_shared_wd": (8192, 5120, False),
+              "llama4_head": (5120, 202048, False)}
     mm = {}
     for key, (k, n, tied) in shapes.items():
         def draw():
@@ -1086,7 +1227,8 @@ def check_decode(torch, gen):
     at = {}
     for key, (h, kv, hd) in (("granite", (32, 8, 64)),
                              ("zamba2", (32, 32, 112)),
-                             ("llama3", (128, 8, 128))):
+                             ("llama3", (128, 8, 128)),
+                             ("llama4", (40, 8, 128))):
         q = randn(8, 1, h, hd)
         k, v = randn(8, max_len, kv, hd), randn(8, max_len, kv, hd)
         lens = torch.tensor([530, 1, 300, 513, 544, 257, 64, 65],
@@ -1223,9 +1365,14 @@ def expected_launches(cfg, n_stages, path, steps):
     and cross block one ``residual_rms_norm_rows`` (the residual add and
     the next norm), per decoder block two, per mamba layer one
     ``conv_silu`` and one ``gated_rms_norm_rows``; per prefill the
-    encoder's layers as dense blocks, and its final norm.  The wire
-    kernels once per stage boundary per pass on the int8 wire (a replay
-    repeats the prefill and the decode steps before the kill).  The
+    encoder's layers as dense blocks, and its final norm.  The MoE family:
+    llama4's blocks (dense and MoE) are self-attention layers, the shared
+    expert's three products taking the MLP's place; an MLA layer is one
+    with no flash and no ``decode_attention`` (plain attention), seven
+    ``rows_matmul`` a step (wdq, wuq, wdkv, wo and the shared expert's
+    three) and two more ``rms_norm_rows`` a pass (q_norm, kv_norm).  The
+    wire kernels once per stage boundary per pass on the int8 wire (a
+    replay repeats the prefill and the decode steps before the kill).  The
     standalone ``silu`` runs on no path."""
     from repro_torch import kernels
     from repro_torch.models.model import hybrid_apps
@@ -1233,8 +1380,10 @@ def expected_launches(cfg, n_stages, path, steps):
     prefills = (len(STREAM) if path == "stream"
                 else 2 if path.endswith("_kill") else 1)
     n = cfg.n_layers
-    attn = cross = dec = mamba = enc = 0
-    if cfg.family == "dense":
+    attn = cross = dec = mamba = enc = mla = 0
+    if cfg.family == "moe" and cfg.use_mla:
+        mla = n
+    elif cfg.family in ("dense", "moe"):
         attn = n
     elif cfg.family == "vlm":
         cross = n // (cfg.cross_attn_every + 1)
@@ -1248,13 +1397,13 @@ def expected_launches(cfg, n_stages, path, steps):
     want["decode_attention"] = (attn + cross + 2 * dec) * steps
     want["ssm_decode_step"] = mamba * steps
     passes = prefills + steps
-    want["rms_norm_rows"] = ((attn + cross + dec + mamba + 1) * passes
-                             + (enc + (enc > 0)) * prefills)
-    want["residual_rms_norm_rows"] = ((attn + cross + 2 * dec) * passes
-                                      + enc * prefills)
+    want["rms_norm_rows"] = ((attn + cross + dec + mamba + 3 * mla + 1)
+                             * passes + (enc + (enc > 0)) * prefills)
+    want["residual_rms_norm_rows"] = ((attn + cross + 2 * dec + mla)
+                                      * passes + enc * prefills)
     want["gated_rms_norm_rows"] = want["conv_silu"] = mamba * passes
-    want["rows_matmul"] = ((7 * attn + 5 * cross + 9 * dec + 2 * mamba + 1)
-                           * steps + prefills)
+    want["rows_matmul"] = ((7 * (attn + mla) + 5 * cross + 9 * dec
+                            + 2 * mamba + 1) * steps + prefills)
     if "int8" in path:
         want["quantize"] = want["dequantize"] = \
             (n_stages - 1) * (prefills + steps)
@@ -1393,17 +1542,37 @@ STEP_KERNELS = ("rows_matmul_kn_kernel", "rows_matmul_nk_kernel",
                 "ssm_decode_kernel", "conv_silu_kernel", "elementwise_kernel",
                 "CatArrayBatchedCopy", "gather_kernel", "index", "Memcpy",
                 "Memset")
+# The ops a MoE decode step runs in plain torch beside them, as the
+# reference leaves them to XLA: the router's float32 GEMM, softmax, top-k,
+# the dispatch's stable sort and search, the aux loss's and gates' sums and
+# the expert buffer's batched GEMMs inside ``moe_ffn``; MLA's decompression
+# GEMMs, plain attention and softmax inside ``mla_attention``.  Each such
+# launch must come from inside one of these two functions.
+MOE_SCOPES = ("moe_ffn", "mla_attention")
 
 
 def decode_step_kernels(torch, cfg, params, batch, prompt=PROMPT):
     """Device kernels of one decode step at batch BATCH (after a prefill,
     untraced), traced with torch.profiler: every kind on the allow-list
-    ``STEP_KERNELS``, so no library GEMM, GEMV or reduction is left in
-    it.  Returns the launches of the step."""
+    ``STEP_KERNELS``, so no library GEMM, GEMV or reduction is left in it.
+    For the MoE family a kind off the list may run only inside
+    ``MOE_SCOPES``: the model's calls of those functions run inside
+    profiler ranges of their names, and each launch of such a kind must
+    be linked to an op within one (logged by kind and range).  Returns the
+    launches of the step."""
+    from collections import Counter
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decode_step, init_serve_cache, prefill
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import (decode_step, init_serve_cache, model,
+                                    prefill)
     from repro_torch.serve.engine import as_batch
+
+    def scoped(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
+    saved = {name: getattr(model, name) for name in MOE_SCOPES}
     with torch.inference_mode():
         batch = as_batch(batch, DEVICE)
         cache = init_serve_cache(cfg, BATCH, prompt + GEN, batch=batch,
@@ -1411,14 +1580,51 @@ def decode_step_kernels(torch, cfg, params, batch, prompt=PROMPT):
         logits, cache = prefill(cfg, params, batch, cache)
         tok = logits.argmax(-1).int()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            decode_step(cfg, params, tok, cache, kv_bucket=prompt + 32)
-            torch.cuda.synchronize()
+        try:
+            for name, fn in saved.items():
+                setattr(model, name, scoped(name, fn))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                decode_step(cfg, params, tok, cache, kv_bucket=prompt + 32)
+                torch.cuda.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(model, name, fn)
+    # the ranges themselves appear on the device's timeline too
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in MOE_SCOPES]
     launches = sum(e.count for e in kern)
     other = sorted({e.key for e in kern
                     if not any(w in e.key for w in STEP_KERNELS)})
+    if cfg.family == "moe" and other:
+        def scope_of(e):
+            while e is not None:
+                if e.name in MOE_SCOPES:
+                    return e.name
+                e = e.cpu_parent
+            return None
+        placed = Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.kernels:
+                where = scope_of(e)
+                for k in e.kernels:
+                    if k.name in other:
+                        placed[k.name, where] += 1
+        total = {e.key: e.count for e in kern if e.key in other}
+
+        def where(key):
+            return ", ".join(f"{placed[key, sc]} in {sc}"
+                             for sc in MOE_SCOPES)
+        log(f"  the MoE step's plain torch kinds ({sum(total.values())} "
+            f"launches): " + "; ".join(f"{n}x {key[:80]} ({where(key)})"
+                                       for key, n in total.items()))
+        outside = {key: n - sum(placed[key, sc] for sc in MOE_SCOPES)
+                   for key, n in total.items()}
+        other = sorted(key for key, n in outside.items() if n)
+        if other:
+            log("  launches not linked to an op inside "
+                f"{' or '.join(MOE_SCOPES)}: "
+                + "; ".join(f"{outside[k]}x {k[:90]}" for k in other))
     log(f"  one decode step (B={BATCH}): {launches} kernel launches of "
         f"{len(kern)} kinds; kinds off the allow-list: {other or 'none'}")
     if not kern:
@@ -1471,8 +1677,12 @@ def decode_hunt(torch, cfg, params, batch, prompt=PROMPT):
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
-    first = {"dense": 9, "ssm": 4, "hybrid": 13, "vlm": 9,
-             "encdec": 12}[cfg.family]
+    # the first layer's calls: a dense block's (llama4's first block too)
+    # or an MLA MoE block's (ln1, wdq, q_norm, wuq, wdkv, kv_norm, wo and
+    # the shared expert's three)
+    first = 10 if cfg.use_mla else {"dense": 9, "ssm": 4, "hybrid": 13,
+                                    "vlm": 9, "encdec": 12,
+                                    "moe": 9}[cfg.family]
     differ = []
     with torch.inference_mode():
         for i, (name, args) in enumerate(calls[:first] + calls[-2:]):
@@ -1507,9 +1717,9 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     """One model at full width: random bf16 weights from seed 0, both
     ServeEngine loops (bit-identical logits), one decode step's kernels,
     for a PIPELINED model the planner (or ``cuts``) and the raw and int8
-    pipelines with a stage kill, and the stream; prompts of ``prompt``
-    tokens.  Returns ({run: launches}, {run: decode steps}, the stream's
-    numbers, {timings})."""
+    pipelines with a stage kill, and the stream (not for the MoE family);
+    prompts of ``prompt`` tokens.  Each counted run logs its peak device
+    memory.  Returns ({run: launches}, the stream's numbers, {timings})."""
     from repro_torch import kernels
     from repro_torch._tree import tree_leaves
     from repro_torch.models import init_params
@@ -1540,7 +1750,15 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
                     f"tokens",
              "encdec": f"{attn}; {cfg.n_enc_layers} encoder layers over "
                        f"{FRAMES} frames, each decoder layer cross-attending "
-                       f"to their output"}[cfg.family]
+                       f"to their output",
+             "moe": (f"{cfg.n_experts} experts top-{cfg.experts_per_tok} of "
+                     f"d_ff {cfg.moe_d_ff} and {cfg.n_shared_experts} "
+                     f"shared, every {cfg.moe_interleave} block(s); "
+                     + (f"MLA over {cfg.n_heads} heads (q_lora "
+                        f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+                        f"qk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v "
+                        f"{cfg.v_head_dim})" if cfg.use_mla else attn))
+             }[cfg.family]
     head = "tied head (embed.T)" if cfg.tie_embeddings else "untied head"
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{mixer}, vocab {cfg.vocab}, {head}: {n_par / 1e9:.3f} B params "
@@ -1552,12 +1770,17 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     by_path, steps = {}, {}   # run -> {kernel: launches}, decode steps
 
     def counted(path, fn):
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         by_path[path] = kernels.launch_counts()
-        log(f"  [{path}] kernel launches: {by_path[path]}")
+        peak[path] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  [{path}] kernel launches: {by_path[path]}; peak device "
+            f"memory {peak[path]:.2f} GB")
         return out
+
+    peak = {}
 
     mono = ServeEngine(cfg, params, max_len=max_len, kv_block=32)
     mono.generate(batch, 2)                               # warm-up
@@ -1585,22 +1808,34 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     if not same:
         raise SystemExit("fast and reference loops disagree")
     del logits_ref, logits_fast
-    step_launches = decode_step_kernels(torch, cfg, params, batch, prompt)
-    at_fault = decode_hunt(torch, cfg, params, batch, prompt)
+    (step_launches, at_fault), trace_s = timed(lambda: (
+        decode_step_kernels(torch, cfg, params, batch, prompt),
+        decode_hunt(torch, cfg, params, batch, prompt)))
+    log(f"  the decode-step trace and the hunt took {trace_s:.1f}s")
     extra = {}
     if cfg.family in ("vlm", "encdec"):
         extra["cross_prefill_ms"] = cross_prefill_ms(torch, cfg, params,
                                                      batch, prompt)
 
+    if cfg.family == "moe":
+        stream = None
+        log("  no stream: SlotScheduler refuses the MoE family (expert "
+            "capacity couples the rows of a batch, so a request's routing "
+            "depends on the other slots' rows; the reference pins no MoE "
+            "stream)")
+    else:
+        stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
+                                               counted, prompt)
     n_stages = 1
     if pipelined:
+        del mono                      # its caches: the kill runs need room
+        gc.collect()
+        torch.cuda.empty_cache()
         n_stages = pipeline_runs(torch, tmp, cfg, params, batch, toks_mono,
                                  timed, counted, prompt, cuts)
         steps.update(pipeline_raw=GEN - 1, pipeline_int8=GEN - 1,
                      pipeline_raw_kill=GEN - 1 + KILL["after_step"],
                      pipeline_int8_kill=GEN - 1 + KILL["after_step"])
-    stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
-                                           counted, prompt)
     for path, got in by_path.items():
         want = expected_launches(cfg, n_stages, path, steps[path])
         if got != want:
@@ -1609,7 +1844,8 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     return by_path, stream, dict({"prefill_ms": pre_s * 1e3,
                                   "decode_ms_per_step": decode_ms,
                                   "decode_step_launches": step_launches,
-                                  "plain_ops_at_fault": at_fault}, **extra)
+                                  "plain_ops_at_fault": at_fault,
+                                  "peak_gb": peak}, **extra)
 
 
 def cross_prefill_ms(torch, cfg, params, batch, prompt):
@@ -1650,6 +1886,14 @@ def cross_prefill_ms(torch, cfg, params, batch, prompt):
     return ms
 
 
+def host_available():
+    """Bytes of host memory available (``MemAvailable``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SystemExit("no MemAvailable in /proc/meminfo")
+
+
 def kill_specs(ranges):
     """KILL: stage 1 dies after decode step 3.  Where stage 1 holds no
     block (whisper: the planner's cuts fall inside the encoder's layers),
@@ -1671,7 +1915,9 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
     from repro_torch.core import (from_block_cuts, lm_block_graph,
                                   partition_and_place,
                                   random_geometric_cluster)
+    from repro_torch._tree import tree_leaves
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.staging import stage_granularity
     from repro_torch.serve.pipeline import PipelineServeEngine
 
     if cuts:
@@ -1680,7 +1926,7 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
                                            wire_bits=bits)
                            for bits in (0, 8))
         log(f"  cut at blocks {cuts} (group-aligned: stage granularity "
-            f"{cfg.cross_attn_every + 1})")
+            f"{stage_granularity(cfg)})")
     else:
         graph = lm_block_graph(cfg, ShapeConfig("serve", prompt, BATCH,
                                                 "prefill"))
@@ -1723,14 +1969,31 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
               f"step {KILL['after_step']}")
     log(f"  the kill runs: {killed}")
     max_len = prompt + GEN
+    leaves = tree_leaves(params)
+    need = sum(t.nbytes for t in leaves)       # every stage's params at most
+    leaf = max(t.nbytes for t in leaves)
     free = shutil.disk_usage(tmp).free
-    log(f"  stage checkpoints go to a temporary directory "
-        f"({free / 1e9:.1f} GB free there)")
+    avail = host_available()
+    on_tmpfs = Path(tmp).is_relative_to(CKPT_ROOT)
+    log(f"  stage checkpoints go to {tmp} ({'tmpfs' if on_tmpfs else 'disk'}"
+        f"; {free / 1e9:.1f} GB free there, {avail / 1e9:.1f} GB of host "
+        f"memory available) for {need / 1e9:.2f} GB of params (largest leaf "
+        f"{leaf / 1e9:.2f} GB, copied through the host)")
+    # room for the checkpoint set and, in host memory, for a leaf's host
+    # copy (the save's, the restore's) beside the set where it is a tmpfs
+    if free < need or avail < leaf + (need if on_tmpfs else 0):
+        raise SystemExit(f"[{cfg.name}] no room for the stage checkpoints: "
+                         f"{free / 1e9:.1f} GB free, {avail / 1e9:.1f} GB of "
+                         f"host memory available")
     raw, ck_s = timed(lambda: PipelineServeEngine(
         cfg, params, ep_raw, max_len=max_len, kv_block=32,
         ckpt_dir=Path(tmp) / "raw", cluster=cluster))
+    ck_gb = sum(t.nbytes for sp in raw.stage_params
+                for t in tree_leaves(sp)) / 1e9
     log(f"  raw-wire pipeline: {raw.n_stages} stages on nodes "
-        f"{raw.node_of_stage}; checkpointing the stages took {ck_s:.1f}s")
+        f"{raw.node_of_stage}; checkpointing the stages ({ck_gb:.2f} GB) "
+        f"took {ck_s:.1f}s; host memory available after it "
+        f"{host_available() / 1e9:.1f} GB")
     toks_raw, raw_s = timed(lambda: counted(
         "pipeline_raw", lambda: raw.generate(batch, GEN)))
     same = bool((toks_raw == toks_mono).all())
@@ -1748,7 +2011,11 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         log(f"    t={t:7.2f}s  {msg}")
     if not same:
         raise SystemExit("raw-wire kill/restore changed the tokens")
+    # the restored stage is a second copy of its params (deepseek-v3's
+    # stage 1 is about 24.9 GB): free it before the next engine restores
     del raw
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(Path(tmp) / "raw", ignore_errors=True)
 
     i8, ck_s = timed(lambda: PipelineServeEngine(
@@ -1775,6 +2042,8 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
             raise SystemExit(f"the int8-wire kill logged no restore of "
                              f"stage {spec['stage']}")
     del i8
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
     return len(ranges)
 
@@ -1826,7 +2095,10 @@ def main() -> int:
             cfg = cfg.replace(n_layers=DEPTH[arch])
         else:
             log(f"-- {arch}")
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(
+                prefix="chip-smoke-",
+                dir=CKPT_ROOT if CKPT_ROOT.is_dir() else None) as tmp:
             counts, streams[arch], timings[arch] = main_path(
                 torch, tmp, cfg, arch in PIPELINED,
                 PROMPT_OF.get(arch, PROMPT), CUTS.get(arch))
@@ -1834,6 +2106,9 @@ def main() -> int:
             by_path[f"{arch}/{path}"] = got
         gc.collect()                  # this model's weights and caches
         torch.cuda.empty_cache()
+        timings[arch]["seconds"] = time.perf_counter() - t0
+        log(f"-- {arch} took {timings[arch]['seconds']:.1f}s; peak device "
+            f"memory by run (GB): {timings[arch]['peak_gb']}")
     for r in records:
         r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
                             for a in PIPELINED)
@@ -1846,7 +2121,7 @@ def main() -> int:
             "issue_bound_ms", "sass_per_element",   # silu's
 
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
-            "whisper_encoder",                 # flash's
+            "whisper_encoder", "llama4_prefill",   # flash's
             "shapes")                          # the decode kernels'
     log(json.dumps({"streams": streams, "serving": timings}))
     print(smi)

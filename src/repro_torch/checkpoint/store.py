@@ -68,7 +68,10 @@ def _unflatten(tree, leaves):
 
 
 def _leaf_crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+    """CRC32 of the leaf's bytes, read in place (no copy of the leaf: a
+    MoE model's expert stacks are gigabytes each)."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return zlib.crc32(flat) & 0xFFFFFFFF
 
 
 def _to_host(t: torch.Tensor):

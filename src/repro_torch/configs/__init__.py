@@ -1,7 +1,8 @@
 """Architecture configs of the port: the dense models (granite-3-2b,
 minicpm-2b, deepseek-7b, llama3-405b), the SSM model (mamba2-1.3b), the
-hybrid (zamba2-7b), the encoder-decoder (whisper-large-v3) and the
-cross-attention VLM (llama-3.2-vision-90b)."""
+hybrid (zamba2-7b), the encoder-decoder (whisper-large-v3), the
+cross-attention VLM (llama-3.2-vision-90b) and the MoE models
+(deepseek-v3-671b with MLA, llama4-maverick-400b-a17b)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import importlib
 
 ARCH_IDS = ["granite-3-2b", "minicpm-2b", "deepseek-7b", "llama3-405b",
             "mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
-            "llama-3.2-vision-90b"]
+            "llama-3.2-vision-90b", "deepseek-v3-671b",
+            "llama4-maverick-400b-a17b"]
 
 
 def get_config(arch_id: str, preset: str = "full"):

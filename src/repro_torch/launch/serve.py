@@ -20,7 +20,11 @@ paper's lambda compression), ``--profile``, which traces one prefill-only
 run and one full run with ``torch.profiler`` and prints the device busy
 time, the kernel launches and the kernels that took the most device time,
 and ``--layers``, which cuts the depth (llama3-405b's 126 layers are about
-810 GB in bf16; ``chip_smoke.py`` serves 4 of them).
+810 GB in bf16; ``chip_smoke.py`` serves 4 of them, 2 of deepseek-v3-671b's
+61 and of llama4-maverick-400b-a17b's 48).  A MoE model's cut depth and
+``--cuts`` fall on its groups (llama4: an even count); the MoE family has
+no ``--stream`` (``SlotScheduler`` refuses it: expert capacity couples the
+rows of a batch).
 
 Timing: the first generate is a warm-up (it builds the kernels on first
 use) and is reported separately; every reported time ends in
@@ -82,7 +86,10 @@ def main(argv=None):
                          "CPU)")
     ap.add_argument("--layers", type=int, default=0, metavar="N",
                     help="serve the first N layers only (a cut depth, for "
-                         "a model whose weights do not fit one card)")
+                         "a model whose weights do not fit one card: "
+                         "llama3-405b 4, llama-3.2-vision-90b 10, "
+                         "deepseek-v3-671b 2, llama4-maverick-400b-a17b 2; "
+                         "a multiple of the VLM's or MoE model's group)")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed run, trace a prefill-only run and "
                          "a full run with torch.profiler and print device "
@@ -96,6 +103,9 @@ def main(argv=None):
     cfg = get_config(args.arch, args.preset)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
+    if args.stream and cfg.family == "moe":
+        from repro_torch.serve.scheduler import MOE_REFUSAL
+        ap.error(MOE_REFUSAL)
     rng = torch.Generator(device=device)
     rng.manual_seed(0)
     params = init_params(cfg, rng, device=device)

@@ -1,5 +1,5 @@
-"""Model zoo of the port (dense, pure SSM, hybrid, cross-attention VLM and
-encoder-decoder families), mirroring ``repro.models``."""
+"""Model zoo of the port (dense, pure SSM, hybrid, cross-attention VLM,
+encoder-decoder and MoE families), mirroring ``repro.models``."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .model import (decode_step, forward, init_params, init_serve_cache,

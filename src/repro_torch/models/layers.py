@@ -1,4 +1,5 @@
-"""Shared model building blocks of the dense family (PyTorch).
+"""Shared model building blocks (PyTorch): GQA and cross-attention, MLA,
+the MLP and the MoE layer.
 
 Counterpart of ``repro/models/layers.py``.  Caches are updated in place (a
 decode step writes one row per sequence into the preallocated cache instead
@@ -22,6 +23,11 @@ of any size and against a cache cut to any bucket.  Every other product is
 ``rms_norm_rows``, row-invariant too.  The MLP's SiLU is torch's own: the
 SiLU with the reference's bf16 rounding points serves the mamba blocks'
 fused kernels (``ssm.py``), where that rounding was the measured fault.
+
+MLA (``mla_attention``) and the MoE layer (``moe_ffn``) keep the
+reference's plain ops where it has no Pallas kernel: MLA's decompressions
+and attention, the router and the experts' batched products are torch
+ops; their per-token projections and norms go through the kernels above.
 """
 
 from __future__ import annotations
@@ -48,12 +54,25 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # initializers
 # ---------------------------------------------------------------------------
 
+DRAW = 1 << 32         # elements of float32 a draw holds at most (16 GiB)
+
+
 def ninit(gen: torch.Generator, shape, dtype, *, scale=0.02, fan_in=None):
-    """Normal init drawn in float32 from ``gen`` (on ``gen``'s device)."""
+    """Normal init drawn in float32 from ``gen`` (on ``gen``'s device) and
+    written into a tensor of ``dtype``, ``DRAW`` elements at a time.  A
+    leaf of at most ``DRAW`` elements (every leaf of the dense, SSM,
+    hybrid, VLM and encoder-decoder models at the depths served on one
+    card) is one draw, bit for bit ``(scale * randn(shape)).to(dtype)``; a
+    MoE model's expert stack (deepseek-v3's are 7.5 G elements) is drawn in
+    parts, so it never has a whole float32 copy."""
     scale = scale if fan_in is None else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (scale * x).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW):
+        part = flat[i:i + DRAW]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32).mul_(scale))
+    return out
 
 
 def _one_token(x):
@@ -110,11 +129,14 @@ def init_attention(gen, cfg: ModelConfig, n_layers: int):
     }
 
 
-def _sdpa(q, k, v, causal, q_offset: int = 0):
-    """Plain grouped-query attention.  q: (B,Sq,H,hd)  k/v: (B,Skv,KV,hd).
+def _sdpa(q, k, v, causal, q_offset: int = 0, kv_len=None):
+    """Plain grouped-query attention.  q: (B,Sq,H,hd)  k/v: (B,Skv,KV,hd);
+    v's head dim may differ from q's and k's (MLA).
 
     q_offset: the cache position of q's first token; a causal query at
-    position q_offset + i attends to keys [0, q_offset + i]."""
+    position q_offset + i attends to keys [0, q_offset + i].  kv_len: for
+    one query token per sequence, each row's keys [0, kv_len[b]) (int32
+    (B,) on the device); None reads every key."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     group = h // kv
@@ -126,6 +148,10 @@ def _sdpa(q, k, v, causal, q_offset: int = 0):
         s_pos = torch.arange(skv, device=q.device)
         q_pos = torch.arange(sq, device=q.device) + q_offset
         scores = scores.masked_fill(~(s_pos[None, :] <= q_pos[:, None]), NEG)
+    elif sq == 1 and kv_len is not None:
+        s_pos = torch.arange(skv, device=q.device)
+        keep = (s_pos[None, :] < kv_len[:, None])[:, None, None, None, :]
+        scores = scores.masked_fill(~keep, NEG)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])
@@ -249,11 +275,104 @@ def init_cache(cfg: ModelConfig, n_layers, batch, max_len, *, device):
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, n_layers: int):
+    d, nh = cfg.d_model, cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dt = dtype_of(cfg)
+    return {
+        "wdq": ninit(gen, (n_layers, d, ql), dt, fan_in=d),
+        "q_norm": torch.ones((n_layers, ql), dtype=dt, device=gen.device),
+        "wuq": ninit(gen, (n_layers, ql, nh * qk), dt, fan_in=ql),
+        "wdkv": ninit(gen, (n_layers, d, kl + cfg.qk_rope_dim), dt, fan_in=d),
+        "kv_norm": torch.ones((n_layers, kl), dtype=dt, device=gen.device),
+        "wuk": ninit(gen, (n_layers, kl, nh * cfg.qk_nope_dim), dt,
+                     fan_in=kl),
+        "wuv": ninit(gen, (n_layers, kl, nh * cfg.v_head_dim), dt, fan_in=kl),
+        "wo": ninit(gen, (n_layers, nh * cfg.v_head_dim, d), dt,
+                    fan_in=nh * cfg.v_head_dim),
+    }
+
+
+def mla_attention(params, x, cfg: ModelConfig, positions, *, cache=None,
+                  offset: int | None = None):
+    """Returns the attention output (B, S, D).
+
+    cache: None, or dict(ckv, krope, len): the compressed ``c_kv`` (B,
+    S_max, kv_lora) and the shared rope key (B, S_max, rope_dim), updated
+    in place (the reference's serving memory win).  The per-token
+    projections go through ``linear`` and both norms through
+    ``rms_norm``; the decompressions ``c_kv @ wuk`` and ``c_kv @ wuv`` and
+    the attention are plain torch over the cache's rows, as the reference
+    (its ``_sdpa``): causal from ``offset`` over ``[0, offset + S)`` at a
+    prefill, and at a decode step over the whole cache, masked by each
+    row's length.  There is no ``kv_bucket``: the reference slices the
+    cache to the bucket before decompressing, which changes which masked
+    zeros a plain reduction sums, so reading the whole cache in both
+    ``ServeEngine`` loops is what keeps their logits bit-identical on the
+    card.  q and k have ``qk_nope + qk_rope`` dims a head, v
+    ``v_head_dim``: ``decode_attention`` takes neither."""
+    b, s, _ = x.shape
+    nh, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kl = cfg.kv_lora_rank
+    q = linear(rms_norm(linear(x, params["wdq"]), params["q_norm"],
+                        cfg.norm_eps), params["wuq"])
+    q = q.reshape(b, s, nh, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = linear(x, params["wdkv"])                     # (B, S, kv_lora+rope)
+    c_kv = rms_norm(dkv[..., :kl], params["kv_norm"], cfg.norm_eps)
+    k_rope = dkv[..., kl:][:, :, None, :]               # one shared head
+    cos, sin = rope_tables(positions, rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+
+    q_offset, kv_len = 0, None
+    if cache is not None:
+        lens = cache["len"]
+        if s > 1 and offset is None:
+            offset = cache_offset(lens)
+        _batched_update(cache["ckv"], c_kv, lens, offset)
+        _batched_update(cache["krope"], k_rope[:, :, 0], lens, offset)
+        if s == 1:
+            kv_len = lens + 1
+            c_kv, k_rope = cache["ckv"], cache["krope"][:, :, None]
+        else:
+            end = offset + s
+            c_kv = cache["ckv"][:, :end]
+            k_rope = cache["krope"][:, :end, None]
+            q_offset = offset
+        lens.add_(s)
+    skv = c_kv.shape[1]
+    wuk, wuv = params["wuk"], params["wuv"]
+    k_nope = (c_kv.to(wuk.dtype) @ wuk).reshape(b, skv, nh, nope)
+    val = (c_kv.to(wuv.dtype) @ wuv).reshape(b, skv, nh, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(b, skv, nh, rope)],
+                  dim=-1)
+    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, val, True,
+                q_offset=q_offset, kv_len=kv_len)
+    return linear(out.reshape(b, s, nh * cfg.v_head_dim), params["wo"])
+
+
+def init_mla_cache(cfg: ModelConfig, n_layers, batch, max_len, *, device):
+    """Stacked per-layer MLA caches: ckv (L, B, S_max, kv_lora) and krope
+    (L, B, S_max, rope_dim) in bfloat16, len (L, B)."""
+    def zeros(width):
+        return torch.zeros((n_layers, batch, max_len, width),
+                           dtype=torch.bfloat16, device=device)
+    return {"ckv": zeros(cfg.kv_lora_rank), "krope": zeros(cfg.qk_rope_dim),
+            "len": torch.zeros((n_layers, batch), dtype=torch.int32,
+                               device=device)}
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, cfg: ModelConfig, n_layers: int):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, n_layers: int, d_ff: int | None = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg)
     return {
         "wg": ninit(gen, (n_layers, d, f), dt, fan_in=d),
@@ -265,3 +384,115 @@ def init_mlp(gen, cfg: ModelConfig, n_layers: int):
 def mlp(params, x):
     h = F.silu(linear(x, params["wg"])) * linear(x, params["wu"])
     return linear(h, params["wd"])
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with sorted capacity-based dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ModelConfig, n_layers: int):
+    """The router (float32, as the reference's), the experts' stacked
+    SwiGLU weights (L, E, ...) and the shared expert."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    dt = dtype_of(cfg)
+    p = {"router": ninit(gen, (n_layers, d, e), torch.float32, fan_in=d),
+         "wg": ninit(gen, (n_layers, e, d, f), dt, fan_in=d),
+         "wu": ninit(gen, (n_layers, e, d, f), dt, fan_in=d),
+         "wd": ninit(gen, (n_layers, e, f, d), dt, fan_in=f)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, n_layers,
+                               d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+def _route(params, xf, k):
+    """The router over the rows xf (T, D): float32 logits, softmax, the
+    top k (the first k of a stable descending sort: on a tie the lower
+    expert id first, as ``jax.lax.top_k``), gates renormalised.  Returns
+    (probs (T, E), gates (T, k) float32, idx (T, k) int64)."""
+    probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :k], idx[:, :k]
+    return probs, gates / gates.sum(dim=-1, keepdim=True), idx
+
+
+def _combine(contrib, sort_idx, idx):
+    """The tokens' outputs (T, D) from the entries' contributions (T*k, D)
+    in sorted order (entry ``sort_idx[i]`` of the flat (token, slot)
+    order): each token's k contributions added in ascending expert id
+    from zero, rounding to their dtype after each add, which is the order
+    and the rounding of the reference's scatter-add over the sorted
+    entries.  Gathers, no atomics."""
+    t, k = idx.shape
+    flat = torch.empty_like(contrib)
+    flat[sort_idx] = contrib
+    flat = flat.view(t, k, -1)
+    order = torch.argsort(idx, dim=1)                           # by expert id
+    rows = torch.arange(t, device=idx.device)
+    y = torch.zeros((t, flat.shape[-1]), dtype=contrib.dtype,
+                    device=contrib.device)
+    for r in range(k):
+        y = y + flat[rows, order[:, r]]
+    return y
+
+
+def moe_ffn(params, x, cfg: ModelConfig):
+    """Returns (y, aux_loss): the reference's sorted dispatch with per-expert
+    capacity ``cap = max(1, int(cf * T * k / E))``; an entry past its
+    expert's capacity is dropped (it writes nowhere and adds nothing, and
+    the token's residual stream passes through), the Switch aux loss.
+
+    Every expert computes its (cap, D) buffer (the reference's dense
+    dispatch), so a decode step reads every expert's weights.  The combine
+    adds each token's k contributions in a fixed order, ascending expert
+    id, rounding to x's dtype after each add, as the reference's
+    scatter-add visits them (its stable sort puts one token's entries in
+    that order): no atomics, so the bits do not depend on the run."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.experts_per_tok, cfg.n_experts
+    xf = x.reshape(t, d)
+    probs, gates, idx = _route(params, xf, k)
+
+    # load-balancing auxiliary loss (Switch eq. 4)
+    first = torch.zeros_like(probs).scatter_(1, idx[:, :1], 1.0)
+    aux = e * torch.sum(probs.mean(dim=0) * first.mean(dim=0))
+
+    cap = max(1, int(cfg.moe_capacity_factor * t * k / e))
+    flat_e = idx.reshape(-1)                                    # (T*k,)
+    sort_idx = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[sort_idx]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=x.device))
+    pos = torch.arange(t * k, device=x.device) - seg_start[sorted_e]
+    keep = pos < cap
+    dest = torch.where(keep, sorted_e * cap + pos, e * cap)     # e*cap: drop
+    token_of = sort_idx // k
+
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xf[token_of]
+    buf = buf[:e * cap].view(e, cap, d)
+    h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wu"])
+    out = torch.bmm(h, params["wd"]).reshape(e * cap, d)
+
+    gate_of = gates.reshape(-1)[sort_idx].to(x.dtype)
+    contrib = out[torch.where(keep, dest, 0)] * (gate_of * keep)[:, None]
+    y = _combine(contrib, sort_idx, idx).view(b, s, d)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x)
+    return y, aux
+
+
+def moe_ffn_reference(params, x, cfg: ModelConfig):
+    """O(E*T) dense oracle for tests: every expert computes every token."""
+    b, s, d = x.shape
+    xf = x.reshape(-1, d)
+    _, gates, idx = _route(params, xf, cfg.experts_per_tok)
+    h = F.silu(torch.einsum("td,edf->etf", xf, params["wg"])) \
+        * torch.einsum("td,edf->etf", xf, params["wu"])
+    oute = torch.einsum("etf,efd->etd", h, params["wd"])        # (E, T, D)
+    sel = F.one_hot(idx, cfg.n_experts).float()                 # (T, k, E)
+    w = torch.einsum("tke,tk->et", sel, gates).to(x.dtype)
+    y = torch.einsum("etd,et->td", oute, w).reshape(b, s, d)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x)
+    return y

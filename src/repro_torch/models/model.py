@@ -5,23 +5,30 @@ SSM family (mamba2), the hybrid family (zamba2: mamba2 blocks with one
 weight-shared attention+MLP block applied before every
 ``hybrid_attn_every``-th of them), the cross-attention VLM (llama-3.2-
 vision: groups of ``cross_attn_every`` self blocks and one block that
-attends to the vision embeddings) and the encoder-decoder (whisper: a
+attends to the vision embeddings), the encoder-decoder (whisper: a
 non-causal encoder over frame embeddings, and decoder blocks of causal
-self-attention, cross-attention to the encoder output and an MLP); MoE
-is not ported yet and raises.  Params keep the reference's tree layout,
-with the blocks stacked on a leading layer axis (``blocks/attn/wq`` is
-(L, D, H*hd), ``blocks/in_proj`` (L, D, ...), the VLM's
-``groups/self/attn/wq`` (G, k, D, H*hd) and ``groups/cross/xattn/wq`` (G,
-D, H*hd)) and the hybrid's ``shared_attn`` unstacked, so ``models.bridge``
-and the checkpoint map leaf for leaf.  The layer loop is a Python loop
-over views of the stacked tensors, and the serving cache is updated in
-place.
+self-attention, cross-attention to the encoder output and an MLP) and the
+MoE family (groups of ``moe_interleave - 1`` dense blocks and one MoE
+block: llama4-maverick's interleave 2 with GQA attention, deepseek-v3's
+interleave 1 with MLA and its multi-token-prediction weights, which
+serving never runs).  Params keep the reference's tree layout, with the
+blocks stacked on a leading layer axis (``blocks/attn/wq`` is (L, D,
+H*hd), ``blocks/in_proj`` (L, D, ...), the VLM's ``groups/self/attn/wq``
+(G, k, D, H*hd) and ``groups/cross/xattn/wq`` (G, D, H*hd), the MoE
+family's ``groups/moe/moe/wg`` (G, E, D, F) and ``groups/dense/attn/wq``
+(G, il - 1, D, H*hd)) and the hybrid's ``shared_attn`` unstacked, so
+``models.bridge`` and the checkpoint map leaf for leaf.  The layer loop is
+a Python loop over views of the stacked tensors, and the serving cache is
+updated in place.
 
 The VLM's and the encoder-decoder's serving caches are ``{"self": ...,
 "cross": {"k", "v"}}``: the self-attention caches stacked like the
 blocks, and one cross-attention k/v per cross block, filled once per
 request at prefill (from the vision embeddings, or from the encoder
-output) and read whole by every decode step.
+output) and read whole by every decode step.  The MoE family's is
+``{"moe": ..., "dense": ...}``: the MoE blocks' attention caches stacked by
+group (MLA's compressed ``ckv`` and ``krope``, or GQA's k/v), and for an
+interleave above 1 the dense blocks' stacked (groups, il - 1).
 
   init_params(cfg, generator, device=)                    -> params
   forward(cfg, params, batch)                             -> (logits, (h, aux))
@@ -44,11 +51,12 @@ from repro_torch.kernels.decode.ops import residual_rms_norm_rows
 
 from .config import ModelConfig
 from .layers import (attention, cache_offset, cross_attention, dtype_of,
-                     init_attention, init_cache, init_mlp, linear, mlp, ninit,
-                     rms_norm)
+                     init_attention, init_cache, init_mla, init_mla_cache,
+                     init_mlp, init_moe, linear, mla_attention, mlp, moe_ffn,
+                     ninit, rms_norm)
 from .ssm import init_mamba_block, init_mamba_cache, mamba_block
 
-FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec")
+FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec", "moe")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -87,9 +95,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
+    def mixer(n_blocks):
+        return (init_mla(gen, cfg, n_blocks) if cfg.use_mla
+                else init_attention(gen, cfg, n_blocks))
+
     def dense_blocks(n_blocks):
-        return {"ln1": ones(n_blocks, d),
-                "attn": init_attention(gen, cfg, n_blocks),
+        return {"ln1": ones(n_blocks, d), "attn": mixer(n_blocks),
                 "ln2": ones(n_blocks, d),
                 "mlp": init_mlp(gen, cfg, n_blocks)}
 
@@ -116,6 +127,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                            "lnq": ones(n, d),
                            "xattn": init_attention(gen, cfg, n),
                            "ln2": ones(n, d), "mlp": init_mlp(gen, cfg, n)}
+    elif fam == "moe":
+        il = cfg.moe_interleave
+        g = n // il
+        p["groups"] = {"moe": {"ln1": ones(g, d), "attn": mixer(g),
+                               "ln2": ones(g, d),
+                               "moe": init_moe(gen, cfg, g)}}
+        if il > 1:
+            p["groups"]["dense"] = tree_map(
+                lambda a: a.view(g, il - 1, *a.shape[1:]),
+                dense_blocks(g * (il - 1)))
+        if cfg.mtp_depth:
+            p["mtp_proj"] = ninit(gen, (2 * d, d), dt, fan_in=2 * d)
+            p["mtp_block"] = layer_view(dense_blocks(1), 0)
     else:
         p["blocks"] = init_mamba_block(gen, cfg, n)
     if fam == "hybrid":
@@ -128,14 +152,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # blocks / embeddings / head
 # ---------------------------------------------------------------------------
 
+def _self_attend(p, x, cfg: ModelConfig, positions, cache, kv_bucket, offset,
+                 causal=True):
+    """The block's self-attention: MLA (causal; no ``kv_bucket``) or
+    GQA."""
+    if cfg.use_mla:
+        return mla_attention(p, x, cfg, positions, cache=cache,
+                             offset=offset)
+    return attention(p, x, cfg, positions, causal=causal, cache=cache,
+                     kv_bucket=kv_bucket, offset=offset)
+
+
 def apply_dense_block(p, h, cfg: ModelConfig, positions, cache=None,
                       kv_bucket=None, offset=None, causal=True):
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     h, x = residual_rms_norm_rows(
-        h, attention(p["attn"], x, cfg, positions, causal=causal,
-                     cache=cache, kv_bucket=kv_bucket, offset=offset),
-        p["ln2"], cfg.norm_eps)
+        h, _self_attend(p["attn"], x, cfg, positions, cache, kv_bucket,
+                        offset, causal), p["ln2"], cfg.norm_eps)
     return h + mlp(p["mlp"], x)
+
+
+def apply_moe_block(p, h, cfg: ModelConfig, positions, cache=None,
+                    kv_bucket=None, offset=None):
+    """The MoE block: self-attention (MLA or GQA), then the routed experts
+    and the shared one (pre-norm, residual).  Returns (h, aux loss)."""
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    h, x = residual_rms_norm_rows(
+        h, _self_attend(p["attn"], x, cfg, positions, cache, kv_bucket,
+                        offset), p["ln2"], cfg.norm_eps)
+    f, aux = moe_ffn(p["moe"], x, cfg)
+    return h + f, aux
 
 
 def apply_cross_block(p, h, cfg: ModelConfig, kv, kv_len=None):
@@ -204,6 +250,29 @@ def _write_offset(h, attn_cache):
     if attn_cache is None or h.shape[1] == 1:
         return None
     return cache_offset(attn_cache["len"])
+
+
+def _moe_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
+    """The MoE family's groups over ``h``: ``moe_interleave - 1`` dense
+    blocks, then the MoE block.  Returns (h, cache, the groups' aux loss
+    summed)."""
+    groups = params["groups"]
+    offset = None if cache is None else _write_offset(h, cache["moe"])
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g in range(groups["moe"]["ln1"].shape[0]):
+        gp = layer_view(groups, g)
+        if "dense" in gp:
+            for i in range(gp["dense"]["ln1"].shape[0]):
+                c = (None if cache is None
+                     else layer_view(layer_view(cache["dense"], g), i))
+                h = apply_dense_block(layer_view(gp["dense"], i), h, cfg,
+                                      positions, cache=c,
+                                      kv_bucket=kv_bucket, offset=offset)
+        c = None if cache is None else layer_view(cache["moe"], g)
+        h, a = apply_moe_block(gp["moe"], h, cfg, positions, cache=c,
+                               kv_bucket=kv_bucket, offset=offset)
+        aux = aux + a
+    return h, cache, aux
 
 
 def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
@@ -314,12 +383,16 @@ def _encdec_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
 def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
               layer_offset=0, app_offset=0, side=None):
     """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds decode
-    self-attention (dense, the VLM's and the decoder's self blocks, and
-    the hybrid's shared block); the offsets place a stage's blocks in the
-    hybrid's call-site order (``_ssm_apply``); ``side`` holds a cacheless
-    pass's cross-attention source (``vision`` or ``enc_out``)."""
+    GQA self-attention (dense, the VLM's, the decoder's and llama4's
+    blocks, and the hybrid's shared block; MLA reads the whole cache); the
+    offsets place a stage's blocks in the hybrid's call-site order
+    (``_ssm_apply``); ``side`` holds a cacheless pass's cross-attention
+    source (``vision`` or ``enc_out``)."""
     fam = family(cfg)
     side = side or {}
+    if fam == "moe":
+        h, cache, _ = _moe_apply(cfg, params, h, positions, cache, kv_bucket)
+        return h, cache
     if fam == "dense":
         return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
     if fam == "vlm":
@@ -337,13 +410,19 @@ def _positions(b, s, device):
 
 
 def forward(cfg: ModelConfig, params, batch):
-    """Full-sequence causal forward -> (logits, (h, aux)).  The VLM attends
-    to ``batch["vision"]``; the encoder-decoder to ``batch["enc_out"]`` or,
+    """Full-sequence causal forward -> (logits, (h, aux)), aux the MoE
+    blocks' load-balancing loss over ``n_layers`` (0.0 for the other
+    families), as the reference's.  The VLM attends to
+    ``batch["vision"]``; the encoder-decoder to ``batch["enc_out"]`` or,
     without it, to the encoding of ``batch["frames"]``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
-    h, _ = _backbone(cfg, params, h, _positions(b, s, tokens.device),
+    positions = _positions(b, s, tokens.device)
+    if family(cfg) == "moe":
+        h, _, aux = _moe_apply(cfg, params, h, positions)
+        return lm_logits(params, cfg, h), (h, aux / cfg.n_layers)
+    h, _ = _backbone(cfg, params, h, positions,
                      side=_side_inputs(cfg, params, batch))
     return lm_logits(params, cfg, h), (h, 0.0)
 
@@ -411,6 +490,16 @@ def _init_cache(cfg, lo, hi, batch_size, max_len, device, enc_len=None):
         return {"self": tree_map(lambda a: a.view(g, k, *a.shape[1:]), sc),
                 "cross": _cross_cache(cfg, g, batch_size, cfg.vision_tokens,
                                       device)}
+    if fam == "moe":
+        il = cfg.moe_interleave
+        g = n_layers // il
+        mk = init_mla_cache if cfg.use_mla else init_cache
+        out = {"moe": mk(cfg, g, batch_size, max_len, device=device)}
+        if il > 1:
+            out["dense"] = tree_map(
+                lambda a: a.view(g, il - 1, *a.shape[1:]),
+                mk(cfg, g * (il - 1), batch_size, max_len, device=device))
+        return out
     if fam == "encdec":
         return {"self": init_cache(cfg, n_layers, batch_size, max_len,
                                    device=device),
@@ -477,7 +566,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache,
 
     kv_bucket: self-attention reads only rows [0, kv_bucket) of the cache;
     callers guarantee max(len) + 1 <= kv_bucket.  None reads all rows.
-    Cross-attention always reads the whole cross cache.  The pure SSM
+    Cross-attention and MLA always read the whole cache.  The pure SSM
     family has no attention and ignores it."""
     b = tokens.shape[0]
     h = embed_tokens(params, cfg, tokens)
@@ -496,4 +585,6 @@ def _cache_len(cfg, cache):
         return cache["self"]["len"][0, 0].clone()
     if fam == "encdec":
         return cache["self"]["len"][0].clone()
+    if fam == "moe":
+        return cache["moe"]["len"][0].clone()
     return cache["mamba"]["len"][0].clone()

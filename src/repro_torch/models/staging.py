@@ -18,6 +18,11 @@ Family notes:
   (``cross_attn_every + 1`` blocks): a stage holds whole groups, and every
   stage fills its cross caches from the vision embeddings, a side input
   each stage receives.
+* moe (deepseek-v3, llama4-maverick) — cuts fall on group boundaries
+  (``moe_interleave`` blocks: llama4's dense block and its MoE block stay
+  together); a stage's MLA caches (``ckv``, ``krope``) are its own groups'.
+  deepseek-v3's multi-token-prediction weights go to no stage: serving
+  never runs them.
 * encdec (whisper) — the encoder (``frontend``, ``enc_blocks``,
   ``enc_norm``) runs with the first stage, whatever its decoder blocks (a
   plan that cuts inside the planner's encoder layers gives a block-free
@@ -39,9 +44,12 @@ from .model import (_backbone, _cache_len, _init_cache, embed_tokens, encode,
 
 
 def stage_granularity(cfg: ModelConfig) -> int:
-    """Smallest block count a stage boundary must align to (the VLM's
-    group, 1 for the other families)."""
-    if family(cfg) == "vlm":
+    """Smallest block count a stage boundary must align to (the VLM's and
+    the MoE family's group, 1 for the other families)."""
+    fam = family(cfg)
+    if fam == "moe":
+        return cfg.moe_interleave
+    if fam == "vlm":
         return cfg.cross_attn_every + 1
     return 1
 
@@ -69,7 +77,7 @@ def extract_stage_params(cfg: ModelConfig, params, lo: int, hi: int,
     stage."""
     fam = family(cfg)
     g = stage_granularity(cfg)
-    if fam == "vlm":
+    if fam in ("vlm", "moe"):
         sp = {"groups": _slice(params["groups"], lo // g, hi // g)}
     elif fam == "encdec":
         sp = {"dec_blocks": _slice(params["dec_blocks"], lo, hi)}

@@ -14,7 +14,12 @@ functions:
 
 Both give the same greedy tokens.  On the card they also give the same
 logits bit for bit: the decode-attention kernel reads each row's own keys
-whatever the bucket (``kernels.decode``).
+whatever the bucket (``kernels.decode``).  MLA (deepseek-v3) has no such
+kernel: its plain attention reads the whole cache, masked by each row's
+length, in both loops and ignores the bucket, since plain reductions over
+a bucket and over the whole cache need not round alike
+(``layers.mla_attention``).  The MoE dispatch and its combine have no
+atomics, so they repeat bit for bit.
 """
 
 from __future__ import annotations

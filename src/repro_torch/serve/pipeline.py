@@ -15,6 +15,13 @@ to ``ServeEngine``'s, across a mid-stream stage kill and restore too.  The
 int8 wire is lossy, so there the contract is that a run with a kill gives
 the same tokens as the same run without it.
 
+**MoE.**  A stage holds whole groups (``staging``); the batch goes
+through each stage as one, so routing (whose expert capacity couples the
+rows) sees the rows the monolithic model sees, in a replay too.  The
+reference's overlapped executor never splits a MoE batch into
+micro-batches for that reason (``repro/serve/pipeline.py``,
+``_resolve_micro``); that executor is not ported yet.
+
 **Side inputs.**  Every VLM stage reads the request's vision embeddings,
 and the encoder-decoder's first stage encodes the frames and ships the
 encoder output to every later stage, once per request (the planner's

@@ -38,6 +38,13 @@ admission's prefill reads its fresh cache's length once): the schedule
 depends only on the known prompt and generation lengths, and every token
 comes back to the host once, at the end.  Continuous batching across the stages of a
 ``PipelineServeEngine`` is not ported yet; ``run`` refuses one.
+
+A MoE model is refused (``MOE_REFUSAL``).  Expert capacity couples the
+rows of a batch: a row's entries compete with the others' for each
+expert's ``cap`` slots, so the reference pins no MoE stream.  Here the
+idle slots' garbage rows differ from the reference's too (their lengths
+go back to 0 rather than being clamped), so they would contend for
+capacity differently again.
 """
 
 from __future__ import annotations
@@ -102,11 +109,21 @@ def _zero_lens(cache, axes, slot):
             leaf.select(axes[key], slot).zero_()
 
 
+MOE_REFUSAL = (
+    "SlotScheduler does not serve the MoE family: expert capacity couples "
+    "the rows of a batch (a request's routing depends on the other slots' "
+    "rows, so the reference pins no MoE stream), and the idle slots' rows "
+    "here differ from the reference's (lengths reset, not clamped), so "
+    "they would contend for capacity differently")
+
+
 class SlotScheduler:
     """Continuous batching: admit/evict requests into ``slots`` cache rows
     of a monolithic ``ServeEngine``."""
 
     def __init__(self, engine, slots: int):
+        if engine.cfg.family == "moe":
+            raise NotImplementedError(MOE_REFUSAL)
         self.engine = engine
         self.slots = int(slots)
         self._batch_axes = None

@@ -990,3 +990,108 @@ def test_side_input_models_on_card(side_smoke, monkeypatch):
         steps = torch.stack([recorded[i][slot] for i, m in enumerate(maps)
                              for slot, rid in m.items() if rid == r.rid])
         assert steps.numpy().tobytes() == logits[0, 1:].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (deepseek-v3 with MLA, llama4-maverick) at the smoke config
+# ---------------------------------------------------------------------------
+
+def moe_launches(cfg, prefills, steps):
+    """Kernel launches of ``prefills`` prefills and ``steps`` decode steps
+    of a MoE model (``chip_smoke.expected_launches``): llama4's GQA blocks
+    (dense and MoE alike) flash once a prefill and one
+    ``decode_attention`` a step, MLA neither (plain attention); a decode
+    step's block 7 ``rows_matmul`` (q/k/v/o or MLA's wdq, wuq, wdkv, wo,
+    and the shared expert's three; the router and the experts are plain
+    matmuls) and the head's, a prefill's head one; a pass's block one
+    ``rms_norm_rows`` (ln1) and, for MLA, two more (q_norm, kv_norm), one
+    ``residual_rms_norm_rows`` (ln2), and the final norm."""
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    n, passes = cfg.n_layers, prefills + steps
+    attn = 0 if cfg.use_mla else n
+    want["flash_attention"] = attn * prefills
+    want["decode_attention"] = attn * steps
+    want["rows_matmul"] = (7 * n + 1) * steps + prefills
+    want["rms_norm_rows"] = ((3 if cfg.use_mla else 1) * n + 1) * passes
+    want["residual_rms_norm_rows"] = n * passes
+    return want
+
+
+@pytest.fixture(params=["deepseek-v3-671b", "llama4-maverick-400b-a17b"])
+def moe_smoke(cuda, request):
+    cfg = get_config(request.param, "smoke")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    cpu = init_params(cfg, gen, device="cpu")
+    return cfg, cpu, tree_map(lambda t: t.to(cuda), cpu)
+
+
+def test_moe_models_on_card(moe_smoke):
+    """Both loops bit-identical in tokens and every step's logits, with
+    exact launch counts (MLA ignores the bucket and reads the whole cache
+    in both); the raw-wire pipeline over a group-aligned cut equal to
+    ServeEngine, across a kill too; the int8 wire's kill changes
+    nothing."""
+    cfg, _, gpu = moe_smoke
+    eng = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8)
+    batch = make_batch(cfg, 3, PROMPT, seed=3)
+    kernels.reset_launch_counts()
+    fast = eng.generate(batch, GEN, collect_logits=True)
+    assert kernels.launch_counts() == moe_launches(cfg, 1, GEN - 1)
+    ref = eng.generate(batch, GEN, engine="reference", collect_logits=True)
+    np.testing.assert_array_equal(fast[0], ref[0])
+    assert fast[1].tobytes() == ref[1].tobytes()
+    kill = {"after_step": 2, "stage": 1}
+    cut = [cfg.moe_interleave]
+    raw = PipelineServeEngine(cfg, gpu, from_block_cuts(
+        cfg, cut, spare_nodes=(9,)), max_len=PROMPT + GEN, kv_block=8)
+    np.testing.assert_array_equal(raw.generate(batch, GEN), fast[0])
+    np.testing.assert_array_equal(raw.generate(batch, GEN, kill=kill),
+                                  fast[0])
+    i8 = PipelineServeEngine(cfg, gpu, from_block_cuts(
+        cfg, cut, spare_nodes=(9,), wire_bits=8), max_len=PROMPT + GEN,
+        kv_block=8)
+    np.testing.assert_array_equal(i8.generate(batch, GEN, kill=kill),
+                                  i8.generate(batch, GEN))
+
+
+@pytest.mark.parametrize("rows", [(4, 1), (3, PROMPT)])
+def test_moe_ffn_repeats_bit_for_bit_on_card(moe_smoke, rows):
+    """Two runs of ``moe_ffn`` on the same input give the same bits (the
+    combine gathers: no atomics), at a decode step's rows and a prefill's;
+    and within 5e-2 of the CPU's where no token's routing differs."""
+    from repro_torch.models import layers, model
+    cfg, cpu, gpu = moe_smoke
+    x = randn(gpu["embed"].device, 30, *rows, cfg.d_model,
+              dtype=torch.bfloat16)
+    p = model.layer_view(gpu["groups"]["moe"]["moe"], 0)
+    with torch.inference_mode():
+        a, aux_a = layers.moe_ffn(p, x, cfg)
+        b, aux_b = layers.moe_ffn(p, x, cfg)
+        bits_equal(a, b)
+        assert torch.equal(aux_a, aux_b)
+        pc = model.layer_view(cpu["groups"]["moe"]["moe"], 0)
+        xc = x.cpu()
+        on_cpu, _ = layers.moe_ffn(pc, xc, cfg)
+        k = cfg.experts_per_tok
+        same = (layers._route(p, x.reshape(-1, cfg.d_model), k)[2].cpu()
+                == layers._route(pc, xc.reshape(-1, cfg.d_model), k)[2])
+    if bool(same.all()):
+        torch.testing.assert_close(a.cpu().float(), on_cpu.float(),
+                                   rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("s,causal", [(512, True), (300, True),
+                                      (200, False)])
+@pytest.mark.parametrize("h,kv", [(10, 2), (40, 8)])
+def test_flash_kernel_group_of_five(cuda, s, causal, h, kv):
+    """llama4's prefill attention: q heads in groups of 5 over kv heads of
+    128 (40 over 8 at full width), within the bf16 flash tolerance."""
+    q = randn(cuda, 31, 2, s, h, 128, dtype=torch.bfloat16)
+    k = randn(cuda, 32, 2, s, kv, 128, dtype=torch.bfloat16)
+    v = randn(cuda, 33, 2, s, kv, 128, dtype=torch.bfloat16)
+    out = attn_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_ref(q, k, v, causal=causal)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]

@@ -58,12 +58,16 @@ PINS = json.loads((ROOT / "tests/data/serve_equivalence.json").read_text())
 SCENARIOS = {s["id"]: s for s in scenarios()}
 SYNC = [f"sync/{a}" for a in ("granite-3-2b", "minicpm-2b", "deepseek-7b",
                               "llama3-405b", "mamba2-1.3b", "zamba2-7b",
-                              "whisper-large-v3", "llama-3.2-vision-90b")]
+                              "whisper-large-v3", "llama-3.2-vision-90b",
+                              "deepseek-v3-671b",
+                              "llama4-maverick-400b-a17b")]
 PIPELINE = [f"pipeline/{a}/{c}" for a in ("granite-3-2b", "mamba2-1.3b",
                                           "whisper-large-v3")
             for c in ("cut1", "cut2", "cut3", "cut2-kill")]
 PIPELINE += ["pipeline/zamba2-7b/cut1-3",
-             "pipeline/llama-3.2-vision-90b/cut5"]
+             "pipeline/llama-3.2-vision-90b/cut5",
+             "pipeline/deepseek-v3-671b/cut1",
+             "pipeline/llama4-maverick-400b-a17b/cut2"]
 
 
 def cell(cid):

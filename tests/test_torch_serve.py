@@ -344,6 +344,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.configs.llama3_405b',"
         " 'repro_torch.configs.whisper_large_v3',"
         " 'repro_torch.configs.llama_3_2_vision_90b',"
+        " 'repro_torch.configs.deepseek_v3_671b',"
+        " 'repro_torch.configs.llama4_maverick_400b_a17b',"
         " 'repro_torch.models.staging'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
