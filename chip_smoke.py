@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wire-times [SRC]   # the wire's times alone
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -14,9 +15,16 @@ Phases, in order; any failure exits non-zero before the result line:
    whisper's non-causal encoder: 1500 frames, 20 heads of 64, and
    llama4's prefill: 40 q heads over 8 kv heads of 128) and 2e-5
    (float32), with no copy of its inputs or output in its wrapper,
-   quantize and dequantize bit-equal (zamba2's 3584-wide wire rows on the
-   rowwise path, deepseek-v3's 7168-wide ones, past its ROW_MAX, on the
-   general path), the SSD scan within
+   quantize and dequantize bit-equal (q, scales and output bytes) at
+   every served model's width (1280 to 16384), at decode rows and a
+   prefill's 2048, in bf16 and float32, with an all-zero row and a row of
+   .5 ties, and at the (256, 256) and ragged tiles; by the wrappers' path
+   counts, each of those (1, D) calls on quantize's row path and every
+   call on the vectorised dequantize, a (256, 256) tile and a misaligned
+   view on the general path; no spill in either kernel (``cuobjdump
+   -res-usage``); times (``wire_times``, also run alone by
+   ``--wire-times``) warm, cold, and cold with fresh outputs beside the
+   bytes bound and the same-bytes cast ``out.copy_(q)``; the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); the three row-invariant
    decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
@@ -137,7 +145,9 @@ Phases, in order; any failure exits non-zero before the result line:
    per decoder layer one and two, per mamba layer one ``rms_norm_rows``,
    one ``conv_silu`` and one ``gated_rms_norm_rows``, and the final norm
    (the encoder's layers and final norm once a prefill); quantize and
-   dequantize once per stage boundary per pass in the int8-wire runs; and
+   dequantize once per stage boundary per pass in the int8-wire runs,
+   each launch on quantize's row path and the vectorised dequantize (the
+   wrappers' path counts, read with the launch counts); and
    nothing else (the standalone ``silu`` runs on no path; the router and
    the experts are plain matmuls, as in the reference).  Each model's
    peak device memory and the seconds of each of its phases are logged.
@@ -155,10 +165,12 @@ replace no TPU kernel (the reference leaves these ops to XLA): their
 
 from __future__ import annotations
 
+import argparse
 import gc
 import itertools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -450,28 +462,137 @@ def check_flash(torch, gen):
                                "bound_by": mb_by}}
 
 
-def check_quantize(torch, gen):
+def time_cold_out_ms(fn, nbytes, iters=20):
+    """``time_cold_ms`` for a call ``fn(c)`` that allocates its outputs:
+    every call's outputs are kept until the timing ends, so each call
+    writes memory of its own and its writes reach device memory, as a
+    stream's do, instead of landing on lines the last call left in L2.
+    Returns (ms, copies)."""
+    keep = []
+    out = time_cold_ms(lambda c: keep.append(fn(c)), nbytes, iters)
+    del keep
+    return out
+
+
+def quantize_rows(torch, gen, m, n, dt):
+    """x (m, n) for the wire's checks: normal rows, row 0 all zero (scale
+    1), the last row half-way ties (127, .5, 1.5, 2.5, -.5, ... repeated:
+    scale 1, so every .5 decides the rounding)."""
+    x = torch.randn(m, n, generator=gen, device="cuda")
+    x[0] = 0
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5],
+                        device="cuda")
+    x[-1] = ties.repeat(n // 8)
+    return x.to(dt)
+
+
+# the wire's timed shapes: a prefill's rows (B*S, D) and a decode step's
+WIRE_TIMED = ([(BATCH * PROMPT, d) for d in (2048, 3584, 7168, 8192, 16384)]
+              + [(BATCH, 7168)])
+
+
+def wire_times(torch, gen):
+    """Quantize and dequantize at the wire's rows (``WIRE_TIMED``), bf16,
+    one scale a row: warm (one copy, in L2), cold (a copy a call) and cold
+    with fresh outputs (a copy a call, outputs kept), beside the plain
+    versions, the bounds and the same-bytes cast ``out.copy_(q)``, a
+    reference for the card's streaming rate at that size (no single torch
+    call computes either kernel).  It calls only the wrappers and the
+    plain versions, so ``--wire-times SRC`` times another checkout's
+    package with the same loop.  Returns {(M, D): record}."""
     from repro_torch.kernels.quantize import ops, ref
-    cases = [((BATCH * PROMPT, 2048), 1, 2048),      # the wire at prefill
-             ((BATCH * PROMPT, 3584), 1, 3584),      # zamba2's wire
-             ((BATCH * PROMPT, 7168), 1, 7168),      # deepseek-v3's wire,
-             ((BATCH, 7168), 1, 7168),               # a decode step's too
-             ((2048, 2048), 256, 256), ((300, 520), 256, 256)]
+    t = {}
+    for m, n in WIRE_TIMED:
+        nbytes = m * n              # q's: copies enough for dequantize too
+        xs = [torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+              for _ in range(cold_copies(nbytes))]
+        qs = [ops.quantize(x, 1, n) for x in xs]
+        x2, (q, s) = xs[0], qs[0]
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        r = t[m, n] = {
+            "M, D": [m, n],
+            "q_ms": time_ms(lambda: ops.quantize(x2, 1, n)),
+            "q_cold_ms": time_cold_ms(
+                lambda c: ops.quantize(xs[c], 1, n), nbytes)[0],
+            "q_cold_out_ms": time_cold_out_ms(
+                lambda c: ops.quantize(xs[c], 1, n), nbytes)[0],
+            "q_plain_ms": time_ms(lambda: ref.quantize_ref(x2, 1, n)),
+            "d_ms": time_ms(lambda: ops.dequantize(q, s, 1, n)),
+            "d_cold_ms": time_cold_ms(
+                lambda c: ops.dequantize(*qs[c], 1, n), nbytes)[0],
+            "d_cold_out_ms": time_cold_out_ms(
+                lambda c: ops.dequantize(*qs[c], 1, n), nbytes)[0],
+            "d_plain_ms": time_ms(lambda: ref.dequantize_ref(q, s, 1, n)),
+            "cast_ms": time_ms(lambda: out.copy_(q)),
+            "cast_cold_ms": time_cold_ms(
+                lambda c: out.copy_(qs[c][0]), nbytes)[0],
+            "cast_cold_out_ms": time_cold_out_ms(
+                lambda c: torch.empty_like(out).copy_(qs[c][0]), nbytes)[0]}
+        # float32 operations per element: quantize |x|, max, x * (1/scale),
+        # round, and the clip's two compares; dequantize one multiply
+        r["q_bound_ms"], r["q_bound_by"] = bound(2 * m * n + m * n + 4 * m,
+                                                 (6.0 * m * n, F32_PEAK))
+        r["d_bound_ms"], r["d_bound_by"] = bound(m * n + 4 * m + 2 * m * n,
+                                                 (1.0 * m * n, F32_PEAK))
+        for k, name in (("q", "quantize"), ("d", "dequantize")):
+            b = r[k + "_bound_ms"]
+            cold, fresh = r[k + "_cold_ms"], r[k + "_cold_out_ms"]
+            log(f"  {name} ({m}, {n}) bf16: kernel {r[k + '_ms']:.4f} ms "
+                f"warm, {cold:.4f} cold ({b / cold:.0%} of the bound), "
+                f"{fresh:.4f} cold with fresh outputs ({b / fresh:.0%}), "
+                f"plain {r[k + '_plain_ms']:.4f} ms, bound {b:.5f} ms "
+                f"({r[k + '_bound_by']})")
+        log(f"  the cast out.copy_(q) ({m}, {n}) int8 -> bf16: "
+            f"{r['cast_ms']:.4f} ms warm, {r['cast_cold_ms']:.4f} cold, "
+            f"{r['cast_cold_out_ms']:.4f} with fresh outputs")
+        del xs, qs, out
+        torch.cuda.empty_cache()
+    return t
+
+
+def check_quantize(torch, gen):
+    """Quantize and dequantize bit-equal (q, scales, output bytes) to their
+    plain versions at every wire width of the served models and 16384, at
+    decode rows and a prefill's, in bf16 and float32, and at the blockwise
+    (256, 256) and ragged tiles; by the wrappers' path counts, every such
+    (1, D) call on quantize's row path and every call on the vectorised
+    dequantize, a (256, 256) tile and a misaligned view off the row path;
+    the kernels' registers and spills; times (``wire_times``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops, ref
+    usage = {f: v for f, v in _build.resource_usage("quantize").items()
+             if "rows_kernel" in f or "vec_kernel" in f}
+
+    def short(f):     # quantize_rows_kernel<bf16, 4> as rows<bf16,4>
+        kind = "rows" if "rows_kernel" in f else "dq"
+        args = "".join("," + a for a in re.findall(r"Li(\d+)E", f))
+        return f"{kind}<{'bf16' if 'bfloat16' in f else 'f32'}{args}>"
+    log("  registers (spill stack bytes) by instance: " + ", ".join(
+        f"{short(f)} {r} ({st})" for f, (r, st) in sorted(usage.items())))
+    if any(st for _, st in usage.values()):
+        raise SystemExit("a row-path or vectorised kernel spills")
+
+    def paths(fn):
+        """fn()'s result, and its launches on quantize's row path and of
+        the vectorised dequantize."""
+        r0, v0 = ops.quantize.row_launches, ops.dequantize.vec_launches
+        out = fn()
+        return (out, ops.quantize.row_launches - r0,
+                ops.dequantize.vec_launches - v0)
+    served = sorted({get_config(a, "full").d_model for a in ARCHS}
+                    | {16384})
+    cases = ([((m, d), 1, d) for d in served for m in (BATCH, BATCH * PROMPT)]
+             + [((2048, 2048), 256, 256), ((300, 520), 256, 256)])
     q_err = d_err = 0.0
     for shape, bm, bn in cases:
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
-            # a wire row of at most ROW_MAX takes the rowwise path;
-            # deepseek-v3's 7168 the general one
-            rowwise = ops.rowwise_path(x, bm, bn)
-            if rowwise != (bm == 1 and shape[1] <= ops.ROW_MAX):
-                raise SystemExit(f"quantize {shape} tile ({bm}, {bn}) takes "
-                                 f"the {'rowwise' if rowwise else 'general'} "
-                                 f"path")
-            q, s = ops.quantize(x, bm, bn)
+            x = quantize_rows(torch, gen, *shape, dt)
+            (q, s), rows, _ = paths(lambda: ops.quantize(x, bm, bn))
             torch.cuda.synchronize()
             qr, sr = ref.quantize_ref(x, bm, bn)
-            d = ops.dequantize(q, s, bm, bn, out_dtype=dt)
+            d, _, vec = paths(lambda: ops.dequantize(q, s, bm, bn,
+                                                     out_dtype=dt))
             torch.cuda.synchronize()
             dr = ref.dequantize_ref(q, s, bm, bn, out_dtype=dt)
             same_q, same_s = torch.equal(q, qr), torch.equal(s, sr)
@@ -479,57 +600,64 @@ def check_quantize(torch, gen):
             q_err = max(q_err, (q.int() - qr.int()).abs().max().item())
             d_err = max(d_err, (d.float() - dr.float()).abs().max().item())
             log(f"  quantize {shape} tile ({bm}, {bn}) {str(dt)[6:]} "
-                f"({'rowwise' if rowwise else 'general'} path): q "
-                f"bit-equal {same_q}, scales equal {same_s}; dequantize "
-                f"bit-equal {same_d}")
+                f"({'row' if rows else 'general'} path): q bit-equal "
+                f"{same_q}, scales equal {same_s}; dequantize "
+                f"({'vectorised' if vec else 'scalar'}) bit-equal {same_d}")
             if not (same_q and same_s and same_d):
                 raise SystemExit("quantize/dequantize disagree with their "
                                  "plain versions")
-    # times at the wire's prefill shape: (B*S, D) rows, one scale per row;
-    # granite's 2048 (the record) and deepseek-v3's 7168
-    t = {}
-    for n in (2048, 7168):
-        m = BATCH * PROMPT
-        x2 = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
-        q, s = ops.quantize(x2, 1, n)
-        r = t[n] = {"M, D": [m, n],
-                    "q_ms": time_ms(lambda: ops.quantize(x2, 1, n)),
-                    "q_plain_ms": time_ms(lambda: ref.quantize_ref(x2, 1, n)),
-                    "d_ms": time_ms(lambda: ops.dequantize(q, s, 1, n)),
-                    "d_plain_ms": time_ms(lambda: ref.dequantize_ref(q, s, 1,
-                                                                     n))}
-        # float32 operations per element: quantize |x|, max, x * (1/scale),
-        # round, and the clip's two compares; dequantize one multiply
-        r["q_bound_ms"], r["q_bound_by"] = bound(2 * m * n + m * n + 4 * m,
-                                                 (6.0 * m * n, F32_PEAK))
-        r["d_bound_ms"], r["d_bound_by"] = bound(m * n + 4 * m + 2 * m * n,
-                                                 (1.0 * m * n, F32_PEAK))
-        r["path"] = "rowwise" if ops.rowwise_path(x2, 1, n) else "general"
-        log(f"  quantize ({m}, {n}) bf16 {r['path']}: kernel "
-            f"{r['q_ms']:.4f} ms, plain {r['q_plain_ms']:.4f} ms, bound "
-            f"{r['q_bound_ms']:.4f} ms ({r['q_bound_by']})")
-        log(f"  dequantize ({m}, {n}) -> bf16 {r['path']}: kernel "
-            f"{r['d_ms']:.4f} ms, plain {r['d_plain_ms']:.4f} ms, bound "
-            f"{r['d_bound_ms']:.4f} ms ({r['d_bound_by']})")
+            if rows != (bm == 1) or not vec:
+                raise SystemExit(f"quantize {shape} tile ({bm}, {bn}) took "
+                                 f"the {'row' if rows else 'general'} path, "
+                                 f"dequantize the "
+                                 f"{'vectorised' if vec else 'scalar'} "
+                                 f"kernel")
+            if bm == 1 and shape[0] == BATCH and dt == torch.bfloat16:
+                if q[-1, :8].tolist() != [127, 0, 2, 2, 0, -2, -2, 4]:
+                    raise SystemExit("the row path rounds .5 ties off even")
+    # a view off a 16-byte boundary takes the general path, bit-equal too
+    flat = torch.randn(3 * 7168 + 1, generator=gen, device="cuda").bfloat16()
+    view = flat[1:].view(3, 7168)
+    (q, s), rows, _ = paths(lambda: ops.quantize(view, 1, 7168))
+    qr, sr = ref.quantize_ref(view, 1, 7168)
+    if rows or not (torch.equal(q, qr) and torch.equal(s, sr)):
+        raise SystemExit("quantize on a misaligned view took the row path "
+                         "or disagrees")
+    log(f"  every (1, D) call at {served} on the row path, every dequantize "
+        f"vectorised; the (256, 256) tiles and a misaligned view on the "
+        f"general path")
+
+    t = wire_times(torch, gen)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/quantize.cu",
               "library_ms": None}
 
-    def of(kind, n):
-        return {k: t[n][kind + "_" + k] for k in ("ms", "plain_ms",
-                                                  "bound_ms", "bound_by")}
+    def of(kind, key):
+        return dict({k: t[key][kind + "_" + k]
+                     for k in ("ms", "cold_ms", "cold_out_ms", "plain_ms",
+                               "bound_ms", "bound_by")},
+                    **{k: t[key][k] for k in ("cast_ms", "cast_cold_ms",
+                                              "cast_cold_out_ms")})
 
     def wire(kind):
-        return {"deepseek_v3_wire": dict(of(kind, 7168),
-                                         **{"M, D": t[7168]["M, D"],
-                                            "path": t[7168]["path"]})}
+        names = {3584: "zamba2_wire", 7168: "deepseek_v3_wire",
+                 8192: "vlm_wire", 16384: "width_16384"}
+        rec = {f"{v}": dict(of(kind, (BATCH * PROMPT, n)),
+                            **{"M, D": [BATCH * PROMPT, n], "path": "row",
+                               "plan": list(ops.row_plan(n, 2))})
+               for n, v in names.items()}
+        rec["decode_7168"] = dict(of(kind, (BATCH, 7168)),
+                                  **{"M, D": [BATCH, 7168], "path": "row",
+                                     "plan": list(ops.row_plan(7168, 2))})
+        return rec
     return [dict(common, name="quantize",
                  replaces="src/repro/kernels/quantize/kernel.py:22",
-                 max_abs_err=float(q_err), **of("q", 2048),
+                 max_abs_err=float(q_err), **of("q", (BATCH * PROMPT, 2048)),
                  shapes=wire("q")),
             dict(common, name="dequantize",
                  replaces="src/repro/kernels/quantize/kernel.py:34",
-                 max_abs_err=d_err, **of("d", 2048), shapes=wire("d"))]
+                 max_abs_err=d_err, **of("d", (BATCH * PROMPT, 2048)),
+                 shapes=wire("d"))]
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
@@ -1768,6 +1896,7 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
                                 frames_len=FRAMES), DEVICE)
     max_len = prompt + GEN
     by_path, steps = {}, {}   # run -> {kernel: launches}, decode steps
+    wire = {}                 # run -> the wire's launches on its fast paths
 
     def counted(path, fn):
         torch.cuda.reset_peak_memory_stats()
@@ -1775,9 +1904,12 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
         out = fn()
         torch.cuda.synchronize()
         by_path[path] = kernels.launch_counts()
+        wire[path] = (kernels.WRAPPERS["quantize"].row_launches,
+                      kernels.WRAPPERS["dequantize"].vec_launches)
         peak[path] = torch.cuda.max_memory_allocated() / 1e9
-        log(f"  [{path}] kernel launches: {by_path[path]}; peak device "
-            f"memory {peak[path]:.2f} GB")
+        log(f"  [{path}] kernel launches: {by_path[path]}; quantize on the "
+            f"row path {wire[path][0]}, dequantize vectorised "
+            f"{wire[path][1]}; peak device memory {peak[path]:.2f} GB")
         return out
 
     peak = {}
@@ -1841,6 +1973,11 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
         if got != want:
             raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
                              f"expected {want}")
+        if wire[path] != (got["quantize"], got["dequantize"]):
+            raise SystemExit(f"[{cfg.name}/{path}] of {got['quantize']} "
+                             f"quantize launches {wire[path][0]} on the row "
+                             f"path, of {got['dequantize']} dequantize "
+                             f"launches {wire[path][1]} vectorised")
     return by_path, stream, dict({"prefill_ms": pre_s * 1e3,
                                   "decode_ms_per_step": decode_ms,
                                   "decode_step_launches": step_launches,
@@ -2048,20 +2185,52 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
     return len(ranges)
 
 
-def main() -> int:
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def wire_times_only(torch, src):
+    """``--wire-times``: ``wire_times`` alone, with the port imported from
+    ``src``; the JSON of the times is the last line."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels.quantize import ops
+    log(smi_line())
+    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t = wire_times(torch, gen)
+    print(json.dumps({"wire_times": {f"{m}x{n}": r
+                                     for (m, n), r in t.items()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port's main path once on one "
+                    "NVIDIA card.")
+    ap.add_argument("--wire-times", metavar="SRC", nargs="?",
+                    const=str(ROOT / "src"),
+                    help="time only the wire's quantize and dequantize "
+                         "(wire_times), with the port imported from SRC "
+                         "(default: this checkout's src/), so that one run "
+                         "can time two checkouts")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.wire_times:
+        return wire_times_only(torch, args.wire_times)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
     log("== 1. device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     log(f"  nvidia-smi: {smi}")
@@ -2117,6 +2286,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
+            "cold_ms", "cold_out_ms", "cast_ms",   # quantize's, dequantize's
+            "cast_cold_ms", "cast_cold_out_ms",
             "warm_ms", "warm_library_ms",      # the two decode kernels'
             "issue_bound_ms", "sass_per_element",   # silu's
 

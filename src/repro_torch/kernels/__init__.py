@@ -2,7 +2,8 @@
 
 ``csrc/`` holds the CUDA sources; ``_build`` compiles them at first use.
 Each wrapper counts its launches; :func:`launch_counts` reads them all and
-:func:`reset_launch_counts` zeroes them.
+:func:`reset_launch_counts` zeroes them (and the wire's path counts,
+``quantize.row_launches`` and ``dequantize.vec_launches``).
 """
 
 from __future__ import annotations
@@ -32,3 +33,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    WRAPPERS["quantize"].row_launches = 0
+    WRAPPERS["dequantize"].vec_launches = 0

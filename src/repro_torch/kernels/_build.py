@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +46,8 @@ SIGNATURES = {
     },
     "quantize": {
         "quantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-        "quantize_rows_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
-        "dequantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "quantize_rows_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I),
+        "dequantize_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I),
         "quantize_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd": {
@@ -104,6 +105,16 @@ def library_path(name: str) -> Path:
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def resource_usage(name: str) -> dict[str, tuple[int, int]]:
+    """{kernel: (registers, stack bytes)} of the built library ``name``,
+    from ``cuobjdump -res-usage``; a stack frame is where spills go."""
+    exe = Path(nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-res-usage", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    found = re.findall(r"Function (\S+):\s*\n\s*REG:(\d+) STACK:(\d+)", out)
+    return {f: (int(r), int(s)) for f, r, s in found}
 
 
 def build_all(names=tuple(SIGNATURES)) -> dict[str, float]:

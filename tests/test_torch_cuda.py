@@ -238,25 +238,92 @@ def test_quantize_kernels_bit_equal(cuda, shape, bm, bn, dtype):
 @pytest.mark.parametrize("m,n,bm,bn,rowwise", [
     (2048, 2048, 1, 2048, True), (301, 4096, 1, 4096, True),
     (7, 16, 1, 16, True), (300, 520, 1, 520, True), (64, 8, 1, 64, True),
-    (300, 1028, 1, 1028, False), (40, 8192, 1, 8192, False),
-    (300, 520, 256, 256, False), (2048, 2048, 2, 2048, False)])
+    (300, 1028, 1, 1028, False), (40, 8192, 1, 8192, True),
+    (300, 520, 256, 256, False), (2048, 2048, 2, 2048, False),
+    (2048, 1280, 1, 1280, True), (4, 1280, 1, 1280, True),
+    (2048, 7168, 1, 7168, True), (4, 7168, 1, 7168, True),
+    (2048, 8192, 1, 8192, True), (4, 16384, 1, 16384, True),
+    (301, 16384, 1, 16384, True), (5, 16392, 1, 16392, False),
+    (37, 5128, 1, 5128, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_rowwise_path_bit_equal(cuda, m, n, bm, bn, rowwise, dtype):
-    """Tiles one row tall and as wide as the row take the rowwise path
-    (one warp a row, one read of each element); other widths and tiles the
-    general one; both give the plain version's bits."""
+    """Tiles one row tall and as wide as the row take the row path (the
+    row held in registers, one read of each element; several warps a row
+    past 4096 bf16) up to 16384 wide; other widths and tiles the general
+    one; both give the plain version's bits."""
     x = randn(cuda, 7, m, n, dtype=dtype) * 3
     x[0] = 0                          # an all-zero row: scale 1
     assert q_ops.rowwise_path(x, bm, bn) == rowwise
     before = q_ops.quantize.launches
+    rows = q_ops.quantize.row_launches
     q, s = q_ops.quantize(x, bm, bn)
     torch.cuda.synchronize()
     assert q_ops.quantize.launches == before + 1
+    assert q_ops.quantize.row_launches == rows + rowwise
     qr, sr = q_ref.quantize_ref(x, bm, bn)
     bits_equal(q, qr)
     bits_equal(s, sr)
     bits_equal(q_ops.dequantize(q, s, bm, bn, dtype),
                q_ref.dequantize_ref(q, s, bm, bn, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_row_path_ties_and_misaligned_view(cuda, dtype):
+    """Half-way ties round to even on the row path, as on the CPU; a view
+    that starts off a 16-byte boundary takes the general path, with the
+    same bits."""
+    row = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5] * 2,
+                       device=cuda).to(dtype)
+    x = torch.cat([row, -row]).repeat(3, 256)         # (3, 8192)
+    assert q_ops.rowwise_path(x, 1, x.shape[1])
+    q, s = q_ops.quantize(x, 1, x.shape[1])
+    qr, sr = q_ref.quantize_ref(x, 1, x.shape[1])
+    bits_equal(q, qr)
+    bits_equal(s, sr)
+    assert q[0, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, 4]
+    flat = randn(cuda, 8, 3 * 7168 + 1, dtype=dtype)
+    view = flat[1:].view(3, 7168)
+    assert not q_ops.rowwise_path(view, 1, 7168)
+    q, s = q_ops.quantize(view, 1, 7168)
+    qr, sr = q_ref.quantize_ref(view, 1, 7168)
+    bits_equal(q, qr)
+    bits_equal(s, sr)
+
+
+@pytest.mark.parametrize("m,n,bm,bn,vec", [
+    (2048, 2048, 256, 256, True), (512, 1024, 256, 256, True),
+    (300, 520, 256, 256, True), (2048, 7168, 1, 7168, True),
+    (4, 8192, 1, 8192, True), (3, 16384, 1, 16384, True),
+    (7, 520, 1, 520, True), (257, 129, 256, 256, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_vectorised_bit_equal(cuda, m, n, bm, bn, vec, dtype):
+    """Dequantize through the vectorised kernel (units of 8 int8 for bf16,
+    4 for float32: one 16-byte store each) at (256, 256) tiles, ragged
+    ones and the wire's (1, D), and through the scalar one at a width that
+    is no multiple of 4, bit-equal to the plain version, one launch a
+    call."""
+    x = randn(cuda, 9, m, n) * 3
+    q, s = q_ref.quantize_ref(x, bm, bn)
+    assert q_ops.dequantize_vectorised(q, bm, bn, dtype) == vec
+    before = q_ops.dequantize.launches
+    vecs = q_ops.dequantize.vec_launches
+    out = q_ops.dequantize(q, s, bm, bn, dtype)
+    torch.cuda.synchronize()
+    assert q_ops.dequantize.launches == before + 1
+    assert q_ops.dequantize.vec_launches == vecs + vec
+    bits_equal(out, q_ref.dequantize_ref(q, s, bm, bn, dtype))
+
+
+def test_dequantize_misaligned_q_takes_the_scalar_kernel(cuda):
+    flat = torch.randint(-127, 128, (3 * 2048 + 1,), dtype=torch.int8,
+                         device=cuda)
+    q = flat[1:].view(3, 2048)
+    s = torch.rand(3, 1, device=cuda)
+    assert not q_ops.dequantize_vectorised(q, 1, 2048, torch.bfloat16)
+    vecs = q_ops.dequantize.vec_launches
+    bits_equal(q_ops.dequantize(q, s, 1, 2048),
+               q_ref.dequantize_ref(q, s, 1, 2048))
+    assert q_ops.dequantize.vec_launches == vecs
 
 
 def test_rowwise_wire_bit_equal(cuda):

@@ -10,6 +10,10 @@ The CUDA kernels themselves are held against their plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
 
+import inspect
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -25,6 +29,7 @@ from repro.kernels.quantize.ref import dequantize_ref as jax_dequantize_ref
 from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref
 from repro.kernels.quantize.ref import rowwise_quantize as jax_rowwise
 from repro_torch import kernels
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import attention_ref, flash_ref
 from repro_torch.kernels.quantize import ops as q_ops
@@ -134,18 +139,144 @@ class TestQuantize:
         (2048, 1, 2048, True, True), (4096, 1, 4096, True, True),
         (16, 1, 16, True, True), (520, 1, 520, True, True),
         (8, 1, 64, True, True), (1028, 1, 1028, True, False),
-        (8192, 1, 8192, True, False), (520, 256, 256, True, False),
+        (8192, 1, 8192, True, True), (520, 256, 256, True, False),
         (2048, 2, 2048, True, False), (2048, 1, 1024, True, False),
-        (2048, 1, 2048, False, False)])
+        (2048, 1, 2048, False, False), (7168, 1, 7168, True, True),
+        (16384, 1, 16384, True, True), (16392, 1, 16392, True, False),
+        (8192, 1, 8192, False, False)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_which_tiles_take_the_rowwise_path(self, n, bm, bn, aligned,
                                                rowwise, dtype):
-        """A tile one row tall and as wide as the row, of at most 4096
-        elements in 8-element units on a 16-byte boundary, takes the
-        kernel's rowwise path; every other tile the general one."""
+        """A tile one row tall and as wide as the row, of at most ROW_MAX
+        (16384) elements in 8-element units on a 16-byte boundary, takes
+        the kernel's row path; every other tile the general one."""
         x = torch.zeros(3 * n + 1, dtype=dtype)
         x = (x[:3 * n] if aligned else x[1:]).view(3, n)
         assert q_ops.rowwise_path(x, bm, bn) == rowwise
+
+    @pytest.mark.parametrize("arch", ARCH_IDS)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_row_plan_covers_every_wire_width(self, arch, dtype):
+        """Every served model's wire row (its d_model) takes the row path,
+        and the plan holds the whole row in registers at 128 bytes of x a
+        lane where ROW_WARPS warps suffice, never past the kernel's
+        ROW_PAIRS pairs a lane or its 256 threads a block."""
+        d = get_config(arch, "full").d_model
+        x = torch.zeros(4, d, dtype=dtype)
+        assert q_ops.rowwise_path(x, 1, d)
+        item = x.element_size()
+        warps, ppl, rows = q_ops.row_plan(d, item)
+        assert warps & (warps - 1) == 0 and rows >= 1
+        assert 32 * warps * ppl * 16 >= d             # the row is covered
+        aim = 128 // (16 * item)
+        assert ppl <= aim or warps == q_ops.ROW_WARPS
+        assert ppl <= q_ops.ROW_PAIRS                   # an instance exists
+        assert 32 * warps * rows <= 256
+        if warps > 1:                 # the fewest warps that hold the row
+            assert (warps // 2) * 32 * aim * 16 < d
+
+    def test_row_plan_has_no_m(self):
+        """The plan is a function of the width and the element size alone,
+        so a row's bits are the same at 4 rows as at 2048."""
+        assert list(inspect.signature(
+            q_ops.row_plan.__wrapped__).parameters) == ["n", "itemsize"]
+        assert q_ops.row_plan(2048, 2)[0] == 1    # one warp up to 2048 bf16
+        assert q_ops.row_plan(7168, 2)[0] > 1     # several past it
+        assert q_ops.row_plan(q_ops.ROW_MAX, 4) == (q_ops.ROW_WARPS,
+                                                    q_ops.ROW_PAIRS, 1)
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    def test_row_plan_stays_within_the_kernels_instances(self, itemsize):
+        """ROW_PAIRS is the kernel's kRowPairs, the most pairs a lane it is
+        built for, and the plan asks for no more at any width the row path
+        takes, up to ROW_MAX (16384)."""
+        src = (Path(q_ops.__file__).parents[1] / "csrc"
+               / "quantize.cu").read_text()
+        pairs = re.search(r"constexpr int kRowPairs = (\d+);", src)
+        assert int(pairs.group(1)) == q_ops.ROW_PAIRS
+        assert q_ops.ROW_MAX == 16384
+        for n in range(8, q_ops.ROW_MAX + 1, 8):
+            warps, ppl, rows = q_ops.row_plan(n, itemsize)
+            assert 1 <= ppl <= q_ops.ROW_PAIRS
+            assert 32 * warps * ppl * 16 >= n
+            assert warps <= q_ops.ROW_WARPS and 32 * warps * rows <= 256
+
+    def test_reset_zeroes_the_wire_path_counts(self):
+        """reset_launch_counts zeroes the wire's path counts with the
+        launch counts; a CPU call adds to none of them."""
+        q_ops.quantize.row_launches = q_ops.dequantize.vec_launches = 5
+        kernels.reset_launch_counts()
+        q, s = q_ops.rowwise_quantize(torch.ones(2, 16))
+        q_ops.rowwise_dequantize(q, s)
+        assert (q_ops.quantize.row_launches, q_ops.dequantize.vec_launches,
+                q_ops.quantize.launches, q_ops.dequantize.launches) == \
+            (0, 0, 0, 0)
+
+    def test_adder_rounding_is_rint_and_clip(self):
+        """The row path's rounding, emulated in float32: p + 1.5 * 2^23,
+        clipped to within 127 of 1.5 * 2^23, its low byte as the int8,
+        equals the general path's int8(clip(rint(p), -127, 127)) for every
+        float32 whose low 12 bits are zero (each sign, exponent, inf and
+        NaN), every half-way tie up to 300, their neighbours and a million
+        random products."""
+        big = np.float32(12582912.0)
+        pats = (np.arange(1 << 20, dtype=np.uint64) << 12).astype(np.uint32)
+        ties = (np.arange(-600, 601) / 2).astype(np.float32)
+        rand = np.random.default_rng(11).uniform(-140, 140, 1 << 20)
+        p = np.concatenate([pats.view(np.float32), ties,
+                            np.nextafter(ties, np.float32(np.inf)),
+                            np.nextafter(ties, np.float32(-np.inf)),
+                            rand.astype(np.float32)])
+        with np.errstate(invalid="ignore", over="ignore"):
+            t = np.fmin(np.fmax(p + big, big - np.float32(127)),
+                        big + np.float32(127))
+            got = (t.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+            want = np.fmin(np.fmax(np.rint(p), np.float32(-127)),
+                           np.float32(127)).astype(np.int8)
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("d", [1280, 7168, 8192, 16384])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_rowwise_matches_reference_at_wire_widths(self, d, dtype):
+        """The wire at the served widths: q, the scales and the dequantized
+        rows bit-equal to the JAX package's, an all-zero row and a row of
+        half-way ties among them."""
+        x = normal(12, (3, d), dtype)
+        x[1] = 0.0
+        x[2, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]
+        x[2, 8:] = 0.25
+        xj, xt = both(x)
+        q, s = q_ops.rowwise_quantize(xt)
+        qj, sj = jax_rowwise(xj)
+        bits_equal(q, qj)
+        bits_equal(s, sj)
+        for out in ("bfloat16", "float32"):
+            back = q_ops.rowwise_dequantize(q, s, getattr(torch, out))
+            bits_equal(back, jax_dequantize_ref(qj, sj, 1, d,
+                                                out_dtype=jnp.dtype(out)))
+
+    @pytest.mark.parametrize("m,n,bm,bn,offset,bf16,f32", [
+        (2048, 2048, 1, 2048, 0, True, True),
+        (4, 7168, 1, 7168, 0, True, True),
+        (2048, 2048, 256, 256, 0, True, True),
+        (300, 520, 256, 256, 0, True, True),
+        (3, 1028, 1, 1028, 0, False, True),
+        (257, 129, 256, 256, 0, False, False),
+        (64, 1024, 1, 100, 0, False, True),
+        (64, 1024, 1, 98, 0, False, False),
+        (3, 2048, 1, 2048, 8, True, True),
+        (3, 2048, 1, 2048, 4, False, True),
+        (3, 2048, 1, 2048, 1, False, False)])
+    def test_which_tiles_take_the_vectorised_dequantize(self, m, n, bm, bn,
+                                                        offset, bf16, f32):
+        """Units of as many int8 as fill a 16-byte store of the output (8
+        for bf16, 4 for float32) that each lie in one row and one tile, q
+        starting on such a boundary, go to the vectorised kernel; other
+        widths, tiles and views to the scalar one."""
+        q = torch.zeros(m * n + 16, dtype=torch.int8)
+        q = q[offset:offset + m * n].view(m, n)
+        for dtype, vec in ((torch.bfloat16, bf16), (torch.float32, f32)):
+            assert q_ops.dequantize_vectorised(q, bm, bn, dtype) == vec
 
 
 # ---------------------------------------------------------------------------
