@@ -125,10 +125,29 @@ Phases, in order; any failure exits non-zero before the result line:
    The kill takes stage 1 after decode step 3; whisper's stage 1 holds
    nothing, so there the encoder's stage 0 and the first stage with
    decoder blocks die together (``kill_specs``).
+   Each pipelined model's int8-wire engine then serves once more through
+   a ``BoundaryTransport`` under the seeded fault draw
+   ``seeded_wire_faults(0, hops, 32, rate=0.2)``: the tokens of its run
+   without the transport, every frame delivered exactly once, no restore
+   (``wire_run``).  granite-3-2b also runs the fault surface
+   (``fault_runs``) on its raw-wire engine, the 4 planned stages and 5
+   spares: the faulty wire with one fault of each kind besides (drop,
+   corrupt, duplicate, reorder, stall; each must fire), on both wires;
+   stage 1 silent after step 3 (found by the heartbeat monitor within
+   ``dead_after_s + poll_s`` on its fake clock, one restore); a live
+   replan from telemetry on a step clock (a stage migrated, its params
+   bit-equal to its checkpoint, the batch replayed); a replica placed by
+   ``replicate_bottlenecks(plan, cluster, budget=1, keep_spares=1)``,
+   whose primary's kill costs no checkpoint read and no replay, then the
+   last copy's kill (restore and replay); every run with ServeEngine's
+   tokens (the int8 wire's: its own).  It logs the transport's host cost
+   (prefill and a decode step, with and without it, on both wires), the
+   bytes of a hop's frames, the restore and migration seconds.
    For the two new models the plain cross-attention of a prefill (the
    reference leaves it to XLA) is timed alone.  The kernel launch
    counters are zeroed just before each counted run (a model's monolithic
-   run, its four pipeline runs, its stream) and read just after it, and
+   run, its pipeline and fault runs, its stream) and read just after it,
+   and
    each run must launch exactly what it runs: per prefill, flash attention
    once per self-attention layer (the dense layers, zamba2's 14 call
    sites, the VLM's self blocks, whisper's decoder layers, llama4's
@@ -147,14 +166,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (the encoder's layers and final norm once a prefill); quantize and
    dequantize once per stage boundary per pass in the int8-wire runs,
    each launch on quantize's row path and the vectorised dequantize (the
-   wrappers' path counts, read with the launch counts); and
-   nothing else (the standalone ``silu`` runs on no path; the router and
+   wrappers' path counts, read with the launch counts); a fault run's
+   replay adds its prefill and steps, a silent kill the step its earlier
+   stages computed before the dead stage was found, a transport nothing;
+   and nothing else (the standalone ``silu`` runs on no path; the router and
    the experts are plain matmuls, as in the reference).  Each model's
    peak device memory and the seconds of each of its phases are logged.
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
-per kernel, and ``{"ok": true, "device": {...}}``; the streams' and the
-serving phases' numbers are on a JSON line before them.  A record's
+per kernel, and ``{"ok": true, "device": {...}}``; the streams', the
+serving phases' and the fault runs' numbers (``"faults"``) are on a JSON
+line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the six pipelined models; ``launches_by_path`` holds the count from each
@@ -214,6 +236,8 @@ DEPTH = {"llama3-405b": 4, "llama-3.2-vision-90b": 10,
 # machine ends a run that writes more than 45 GiB to its disk and
 # deepseek-v3's two stages at 2 layers are 46.3 GiB
 CKPT_ROOT = Path("/dev/shm")
+# the fault surface's model (``fault_runs``)
+FAULTS_ARCH = "granite-3-2b"
 # whisper: a decoder prompt of its prompt-conditioning length (224), over
 # the 1500 frames of its 30-second window after the conv stem
 PROMPT_OF = {"whisper-large-v3": 224}
@@ -1476,9 +1500,15 @@ def check_decode(torch, gen):
 # phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, n_stages, path, steps):
+def expected_launches(cfg, n_stages, path, steps, prefills=None,
+                      aborted=0):
     """Launches of every kernel in one counted run of ``steps`` decode
-    steps.  Per prefill, flash attention once per self-attention layer
+    steps and ``prefills`` prefills (by default what the run's name says:
+    one, two for a run with a kill, one a request for the stream); a fault
+    run's replay adds its prefill and its steps, and a transport adds
+    nothing.  ``aborted``: the blocks of a dense model whose decode step
+    ran and was abandoned (a silent stage found dead mid-step: the stages
+    before it had computed), each one step's launches of its block.  Per prefill, flash attention once per self-attention layer
     (the dense layers, zamba2's 14 call sites of its shared block, the
     VLM's self blocks, whisper's decoder blocks) and per encoder layer,
     none for cross-attention, and the SSD scan once per mamba layer (a run
@@ -1505,8 +1535,9 @@ def expected_launches(cfg, n_stages, path, steps):
     from repro_torch import kernels
     from repro_torch.models.model import hybrid_apps
     want = dict.fromkeys(kernels.WRAPPERS, 0)
-    prefills = (len(STREAM) if path == "stream"
-                else 2 if path.endswith("_kill") else 1)
+    if prefills is None:
+        prefills = (len(STREAM) if path == "stream"
+                    else 2 if path.endswith("_kill") else 1)
     n = cfg.n_layers
     attn = cross = dec = mamba = enc = mla = 0
     if cfg.family == "moe" and cfg.use_mla:
@@ -1535,6 +1566,14 @@ def expected_launches(cfg, n_stages, path, steps):
     if "int8" in path:
         want["quantize"] = want["dequantize"] = \
             (n_stages - 1) * (prefills + steps)
+    if aborted:
+        if cfg.family != "dense" or "int8" in path:
+            raise SystemExit(f"[{path}] aborted steps are counted for the "
+                             "raw-wire dense family only")
+        want["rows_matmul"] += 7 * aborted
+        for name in ("decode_attention", "rms_norm_rows",
+                     "residual_rms_norm_rows"):
+            want[name] += aborted
     return want
 
 
@@ -1959,17 +1998,22 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
         stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
                                                counted, prompt)
     n_stages = 1
+    runs = {}                 # run -> (prefills, decode steps, aborted)
     if pipelined:
         del mono                      # its caches: the kill runs need room
         gc.collect()
         torch.cuda.empty_cache()
-        n_stages = pipeline_runs(torch, tmp, cfg, params, batch, toks_mono,
-                                 timed, counted, prompt, cuts)
+        n_stages, runs, extra["faults"] = pipeline_runs(
+            torch, tmp, cfg, params, batch, toks_mono, timed, counted,
+            prompt, cuts)
         steps.update(pipeline_raw=GEN - 1, pipeline_int8=GEN - 1,
                      pipeline_raw_kill=GEN - 1 + KILL["after_step"],
                      pipeline_int8_kill=GEN - 1 + KILL["after_step"])
     for path, got in by_path.items():
-        want = expected_launches(cfg, n_stages, path, steps[path])
+        prefills, n_steps, aborted = runs.get(path, (None, steps.get(path),
+                                                     0))
+        want = expected_launches(cfg, n_stages, path, n_steps, prefills,
+                                 aborted)
         if got != want:
             raise SystemExit(f"[{cfg.name}/{path}] launched {got}, "
                              f"expected {want}")
@@ -2148,6 +2192,12 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         log(f"    t={t:7.2f}s  {msg}")
     if not same:
         raise SystemExit("raw-wire kill/restore changed the tokens")
+    runs, faults = {}, {}
+    if cfg.name == FAULTS_ARCH:
+        t_faults = time.perf_counter()
+        faults = fault_runs(torch, raw, batch, toks_mono, cluster, ranges,
+                            timed, counted, runs)
+        faults["raw_seconds"] = time.perf_counter() - t_faults
     # the restored stage is a second copy of its params (deepseek-v3's
     # stage 1 is about 24.9 GB): free it before the next engine restores
     del raw
@@ -2178,11 +2228,305 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
                    and "restored from checkpoint" in m for _, m in i8.events):
             raise SystemExit(f"the int8-wire kill logged no restore of "
                              f"stage {spec['stage']}")
+    # the wire kernels' payload through the framed wire, at this width
+    t_wire = time.perf_counter()
+    runs["pipeline_int8_wire"] = (1, GEN - 1, 0)
+    faults["int8_wire"] = wire_run(torch, i8, batch, toks_i8,
+                                   "pipeline_int8_wire", timed, counted,
+                                   every_kind=cfg.name == FAULTS_ARCH)
+    if cfg.name == FAULTS_ARCH:
+        faults["int8_cost"] = transport_cost(torch, i8, batch, timed)
+    faults["int8_seconds"] = time.perf_counter() - t_wire
     del i8
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
-    return len(ranges)
+    return len(ranges), runs, faults
+
+
+# ---------------------------------------------------------------------------
+# phase 4, granite-3-2b: the pipeline's fault surface at full width
+# ---------------------------------------------------------------------------
+
+WIRE_KINDS = ("dropped", "corrupt_rejected", "stale_dropped", "dup_dropped",
+              "stalls")
+# one fault of each kind besides the seeded draw (the -wire cells' five)
+EVERY_KIND = [["drop", 0, 1], ["corrupt", 1, 2, 3], ["dup", 0, 3],
+              ["reorder", 1, 4], ["stall", 0, 5, 3.0]]
+
+
+class StepClock:
+    """A telemetry clock that advances one second a read, so the samples
+    (and the replan they drive) are the same on every run."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def faulty_wire(n_stages, faults):
+    """A BoundaryTransport under ``faults`` (6 attempts a frame) and a
+    HeartbeatMonitor, on one fake clock."""
+    from repro_torch.serve.retry import RetryPolicy
+    from repro_torch.serve.transport import (BoundaryTransport,
+                                             FakeWireClock, HeartbeatMonitor)
+    clk = FakeWireClock()
+    mon = HeartbeatMonitor(n_stages, clock=clk, sleep=clk.sleep)
+    tr = BoundaryTransport(n_stages - 1, faults=faults,
+                           policy=RetryPolicy(attempts=6, base_delay_s=0.05),
+                           monitor=mon, clock=clk, sleep=clk.sleep)
+    return tr, mon
+
+
+def clocked(torch, obj, name):
+    """Wrap ``obj.name`` (on the instance) so that each call's seconds,
+    the card synchronised at both ends, go into the returned list; ``del
+    obj.name`` unwraps it."""
+    secs, fn = [], getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapped)
+    return secs
+
+
+def new_messages(eng, since):
+    return [m for _, m in eng.events[since:]]
+
+
+def wire_run(torch, eng, batch, want, path, timed, counted, every_kind):
+    """One counted generate of ``eng`` through a faulty wire: the chaos
+    generator's draw ``seeded_wire_faults(0, hops, GEN, rate=0.2)`` over a
+    run's GEN frames a hop, and with ``every_kind`` one fault of each kind
+    besides.  The tokens must be ``want`` (the engine's own without a
+    transport), every frame delivered exactly once, and no stage
+    restored; with ``every_kind``, each kind must have fired.  Returns the
+    transport's totals."""
+    from repro_torch.serve.transport import (parse_wire_faults,
+                                             seeded_wire_faults)
+    hops = eng.n_stages - 1
+    faults = seeded_wire_faults(0, hops, GEN, rate=0.2)
+    if every_kind:
+        faults += parse_wire_faults(EVERY_KIND)
+    tr, mon = faulty_wire(eng.n_stages, faults)
+    eng.attach_wire(tr, mon)
+    since = len(eng.events)
+    toks, secs = timed(lambda: counted(path, lambda: eng.generate(batch,
+                                                                  GEN)))
+    eng.attach_wire(None, None)
+    totals = {f: tr.total(f) for f in ("sent", "delivered", "retransmits",
+                                       *WIRE_KINDS, "suspected", "bytes")}
+    restored = [m for m in new_messages(eng, since)
+                if "restored from checkpoint" in m]
+    same = bool((toks == want).all())
+    log(f"  [{path}] {len(faults)} wire faults over {hops} hop(s) "
+        f"({tr.total('sent')} frames): {secs:.3f}s; tokens equal to the run "
+        f"without the transport: {same}; exactly once: "
+        f"{tr.exactly_once()}; {totals}; restores: {len(restored)}")
+    missing = [k for k in WIRE_KINDS if every_kind and not totals[k]]
+    if not same or not tr.exactly_once() or restored or missing:
+        raise SystemExit(f"[{path}] the faulty wire failed: tokens equal "
+                         f"{same}, exactly once {tr.exactly_once()}, "
+                         f"restores {restored}, kinds that never fired "
+                         f"{missing}")
+    return dict(totals, faults=len(faults), seconds=secs)
+
+
+def transport_cost(torch, eng, batch, timed):
+    """What the transport costs the host on ``eng``'s wire: the prefill (a
+    one-token generate) and a decode step (the rest of a GEN-token
+    generate, a step), the best of two each, without and with a
+    fault-free transport; and the bytes of a hop's prefill frame and
+    decode frame."""
+    from repro_torch.serve.transport import BoundaryTransport
+    out = {}
+    for label in ("without", "with"):
+        pre = dec = math.inf
+        for _ in range(2):
+            trs = [BoundaryTransport(eng.n_stages - 1) if label == "with"
+                   else None for _ in range(2)]
+            eng.attach_wire(trs[0], None)
+            _, p = timed(lambda: eng.generate(batch, 1))
+            eng.attach_wire(trs[1], None)
+            _, g = timed(lambda: eng.generate(batch, GEN))
+            pre, dec = min(pre, p), min(dec, (g - p) / (GEN - 1))
+        out[f"prefill_ms_{label}"] = pre * 1e3
+        out[f"decode_ms_per_step_{label}"] = dec * 1e3
+    eng.attach_wire(None, None)
+    out["prefill_frame_bytes"] = trs[0].stats[0].bytes
+    out["decode_frame_bytes"] = ((trs[1].stats[0].bytes
+                                  - trs[0].stats[0].bytes) // (GEN - 1))
+    log(f"  transport's host cost ({'int8' if eng.wire_bits else 'raw'} "
+        f"wire): prefill {out['prefill_ms_without']:.2f} -> "
+        f"{out['prefill_ms_with']:.2f} ms, decode "
+        f"{out['decode_ms_per_step_without']:.2f} -> "
+        f"{out['decode_ms_per_step_with']:.2f} ms a step; a hop's prefill "
+        f"frame {out['prefill_frame_bytes']} bytes, decode frame "
+        f"{out['decode_frame_bytes']} bytes")
+    return out
+
+
+def fault_runs(torch, eng, batch, toks_mono, cluster, ranges, timed,
+               counted, runs):
+    """The fault surface on the raw-wire engine (after its kill run), each
+    a counted run whose tokens must be ServeEngine's: a faulty wire with
+    every kind of fault; a silent kill of stage 1 after step 3 found by the
+    heartbeat monitor (detection within ``dead_after_s + poll_s``, one
+    restore); a live replan from telemetry on a step clock (a stage
+    migrated, its params bit-equal to its checkpoint, the batch replayed);
+    a replica of the stage ``replicate_bottlenecks`` picks, whose primary's
+    kill costs no checkpoint read and no replay, then the last copy's
+    kill, restored and replayed.  ``runs`` gains each run's (prefills,
+    decode steps, aborted blocks).  Returns the phase's numbers."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import restore_checkpoint, template_of
+    from repro_torch.core import replicate_bottlenecks
+    from repro_torch.serve.telemetry import ClusterState, TelemetryStream
+    from repro_torch.serve.transport import FakeWireClock, HeartbeatMonitor
+
+    out = {"stages": eng.n_stages, "ranges": ranges}
+    step = KILL["after_step"]
+    log(f"  -- the fault surface on {eng.n_stages} stages, nodes "
+        f"{eng.node_of_stage}, spares {eng.spares}")
+    runs["faults_raw_wire"] = (1, GEN - 1, 0)
+    out["raw_wire"] = wire_run(torch, eng, batch, toks_mono,
+                               "faults_raw_wire", timed, counted, True)
+    out["raw_cost"] = transport_cost(torch, eng, batch, timed)
+
+    # a silent kill: the stages before it compute the step it dies in
+    clk = FakeWireClock()
+    mon = HeartbeatMonitor(eng.n_stages, clock=clk, sleep=clk.sleep)
+    eng.attach_wire(None, mon)
+    restore_s = clocked(torch, eng, "restore_stage")
+    since = len(eng.events)
+    runs["faults_silent"] = (2, GEN - 1 + step, ranges[KILL["stage"]][0])
+    toks = counted("faults_silent", lambda: eng.generate(
+        batch, GEN, kill=dict(KILL, silent=True)))
+    del eng.restore_stage
+    msgs = new_messages(eng, since)
+    restores = [m for m in msgs if "restored from checkpoint" in m]
+    (stage, latency), = eng.detections
+    bound = mon.dead_after_s + mon.poll_s
+    same = bool((toks == toks_mono).all())
+    log(f"  [faults_silent] stage {stage} found dead after {latency:g}s of "
+        f"silence (bound {bound:g}s, fake clock); {len(restores)} restore "
+        f"({restore_s[-1]:.2f}s: spare, checkpoint read onto the card); "
+        f"tokens equal to ServeEngine's: {same}")
+    for m in msgs:
+        log(f"    {m}")
+    if not same or len(restores) != 1 or latency > bound \
+            or stage != KILL["stage"]:
+        raise SystemExit("[faults_silent] the silent kill failed")
+    eng.attach_wire(None, None)
+    out["silent"] = {"detection_s": latency, "bound_s": bound,
+                     "restore_s": restore_s[-1]}
+
+    # a live replan: telemetry on a step clock slows the estimate of the
+    # hops that carried traffic, and a stage moves onto a spare
+    eng.telemetry = TelemetryStream(eng.n_stages, clock=StepClock())
+    results, replan_live = [], eng.replan_live
+
+    def recorded(*args, **kw):
+        results.append(replan_live(*args, **kw))
+        return results[-1]
+
+    eng.replan_live = recorded
+    migrate_s = clocked(torch, eng, "migrate_stage")
+    since = len(eng.events)
+    runs["faults_replan"] = (2, GEN - 1 + step, 0)
+    toks = counted("faults_replan", lambda: eng.generate(
+        batch, GEN, replan={"after_step": step,
+                            "cluster": ClusterState(cluster)}))
+    del eng.replan_live, eng.migrate_stage
+    eng.telemetry = None
+    res, = results
+    same = bool((toks == toks_mono).all())
+    moved = res.migrated_stages
+    bits = False
+    if moved:
+        k = moved[0]
+        ck = restore_checkpoint(eng.ckpt_dir / f"stage_{k}", 0,
+                                template_of(eng.stage_params[k]),
+                                device=DEVICE)
+        bits = all(a.dtype == b.dtype and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(tree_leaves(eng.stage_params[k]),
+                            tree_leaves(ck)))
+        del ck
+    log(f"  [faults_replan] moves {res.moves}, bottleneck "
+        f"{res.bottleneck_before_s:.6g} -> {res.bottleneck_after_s:.6g}s "
+        f"est.; migration {sum(migrate_s):.2f}s; the migrated stage's "
+        f"params bit-equal to its checkpoint: {bits}; tokens equal to "
+        f"ServeEngine's: {same}")
+    for m in new_messages(eng, since):
+        log(f"    {m}")
+    if not (res.changed and moved and bits and same):
+        raise SystemExit("[faults_replan] the live replan failed")
+    out["replan"] = {"moves": [dataclasses.astuple(m) for m in res.moves],
+                     "bottleneck_before_s": res.bottleneck_before_s,
+                     "bottleneck_after_s": res.bottleneck_after_s,
+                     "migrate_s": sum(migrate_s)}
+
+    # a replica of the bottleneck stage; its primary dies (no read, no
+    # replay), then its last copy (restore and replay)
+    plan = replicate_bottlenecks(eng.current_plan(), cluster, budget=1,
+                                 keep_spares=1)
+    k, node = next((i, s.replicas[0]) for i, s in enumerate(plan.stages)
+                   if s.replicas)
+    reads = clocked(torch, eng, "_restore_params")
+    eng.add_replica(k, node)
+    deployed = all([(st.node, tuple(st.replicas)) for st in p.stages]
+                   == [(st.node, tuple(st.replicas)) for st in plan.stages]
+                   and tuple(p.spare_nodes) == tuple(plan.spare_nodes)
+                   for p in [eng.current_plan()])
+    log(f"  replicate_bottlenecks: stage {k} gets a replica on node {node} "
+        f"(copies {eng.stage_copies(k)}, spares {eng.spares}); the engine "
+        f"now serves that plan: {deployed}")
+    n_reads, since, n_inc = len(reads), len(eng.events), len(eng.incidents)
+    runs["faults_replica_kill"] = (1, GEN - 1, 0)
+    toks = counted("faults_replica_kill", lambda: eng.generate(
+        batch, GEN, kill={"after_step": step, "stage": k}))
+    msgs = new_messages(eng, since)
+    lost = eng.incidents[n_inc:]
+    quiet = not any("restored" in m or "replayed" in m for m in msgs)
+    same = bool((toks == toks_mono).all())
+    log(f"  [faults_replica_kill] {lost}; checkpoint reads "
+        f"{len(reads) - n_reads}, no restore or replay: {quiet}; tokens "
+        f"equal to ServeEngine's: {same}")
+    if not (deployed and len(lost) == 1 and lost[0].promoted and quiet
+            and len(reads) == n_reads and same):
+        raise SystemExit("[faults_replica_kill] the replica kill failed")
+    since = len(eng.events)
+    runs["faults_lastcopy_kill"] = (2, GEN - 1 + step, 0)
+    toks = counted("faults_lastcopy_kill", lambda: eng.generate(
+        batch, GEN, kill={"after_step": step, "stage": k}))
+    del eng._restore_params
+    msgs = new_messages(eng, since)
+    restores = [m for m in msgs if "restored from checkpoint" in m]
+    replays = [m for m in msgs if "replayed" in m]
+    same = bool((toks == toks_mono).all())
+    log(f"  [faults_lastcopy_kill] {msgs}; tokens equal to ServeEngine's: "
+        f"{same}")
+    if not (len(restores) == 1 and len(replays) == 1 and same):
+        raise SystemExit("[faults_lastcopy_kill] the last copy's kill "
+                         "failed")
+    out["replica"] = {"stage": k, "node": node,
+                      "checkpoint_read_s": reads[0],
+                      "incident": dataclasses.astuple(lost[0])}
+    log(f"  -- after the fault surface: nodes {eng.node_of_stage}, "
+        f"replicas {eng.replica_nodes}, spares {eng.spares}")
+    return out
 
 
 def smi_line():
@@ -2294,7 +2638,10 @@ def main(argv=None) -> int:
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "whisper_encoder", "llama4_prefill",   # flash's
             "shapes")                          # the decode kernels'
-    log(json.dumps({"streams": streams, "serving": timings}))
+    faults = {a: t.pop("faults") for a, t in timings.items()
+              if t.get("faults")}
+    log(json.dumps({"streams": streams, "serving": timings,
+                    "faults": faults}))
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))

@@ -44,27 +44,30 @@ def _flatten(tree):
     """Leaves in ``tree_flatten`` order (sorted dict keys) and the
     structure string the reference writes (``PyTreeDef({...})``)."""
     leaves = []
+    return leaves, f"PyTreeDef({_walk(tree, leaves)})"
 
-    def walk(node):
-        if isinstance(node, dict):
-            inner = ", ".join(f"{k!r}: {walk(node[k])}" for k in sorted(node))
-            return "{" + inner + "}"
-        leaves.append(node)
-        return "*"
 
-    return leaves, f"PyTreeDef({walk(tree)})"
+def _walk(node, leaves):
+    if isinstance(node, dict):
+        inner = ", ".join(f"{k!r}: {_walk(node[k], leaves)}"
+                          for k in sorted(node))
+        return "{" + inner + "}"
+    leaves.append(node)
+    return "*"
 
 
 def _unflatten(tree, leaves):
-    it = iter(leaves)
+    # module-level recursion: a nested recursive closure would be a
+    # reference cycle holding every restored tensor until the next
+    # garbage collection
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}          # keep caller's order
-        return next(it)
 
-    return build(tree)
+def _build(node, it):
+    if isinstance(node, dict):
+        out = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}          # keep caller's order
+    return next(it)
 
 
 def _leaf_crc(arr: np.ndarray) -> int:

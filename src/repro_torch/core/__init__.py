@@ -17,8 +17,11 @@ from .partitioner import (NotPartitionable, PartitionInfeasible,
                           transfer_sizes)
 from .pipeline import lm_block_graph
 from .placement import (PlacementInfeasible, PlacementResult, classify,
-                        kpath_matching, place_with_retry, subgraph_k_path,
+                        kpath_matching, place_with_retry,
+                        replicate_bottlenecks, subgraph_k_path,
                         subgraph_k_path_reference)
+from .replan import (ReplanResult, ReplicaAdd, StageMove,
+                     effective_stage_costs, incremental_replan, stage_costs)
 from .stageplan import (BoundarySpec, StageExecutionPlan, StageSpec,
                         from_block_cuts, from_seifer)
 
@@ -35,7 +38,10 @@ __all__ = [
     "build_partition_graph", "min_cost_path_reference", "optimal_partitions",
     "transfer_sizes", "lm_block_graph",
     "PlacementInfeasible", "PlacementResult", "classify", "kpath_matching",
-    "place_with_retry", "subgraph_k_path", "subgraph_k_path_reference",
+    "place_with_retry", "replicate_bottlenecks", "subgraph_k_path",
+    "subgraph_k_path_reference",
+    "ReplanResult", "ReplicaAdd", "StageMove", "effective_stage_costs",
+    "incremental_replan", "stage_costs",
     "BoundarySpec", "StageExecutionPlan", "StageSpec", "from_block_cuts",
     "from_seifer",
 ]

@@ -312,3 +312,56 @@ def place_with_retry(sizes, cluster: ClusterGraph, n_classes: int,
             nc = max(1, nc // 2)
     raise PlacementInfeasible(str(last_err))
 
+
+def replicate_bottlenecks(plan, cluster: ClusterGraph, *,
+                          budget: int | None = None, max_replicas: int = 2,
+                          keep_spares: int = 0,
+                          node_flops: float = 20e9):
+    """Spend unused cluster nodes on warm replicas of the slowest stages.
+
+    Post-placement pass over a :class:`~repro.core.stageplan
+    .StageExecutionPlan`: repeatedly pick the stage with the highest
+    *effective* service time (transfer-in + compute, replicas combined in
+    parallel — the bottleneck ``SeiferPlan.describe()`` marks) and assign
+    it a replica from the spare pool, until ``budget`` replicas are
+    placed, every spare is spent (minus ``keep_spares`` held back for
+    restore), or every stage already holds ``max_replicas`` copies.
+
+    Deterministic: the bottleneck stage is the first maximum (lowest
+    stage index on ties) and the spare is chosen by the same
+    bandwidth-to-neighbors score the emulator's reschedule uses (first
+    maximum in pool order).  Returns a new plan; the input is unchanged.
+    """
+    import dataclasses
+
+    from .replan import effective_stage_costs
+
+    reps = [list(s.replicas) for s in plan.stages]
+    spares = [n for n in plan.spare_nodes]
+    left = len(spares) - keep_spares if budget is None else budget
+
+    def neighbor_bw(k: int, n: int) -> float:
+        s = float(cluster.bw[plan.nodes[k], n])       # feed from prev hop
+        if k + 1 < plan.n_stages:
+            s += float(cluster.bw[n, plan.stages[k + 1].node])
+        return s
+
+    while left > 0 and len(spares) > keep_spares:
+        probe = dataclasses.replace(plan, stages=[
+            dataclasses.replace(s, replicas=tuple(reps[k]))
+            for k, s in enumerate(plan.stages)])
+        costs = effective_stage_costs(probe, cluster, node_flops=node_flops)
+        cand = [k for k in range(plan.n_stages)
+                if 1 + len(reps[k]) < max_replicas and costs[k] > 0.0]
+        if not cand:
+            break
+        k = max(cand, key=lambda i: (costs[i], -i))
+        best = max(spares, key=lambda n: (neighbor_bw(k, n), -n))
+        reps[k].append(best)
+        spares.remove(best)
+        left -= 1
+
+    stages = [dataclasses.replace(s, replicas=tuple(reps[k]))
+              for k, s in enumerate(plan.stages)]
+    return dataclasses.replace(plan, stages=stages,
+                               spare_nodes=tuple(spares))

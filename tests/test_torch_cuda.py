@@ -1162,3 +1162,62 @@ def test_flash_kernel_group_of_five(cuda, s, causal, h, kv):
     ref = flash_ref(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= \
         TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# the fault surface on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_transport_round_trip_on_card(cuda, int8):
+    """A bf16 payload, or the wire kernels' (q, scale), through a faulty
+    transport: delivered on the card bit for bit, with the CRC32 of the
+    same payload on the CPU."""
+    from repro_torch.serve import transport
+    x = randn(cuda, 41, 2, 12, 2048, dtype=torch.bfloat16)
+    payload = q_ops.rowwise_quantize(x) if int8 else x
+    leaves = payload if int8 else (payload,)
+    tr = transport.BoundaryTransport(
+        1, faults=transport.parse_wire_faults(
+            [["drop", 0, 0], ["corrupt", 0, 0, 77], ["dup", 0, 0]]),
+        sleep=lambda s: None)
+    frame, _ = tr._to_frame(0, payload)
+    cpu = tuple(t.cpu() for t in leaves)
+    cpu_frame, _ = tr._to_frame(0, cpu if int8 else cpu[0])
+    assert frame.crc == cpu_frame.crc
+    out = tr.send(0, payload)
+    got = out if int8 else (out,)
+    for a, b in zip(got, leaves):
+        assert a.device.type == "cuda"
+        bits_equal(a, b)
+    assert tr.exactly_once() and tr.stats[0].retransmits == 2
+
+
+def test_fault_surface_on_card(cuda):
+    """The granite smoke pipeline on the card through a faulty wire, then
+    with a silent kill found by the heartbeat monitor: the tokens of the
+    undisturbed run."""
+    from repro_torch.serve import retry, transport
+    cfg = get_config("granite-3-2b", "smoke").replace(n_layers=4)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    gpu = tree_map(lambda t: t.to(cuda), init_params(cfg, gen, device="cpu"))
+    batch = make_batch(cfg, 2, PROMPT, seed=4)
+    for bits in (0, 8):
+        eng = PipelineServeEngine(cfg, gpu, from_block_cuts(
+            cfg, [1, 3], spare_nodes=(9,), wire_bits=bits),
+            max_len=PROMPT + GEN, kv_block=8)
+        calm = eng.generate(batch, GEN)
+        clk = transport.FakeWireClock()
+        mon = transport.HeartbeatMonitor(3, clock=clk, sleep=clk.sleep)
+        tr = transport.BoundaryTransport(
+            2, faults=transport.seeded_wire_faults(0, 2, GEN, rate=0.3),
+            policy=retry.RetryPolicy(attempts=6, base_delay_s=0.05),
+            monitor=mon, clock=clk, sleep=clk.sleep)
+        eng.attach_wire(tr, mon)
+        np.testing.assert_array_equal(eng.generate(batch, GEN), calm)
+        assert tr.exactly_once() and tr.total("retransmits")
+        toks = eng.generate(batch, GEN, kill={"after_step": 2, "stage": 1,
+                                              "silent": True})
+        np.testing.assert_array_equal(toks, calm)
+        assert len(eng.detections) == 1 and eng.node_of_stage[1] == 9

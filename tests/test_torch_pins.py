@@ -114,18 +114,31 @@ def port_teacher_forced(cfg, params, sc, batch, pin):
     return torch.cat(out, dim=1).numpy()
 
 
-def hold_to_pin(cid, jcfg, jp, cfg, params, sc, batch, got_tokens):
-    pin = np.asarray(PINS[cid]["tokens"])
+def pin_evidence(jcfg, jp, cfg, params, sc, batch, pin):
+    """What a pin is held with: the reference's tokens and logits of its
+    own greedy run, the port's logits fed the pin, and for an untied head
+    the reference's float32 run fed the pin (else None).  Cells that share
+    a model and a batch share it."""
     jtoks, jl = reference_logits(jcfg, jp, sc, batch)
-    np.testing.assert_array_equal(jtoks, pin)       # the reference replays it
     tl = port_teacher_forced(cfg, params, sc, batch, pin)
+    el = None
+    if not cfg.tie_embeddings:
+        ecfg = jcfg.replace(param_dtype="float32")
+        ep = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+        el = teacher_forced_exact(ecfg, ep, sc, batch, pin)
+    return jtoks, jl, tl, el
+
+
+def hold_to_pin(cid, jcfg, jp, cfg, params, sc, batch, got_tokens,
+                evidence=None):
+    pin = np.asarray(PINS[cid]["tokens"])
+    jtoks, jl, tl, el = evidence or pin_evidence(jcfg, jp, cfg, params, sc,
+                                                 batch, pin)
+    np.testing.assert_array_equal(jtoks, pin)       # the reference replays it
     diff = float(np.abs(tl - jl).max())
     if cfg.tie_embeddings:
         np.testing.assert_allclose(tl, jl, rtol=TOL, atol=TOL)
     else:
-        ecfg = jcfg.replace(param_dtype="float32")
-        ep = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
-        el = teacher_forced_exact(ecfg, ep, sc, batch, pin)
         port, ref = (float(np.abs(x - el).max()) for x in (tl, jl))
         assert port <= 2 * ref, (port, ref)
     top2 = np.sort(jl, axis=-1)[..., -2:]

@@ -346,7 +346,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.configs.llama_3_2_vision_90b',"
         " 'repro_torch.configs.deepseek_v3_671b',"
         " 'repro_torch.configs.llama4_maverick_400b_a17b',"
-        " 'repro_torch.models.staging'} <= set(sys.modules)\n"
+        " 'repro_torch.models.staging', 'repro_torch.serve.retry',"
+        " 'repro_torch.serve.telemetry', 'repro_torch.serve.transport',"
+        " 'repro_torch.core.replan'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
