@@ -143,6 +143,28 @@ Phases, in order; any failure exits non-zero before the result line:
    tokens (the int8 wire's: its own).  It logs the transport's host cost
    (prefill and a decode step, with and without it, on both wires), the
    bytes of a hop's frames, the restore and migration seconds.
+   Every pipelined model but the MoE one also serves the stream phase's
+   requests through its raw-wire engine's per-stage banks
+   (``pipelined_stream``: ``SlotScheduler`` over the pipeline engine):
+   each request's tokens, and each batched decode step's logits in the
+   active slots' rows, bit-identical to the monolithic stream's.  granite
+   and mamba2 (``OVERLAP_ARCHS``) also stream with stage 1 killed after
+   batched step 4 (the in-flight requests replayed into their slots; the
+   same bits), through the int8 wire, and through the int8 wire with that
+   kill (the tokens of the int8 stream without it); and they run the
+   overlapped executor (``overlap_runs``), batch 4 in 2 micro-batches, on
+   both wires, staged (every stage given the card) and then, placed anew
+   on the same engine (``place``), fused (one CUDA graph a micro-batch,
+   ``devices=None``): each form's tokens the sequential
+   chain's whole-batch run's and each micro-batch's decode-step logits
+   bit-identical to the sequential chain serving its rows alone, also
+   with a kill (granite stage 1, mamba2 stage 2, after step 3; the fused
+   engine's graphs captured again after the restore); one traced fused
+   step runs the eager step's kernels (``overlap_trace``); decode ms a
+   step of the sequential, staged and fused forms.  A fused run's launch
+   counts hold what the wrappers see: its eager prefills and, a graph it
+   captures, one eager step and the capture (a replay calls no wrapper).
+   The phases' seconds are logged (``"pipelined"`` in the JSON line).
    For the two new models the plain cross-attention of a prefill (the
    reference leaves it to XLA) is timed alone.  The kernel launch
    counters are zeroed just before each counted run (a model's monolithic
@@ -175,8 +197,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``; the streams', the
-serving phases' and the fault runs' numbers (``"faults"``) are on a JSON
-line before them.  A record's
+serving phases', the fault runs' (``"faults"``) and the pipelined streams'
+and overlapped runs' numbers (``"pipelined"``) are on a JSON line before
+them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the six pipelined models; ``launches_by_path`` holds the count from each
@@ -238,6 +261,15 @@ DEPTH = {"llama3-405b": 4, "llama-3.2-vision-90b": 10,
 CKPT_ROOT = Path("/dev/shm")
 # the fault surface's model (``fault_runs``)
 FAULTS_ARCH = "granite-3-2b"
+# the overlapped executor's models, with the stage each kills after
+# KILL["after_step"] (``overlap_runs``); they also stream through the
+# int8 wire and with a kill: stage 1 after batched decode step 4
+OVERLAP_KILL = {"granite-3-2b": 1, "mamba2-1.3b": 2}
+OVERLAP_ARCHS = tuple(OVERLAP_KILL)
+STREAM_KILL = {"after_step": 4, "stage": 1}
+# tokens an overlapped run generates (its decode timings take as many
+# steps less one): every step falls in the prompt's first kv bucket
+OVERLAP_GEN = 12
 # whisper: a decoder prompt of its prompt-conditioning length (224), over
 # the 1500 frames of its 30-second window after the conv stem
 PROMPT_OF = {"whisper-large-v3": 224}
@@ -1613,7 +1645,8 @@ def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
     its batched decode steps (recorded as the scheduler's decode steps
     return them) equal to those of the request alone (batch 1, attention
     over the whole cache) fed the same tokens.  Returns the phase's
-    numbers and the decode steps of the counted run."""
+    numbers, the decode steps of the counted run, and (the requests, their
+    streams, each batched step's logits) for the pipelined streams."""
     import numpy as np
     from repro_torch.models import decode_step, init_serve_cache, prefill
     from repro_torch.serve import scheduler
@@ -1697,7 +1730,8 @@ def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
             "decode_steps": stats["decode_steps"],
             "slot_utilization": stats["slot_utilization"],
             "bit_identical_to_solo": True,
-            "max_logit_diff": worst}, stats["decode_steps"]
+            "max_logit_diff": worst}, stats["decode_steps"], (
+                reqs, streams, recorded)
 
 
 # Device kernels a decode step may run: the port's own and torch's
@@ -1988,6 +2022,7 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
         extra["cross_prefill_ms"] = cross_prefill_ms(torch, cfg, params,
                                                      batch, prompt)
 
+    mono_stream = None
     if cfg.family == "moe":
         stream = None
         log("  no stream: SlotScheduler refuses the MoE family (expert "
@@ -1995,17 +2030,17 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
             "depends on the other slots' rows; the reference pins no MoE "
             "stream)")
     else:
-        stream, steps["stream"] = stream_phase(torch, cfg, params, timed,
-                                               counted, prompt)
+        stream, steps["stream"], mono_stream = stream_phase(
+            torch, cfg, params, timed, counted, prompt)
     n_stages = 1
     runs = {}                 # run -> (prefills, decode steps, aborted)
     if pipelined:
         del mono                      # its caches: the kill runs need room
         gc.collect()
         torch.cuda.empty_cache()
-        n_stages, runs, extra["faults"] = pipeline_runs(
-            torch, tmp, cfg, params, batch, toks_mono, timed, counted,
-            prompt, cuts)
+        n_stages, runs, extra["faults"], extra["pipelined"] = \
+            pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
+                          counted, prompt, cuts, mono_stream)
         steps.update(pipeline_raw=GEN - 1, pipeline_int8=GEN - 1,
                      pipeline_raw_kill=GEN - 1 + KILL["after_step"],
                      pipeline_int8_kill=GEN - 1 + KILL["after_step"])
@@ -2088,11 +2123,16 @@ def kill_specs(ranges):
 
 
 def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
-                  counted, prompt=PROMPT, cuts=None):
+                  counted, prompt=PROMPT, cuts=None, mono_stream=None):
     """The planner's 4 stages (or the stages of ``cuts``), the raw-wire
     pipeline (bit-identical to ServeEngine, also across a stage kill) and
-    the int8-wire one (a kill gives the tokens of the run without it).
-    Returns the stage count."""
+    the int8-wire one (a kill gives the tokens of the run without it);
+    the stream through the raw-wire pipeline (``pipelined_stream``;
+    OVERLAP_ARCHS also with a kill and through the int8 wire) and, for
+    OVERLAP_ARCHS, the overlapped executor (``overlap_runs``).  Returns
+    the stage count, each counted run's (prefills, decode steps, aborted
+    blocks), the fault surface's numbers and the streams' and overlapped
+    runs' numbers."""
     from repro_torch.core import (from_block_cuts, lm_block_graph,
                                   partition_and_place,
                                   random_geometric_cluster)
@@ -2198,6 +2238,21 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         faults = fault_runs(torch, raw, batch, toks_mono, cluster, ranges,
                             timed, counted, runs)
         faults["raw_seconds"] = time.perf_counter() - t_faults
+    piped = {}
+    overlap = cfg.name in OVERLAP_ARCHS
+    t_new = time.perf_counter()
+    if mono_stream is not None:
+        piped["stream_raw"] = pipelined_stream(
+            torch, raw, mono_stream, "pipeline_stream_raw", timed, counted,
+            runs)
+    if overlap:
+        piped["stream_raw_kill"] = pipelined_stream(
+            torch, raw, mono_stream, "pipeline_stream_raw_kill", timed,
+            counted, runs, kill=STREAM_KILL)
+        piped["overlap_raw"] = overlap_runs(
+            torch, tmp, cfg, params, batch, raw, ep_raw, cluster, timed,
+            counted, runs)
+    piped["seconds"] = time.perf_counter() - t_new
     # the restored stage is a second copy of its params (deepseek-v3's
     # stage 1 is about 24.9 GB): free it before the next engine restores
     del raw
@@ -2237,11 +2292,262 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
     if cfg.name == FAULTS_ARCH:
         faults["int8_cost"] = transport_cost(torch, i8, batch, timed)
     faults["int8_seconds"] = time.perf_counter() - t_wire
+    t_new = time.perf_counter()
+    if overlap:
+        calm = piped["stream_int8"] = pipelined_stream(
+            torch, i8, mono_stream, "pipeline_stream_int8", timed, counted,
+            runs)
+        piped["stream_int8_kill"] = pipelined_stream(
+            torch, i8, mono_stream, "pipeline_stream_int8_kill", timed,
+            counted, runs, kill=STREAM_KILL, want=calm.pop("streams"))
+        piped["overlap_int8"] = overlap_runs(
+            torch, tmp, cfg, params, batch, i8, ep_int8, cluster, timed,
+            counted, runs)
+    piped["seconds"] += time.perf_counter() - t_new
+    for v in piped.values():
+        if isinstance(v, dict):
+            v.pop("streams", None)
+    log(f"  the pipelined streams and the overlapped executor took "
+        f"{piped['seconds']:.1f}s")
     del i8
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(Path(tmp) / "int8", ignore_errors=True)
-    return len(ranges), runs, faults
+    return len(ranges), runs, faults, piped
+
+
+# ---------------------------------------------------------------------------
+# phase 4: streams across the stages, and the overlapped executor
+# ---------------------------------------------------------------------------
+
+def pipelined_stream(torch, eng, mono, path, timed, counted, runs, kill=None,
+                     want=None):
+    """The stream phase's requests over SLOTS slots through ``eng``'s
+    per-stage banks (``SlotScheduler`` over the pipeline engine), a counted
+    run: each request's tokens equal to ``want`` (default: the monolithic
+    stream's); on the raw wire each batched decode step's logits, in the
+    rows of the active slots, bit-identical to the monolithic stream's
+    step, also after a kill replays the in-flight requests into their
+    slots (the card's decode kernels are row-invariant).  ``runs`` gains
+    the run's prefills (one an admission, one a replayed request) and
+    decode steps (the batched ones and the replays').  Returns its
+    numbers, and its streams under ``"streams"``."""
+    import numpy as np
+    from repro_torch.serve.scheduler import SlotScheduler
+    reqs, mono_streams, mono_logits = mono
+    if want is None and not eng.wire_bits:
+        want = mono_streams
+    recorded, replays = [], []
+    step, recover = eng.bank_step, eng.recover_and_replay
+
+    def stepped(*args):
+        out = step(*args)
+        recorded.append(out[1][:, 0])
+        return out
+
+    def recovered(inflight, caches, slot_tokens):
+        replays.append([n for _, _, n in inflight])
+        return recover(inflight, caches, slot_tokens)
+
+    eng.bank_step, eng.recover_and_replay = stepped, recovered
+    since = len(eng.events)
+    try:
+        (streams, stats), secs = timed(lambda: counted(
+            path, lambda: SlotScheduler(eng, SLOTS).run(reqs, kill=kill)))
+    finally:
+        del eng.bank_step, eng.recover_and_replay
+    runs[path] = (len(reqs) + sum(map(len, replays)),
+                  stats["decode_steps"] + sum(n - 1 for r in replays
+                                              for n in r), 0)
+    maps = stream_schedule(reqs, SLOTS)
+    agree = float(np.mean(np.concatenate(streams)
+                          == np.concatenate(mono_streams)))
+    same = want is None or all(np.array_equal(a, b)
+                               for a, b in zip(streams, want))
+    bits = None
+    if not eng.wire_bits:
+        bits = len(recorded) == len(mono_logits) == len(maps) and all(
+            torch.equal(a[list(m)].view(torch.int32),
+                        b[list(m)].view(torch.int32))
+            for a, b, m in zip(recorded, mono_logits, maps))
+    msgs = new_messages(eng, since)
+    log(f"  [{path}] {len(reqs)} requests over {SLOTS} slots through "
+        f"{eng.n_stages} stages: {secs:.3f}s ({stats['decode_steps']} "
+        f"decode steps{', ' + str(replays) + ' replayed' if kill else ''});"
+        + ("" if want is None else
+           f" tokens equal to the "
+           f"{'monolithic stream' if want is mono_streams else 'int8 stream'}"
+           f"'s: {same};")
+        + f" share of tokens equal to the monolithic stream's {agree:.3f}"
+        + ("" if bits is None else f"; every step's logits bit-identical "
+                                   f"to the monolithic stream's: {bits}"))
+    for m in msgs:
+        log(f"    {m}")
+    if not same or bits is False or (kill and not replays):
+        raise SystemExit(f"[{path}] the pipelined stream failed")
+    return {"seconds": secs, "decode_steps": stats["decode_steps"],
+            "replayed": replays, "logits_bit_identical": bits,
+            "tokens_equal": None if want is None else same,
+            "share_equal_to_monolithic": agree, "streams": streams}
+
+
+def kind_counts(torch, fn):
+    """Device kernels of ``fn`` traced with torch.profiler: {kind:
+    launches}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+# the port's kernels, by the substrings of their device names
+PORT_KINDS = ("rows_matmul", "rms_norm_rows", "decode_attention",
+              "ssm_decode", "conv_silu", "quantize", "flash", "ssd")
+
+
+def traced_step(torch, eng, batch):
+    """{kind: launches} of one traced decode step of the overlapped engine
+    ``eng`` (after a prefill and one untraced step: on the fused chain
+    both micro-batches' graphs replayed)."""
+    with torch.inference_mode():
+        mbs = eng._split_batch(batch, 2)
+        toks, _, caches = eng._overlap_prefill(mbs)
+        bucket = eng.bucket_for(mbs[0]["tokens"].shape[1] + 1)
+        toks, _, caches = eng._overlap_step(toks, caches, bucket)
+        return kind_counts(torch, lambda: eng._overlap_step(toks, caches,
+                                                            bucket))
+
+
+def overlap_trace(f, s):
+    """A traced fused step (``f``: {kind: launches}) against the eager
+    staged one (``s``): the same kinds of kernel, copies aside.  Returns
+    the two."""
+    def kinds(c):                # the fused step's copies in and out aside
+        return {k for k in c if not k.startswith(("Memcpy", "Memset"))}
+    port = sorted(k for k in kinds(f) if any(w in k for w in PORT_KINDS))
+    names = [m.group(1) if (m := re.search(r"::(\w+)<", k)) else k[:60]
+             for k in port]
+    differ = {k[:80]: (f.get(k), s.get(k)) for k in sorted(set(f) | set(s))
+              if f.get(k) != s.get(k)}
+    # the profiler's counts of one step are not exact (it has dropped 1 to
+    # 3 records of a step's 1350-3950): the kinds are compared, the counts
+    # logged; the wrappers' counters hold the launches exactly
+    log(f"  one traced decode step, fused (2 graphs replayed): "
+        f"{sum(f.values())} launches of {len(f)} kinds; staged (eager): "
+        f"{sum(s.values())} of {len(s)}; the port's kinds {names}; counts "
+        f"that differ "
+        f"(fused, staged): {differ or 'none'}")
+    if not port:
+        raise SystemExit("the profiler saw no kernel of the port in a fused "
+                         "step")
+    if kinds(f) != kinds(s):
+        raise SystemExit(f"a fused step runs the kinds {kinds(f)}, the "
+                         f"eager step {kinds(s)}")
+    return f, s
+
+
+def overlap_runs(torch, tmp, cfg, params, batch, seq, plan, cluster, timed,
+                 counted, runs):
+    """The overlapped executor, batch BATCH in 2 micro-batches, on
+    ``seq``'s plan and wire, in two forms of one engine: the staged
+    schedule (every stage given the card: ``devices=[card] * n``), then,
+    placed anew with ``devices=None`` (``place``: the stage checkpoints are
+    written once), the fused chain (one CUDA graph a micro-batch).  Each
+    form's tokens equal the sequential chain's whole-batch run and each
+    micro-batch's decode-step logits the sequential chain's run of its rows
+    alone, bit for bit (the largest logit difference from the whole-batch
+    run is logged); then the same with a stage killed after step 3
+    (OVERLAP_KILL; the fused form's graph captures logged before and after
+    the restore).  A traced fused step runs the eager step's kernels
+    (``overlap_trace``).  Decode ms a step of the sequential, staged and
+    fused forms on the raw wire (``timed_decode``).  The runs generate
+    OVERLAP_GEN tokens.  Counted runs: both forms count the launches that
+    ran, the fused form's eager first steps and every graph replay (the
+    engine adds a replay's recorded launches; a capture counts nothing),
+    so each form is held to the same count: 2 prefills and
+    2 (OVERLAP_GEN - 1) decode steps, and a killed run its replay's."""
+    import numpy as np
+    from repro_torch.serve.pipeline import PipelineServeEngine
+    wire = "int8" if seq.wire_bits else "raw"
+    kill = {"after_step": KILL["after_step"], "stage": OVERLAP_KILL[cfg.name]}
+    halves = [slice(0, BATCH // 2), slice(BATCH // 2, BATCH)]
+    whole, whole_logits = seq.generate(batch, OVERLAP_GEN,
+                                       collect_logits=True)
+    alone = [seq.generate({k: v[h] for k, v in batch.items()}, OVERLAP_GEN,
+                          collect_logits=True) for h in halves]
+    steps = OVERLAP_GEN - 1              # the decode timings' steps
+    out = {}
+    if not seq.wire_bits:
+        out["sequential_decode_ms"] = (seq.timed_decode(batch, steps)
+                                       / steps * 1e3)
+    card = params["embed"].device
+    eng, ck_s = timed(lambda: PipelineServeEngine(
+        cfg, params, plan, max_len=seq.max_len, kv_block=seq.kv_block,
+        ckpt_dir=Path(tmp) / f"overlap_{wire}", cluster=cluster, overlap=True,
+        micro_batches=2, devices=[card] * seq.n_stages))
+    out["checkpoint_s"] = ck_s
+    traced = {}
+    for form in ("staged", "fused"):
+        if form == "fused":
+            eng.place(None)
+        path = f"overlap_{form}_{wire}"
+        (toks, logits), secs = timed(lambda: counted(path, lambda: (
+            eng.generate(batch, OVERLAP_GEN, collect_logits=True))))
+        caps = eng.graph_captures
+        runs[path] = (2, 2 * (OVERLAP_GEN - 1), 0)
+        same = bool((toks == whole).all())
+        bits = all(logits[h].tobytes() == lg.tobytes() and
+                   np.array_equal(toks[h], t)
+                   for h, (t, lg) in zip(halves, alone))
+        diff = float(np.abs(logits - whole_logits).max())
+        since = len(eng.events)
+        (ktoks, kill_s) = timed(lambda: counted(path + "_kill", lambda: (
+            eng.generate(batch, OVERLAP_GEN, kill=kill))))
+        new_caps = eng.graph_captures - caps
+        replays = sum("replayed" in m for m in new_messages(eng, since))
+        runs[path + "_kill"] = (
+            4, 2 * (OVERLAP_GEN - 1 + KILL["after_step"]), 0)
+        decode_ms = (eng.timed_decode(batch, steps) / steps * 1e3
+                     if not seq.wire_bits else None)
+        killed = bool((ktoks == whole).all())
+        how = ("one CUDA graph a micro-batch" if form == "fused"
+               else f"the staged schedule on {eng.devices}")
+        log(f"  [{path}] {eng.n_stages} stages, 2 micro-batches, {how} "
+            f"(checkpoints {ck_s:.1f}s, once): generate {secs:.3f}s, tokens "
+            f"equal to the sequential chain's: {same}; each micro-batch's "
+            f"logits bit-identical to its rows served alone: {bits}; max "
+            f"|logits - whole batch's| {diff:.4g}; with stage "
+            f"{kill['stage']} killed after step {kill['after_step']}: "
+            f"{kill_s:.3f}s, tokens equal: "
+            f"{killed}, {replays} replay(s); graph captures {caps} before "
+            f"the restore, {new_caps} after"
+            + ("" if decode_ms is None else f"; decode {decode_ms:.2f} ms a "
+                                            f"step"))
+        if not (same and bits and killed and replays == 1) or (
+                form == "fused" and not (caps and new_caps)):
+            raise SystemExit(f"[{path}] the overlapped executor failed")
+        out[form] = {"generate_s": secs, "kill_s": kill_s,
+                     "decode_ms": decode_ms, "captures": [caps, new_caps],
+                     "max_logit_diff_whole_batch": diff}
+        traced[form] = traced_step(torch, eng, batch)
+    f, s = overlap_trace(traced["fused"], traced["staged"])
+    out["trace_launches"] = {"fused": sum(f.values()),
+                             "staged": sum(s.values())}
+    if not seq.wire_bits:
+        log(f"  decode ms a step (raw wire, {steps} steps at batch "
+            f"{BATCH}): sequential {out['sequential_decode_ms']:.2f}, "
+            f"staged {out['staged']['decode_ms']:.2f}, fused "
+            f"{out['fused']['decode_ms']:.2f}")
+    del eng
+    shutil.rmtree(Path(tmp) / f"overlap_{wire}", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2640,8 +2946,12 @@ def main(argv=None) -> int:
             "shapes")                          # the decode kernels'
     faults = {a: t.pop("faults") for a, t in timings.items()
               if t.get("faults")}
+    pipelined = {a: t.pop("pipelined") for a, t in timings.items()
+                 if "pipelined" in t}
+    log(f"  the pipelined streams and the overlapped executor took "
+        f"{sum(p['seconds'] for p in pipelined.values()):.1f}s in all")
     log(json.dumps({"streams": streams, "serving": timings,
-                    "faults": faults}))
+                    "faults": faults, "pipelined": pipelined}))
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))

@@ -3,7 +3,11 @@
 ``csrc/`` holds the CUDA sources; ``_build`` compiles them at first use.
 Each wrapper counts its launches; :func:`launch_counts` reads them all and
 :func:`reset_launch_counts` zeroes them (and the wire's path counts,
-``quantize.row_launches`` and ``dequantize.vec_launches``).
+``quantize.row_launches`` and ``dequantize.vec_launches``).  A CUDA graph's
+capture launches nothing and its replays call no wrapper, so the code that
+captures one takes what the capture recorded with :func:`recorded_launches`
+(which leaves every count as it was) and adds it at each replay with
+:func:`add_launches`.
 """
 
 from __future__ import annotations
@@ -30,8 +34,35 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+# every count: each wrapper's launches and the wire's path counts
+_COUNTS = tuple((name, "launches") for name in WRAPPERS) + (
+    ("quantize", "row_launches"), ("dequantize", "vec_launches"))
+
+
+def _counts() -> dict:
+    return {(n, a): getattr(WRAPPERS[n], a) for n, a in _COUNTS}
+
+
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    WRAPPERS["quantize"].row_launches = 0
-    WRAPPERS["dequantize"].vec_launches = 0
+    for n, a in _COUNTS:
+        setattr(WRAPPERS[n], a, 0)
+
+
+def add_launches(delta: dict) -> None:
+    """Add ``delta`` (from :func:`recorded_launches`) to the counts."""
+    for (n, a), v in delta.items():
+        setattr(WRAPPERS[n], a, getattr(WRAPPERS[n], a) + v)
+
+
+def recorded_launches(fn):
+    """Run ``fn`` (a CUDA graph's capture) and return (its result, the
+    counts it added), the counts left as they were before it."""
+    before = _counts()
+    try:
+        out = fn()
+    finally:
+        after = _counts()
+        reset_launch_counts()
+        add_launches(before)
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}

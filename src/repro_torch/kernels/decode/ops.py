@@ -154,9 +154,16 @@ def _counters(dev, n: int) -> torch.Tensor:
     """At least ``n`` int32 ticket counters on ``dev``, all zero between
     launches: allocated once per device and grown by doubling (a grown-out
     buffer is kept alive, since a captured CUDA graph may still point at
-    it).  The kernels that use them run in stream order."""
+    it).  The kernels that use them run in stream order.  They never grow
+    inside a CUDA graph capture, which would record the zeroing as a node
+    that runs only at replay: a captured step runs once eagerly first."""
     buf = _COUNTERS.get(dev.index)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"rows_matmul: {n} ticket counters needed inside a CUDA "
+                "graph capture, more than were allocated: run the captured "
+                "step once eagerly first")
         if buf is not None:
             _RETIRED.append(buf)
         size = max(n, 16384, 2 * buf.numel() if buf is not None else 0)

@@ -2,34 +2,40 @@
 
 Prefill + greedy decode of a batch of synthetic requests through the
 monolithic ``ServeEngine``, or with ``--cuts C1,C2,...`` through the
-sequential ``PipelineServeEngine`` over those block cuts (``--wire-bits 8``
-sends stage boundaries as rowwise int8).  ``--stream N`` serves N
-requests (each ``--prompt-len`` tokens long, ``--gen-len`` tokens to
-generate) through the continuous-batching ``SlotScheduler`` over
-``--batch`` slots instead of one synchronized batch.  Every request of
-the VLM (llama-3.2-vision-90b) and the encoder-decoder (whisper-large-v3)
-brings its side input from ``make_batch``: vision embeddings, or the
-``FRAMES`` frame embeddings of whisper's 30-second window (where the
-reference's launcher makes them as long as the prompt).  Runs on the card
-unless ``--device cpu``.
+``PipelineServeEngine`` over those block cuts (``--wire-bits 8`` sends
+stage boundaries as rowwise int8; ``--overlap`` runs the overlapped
+executor with ``--micro-batches`` in flight, ``--devices`` places the
+stages: ``auto`` round-robins them over the visible cards, or a
+comma-separated device list).  The ``--cuts`` path prints its mode, the
+stages' devices, the micro-batches in flight and the decode-only tok/s of
+``timed_decode``.  ``--stream N`` serves N requests (each
+``--prompt-len`` tokens long, ``--gen-len`` tokens to generate) through
+the continuous-batching ``SlotScheduler`` over ``--batch`` slots instead
+of one synchronized batch, through the pipeline engine under ``--cuts``.
+Every request of the VLM (llama-3.2-vision-90b) and the encoder-decoder
+(whisper-large-v3) brings its side input from ``make_batch``: vision
+embeddings, or the ``FRAMES`` frame embeddings of whisper's 30-second
+window (where the reference's launcher makes them as long as the prompt).
+Runs on the card unless ``--device cpu``.
 
 The flags are those of ``repro/launch/serve.py``'s monolithic, ``--stream``
-and ``--cuts`` paths, plus three: ``--wire-bits``, since the reference
-launcher never reaches the int8 wire that the served pipeline sends (the
-paper's lambda compression), ``--profile``, which traces one prefill-only
-run and one full run with ``torch.profiler`` and prints the device busy
-time, the kernel launches and the kernels that took the most device time,
-and ``--layers``, which cuts the depth (llama3-405b's 126 layers are about
-810 GB in bf16; ``chip_smoke.py`` serves 4 of them, 2 of deepseek-v3-671b's
-61 and of llama4-maverick-400b-a17b's 48).  A MoE model's cut depth and
+and ``--cuts`` paths (``--overlap``, ``--micro-batches``, ``--devices``
+among them), plus three: ``--wire-bits``, since the reference launcher
+never reaches the int8 wire that the served pipeline sends (the paper's
+lambda compression), ``--profile``, which traces one prefill-only run and
+one full run with ``torch.profiler`` and prints the device busy time, the
+kernel launches and the kernels that took the most device time, and
+``--layers``, which cuts the depth (llama3-405b's 126 layers are about 810
+GB in bf16; ``chip_smoke.py`` serves 4 of them, 2 of deepseek-v3-671b's 61
+and of llama4-maverick-400b-a17b's 48).  A MoE model's cut depth and
 ``--cuts`` fall on its groups (llama4: an even count); the MoE family has
 no ``--stream`` (``SlotScheduler`` refuses it: expert capacity couples the
 rows of a batch).
 
 Timing: the first generate is a warm-up (it builds the kernels on first
-use) and is reported separately; every reported time ends in
-``torch.cuda.synchronize()`` on the card, since PyTorch returns before the
-device finishes.
+use, and captures the fused chain's graphs) and is reported separately;
+every reported time ends in ``torch.cuda.synchronize()`` on the card,
+since PyTorch returns before the device finishes.
 """
 
 from __future__ import annotations
@@ -78,6 +84,18 @@ def main(argv=None):
     ap.add_argument("--cuts", default="", metavar="C1,C2",
                     help="serve through PipelineServeEngine over these "
                          "block cuts (e.g. 10,20,30)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped pipeline executor: micro-batches on "
+                         "the skewed schedule, the fused chain (a CUDA "
+                         "graph a micro-batch on the card) on one device "
+                         "(needs --cuts)")
+    ap.add_argument("--micro-batches", type=int, default=None,
+                    help="micro-batches in flight under --overlap "
+                         "(default: the stage count across devices, else 1)")
+    ap.add_argument("--devices", default=None,
+                    help="per-stage placement under --cuts: 'auto' "
+                         "round-robins the stages over the visible cards, "
+                         "or a comma-separated device list (cpu,cpu,...)")
     ap.add_argument("--wire-bits", type=int, default=0, choices=[0, 8],
                     help="stage-boundary wire format under --cuts: 0 = raw, "
                          "8 = rowwise int8")
@@ -95,9 +113,8 @@ def main(argv=None):
                          "a full run with torch.profiler and print device "
                          "busy time, kernel launches and the top kernels")
     args = ap.parse_args(argv)
-    if args.stream and args.cuts:
-        ap.error("--stream serves through the monolithic engine; continuous "
-                 "batching across --cuts stages is not ported yet")
+    if (args.overlap or args.micro_batches or args.devices) and not args.cuts:
+        ap.error("--overlap, --micro-batches and --devices need --cuts")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)
@@ -111,9 +128,29 @@ def main(argv=None):
     params = init_params(cfg, rng, device=device)
     b, pl, gl = args.batch, args.prompt_len, args.gen_len
 
+    if args.cuts:
+        from repro_torch.core.stageplan import from_block_cuts
+        from repro_torch.serve.pipeline import PipelineServeEngine
+        cuts = [int(c) for c in args.cuts.split(",")]
+        devices = args.devices
+        if devices and devices != "auto":
+            devices = devices.split(",")
+        eng = PipelineServeEngine(
+            cfg, params, from_block_cuts(cfg, cuts, wire_bits=args.wire_bits),
+            max_len=pl + gl, kv_block=32, overlap=args.overlap,
+            micro_batches=args.micro_batches, devices=devices)
+        placed = ("one device" if eng.devices is None else
+                  ",".join(str(d) for d in eng.devices))
+        label = (f"pipeline-{'overlap' if args.overlap else 'sequential'}-"
+                 f"{'int8' if args.wire_bits else 'raw'}, {len(cuts) + 1} "
+                 f"stages on {placed}, {eng._resolve_micro(b)} "
+                 "micro-batch(es) in flight")
+    else:
+        eng = ServeEngine(cfg, params, max_len=pl + gl, kv_block=32)
+        label = args.engine
+
     if args.stream:
         from repro_torch.serve.scheduler import Request, SlotScheduler
-        eng = ServeEngine(cfg, params, max_len=pl + gl, kv_block=32)
         sched = SlotScheduler(eng, slots=b)
         reqs = []
         for i in range(args.stream):
@@ -124,39 +161,35 @@ def main(argv=None):
         _, warm_s = _timed(run, device)
         (streams, stats), dt = _timed(run, device)
         total = sum(len(t) for t in streams)
-        print(f"[serve/stream-{args.engine}] {cfg.name} on {device}: "
+        what = (f"stream-{args.engine}" if not args.cuts
+                else f"stream-{args.engine}, {label}")
+        print(f"[serve/{what}] {cfg.name} on {device}: "
               f"{args.stream} requests x {gl} tokens over {b} slots: "
               f"{total} tokens in {dt:.3f}s ({total / dt:.1f} tok/s; "
               f"{stats['decode_steps']} decode steps, slot utilisation "
               f"{stats['slot_utilization']:.1%}; warm-up {warm_s:.2f}s, "
               f"excluded); sample: {streams[0][:8].tolist()}")
         if args.profile:
-            _profile(f"stream-{args.engine}", run, device)
+            _profile(what, run, device)
         return streams
 
     batch = make_batch(cfg, b, pl, seed=0, frames_len=FRAMES)
     if args.cuts:
-        from repro_torch.core.stageplan import from_block_cuts
-        from repro_torch.serve.pipeline import PipelineServeEngine
-        cuts = [int(c) for c in args.cuts.split(",")]
-        plan = from_block_cuts(cfg, cuts, wire_bits=args.wire_bits)
-        eng = PipelineServeEngine(cfg, params, plan, max_len=pl + gl,
-                                  kv_block=32)
         def run(n):
             return eng.generate(batch, n)
-        label = (f"pipeline-{'int8' if args.wire_bits else 'raw'}, "
-                 f"{len(cuts) + 1} stages")
     else:
-        eng = ServeEngine(cfg, params, max_len=pl + gl, kv_block=32)
         def run(n):
             return eng.generate(batch, n, engine=args.engine)
-        label = args.engine
     _, warm_s = _timed(lambda: run(gl), device)
     toks, dt = _timed(lambda: run(gl), device)
+    decode = ""
+    if args.cuts:
+        decode_s = eng.timed_decode(batch, gl - 1)
+        decode = f"; decode-only {b * (gl - 1) / decode_s:.1f} tok/s"
     print(f"[serve/{label}] {cfg.name} on {device}: {b * gl} tokens "
           f"(batch {b}, prompt {pl}) in {dt:.3f}s "
-          f"({b * gl / dt:.1f} tok/s; warm-up {warm_s:.2f}s, excluded); "
-          f"sample: {toks[0, :8].tolist()}")
+          f"({b * gl / dt:.1f} tok/s{decode}; warm-up {warm_s:.2f}s, "
+          f"excluded); sample: {toks[0, :8].tolist()}")
     if args.profile:
         for what, n in (("prefill only", 1), (f"{gl} tokens", gl)):
             _profile(f"{label}, {what}", lambda: run(n), device)

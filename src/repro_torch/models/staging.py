@@ -33,6 +33,9 @@ Family notes:
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 
 from .config import ModelConfig
@@ -125,7 +128,39 @@ def stage_cache_len(cfg: ModelConfig, cache):
     return _cache_len(cfg, cache)
 
 
+def resolve_stage_devices(spec, n_stages: int):
+    """A per-stage device assignment: ``None`` (every stage on the params'
+    device, the single-node layout), or a list of ``n_stages`` devices.
+    ``"auto"`` round-robins the stages over the visible CUDA devices, one
+    stage a card, wrapping when stages outnumber cards; it raises where
+    there is no card, as ``resolve_device`` does, and never falls back to
+    the CPU.  An explicit sequence of devices is cycled the same way."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        if spec != "auto":
+            raise ValueError(f"devices spec must be None, 'auto', or a "
+                             f"sequence of devices, got {spec!r}")
+        resolve_device("cuda")
+        pool = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        pool = [torch.device(d) for d in spec]
+        if not pool:
+            raise ValueError("devices sequence is empty")
+    return [pool[k % len(pool)] for k in range(n_stages)]
+
+
+def place_stage_params(sparams, device):
+    """One stage's param subtree on its executor's device (stage k's
+    weights live where stage k computes); leaves already there are kept,
+    not copied."""
+    if device is None:
+        return sparams
+    return tree_map(lambda t: t.to(device), sparams)
+
+
 __all__ = ["check_stage_ranges", "embed_tokens", "encode",
            "extract_stage_params", "fill_cross_caches", "init_stage_cache",
-           "lm_logits", "stage_backbone", "stage_cache_len",
-           "stage_granularity"]
+           "lm_logits", "place_stage_params", "resolve_stage_devices",
+           "stage_backbone", "stage_cache_len", "stage_granularity"]

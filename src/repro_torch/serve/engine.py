@@ -24,6 +24,8 @@ atomics, so they repeat bit for bit.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -97,12 +99,9 @@ class ServeEngine:
         if engine not in ("fast", "reference"):
             raise ValueError(engine)
         batch = as_batch(batch, self.device)
-        b, prompt_len = batch["tokens"].shape
+        prompt_len = batch["tokens"].shape[1]
         self._check_fit(prompt_len, gen_len)
-        cache = init_serve_cache(self.cfg, b, self.max_len, batch=batch,
-                                 device=self.device)
-        logits, cache = prefill(self.cfg, self.params, batch, cache)
-        toks = logits.argmax(-1).int()
+        toks, logits, cache = self._start(batch)
         outs, logs = [toks], [logits]
         cur = prompt_len
         for _ in range(gen_len - 1):
@@ -118,3 +117,58 @@ class ServeEngine:
         if collect_logits:
             return out, torch.cat(logs, dim=1).cpu().numpy()
         return out
+
+    # -- timing helpers ------------------------------------------------------
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, batch, gen_len: int, engine: str = "fast") -> float:
+        """One throwaway ``generate`` (the kernels' builds and first
+        launches); its wall seconds, ending in a device synchronise."""
+        t0 = time.perf_counter()
+        self.generate(batch, gen_len, engine=engine)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def _start(self, batch):
+        """A prefill into a fresh cache: (tokens (B, 1), logits, cache)."""
+        b = batch["tokens"].shape[0]
+        cache = init_serve_cache(self.cfg, b, self.max_len, batch=batch,
+                                 device=self.device)
+        logits, cache = prefill(self.cfg, self.params, batch, cache)
+        return logits.argmax(-1).int(), logits, cache
+
+    @torch.inference_mode()
+    def timed_decode(self, batch, steps: int, engine: str = "fast") -> float:
+        """Steady-state decode seconds for ``steps`` greedy tokens: the
+        prefill runs outside the clock, and the clock stops after a device
+        synchronise (launches return before the card finishes).  Warm up
+        first."""
+        batch = as_batch(batch, self.device)
+        prompt_len = batch["tokens"].shape[1]
+        self._check_fit(prompt_len, steps + 1)
+        toks, _, cache = self._start(batch)
+        self._sync()
+        cur = prompt_len
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            bucket = self.bucket_for(cur + 1) if engine == "fast" else None
+            logits, cache = decode_step(self.cfg, self.params, toks, cache,
+                                        kv_bucket=bucket)
+            toks = logits.argmax(-1).int()
+            cur += 1
+        self._sync()
+        return time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def timed_prefill(self, batch, reps: int = 1) -> float:
+        """Seconds a prefill (the cache's allocation included), each rep
+        ending in a device synchronise."""
+        batch = as_batch(batch, self.device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            self._start(batch)
+            self._sync()
+        return (time.perf_counter() - t0) / reps

@@ -68,9 +68,35 @@ migrations (checkpoint-backed, the vacated node back in the spare pool; a
 failed one raises :class:`StageDegraded` and the stage keeps serving) or
 replica additions.
 
-Not ported here: the reference's overlapped executor (micro-batches,
-per-stage devices, the fused decode chain) and its slot-bank scheduler
-integration.
+**Per-stage devices** (``devices=``): each stage's params, caches, side
+inputs and restored or migrated params live on its own device, and every
+boundary payload is delivered onto the receiving stage's device (by the
+transport's rebuild when one is attached, else a device-to-device copy).
+Placement never changes tokens.
+
+**The overlapped executor** (``overlap=True``): a synchronized batch is
+split into contiguous micro-batches (MoE runs one: expert capacity couples
+the rows), prefilled and decoded on the reference's skewed schedule (at
+tick t stage k runs micro-batch t - k, later stages first), so with stages
+on distinct devices stage k computes micro-batch j while the k -> k+1
+handoff of micro-batch j - 1 is in flight.  Each micro-batch is an
+independent greedy stream, so the tokens are the sequential chain's, also
+across kills, replays and wire faults with micro-batches in flight; the
+decode loop reads no device value but the telemetry's synchronise.  With
+every stage on one device and nothing observing the stages (no transport,
+monitor, telemetry, replica, down or dark stage: ``_fused_ok``) the
+decode chain is fused: on the CPU the stage bodies run back to back; on
+the card each micro-batch's whole chain is one CUDA graph, captured for
+each (micro-batch, rows, kv bucket) into caches the engine keeps for that
+micro-batch and replays every step; a restore or migration drops every
+graph (``_rebuild_fused``).  A capture that fails raises.
+
+**Continuous batching across stages**: ``SlotScheduler`` drives this
+engine through per-stage cache banks (``slot_bank``), per-request
+admission at the exact prompt length (``admit_slot``), the sequential
+chain as the batched decode step (``bank_step``), and per-slot replay
+after a restore or a migration (``recover_and_replay``,
+``migrate_and_replay``).
 """
 
 from __future__ import annotations
@@ -83,6 +109,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import kernels
+from repro_torch._tree import tree_leaves
 from repro_torch.checkpoint import (restore_checkpoint, save_checkpoint,
                                     template_of)
 from repro_torch.core.replan import ReplicaAdd, incremental_replan
@@ -91,6 +119,7 @@ from repro_torch.kernels.quantize.ops import (rowwise_dequantize,
 from repro_torch.models import staging
 from repro_torch.models.layers import dtype_of
 
+from .banks import insert_slot, kill_specs, leaf_batch_axes, zero_lens
 from .engine import ServeEngine, as_batch
 from .retry import RetryExhausted, RetryPolicy, retry_call
 from .transport import DEAD, SUSPECTED
@@ -132,6 +161,29 @@ class ReplicaLost:
     promoted: bool = False
 
 
+def _result(outs, logs, collect_logits):
+    """A generate's np tokens (B, gen_len) int32, with its logits (B,
+    gen_len, V) float32 when ``collect_logits``: one host read."""
+    toks = torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
+    if collect_logits:
+        return toks, torch.cat(logs, dim=1).float().cpu().numpy()
+    return toks
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured fused decode chain: its graph, the token input it
+    reads, the (tokens, logits) it writes, the caches it was captured
+    over, and the kernel launches a replay makes (the wrappers' counts its
+    capture recorded)."""
+
+    graph: object
+    tokens: torch.Tensor
+    out: tuple
+    caches: list
+    launches: dict
+
+
 class PipelineServeEngine:
     """Greedy pipelined serving over one StageExecutionPlan.
 
@@ -160,11 +212,24 @@ class PipelineServeEngine:
     monitor    : optional HeartbeatMonitor — stages beat after every
                  compute; a silent failure is acted on only once the
                  monitor rules it DEAD (SUSPECTED alone never restores).
+    overlap    : ``generate`` and ``timed_decode`` run the overlapped
+                 executor: micro-batches on the skewed schedule, and the
+                 fused chain where ``_fused_ok`` holds.  It reorders
+                 execution only: the tokens are the sequential chain's.
+    micro_batches : micro-batches under ``overlap`` (clamped to the batch;
+                 1 for MoE).  Default: one a stage when the stages span
+                 devices, else 1.
+    devices    : per-stage placement: ``None`` (every stage on the params'
+                 device), ``"auto"`` (round-robin over the visible CUDA
+                 devices; raises without a card), or a sequence of devices,
+                 cycled; ``place`` changes it later.  Placement never
+                 changes tokens.
     """
 
     def __init__(self, cfg, params, plan, *, max_len: int, kv_block: int = 32,
                  ckpt_dir=None, cluster=None, telemetry=None, retry=None,
-                 transport=None, monitor=None):
+                 transport=None, monitor=None, overlap: bool = False,
+                 micro_batches: int | None = None, devices=None):
         self.cfg = cfg
         self.plan = plan
         self.device = params["embed"].device
@@ -177,10 +242,15 @@ class PipelineServeEngine:
         staging.check_stage_ranges(cfg, self.ranges)
         self.n_stages = len(self.ranges)
         last = self.n_stages - 1
+        self.overlap = bool(overlap)
+        self.micro_batches = (None if micro_batches is None
+                              else int(micro_batches))
         self.stage_params = [
             staging.extract_stage_params(cfg, params, lo, hi, k == 0,
                                          k == last)
             for k, (lo, hi) in enumerate(self.ranges)]
+        self.graph_captures = 0
+        self.place(devices)
         self.node_of_stage = [s.node for s in plan.stages]
         self.replica_nodes = [list(s.replicas) for s in plan.stages]
         taken = set(plan.nodes) | set(plan.spare_nodes)
@@ -217,6 +287,56 @@ class PipelineServeEngine:
         for k, sp in enumerate(self.stage_params):
             save_checkpoint(self.ckpt_dir / f"stage_{k}", 0, sp)
             self._templates.append(template_of(sp))
+        self._bank_axes = None
+        self._bank_shape = None
+
+    # -- per-stage device placement ----------------------------------------
+
+    def place(self, devices) -> None:
+        """Re-place the stages between requests: ``devices`` as the
+        constructor takes it (the constructor places through this too).
+        Each stage's params go to its device (kept, not copied, where they
+        are already there), and the fused chain's graphs and caches are
+        dropped.  The stage checkpoints are not written again: a serving
+        process moves its stages onto other devices (or back onto one, to
+        fuse the chain) without the seconds a full-width checkpoint write
+        takes, and later restores and migrations land on the new devices.
+        Later requests get their caches on the new devices."""
+        self.devices = staging.resolve_stage_devices(devices, self.n_stages)
+        self._multi_device = (self.devices is not None
+                              and len(set(self.devices)) > 1)
+        self.stage_params = [None if sp is None else self._adopt_params(k, sp)
+                             for k, sp in enumerate(self.stage_params)]
+        # the fused chain on the card: (micro-batch, rows, kv bucket) ->
+        # its captured graph; (micro-batch, rows, enc_len) -> the caches
+        # the graphs of that micro-batch read and write
+        self._graphs: dict = {}
+        self._graph_caches: dict = {}
+
+    def _stage_device(self, k) -> torch.device:
+        """Stage ``k``'s device (the params' under the single-node
+        layout)."""
+        return self.device if self.devices is None else self.devices[k]
+
+    def _to_stage(self, k, x):
+        """``x`` (a tensor, or the int8 wire's (q, scale)) on stage ``k``'s
+        device; the same tensors where they are already there."""
+        dev = self._stage_device(k)
+        if isinstance(x, tuple):
+            return tuple(t.to(dev) for t in x)
+        return x.to(dev)
+
+    def _adopt_params(self, k, tree):
+        """A param subtree (extracted, restored or migrated) on stage
+        ``k``'s device."""
+        return staging.place_stage_params(
+            tree, None if self.devices is None else self.devices[k])
+
+    def _sync(self):
+        """Wait for every card the stages run on (the timing helpers)."""
+        for dev in set(self._stage_device(k) for k in range(self.n_stages)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- wire format --------------------------------------------------------
 
@@ -261,6 +381,26 @@ class PipelineServeEngine:
             return (logits.argmax(-1).int(), logits)
         return self._wire_out(h)
 
+    def _side(self, k, batch, enc_out):
+        """Stage ``k``'s side input at prefill, on its device: the VLM's
+        vision embeddings, or the encoder output the first stage computed
+        from the frames (``enc_out``); None for the other families."""
+        if self.cfg.family == "vlm":
+            return {"vision": self._to_stage(k, batch["vision"])}
+        if self.cfg.family == "encdec":
+            return {"enc_out": self._to_stage(k, enc_out)}
+        return None
+
+    def _prefill_stage(self, k, x, cache, batch, enc_out):
+        """Stage ``k``'s prefill with its side input (the first stage of
+        the encoder-decoder encodes the frames first; a replay encodes
+        them again).  Returns (its output, the encoder output)."""
+        if k == 0 and self.cfg.family == "encdec":
+            enc_out = staging.encode(self.cfg, self.stage_params[0],
+                                     batch["frames"])
+        return self._stage_step(k, x, cache, prefill=True,
+                                side=self._side(k, batch, enc_out)), enc_out
+
     # the same bucket and fit contract as ServeEngine
     bucket_for = ServeEngine.bucket_for
     _check_fit = ServeEngine._check_fit
@@ -301,54 +441,61 @@ class PipelineServeEngine:
 
     def _post_stage(self, k, x):
         """After stage ``k`` computes: heartbeat, then the boundary wire
-        (through the transport when one is attached, the payload rebuilt
-        on the receiving stage's device from the received bytes)."""
+        onto stage ``k+1``'s device: through the transport when one is
+        attached (the payload rebuilt there from the received bytes), else
+        a device-to-device copy where the stages' devices differ."""
         if self.monitor is not None:
             self.monitor.beat(k)
-        if k < self.n_stages - 1 and self.transport is not None:
-            x = self.transport.send(k, x, device=self.device)
+        if k < self.n_stages - 1:
+            if self.transport is not None:
+                x = self.transport.send(k, x,
+                                        device=self._stage_device(k + 1))
+            elif self.devices is not None:
+                x = self._to_stage(k + 1, x)
         return x
 
     def _chain_prefill(self, batch, caches):
-        """Prefill through every stage, each given its side input: the
-        VLM's vision embeddings, or the encoder output that the first stage
-        computes from the frames (a replay computes it again)."""
-        x = batch["tokens"]
-        side = None
-        if self.cfg.family == "vlm":
-            side = {"vision": batch["vision"]}
+        """Prefill through every stage, each given its side input.
+        Returns the last stage's (tokens, logits)."""
+        x, enc_out = batch["tokens"], None
         for k in range(self.n_stages):
             self._pre_stage(k)
             self._route(k)
-            if k == 0 and self.cfg.family == "encdec":
-                side = {"enc_out": staging.encode(
-                    self.cfg, self.stage_params[0], batch["frames"])}
-            x = self._stage_step(k, x, caches[k], prefill=True, side=side)
+            x, enc_out = self._prefill_stage(k, x, caches[k], batch,
+                                             enc_out)
             x = self._post_stage(k, x)
         return x
 
     def _chain_decode(self, toks, caches, bucket):
-        x = toks
-        tel = self.telemetry
+        """One decode step through every stage (the last stage's tokens go
+        back to the first stage's device).  Returns (tokens, logits)."""
+        x = self._to_stage(0, toks)
         for k in range(self.n_stages):
             self._pre_stage(k)
             self._route(k)
-            if tel is None:
-                x = self._stage_step(k, x, caches[k], bucket, prefill=False)
-                x = self._post_stage(k, x)
-                continue
-            t0 = tel.now()
-            x = self._stage_step(k, x, caches[k], bucket, prefill=False)
-            t1 = tel.now()
-            # the telemetry sample waits for the stage's work on the card
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t2 = tel.now()
-            tel.record_decode(k, t2 - t0)
-            if k < self.n_stages - 1:
-                # boundary materialization time stands in for the wire hop
-                tel.record_transfer(k, self._payload_bytes(x), t2 - t1)
+            x = self._timed_stage(k, x, caches[k], bucket)
             x = self._post_stage(k, x)
+        return x
+
+    def _timed_stage(self, k, x, cache, bucket):
+        """Stage ``k``'s decode step; with telemetry, its latency and
+        boundary-transfer samples at the reference's three clock reads
+        (the stage's device synchronised between the second and third:
+        the one device read the decode loops make)."""
+        tel = self.telemetry
+        if tel is None:
+            return self._stage_step(k, x, cache, bucket, prefill=False)
+        t0 = tel.now()
+        x = self._stage_step(k, x, cache, bucket, prefill=False)
+        t1 = tel.now()
+        dev = self._stage_device(k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t2 = tel.now()
+        tel.record_decode(k, t2 - t0)
+        if k < self.n_stages - 1:
+            # boundary materialization time stands in for the wire hop
+            tel.record_transfer(k, self._payload_bytes(x), t2 - t1)
         return x
 
     @staticmethod
@@ -357,24 +504,34 @@ class PipelineServeEngine:
         return float(sum(t.numel() * t.element_size() for t in leaves))
 
     def _fresh_caches(self, b, enc_len=None):
-        """Empty stage caches for ``b`` rows (the encoder-decoder's cross
-        caches of ``enc_len`` rows, the frames' length)."""
+        """Empty stage caches for ``b`` rows, each on its stage's device
+        (the encoder-decoder's cross caches of ``enc_len`` rows, the
+        frames' length)."""
         return [staging.init_stage_cache(self.cfg, lo, hi, b, self.max_len,
-                                         device=self.device, enc_len=enc_len)
-                for lo, hi in self.ranges]
+                                         device=self._stage_device(k),
+                                         enc_len=enc_len)
+                for k, (lo, hi) in enumerate(self.ranges)]
+
+    @staticmethod
+    def _enc_len(batch):
+        return batch["frames"].shape[1] if "frames" in batch else None
 
     def _batch_caches(self, batch):
         """Empty stage caches for a request batch."""
-        return self._fresh_caches(
-            batch["tokens"].shape[0],
-            batch["frames"].shape[1] if "frames" in batch else None)
+        return self._fresh_caches(batch["tokens"].shape[0],
+                                  self._enc_len(batch))
 
     # -- synchronized-batch generation with deterministic fault injection ---
 
     @torch.inference_mode()
-    def generate(self, batch, gen_len: int, *, kill=None, replan=None):
+    def generate(self, batch, gen_len: int, *, kill=None, replan=None,
+                 collect_logits: bool = False):
         """Greedy-decode a synchronized batch for ``gen_len`` tokens
-        through the stage pipeline; np tokens (B, gen_len) int32.
+        through the stage pipeline; np tokens (B, gen_len) int32, or
+        (tokens, logits (B, gen_len, V) float32) when ``collect_logits``
+        (each step's logits as the step that emitted its tokens computed
+        them).  With ``overlap`` the overlapped executor serves it, to the
+        same contract.
 
         kill: optional ``{"after_step": s, "stage": k}`` — or a list of such
         specs — stage ``k`` loses a copy after ``s`` completed decode steps
@@ -391,48 +548,60 @@ class PipelineServeEngine:
         ``state`` (a ClusterState or ClusterGraph; optional keys
         ``max_moves``, ``min_gain_s``); if the plan changed, the in-flight
         batch is replayed across the migrated placement."""
-        batch = as_batch(batch, self.device)
+        batch = as_batch(batch, self._stage_device(0))
+        if self.overlap:
+            return self._generate_overlap(batch, gen_len, kill, replan,
+                                          collect_logits)
         b, prompt_len = batch["tokens"].shape
         self._check_fit(prompt_len, gen_len)
-        kills = ([] if kill is None
-                 else [kill] if isinstance(kill, dict) else list(kill))
+        kills = kill_specs(kill)
         for k in sorted(self.down):        # e.g. killed between calls
             self.restore_stage(k)
         caches = self._batch_caches(batch)
         while True:
             try:
-                toks, _ = self._chain_prefill(batch, caches)
+                toks, logits = self._chain_prefill(batch, caches)
                 break
             except StageDown:      # silent failure confirmed mid-prefill
                 for k in sorted(self.down):
                     self.restore_stage(k)
                 caches = self._batch_caches(batch)
-        outs = [toks]
+        outs, logs = [toks], [logits]
         cur = prompt_len
         for step in range(gen_len - 1):
-            for spec in kills:
-                if spec["after_step"] == step:
-                    if spec.get("silent"):
-                        self.fail_silent(spec["stage"])
-                    else:
-                        self.kill_stage(spec["stage"],
-                                        replica=spec.get("replica"))
+            self._fire_kills(kills, step)
             if self.down:
                 for k in sorted(self.down):
                     self.restore_stage(k)
                 toks, caches = self._replay_sync(batch, step)
-            if replan is not None and replan["after_step"] == step:
-                res = self.replan_live(
-                    replan["cluster"],
-                    max_moves=replan.get("max_moves", 1),
-                    min_gain_s=replan.get("min_gain_s", 0.0))
-                if res.changed:
-                    toks, caches = self._replay_sync(batch, step)
-            toks, caches = self._decode_step_checked(batch, toks, caches,
-                                                     step, cur)
+            if self._replanned(replan, step):
+                toks, caches = self._replay_sync(batch, step)
+            (toks, logits), caches = self._decode_step_checked(
+                batch, toks, caches, step, cur)
             cur += 1
             outs.append(toks)
-        return torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
+            if collect_logits:
+                logs.append(logits)
+        return _result(outs, logs, collect_logits)
+
+    def _fire_kills(self, kills, step):
+        """The kills due after ``step`` completed decode steps."""
+        for spec in kills:
+            if spec["after_step"] == step:
+                if spec.get("silent"):
+                    self.fail_silent(spec["stage"])
+                else:
+                    self.kill_stage(spec["stage"],
+                                    replica=spec.get("replica"))
+
+    def _replanned(self, replan, step) -> bool:
+        """Run the replan due after ``step`` decode steps; True when it
+        moved a stage (the in-flight batch must be replayed)."""
+        if replan is None or replan["after_step"] != step:
+            return False
+        return self.replan_live(
+            replan["cluster"], max_moves=replan.get("max_moves", 1),
+            min_gain_s=replan.get("min_gain_s", 0.0)).changed
 
     def _decode_step_checked(self, batch, toks, caches, step, cur):
         """One decode step with silent-failure recovery: a
@@ -440,12 +609,12 @@ class PipelineServeEngine:
         monitor just confirmed DEAD) restores every down stage, replays the
         in-flight batch to ``step`` completed decode steps, and retries.
         The replay builds fresh caches, so the ones the aborted chain
-        updated are never read again."""
+        updated are never read again.  Returns ((tokens, logits),
+        caches)."""
         while True:
             try:
-                t, _ = self._chain_decode(toks, caches,
-                                          self.bucket_for(cur + 1))
-                return t, caches
+                return self._chain_decode(toks, caches,
+                                          self.bucket_for(cur + 1)), caches
             except StageDown:
                 for k in sorted(self.down):
                     self.restore_stage(k)
@@ -453,11 +622,10 @@ class PipelineServeEngine:
 
     def _replay_sync(self, batch, steps_done):
         """Replay the in-flight batch after a restore or migration: fresh
-        caches,
-        prefill (every stage gets its side input again), and the
-        ``steps_done`` decode steps already emitted
-        (greedy decoding is deterministic, so the replay rebuilds the lost
-        stage state exactly)."""
+        caches, prefill (every stage gets its side input again), and the
+        ``steps_done`` decode steps already emitted (greedy decoding is
+        deterministic, so the replay rebuilds the lost stage state
+        exactly)."""
         b, prompt_len = batch["tokens"].shape
         caches = self._batch_caches(batch)
         toks, _ = self._chain_prefill(batch, caches)
@@ -469,6 +637,230 @@ class PipelineServeEngine:
         self._note(f"replayed {b} in-flight request(s), {steps_done} "
                    "decode step(s)")
         return toks, caches
+
+    # -- overlapped execution (micro-batch interleave) -----------------------
+    #
+    # The overlapped executor reorders execution only.  Each micro-batch is
+    # an independent greedy stream (a row's tokens depend on no other row),
+    # so splitting a synchronized batch and skewing the schedule — at tick
+    # t, stage k runs micro-batch t - k, later stages first — changes no
+    # token.  PyTorch's launches are asynchronous: with stages on distinct
+    # devices, stage k's kernels for micro-batch j run while the k -> k+1
+    # handoff of micro-batch j - 1 is copied.  The decode loop reads no
+    # device value; the only host waits are the end of ``generate`` and the
+    # telemetry's samples.
+
+    def _resolve_micro(self, b: int) -> int:
+        """Micro-batch count for a ``b``-row batch (see ``micro_batches``
+        in the class docstring)."""
+        if not self.overlap or self.cfg.family == "moe":
+            # MoE: expert capacity couples the rows (Switch-style drops),
+            # so a split would change routing — never split
+            return 1
+        m = self.micro_batches
+        if m is None:
+            m = self.n_stages if self._multi_device else 1
+        return max(1, min(int(m), b))
+
+    @staticmethod
+    def _split_batch(batch, m: int):
+        """Every request field split into ``m`` contiguous row blocks (row
+        order kept, so concatenating the micro-batches' streams restores
+        the caller's batch order)."""
+        if m == 1:
+            return [batch]
+        b = batch["tokens"].shape[0]
+        bounds = [(i * b) // m for i in range(m + 1)]
+        return [{kk: v[lo:hi] for kk, v in batch.items()}
+                for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+    def _mb_caches(self, j, mb):
+        """Micro-batch ``j``'s empty stage caches: fresh ones, or on the
+        card's fused path the ones its graphs read and write, kept by the
+        engine for this micro-batch's shape and zeroed in place."""
+        if not (self._fused_ok() and self.device.type == "cuda"):
+            return self._batch_caches(mb)
+        key = (j, mb["tokens"].shape[0], self._enc_len(mb))
+        caches = self._graph_caches.get(key)
+        if caches is None:
+            caches = self._graph_caches[key] = self._batch_caches(mb)
+        else:
+            for c in caches:
+                for t in tree_leaves(c):
+                    t.zero_()
+        return caches
+
+    def _overlap_prefill(self, mbs):
+        """Prefill ``mbs`` through the stage pipeline on the skewed
+        schedule.  Returns (per-micro-batch first tokens, prefill logits,
+        caches)."""
+        m = len(mbs)
+        last = self.n_stages - 1
+        caches_mb = [self._mb_caches(j, mb) for j, mb in enumerate(mbs)]
+        xs = [mb["tokens"] for mb in mbs]
+        enc = [None] * m
+        for t in range(m + last):
+            for k in range(min(t, last), max(t - m, -1), -1):
+                j = t - k
+                self._pre_stage(k)
+                self._route(k)
+                xs[j], enc[j] = self._prefill_stage(k, xs[j],
+                                                    caches_mb[j][k], mbs[j],
+                                                    enc[j])
+                xs[j] = self._post_stage(k, xs[j])
+        return [x[0] for x in xs], [x[1] for x in xs], caches_mb
+
+    def _rebuild_fused(self):
+        """Drop the fused chain's captured graphs: each read the stage
+        params it was captured with, so a restore or migration that swaps
+        a stage's params needs new ones (captured again at the next
+        step)."""
+        self._graphs = {}
+
+    def _fused_ok(self) -> bool:
+        """True when the overlapped executor may fuse the decode chain.
+        With every stage on one device the skewed schedule overlaps
+        nothing — one device queue serialises the stage calls — so each
+        micro-batch's whole chain runs as one unit.  Anything that
+        observes per-stage execution (per-stage devices, a boundary
+        transport, heartbeats, telemetry, replica routing, a dead or dark
+        stage) keeps the staged schedule, which holds every fault and
+        observability contract."""
+        return (self.overlap and self.devices is None
+                and self.transport is None and self.monitor is None
+                and self.telemetry is None
+                and not self.down and not self._silent
+                and all(not r for r in self.replica_nodes))
+
+    def _fused_chain(self, toks, caches, bucket):
+        """The decode step's stage bodies back to back, without the
+        per-stage gates: (tokens, logits)."""
+        x = toks
+        for k in range(self.n_stages):
+            x = self._stage_step(k, x, caches[k], bucket, prefill=False)
+        return x
+
+    def _fused_step(self, j, toks, caches, bucket):
+        """Micro-batch ``j``'s fused decode step.  On the CPU the chain
+        runs as it is.  On the card it is one CUDA graph a (micro-batch,
+        rows, kv bucket): the first step of a shape runs the chain eagerly
+        (that step's result, and the warm-up of every kernel and buffer
+        the capture records) and then captures it; later steps copy their
+        tokens into the graph's input, replay it and clone its outputs out
+        (the next replay overwrites them).  A capture that fails raises.
+        The kernel launch counts see the launches that run: the eager
+        step's and each replay's, never the capture's."""
+        if toks.device.type != "cuda":
+            return self._fused_chain(toks, caches, bucket)
+        key = (j, toks.shape[0], bucket)
+        g = self._graphs.get(key)
+        if g is None or g.caches is not caches:
+            out = self._fused_chain(toks, caches, bucket)
+            inp = toks.clone()
+            graph = torch.cuda.CUDAGraph()
+
+            def capture():
+                with torch.cuda.graph(graph):
+                    return self._fused_chain(inp, caches, bucket)
+
+            res, launches = kernels.recorded_launches(capture)
+            self._graphs[key] = _Graph(graph, inp, res, caches, launches)
+            self.graph_captures += 1
+            return out
+        g.tokens.copy_(toks)
+        g.graph.replay()
+        kernels.add_launches(g.launches)
+        return g.out[0].clone(), g.out[1].clone()
+
+    def _overlap_step(self, toks_mb, caches_mb, bucket):
+        """One greedy decode step for every micro-batch on the skewed
+        schedule: within a tick, later stages (older micro-batches) go
+        before earlier ones, so stage k's compute of micro-batch j overlaps
+        the k -> k+1 handoff of micro-batch j - 1.  No host read but the
+        telemetry's samples.  A :class:`StageDown` raised mid-schedule
+        aborts the step; callers replay the in-flight window.  Under
+        ``_fused_ok`` each micro-batch runs its fused chain instead.
+        Returns (tokens, logits, caches) by micro-batch."""
+        m = len(toks_mb)
+        if self._fused_ok():
+            outs = [self._fused_step(j, toks_mb[j], caches_mb[j], bucket)
+                    for j in range(m)]
+            return [o[0] for o in outs], [o[1] for o in outs], caches_mb
+        last = self.n_stages - 1
+        xs = [self._to_stage(0, t) for t in toks_mb]
+        for t in range(m + last):
+            for k in range(min(t, last), max(t - m, -1), -1):
+                j = t - k
+                self._pre_stage(k)
+                self._route(k)
+                xs[j] = self._timed_stage(k, xs[j], caches_mb[j][k], bucket)
+                xs[j] = self._post_stage(k, xs[j])
+        return [x[0] for x in xs], [x[1] for x in xs], caches_mb
+
+    def _overlap_replay(self, mbs, steps_done: int):
+        """Replay the in-flight window after a restore or migration under
+        overlap: fresh caches, the skewed prefill, and the ``steps_done``
+        decode steps already emitted (the overlapped counterpart of
+        ``_replay_sync``)."""
+        toks_mb, _, caches_mb = self._overlap_prefill(mbs)
+        cur = mbs[0]["tokens"].shape[1]
+        for _ in range(steps_done):
+            toks_mb, _, caches_mb = self._overlap_step(
+                toks_mb, caches_mb, self.bucket_for(cur + 1))
+            cur += 1
+        n = sum(mb["tokens"].shape[0] for mb in mbs)
+        self._note(f"replayed {n} in-flight request(s) across {len(mbs)} "
+                   f"micro-batch(es), {steps_done} decode step(s)")
+        return toks_mb, caches_mb
+
+    def _generate_overlap(self, batch, gen_len, kill, replan,
+                          collect_logits):
+        """The overlapped executor behind ``generate`` (same contract, same
+        fault semantics, the same tokens): micro-batched, one host read at
+        the end."""
+        b, prompt_len = batch["tokens"].shape
+        self._check_fit(prompt_len, gen_len)
+        kills = kill_specs(kill)
+        for k in sorted(self.down):        # e.g. killed between calls
+            self.restore_stage(k)
+        mbs = self._split_batch(batch, self._resolve_micro(b))
+        while True:
+            try:
+                toks_mb, logits_mb, caches_mb = self._overlap_prefill(mbs)
+                break
+            except StageDown:      # silent failure confirmed mid-prefill
+                for k in sorted(self.down):
+                    self.restore_stage(k)
+        outs = [[t] for t in toks_mb]
+        logs = [[lg] for lg in logits_mb]
+        cur = prompt_len
+        for step in range(gen_len - 1):
+            self._fire_kills(kills, step)
+            if self.down:
+                for k in sorted(self.down):
+                    self.restore_stage(k)
+                toks_mb, caches_mb = self._overlap_replay(mbs, step)
+            if self._replanned(replan, step):
+                toks_mb, caches_mb = self._overlap_replay(mbs, step)
+            while True:
+                try:
+                    toks_mb, logits_mb, caches_mb = self._overlap_step(
+                        toks_mb, caches_mb, self.bucket_for(cur + 1))
+                    break
+                except StageDown:  # silent failure confirmed mid-step
+                    for k in sorted(self.down):
+                        self.restore_stage(k)
+                    toks_mb, caches_mb = self._overlap_replay(mbs, step)
+            cur += 1
+            for j in range(len(mbs)):
+                outs[j].append(toks_mb[j])
+                if collect_logits:
+                    logs[j].append(logits_mb[j])
+        # row order restored by the contiguous split
+        toks = [torch.cat(o, dim=1) for o in outs]
+        logits = [torch.cat(lg, dim=1) for lg in logs]
+        return _result([torch.cat(toks)], [torch.cat(logits)],
+                       collect_logits)
 
     # -- fault injection / recovery ----------------------------------------
 
@@ -601,13 +993,13 @@ class PipelineServeEngine:
         return node
 
     def _restore_params(self, k: int):
-        """Stage ``k``'s checkpoint read onto the engine's device under
+        """Stage ``k``'s checkpoint read onto the stage's device under
         bounded retry (a corrupt leaf, ``CheckpointCorrupt``, is a
         ``ValueError``: retried)."""
         return retry_call(
             lambda: restore_checkpoint(self.ckpt_dir / f"stage_{k}", 0,
                                        self._templates[k],
-                                       device=self.device),
+                                       device=self._stage_device(k)),
             what=f"stage {k}: checkpoint restore", policy=self.retry,
             retry_on=(OSError, ValueError, KeyError))
 
@@ -635,7 +1027,8 @@ class PipelineServeEngine:
         self.spares.remove(target)
         old = self.node_of_stage[k]
         self.node_of_stage[k] = target
-        self.stage_params[k] = restored
+        self.stage_params[k] = self._adopt_params(k, restored)
+        self._rebuild_fused()              # the graphs read the old params
         self.down.discard(k)
         self._note(f"stage {k}: pod rescheduled {old} -> {target} "
                    "(params restored from checkpoint)")
@@ -675,7 +1068,8 @@ class PipelineServeEngine:
         self.spares.remove(target)
         old = self.node_of_stage[k]
         self.node_of_stage[k] = target
-        self.stage_params[k] = restored
+        self.stage_params[k] = self._adopt_params(k, restored)
+        self._rebuild_fused()              # the graphs read the old params
         self.spares.append(old)            # vacated node is healthy
         self._note(f"stage {k}: MIGRATED {old} -> {target} "
                    "(params restored from checkpoint, "
@@ -751,3 +1145,184 @@ class PipelineServeEngine:
                    f"executed (bottleneck {res.bottleneck_before_s:.3g}s "
                    f"-> {res.bottleneck_after_s:.3g}s est.)")
         return dataclasses.replace(res, moves=tuple(moved))
+
+    # -- scheduler integration (continuous batching across stages) ----------
+
+    def admit_burst(self) -> int | None:
+        """How many admissions the scheduler interleaves a decode round.
+        ``None`` (the sequential engine) fills every free slot before a
+        step; under overlap at most one admission a micro-batch slot of
+        the pipeline a round.  Pacing reorders admissions only: a
+        request's tokens do not depend on the schedule."""
+        if not self.overlap:
+            return None
+        m = (self.micro_batches if self.micro_batches is not None
+             else self.n_stages)
+        return max(1, int(m))
+
+    def slot_bank(self, slots: int, proto=None):
+        """Per-stage cache banks of ``slots`` rows, each on its stage's
+        device, for requests whose side inputs are shaped like ``proto``'s
+        (leading dim 1; the encoder-decoder's frames fix the cross caches'
+        rows).  Also fixes each bank leaf's batch axis, found from caches
+        built on the meta device (the port's
+        ``SlotScheduler._leaf_batch_axes``)."""
+        enc_len = self._enc_len(proto or {})
+        self._bank_shape = (int(slots), enc_len)
+        self._bank_axes = [
+            leaf_batch_axes(lambda b, lo=lo, hi=hi: staging.init_stage_cache(
+                self.cfg, lo, hi, b, self.max_len, device="meta",
+                enc_len=enc_len))
+            for lo, hi in self.ranges]
+        return self._fresh_caches(slots, enc_len)
+
+    def _scatter(self, k, bank, one, slot):
+        """Stage ``k``'s batch-1 cache ``one`` into slot ``slot`` of its
+        bank, in place."""
+        insert_slot(bank, one, slot, self._bank_axes[k])
+
+    def reset_slot(self, caches, slot):
+        """Every length counter of ``slot`` back to 0 in every stage's
+        bank: the port's answer to an idle slot about to write past
+        ``max_len`` (the reference clamps the write), held per stage."""
+        for bank, axes in zip(caches, self._bank_axes):
+            zero_lens(bank, axes, slot)
+
+    def admit_slot(self, batch, caches, slot_tokens, slot):
+        """Admit one request (``batch``: its tokens (1, S) and side input)
+        into slot ``slot`` of every stage's bank: each stage prefills it at
+        its exact prompt length into a batch-1 stage cache, with its side
+        input, through the liveness gate and the boundary wire (so the
+        transport and the heartbeats see admissions; as in the reference,
+        an admission is not routed), and scatters the cache into its bank.
+        Returns (first token (1, 1), slot_tokens with the token in
+        ``slot``: a new tensor, the old one holds a recorded step)."""
+        batch = as_batch(batch, self._stage_device(0))
+        s, enc_len = batch["tokens"].shape[1], self._enc_len(batch)
+        x, enc_out = batch["tokens"], None
+        for k, (lo, hi) in enumerate(self.ranges):
+            self._pre_stage(k)
+            c1 = staging.init_stage_cache(self.cfg, lo, hi, 1, s,
+                                          device=self._stage_device(k),
+                                          enc_len=enc_len)
+            x, enc_out = self._prefill_stage(k, x, c1, batch, enc_out)
+            self._scatter(k, caches[k], c1, slot)
+            x = self._post_stage(k, x)
+        tok = x[0]
+        slot_tokens = slot_tokens.clone()
+        slot_tokens[slot] = tok[0].to(slot_tokens.device)
+        return tok, slot_tokens
+
+    def bank_step(self, slot_tokens, caches, bucket, inflight):
+        """The scheduler's batched decode step over the banks: the
+        sequential chain (also under ``overlap``).  A silent stage
+        confirmed DEAD mid-chain is restored, every in-flight request
+        (``inflight``, as ``_replay_into_banks`` takes it) replayed into
+        its slot, and the step retried.  Returns (tokens, logits,
+        caches)."""
+        while True:
+            try:
+                toks, logits = self._chain_decode(slot_tokens, caches,
+                                                  bucket)
+                return toks, logits, caches
+            except StageDown:
+                caches, slot_tokens = self.recover_and_replay(
+                    inflight, caches, slot_tokens)
+
+    def _replay_into_banks(self, stages, inflight, caches, slot_tokens):
+        """Re-create the banks of ``stages`` (whose executors just changed
+        nodes) and replay every in-flight request into its slot.
+
+        inflight: list of (slot, Request, n_emitted).  Each request is
+        replayed alone (prefill and its emitted decode steps on batch-1
+        caches: a row's tokens do not depend on its neighbours) and its
+        per-stage state is scattered back into every bank.  Returns
+        (caches, slot_tokens)."""
+        slots, enc_len = self._bank_shape
+        for k in stages:
+            lo, hi = self.ranges[k]
+            caches[k] = staging.init_stage_cache(
+                self.cfg, lo, hi, slots, self.max_len,
+                device=self._stage_device(k), enc_len=enc_len)
+        for slot, req, n_emitted in inflight:
+            batch = as_batch({"tokens": req.tokens, **(req.extras or {})},
+                             self._stage_device(0))
+            c1 = self._batch_caches(batch)
+            toks, _ = self._chain_prefill(batch, c1)
+            cur = req.tokens.shape[1]
+            for _ in range(n_emitted - 1):
+                toks, _ = self._chain_decode(toks, c1,
+                                             self.bucket_for(cur + 1))
+                cur += 1
+            for k in range(self.n_stages):
+                self._scatter(k, caches[k], c1[k], slot)
+            slot_tokens = slot_tokens.clone()
+            slot_tokens[slot] = toks[0].to(slot_tokens.device)
+        return caches, slot_tokens
+
+    def recover_and_replay(self, inflight, caches, slot_tokens):
+        """Scheduler-side recovery: restore the dead stages, re-create
+        their banks and replay every in-flight request into its slot (see
+        ``_replay_into_banks``)."""
+        dead = sorted(self.down)
+        for k in dead:
+            self.restore_stage(k)
+        caches, slot_tokens = self._replay_into_banks(dead, inflight, caches,
+                                                      slot_tokens)
+        self._note(f"replayed {len(inflight)} in-flight request(s) after "
+                   f"restoring stage(s) {dead}")
+        return caches, slot_tokens
+
+    def migrate_and_replay(self, stages, inflight, caches, slot_tokens):
+        """Scheduler-side counterpart of a live migration: the moved
+        stages' banks stayed with the vacated executors, so they are
+        re-created and every in-flight request is replayed into its slot
+        (see ``_replay_into_banks``)."""
+        stages = sorted(stages)
+        caches, slot_tokens = self._replay_into_banks(stages, inflight,
+                                                      caches, slot_tokens)
+        self._note(f"replayed {len(inflight)} in-flight request(s) after "
+                   f"migrating stage(s) {stages}")
+        return caches, slot_tokens
+
+    # -- timing helpers ------------------------------------------------------
+
+    def warmup(self, batch, gen_len: int) -> float:
+        """One throwaway ``generate`` (kernel builds, graph captures);
+        its wall seconds, ending in a device synchronise."""
+        t0 = time.perf_counter()
+        self.generate(batch, gen_len)
+        self._sync()
+        return time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def timed_decode(self, batch, steps: int) -> float:
+        """Steady-state decode seconds for ``steps`` tokens, the prefill
+        outside the clock and the clock stopped after a device
+        synchronise.  An overlap engine times the overlapped executor, the
+        path ``generate`` takes.  Warm up first."""
+        batch = as_batch(batch, self._stage_device(0))
+        prompt_len = batch["tokens"].shape[1]
+        self._check_fit(prompt_len, steps + 1)
+        cur = prompt_len
+        if self.overlap:
+            mbs = self._split_batch(
+                batch, self._resolve_micro(batch["tokens"].shape[0]))
+            toks, _, caches = self._overlap_prefill(mbs)
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                toks, _, caches = self._overlap_step(
+                    toks, caches, self.bucket_for(cur + 1))
+                cur += 1
+        else:
+            caches = self._batch_caches(batch)
+            toks, _ = self._chain_prefill(batch, caches)
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                toks, _ = self._chain_decode(toks, caches,
+                                             self.bucket_for(cur + 1))
+                cur += 1
+        self._sync()
+        return time.perf_counter() - t0

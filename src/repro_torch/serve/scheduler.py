@@ -36,8 +36,18 @@ bank's cross caches have one shape.
 Like the engine's, the decode loop never reads a device value (an
 admission's prefill reads its fresh cache's length once): the schedule
 depends only on the known prompt and generation lengths, and every token
-comes back to the host once, at the end.  Continuous batching across the stages of a
-``PipelineServeEngine`` is not ported yet; ``run`` refuses one.
+comes back to the host once, at the end.
+
+The same bookkeeping drives a ``PipelineServeEngine`` (continuous
+batching across its stages): the engine keeps a cache bank a stage
+(``slot_bank``), admits a request through every stage (``admit_slot``),
+steps the banks through its sequential chain (``bank_step``; also under
+``overlap``, where only the admissions are paced: ``admit_burst``), and
+after a stage kill or a live replan re-creates the moved stages' banks
+and replays every in-flight request into its slot (``recover_and_replay``,
+``migrate_and_replay``).  The schedule here is the same either way, so a
+pipelined stream is token-identical to the monolithic one; an idle slot's
+lengths go back to 0 in every stage's bank.
 
 A MoE model is refused (``MOE_REFUSAL``).  Expert capacity couples the
 rows of a batch: a row's entries compete with the others' for each
@@ -50,15 +60,17 @@ capacity differently again.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
-from repro_torch._tree import tree_map
 from repro_torch.models import decode_step, init_serve_cache, prefill
 
-from .engine import ServeEngine, as_batch
+from .banks import insert_slot, kill_specs, leaf_batch_axes, zero_lens
+from .engine import as_batch
+from .pipeline import PipelineServeEngine
 
 
 @dataclasses.dataclass
@@ -73,40 +85,11 @@ class Request:
     extras: dict | None = None
 
 
-def leaf_batch_axes(shapes):
-    """Per-leaf batch-axis index from a ``shapes(batch_size)`` callable
-    returning a cache tree: the one axis where a batch-1 and a batch-2
-    cache disagree."""
-    return tree_map(
-        lambda a, b: int(np.argmax(np.array(a.shape) != np.array(b.shape))),
-        shapes(1), shapes(2))
-
-
-def _insert_leaf(full, one, slot, b_ax):
-    """Scatter a single-request cache leaf into slot ``slot`` of the bank,
-    in place: ``one``'s full extent at offset 0 on every axis except the
-    batch axis (kv rows [0, S1), and per-slot state, conv buffers and
-    length counters whole)."""
-    src = one.select(b_ax, 0)
-    full.select(b_ax, slot)[tuple(slice(0, n) for n in src.shape)].copy_(
-        src)
-
-
 def _meta_batch(extras, b):
     """Side inputs shaped like ``extras`` (leading dim 1) for ``b`` rows,
     on the meta device: what sizes a cache."""
     return {k: torch.empty((b, *v.shape[1:]), device="meta")
             for k, v in extras.items()}
-
-
-def _zero_lens(cache, axes, slot):
-    """Every length counter of slot ``slot`` back to 0, in place (cross
-    caches have none)."""
-    for key, leaf in cache.items():
-        if isinstance(leaf, dict):
-            _zero_lens(leaf, axes[key], slot)
-        elif key == "len":
-            leaf.select(axes[key], slot).zero_()
 
 
 MOE_REFUSAL = (
@@ -119,7 +102,7 @@ MOE_REFUSAL = (
 
 class SlotScheduler:
     """Continuous batching: admit/evict requests into ``slots`` cache rows
-    of a monolithic ``ServeEngine``."""
+    of a ``ServeEngine`` or, a bank a stage, of a ``PipelineServeEngine``."""
 
     def __init__(self, engine, slots: int):
         if engine.cfg.family == "moe":
@@ -146,27 +129,48 @@ class SlotScheduler:
                               batch=batch, device=eng.device)
         logits, c1 = prefill(eng.cfg, eng.params, batch, c1)
         tok = logits.argmax(-1).int()
-        tree_map(lambda full, one, ax: _insert_leaf(full, one, slot, ax),
-                 cache, c1, self._batch_axes)
+        insert_slot(cache, c1, slot, self._batch_axes)
         slot_tokens = slot_tokens.clone()
         slot_tokens[slot] = tok[0]
         return tok, slot_tokens
 
+    def _reset_slot(self, cache, slot):
+        """An idle slot's lengths back to 0 (in every stage's bank)."""
+        if isinstance(self.engine, PipelineServeEngine):
+            self.engine.reset_slot(cache, slot)
+        else:
+            zero_lens(cache, self._batch_axes, slot)
+
     @torch.inference_mode()
-    def run(self, requests: list[Request], engine: str = "fast"):
+    def run(self, requests: list[Request], engine: str = "fast",
+            kill: dict | list | None = None, replan: dict | None = None):
         """Serve ``requests`` to completion; returns (streams, stats) with
         streams[i] the i-th request's np int32 greedy tokens (gen_len,).
 
-        ``engine="reference"`` serves each request alone through
-        ``ServeEngine.generate(..., engine="reference")``: the oracle the
-        slot path must match."""
+        ``engine="reference"`` serves each request alone (through
+        ``ServeEngine.generate(..., engine="reference")``, or the pipeline
+        engine's ``generate``): the oracle the slot path must match.
+
+        kill: a ``PipelineServeEngine``'s ``{"after_step": s, "stage":
+        k}`` or a list of such specs (``"replica"``: the copy node;
+        ``"silent"``: the primary goes dark for the heartbeat monitor to
+        find): stage ``k`` loses a copy once ``s`` batched decode steps
+        are done.  A copy with survivors costs no restore; a stage's last
+        copy is restored from its checkpoint and every in-flight request
+        replayed into its slot.
+
+        replan: a ``PipelineServeEngine``'s ``{"after_step": s,
+        "cluster": state, ...}`` (optional ``max_moves``, ``min_gain_s``,
+        ``allow_replicas``): after ``s`` batched decode steps,
+        ``replan_live`` runs and the in-flight requests are replayed into
+        the banks of the stages whose primary moved.  The streams equal an
+        undisturbed run's either way."""
         eng = self.engine
-        if not isinstance(eng, ServeEngine):
-            raise NotImplementedError(
-                "SlotScheduler over a pipeline engine is not ported yet; "
-                "give it a ServeEngine")
+        pipeline = isinstance(eng, PipelineServeEngine)
         if engine not in ("fast", "reference"):
             raise ValueError(engine)
+        if not pipeline and (kill is not None or replan is not None):
+            raise ValueError("kill and replan need a PipelineServeEngine")
         if not requests:
             return [], {"wall_s": 0.0, "decode_steps": 0,
                         "slot_utilization": 0.0}
@@ -183,19 +187,24 @@ class SlotScheduler:
 
         if engine == "reference":
             t0 = time.perf_counter()
-            streams = [eng.generate({"tokens": r.tokens, **(r.extras or {})},
-                                    r.gen_len, engine="reference")[0]
-                       for r in requests]
+            alone = (eng.generate if pipeline else functools.partial(
+                eng.generate, engine="reference"))
+            streams = [alone({"tokens": r.tokens, **(r.extras or {})},
+                             r.gen_len)[0] for r in requests]
             stats = {"wall_s": time.perf_counter() - t0, "decode_steps": 0,
                      "slot_utilization": 1.0}
             return streams, stats
 
         cfg, B = eng.cfg, self.slots
-        self._batch_axes = self._leaf_batch_axes(proto)
-        cache = init_serve_cache(cfg, B, eng.max_len, device=eng.device,
-                                 batch=_meta_batch(proto, B))
+        if pipeline:
+            cache = eng.slot_bank(B, proto)
+        else:
+            self._batch_axes = self._leaf_batch_axes(proto)
+            cache = init_serve_cache(cfg, B, eng.max_len, device=eng.device,
+                                     batch=_meta_batch(proto, B))
         slot_tokens = torch.zeros((B, 1), dtype=torch.int32,
                                   device=eng.device)
+        tel = getattr(eng, "telemetry", None)
 
         t0 = time.perf_counter()
         next_idx = 0
@@ -206,31 +215,79 @@ class SlotScheduler:
         step_toks: list[torch.Tensor] = []    # per-step (B, 1) tokens
         step_maps: list[dict[int, int]] = []  # per-step slot -> rid
         n_steps = busy = 0
+        kills = kill_specs(kill)
+        fired = [False] * len(kills)
+        replanned = False
+        burst = eng.admit_burst() if pipeline else None
+
+        def inflight():
+            return [(s, st[0], st[1]) for s, st in sorted(active.items())]
+
         while next_idx < len(requests) or active:
-            while free and next_idx < len(requests):
+            admitted = 0
+            while free and next_idx < len(requests) and (
+                    burst is None or admitted < burst):
                 r = requests[next_idx]
                 next_idx += 1
+                admitted += 1
                 slot = free.pop(0)
-                first_tok[r.rid], slot_tokens = self._admit(
-                    as_batch({"tokens": r.tokens, **(r.extras or {})},
-                             eng.device), cache, slot_tokens, slot)
+                batch = as_batch({"tokens": r.tokens, **(r.extras or {})},
+                                 eng.device)
+                admit = eng.admit_slot if pipeline else self._admit
+                first_tok[r.rid], slot_tokens = admit(batch, cache,
+                                                      slot_tokens, slot)
                 slot_len[slot] = r.tokens.shape[1]
                 if r.gen_len > 1:
                     active[slot] = [r, 1]
                 else:
                     free.append(slot)
                     free.sort()
+            if not all(fired):
+                # a copy dies once `after_step` batched decode steps are
+                # done (0: right after the first admissions); only a
+                # stage's last copy costs a restore, with every in-flight
+                # request replayed into its slot
+                hit = False
+                for i, spec in enumerate(kills):
+                    if not fired[i] and n_steps >= spec["after_step"]:
+                        fired[i] = hit = True
+                        if spec.get("silent"):
+                            eng.fail_silent(spec["stage"])
+                        else:
+                            eng.kill_stage(spec["stage"],
+                                           replica=spec.get("replica"))
+                if hit and eng.down:
+                    cache, slot_tokens = eng.recover_and_replay(
+                        inflight(), cache, slot_tokens)
+            if (replan is not None and not replanned
+                    and n_steps >= replan["after_step"]):
+                replanned = True
+                res = eng.replan_live(
+                    replan["cluster"],
+                    max_moves=replan.get("max_moves", 1),
+                    min_gain_s=replan.get("min_gain_s", 0.0),
+                    allow_replicas=replan.get("allow_replicas", False))
+                if res.migrated_stages:
+                    cache, slot_tokens = eng.migrate_and_replay(
+                        list(res.migrated_stages), inflight(), cache,
+                        slot_tokens)
             if not active:
                 continue
             for slot in range(B):     # an idle row about to write past the end
                 if slot not in active and slot_len[slot] >= eng.max_len:
-                    _zero_lens(cache, self._batch_axes, slot)
+                    self._reset_slot(cache, slot)
                     slot_len[slot] = 0
+            if tel is not None:
+                tel.record_queue_depth(len(active))
             bucket = eng.bucket_for(
                 int(max(slot_len[s] for s in active)) + 1)
-            logits, cache = decode_step(cfg, eng.params, slot_tokens, cache,
-                                        kv_bucket=bucket)
-            slot_tokens = logits.argmax(-1).int()
+            if pipeline:
+                slot_tokens, _, cache = eng.bank_step(slot_tokens, cache,
+                                                      bucket, inflight())
+            else:
+                logits, cache = decode_step(cfg, eng.params, slot_tokens,
+                                            cache, kv_bucket=bucket)
+                slot_tokens = logits.argmax(-1).int()
             slot_len += 1                  # every row writes, active or not
             n_steps += 1
             busy += len(active)
@@ -246,7 +303,8 @@ class SlotScheduler:
         # one host read: every step's tokens and every first token at once
         stacked = (torch.cat(step_toks, dim=1).cpu().numpy() if step_toks
                    else np.zeros((B, 0), np.int32))
-        firsts = torch.cat([first_tok[r.rid] for r in requests]).view(-1)
+        firsts = torch.cat([first_tok[r.rid].to(eng.device)
+                            for r in requests]).view(-1)
         firsts = firsts.cpu().numpy()
         streams = {r.rid: [int(firsts[i])] for i, r in enumerate(requests)}
         for i, m in enumerate(step_maps):

@@ -1221,3 +1221,125 @@ def test_fault_surface_on_card(cuda):
                                               "silent": True})
         np.testing.assert_array_equal(toks, calm)
         assert len(eng.detections) == 1 and eng.node_of_stage[1] == 9
+
+
+# ---------------------------------------------------------------------------
+# the overlapped executor's fused chain (CUDA graphs) and pipelined streams
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def granite_card(cuda):
+    cfg = get_config("granite-3-2b", "smoke").replace(n_layers=4)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    return cfg, tree_map(lambda t: t.to(cuda),
+                         init_params(cfg, gen, device="cpu"))
+
+
+@pytest.mark.parametrize("wire_bits", [0, 8])
+def test_fused_graphs_bit_identical_to_staged(granite_card, tmp_path,
+                                              wire_bits):
+    """The fused chain (one CUDA graph a micro-batch, replayed) against
+    the staged eager schedule (per-stage devices given): the same tokens
+    and every step's logits bit for bit, also each micro-batch against the
+    sequential chain serving its rows alone; a second generate replays
+    the same graphs (no new capture).  The kernel launch counts are the
+    launches that ran: a fused run (eager first steps, then replays; the
+    capture counts nothing) counts what the staged run counts."""
+    cfg, gpu = granite_card
+    plan = from_block_cuts(cfg, [1, 2, 3], spare_nodes=(90, 91),
+                           wire_bits=wire_bits)
+    batch = make_batch(cfg, 4, PROMPT, seed=5)
+    fused, staged = (PipelineServeEngine(
+        cfg, gpu, plan, max_len=PROMPT + GEN, kv_block=8, overlap=True,
+        micro_batches=2, devices=dev, ckpt_dir=tmp_path / str(i))
+        for i, dev in enumerate((None, ["cuda:0"] * 4)))
+
+    def counted(eng):
+        kernels.reset_launch_counts()
+        out = eng.generate(batch, GEN, collect_logits=True)
+        return out, kernels.launch_counts()
+
+    (ft, fl), f_counts = counted(fused)
+    n = fused.graph_captures
+    assert n >= 2 and fused._fused_ok() and not staged._fused_ok()
+    (st, sl), s_counts = counted(staged)
+    np.testing.assert_array_equal(ft, st)
+    assert fl.tobytes() == sl.tobytes()
+    assert f_counts == s_counts and f_counts["rows_matmul"] > 0
+    (again, al), again_counts = counted(fused)
+    assert fused.graph_captures == n and again_counts == s_counts
+    np.testing.assert_array_equal(again, ft)
+    assert al.tobytes() == fl.tobytes()
+    seq = PipelineServeEngine(cfg, gpu, plan, max_len=PROMPT + GEN,
+                              kv_block=8)
+    for rows in (slice(0, 2), slice(2, 4)):
+        t, lg = seq.generate({"tokens": batch["tokens"][rows]}, GEN,
+                             collect_logits=True)
+        np.testing.assert_array_equal(ft[rows], t)
+        assert fl[rows].tobytes() == lg.tobytes()
+
+
+def test_fused_graphs_recaptured_after_kill_and_migration(granite_card,
+                                                          tmp_path):
+    """A kill and restore, then a live migration, each swap a stage's
+    params: the graphs captured over the old params are dropped and
+    captured again, and the tokens stay the undisturbed run's."""
+    cfg, gpu = granite_card
+    eng = PipelineServeEngine(
+        cfg, gpu, from_block_cuts(cfg, [1, 2, 3], spare_nodes=(90, 91)),
+        max_len=PROMPT + GEN, kv_block=8, overlap=True, micro_batches=2,
+        ckpt_dir=tmp_path / "c")
+    batch = make_batch(cfg, 4, PROMPT, seed=6)
+    want = eng.generate(batch, GEN)
+    n = eng.graph_captures
+    toks = eng.generate(batch, GEN, kill={"after_step": 3, "stage": 1})
+    np.testing.assert_array_equal(toks, want)
+    assert eng.graph_captures == 2 * n
+    eng.migrate_stage(2)
+    assert not eng._graphs
+    np.testing.assert_array_equal(eng.generate(batch, GEN), want)
+    assert eng.graph_captures == 3 * n
+
+
+def test_pipelined_stream_bit_identical_on_card(granite_card):
+    """A stream through the pipeline engine's banks (4 slots, staggered,
+    a stage kill after step 3): each request's tokens and every decode
+    step's logits equal the monolithic stream's, bit for bit."""
+    cfg, gpu = granite_card
+    reqs = [scheduler.Request(i, make_batch(cfg, 1, pl, seed=40 + i)[
+        "tokens"], gl) for i, (pl, gl) in enumerate(
+            [(24, 6), (24, 4), (36, 7), (24, 5), (40, 3), (24, 6)])]
+    mono = ServeEngine(cfg, gpu, max_len=PROMPT + GEN, kv_block=8)
+    recorded, decode = [], scheduler.decode_step
+
+    def recording(*args, **kw):
+        logits, cache = decode(*args, **kw)
+        recorded.append(logits[:, 0].cpu())
+        return logits, cache
+
+    scheduler.decode_step = recording
+    try:
+        want, _ = scheduler.SlotScheduler(mono, 4).run(reqs)
+    finally:
+        scheduler.decode_step = decode
+    eng = PipelineServeEngine(cfg, gpu, from_block_cuts(
+        cfg, [2], spare_nodes=(9,)), max_len=PROMPT + GEN, kv_block=8)
+    got_logits, step = [], eng.bank_step
+
+    def stepped(*args):
+        toks, logits, caches = step(*args)
+        got_logits.append(logits[:, 0].cpu())
+        return toks, logits, caches
+
+    eng.bank_step = stepped
+    streams, _ = scheduler.SlotScheduler(eng, 4).run(reqs)
+    for a, b in zip(want, streams):
+        np.testing.assert_array_equal(a, b)
+    assert torch.stack(got_logits).numpy().tobytes() == \
+        torch.stack(recorded).numpy().tobytes()
+    del eng.bank_step
+    killed, _ = scheduler.SlotScheduler(eng, 4).run(
+        reqs, kill={"after_step": 3, "stage": 1})
+    for a, b in zip(want, killed):
+        np.testing.assert_array_equal(a, b)

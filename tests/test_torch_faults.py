@@ -81,7 +81,10 @@ def port_pipeline(sc, cfg, params):
     shape-priced plan over a uniform 200e6 cluster with one spare and a
     TelemetryStream on a step clock; wire and silent-kill cells with a
     transport (the cell's faults, 6 attempts) and a heartbeat monitor on
-    one fake clock."""
+    one fake clock; ``-overlap`` cells with the overlapped executor and
+    the cell's micro-batches."""
+    ov = sc.get("overlap") or {}
+    executor = {"overlap": bool(ov), "micro_batches": ov.get("micro_batches")}
     if sc.get("replan"):
         n_st = len(sc["cuts"]) + 1
         n = n_st + 2                     # dispatcher + stages + one spare
@@ -96,7 +99,8 @@ def port_pipeline(sc, cfg, params):
         return PipelineServeEngine(
             cfg, params, plan, max_len=sc["max_len"], kv_block=sc["kv_block"],
             cluster=cluster, telemetry=TelemetryStream(n_st,
-                                                       clock=_StepClock()))
+                                                       clock=_StepClock()),
+            **executor)
     plan = from_block_cuts(cfg, sc["cuts"], spare_nodes=(900, 901),
                            replicas=sc.get("replicas"))
     transport = monitor = None
@@ -113,7 +117,7 @@ def port_pipeline(sc, cfg, params):
                 monitor=monitor, clock=clk, sleep=clk.sleep)
     return PipelineServeEngine(cfg, params, plan, max_len=sc["max_len"],
                                kv_block=sc["kv_block"], transport=transport,
-                               monitor=monitor)
+                               monitor=monitor, **executor)
 
 
 def replan_arg(sc, peng):

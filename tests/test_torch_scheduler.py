@@ -4,7 +4,10 @@
   bit-identical to the same request served alone by the reference loop
   (``ServeEngine.generate(..., engine="reference")``), for granite, mamba2
   and zamba2 at their smoke configs, in bfloat16 and float32; also when a
-  freed slot is never reused while the other slot runs past ``max_len``.
+  freed slot is never reused while the other slot runs past ``max_len``;
+  a pipeline engine's stream equals the monolithic one (the launcher's
+  ``--stream --cuts`` too), and the launcher's overlapped pipeline prints
+  the sequential one's tokens.
 * Against the reference: the fixture's ``stream/<arch>`` scenarios
   (``tests/data/serve_equivalence.json``, captured under
   ``jax.threefry_partitionable(False)``) under the matching rule of
@@ -122,17 +125,23 @@ def test_leaf_batch_axes_are_behind_the_layer_axis():
     assert sorted(axes) == ["mamba", "shared"]
 
 
-def test_run_refuses_a_pipeline_engine():
+def test_run_serves_a_pipeline_engine():
+    """The pipeline engine's stream (a cache bank a stage) equals the
+    monolithic one; a request that does not fit is refused by both."""
     _, _, eng = port_engine("granite-3-2b")
     cfg = eng.cfg.replace(n_layers=2)
     peng = PipelineServeEngine(
         cfg, eng.params, core.from_block_cuts(cfg, [1], spare_nodes=(9,)),
         max_len=32, kv_block=16)
-    reqs = requests(cfg, [(8, 3)])
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        SlotScheduler(peng, slots=2).run(reqs)
-    with pytest.raises(ValueError, match="exceeds max_len"):
-        SlotScheduler(eng, slots=2).run(requests(cfg, [(30, 4)]))
+    reqs = requests(cfg, SCENARIOS["stream/granite-3-2b"]["requests"])
+    mono, mono_stats = SlotScheduler(eng, slots=2).run(reqs)
+    piped, stats = SlotScheduler(peng, slots=2).run(reqs)
+    assert stats["decode_steps"] == mono_stats["decode_steps"] == 14
+    for a, b in zip(mono, piped):
+        np.testing.assert_array_equal(a, b)
+    for e in (eng, peng):
+        with pytest.raises(ValueError, match="exceeds max_len"):
+            SlotScheduler(e, slots=2).run(requests(cfg, [(30, 4)]))
 
 
 # ---------------------------------------------------------------------------
@@ -222,5 +231,27 @@ def test_launcher_streams_on_the_cpu(capsys):
     ref = launch_serve.main(args + ["--engine", "reference"])
     for a, b in zip(fast, ref):
         np.testing.assert_array_equal(a, b)
+    # --stream with --cuts: the same stream through the pipeline engine
+    piped = launch_serve.main(args + ["--cuts", "1"])
+    assert "pipeline-sequential-raw, 2 stages" in capsys.readouterr().out
+    for a, b in zip(fast, piped):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_launcher_overlap_on_the_cpu(capsys):
+    """The overlapped pipeline (4 stages, 2 micro-batches in flight)
+    prints the token sample of the sequential one."""
+    args = ["--arch", "granite-3-2b", "--device", "cpu", "--layers", "4",
+            "--batch", "2", "--prompt-len", "8", "--gen-len", "5",
+            "--cuts", "1,2,3"]
+    seq = launch_serve.main(args)
+    over = launch_serve.main(args + ["--overlap", "--micro-batches", "2"])
+    out = capsys.readouterr().out
+    assert "[serve/pipeline-overlap-raw, 4 stages on one device, 2 " \
+        "micro-batch(es) in flight]" in out and "decode-only" in out
+    sample = [line.split("sample: ")[1] for line in out.splitlines()
+              if "sample: " in line]
+    assert len(sample) == 2 and sample[0] == sample[1]
+    np.testing.assert_array_equal(seq, over)
     with pytest.raises(SystemExit):
-        launch_serve.main(args + ["--cuts", "1"])
+        launch_serve.main(args[:-2] + ["--overlap"])     # needs --cuts
