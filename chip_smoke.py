@@ -194,12 +194,40 @@ Phases, in order; any failure exits non-zero before the result line:
    and nothing else (the standalone ``silu`` runs on no path; the router and
    the experts are plain matmuls, as in the reference).  Each model's
    peak device memory and the seconds of each of its phases are logged.
+5. planner_eval (host, numpy; the planner's modelled seconds, not card
+   times) — the SEIFER plan granite-3-2b's pipelines serve against the
+   paper's §6.1 baselines (the random algorithm's mean over seeds 0-9,
+   joint greedy) and the exact optimum of its boundary sizes, which may
+   not exceed SEIFER's bottleneck; the same on the paper's ResNet50 at 64
+   MB on the same cluster; ``plan_stages`` of the ten archs for the 2-pod
+   production cluster (the launcher's ``--plan``); ``evaluate_plans``
+   ranking the plans of ``rng`` 0-2 under a node fault of each of 4 seeds;
+6. emulated (host; modelled seconds of RPi-class nodes) — granite's
+   4-stage IR through ``emulate_plan``, and through the reference
+   ``PipelineEmulator`` with the node of stage 1 failing: every batch
+   completed and the stage rescheduled;
+7. chaos (the card) — ``run_campaign(0, 8)`` of ``repro_torch.chaos`` on
+   granite-3-2b at full width and 4 layers (3 stages, batch 2 x 12, 8
+   tokens), both halves, every case ok with exactly its prefills' and
+   steps' kernel launches (flash, ``rows_matmul`` and
+   ``decode_attention`` among them: none through a CPU tensor); a silent
+   kill found within ``dead_after_s + poll_s`` on the fake clock; the
+   forced exhausting schedule caught and shrunk to its six drops; one
+   case through the overlapped executor (the fused CUDA-graph chain for
+   its baseline, captured again after a restore, the baseline each row's
+   served alone); each case's wall, restores, detections and launches
+   are logged (``"chaos"`` in the JSON line).
+
+The whole script takes 10 to 15 minutes on one H100 80GB HBM3 at 700 W:
+the kernels' build about 26 s, phases 5-7 about 10 s, the rest the main
+paths (their host walls vary by up to a half between runs).
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``; the streams', the
-serving phases', the fault runs' (``"faults"``) and the pipelined streams'
-and overlapped runs' numbers (``"pipelined"``) are on a JSON line before
-them.  A record's
+serving phases', the fault runs' (``"faults"``), the pipelined streams'
+and overlapped runs' numbers (``"pipelined"``) and phases 5-7's
+(``"planner_eval"``, ``"emulated"``, ``"chaos"``) are on a JSON line
+before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the six pipelined models; ``launches_by_path`` holds the count from each
@@ -234,6 +262,7 @@ LONG_PROMPT = 4096      # flash and the SSD scan alone, B=1
 COLD_BYTES = 100e6      # copies a cold timing rotates over, in total
 SCALE_TOL = 2 ** -6     # scaled_check: of the largest output
 KILL = {"after_step": 3, "stage": 1}
+PLAN_RNG = 8            # the planner's seed for the served pipelines
 # served pipelined as well as monolithic: planned by the planner, or cut
 # at CUTS (group-aligned cuts: the planner is not group-aware); the VLM at
 # a group boundary, deepseek-v3 at block 1 (the fixture cell's cut: the
@@ -2110,6 +2139,24 @@ def host_available():
     raise SystemExit("no MemAvailable in /proc/meminfo")
 
 
+def edge_instance(cfg, prompt=PROMPT):
+    """What the planner plans a pipelined model with: its block graph at
+    a prefill of BATCH x ``prompt``, the 10-node edge cluster and the
+    stage capacity (a 3.5th of the params, at least 1.2 times the largest
+    segment)."""
+    from repro_torch.core import lm_block_graph, random_geometric_cluster
+    from repro_torch.models.config import ShapeConfig
+    graph = lm_block_graph(cfg, ShapeConfig("serve", prompt, BATCH,
+                                            "prefill"))
+    cluster = random_geometric_cluster(10, rng=7)
+    pts = graph.candidate_partition_points()
+    segs = graph.segment_layers(pts)
+    min_cap = max(graph.run_memory_bytes(pts, segs, i, i)
+                  for i in range(len(pts)))
+    return graph, cluster, max(graph.total_param_bytes() / 3.5,
+                               min_cap * 1.2)
+
+
 def kill_specs(ranges):
     """KILL: stage 1 dies after decode step 3.  Where stage 1 holds no
     block (whisper: the planner's cuts fall inside the encoder's layers),
@@ -2133,11 +2180,8 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
     the stage count, each counted run's (prefills, decode steps, aborted
     blocks), the fault surface's numbers and the streams' and overlapped
     runs' numbers."""
-    from repro_torch.core import (from_block_cuts, lm_block_graph,
-                                  partition_and_place,
-                                  random_geometric_cluster)
+    from repro_torch.core import from_block_cuts, partition_and_place
     from repro_torch._tree import tree_leaves
-    from repro_torch.models.config import ShapeConfig
     from repro_torch.models.staging import stage_granularity
     from repro_torch.serve.pipeline import PipelineServeEngine
 
@@ -2149,15 +2193,9 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         log(f"  cut at blocks {cuts} (group-aligned: stage granularity "
             f"{stage_granularity(cfg)})")
     else:
-        graph = lm_block_graph(cfg, ShapeConfig("serve", prompt, BATCH,
-                                                "prefill"))
-        cluster = random_geometric_cluster(10, rng=7)
-        pts = graph.candidate_partition_points()
-        segs = graph.segment_layers(pts)
-        min_cap = max(graph.run_memory_bytes(pts, segs, i, i)
-                      for i in range(len(pts)))
-        cap = max(graph.total_param_bytes() / 3.5, min_cap * 1.2)
-        plan = partition_and_place(graph, cluster, cap, n_classes=3, rng=8)
+        graph, cluster, cap = edge_instance(cfg, prompt)
+        plan = partition_and_place(graph, cluster, cap, n_classes=3,
+                                   rng=PLAN_RNG)
         ep_raw = plan.execution_plan(cluster, wire_bits=0, arch=cfg.name)
         ep_int8 = plan.execution_plan(cluster, wire_bits=8, arch=cfg.name)
         log(plan.describe())
@@ -2835,6 +2873,383 @@ def fault_runs(torch, eng, batch, toks_mono, cluster, ranges, timed,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: the paper's evaluation surface
+# ---------------------------------------------------------------------------
+
+PLANNER_ARCH = "granite-3-2b"     # the planner's and the emulator's model
+RANDOM_SEEDS = range(10)          # random_algorithm's draws
+EVAL_PLAN_RNGS = range(3)         # the plans evaluate_plans ranks
+EVAL_FAULT_SEEDS = (0, 1, 2, 3)
+EMU_BATCHES = 20                  # the emulated runs' batches
+EMU_FAULT_AT_S = 5.0              # the emulated node failure (modelled s)
+CHAOS_ARCH = "granite-3-2b"
+CHAOS_CASES = 8
+# a silent kill besides the campaign's (seed 0 draws none): the detection
+FORCED_SILENT = {"after_step": 2, "stage": 1, "silent": True}
+# six drops of one frame defeat the 6-attempt retry policy; the dup and
+# the reorder are incidental and must shrink away
+FORCED_WIRE = tuple([("drop", 0, 1)] * 6) + (("dup", 1, 2), ("reorder", 0, 4))
+
+
+def baseline_rows(graph, cluster, cap, plan):
+    """SEIFER's bottleneck beside the §6.1 baselines on one instance: the
+    random algorithm's mean over RANDOM_SEEDS (seeds whose draw needs more
+    nodes than the cluster has are counted, not averaged), joint greedy
+    (or why it found no plan), and the exact optimum of the plan's
+    boundary sizes.  All are the planner's modelled seconds."""
+    import numpy as np
+    from repro_torch.core import (PartitionInfeasible,
+                                  exact_optimal_bottleneck, joint_greedy,
+                                  random_algorithm)
+    rand, infeasible = [], 0
+    for s in RANDOM_SEEDS:
+        try:
+            rand.append(random_algorithm(graph, cluster, cap,
+                                         rng=s).bottleneck_s)
+        except PartitionInfeasible:
+            infeasible += 1
+    try:
+        joint = joint_greedy(graph, cluster, cap).bottleneck_s
+    except PartitionInfeasible as e:
+        joint = f"infeasible: {e}"
+    row = {"seifer_s": plan.bottleneck_s,
+           "random_mean_s": float(np.mean(rand)) if rand else None,
+           "random_feasible": len(rand), "random_infeasible": infeasible,
+           "joint_greedy_s": joint,
+           "optimum_s": exact_optimal_bottleneck(
+               plan.partition.boundary_sizes, cluster)}
+    row["seifer_over_optimum"] = row["seifer_s"] / row["optimum_s"]
+    if rand:
+        row["random_over_seifer"] = row["random_mean_s"] / row["seifer_s"]
+    if not isinstance(joint, str):
+        row["joint_over_seifer"] = joint / row["seifer_s"]
+    return row
+
+
+def planner_eval():
+    """Phase 5 (host, numpy): the SEIFER plan of full-width granite-3-2b
+    that the main path serves, against the random algorithm, joint greedy
+    and the exact optimum, and the same on the paper's ResNet50 at 64 MB
+    on the same cluster; ``plan_stages`` of every ported arch for the
+    2-pod production cluster (the launcher's ``--plan``); and
+    ``evaluate_plans`` ranking the plans of EVAL_PLAN_RNGS under a node
+    fault of each of EVAL_FAULT_SEEDS.  The optimum may not exceed
+    SEIFER's bottleneck (it is the minimum over every placement); the
+    rest is printed.  Every number is a modelled estimate of the
+    planner's or the emulator's, not a card time."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.paper_cnns import PAPER_MODELS
+    from repro_torch.core import (partition_and_place, plan_stages,
+                                  tpu_cluster)
+    from repro_torch.core.api import evaluate_plans
+    from repro_torch.emulator import RandomNodeFaults
+    from repro_torch.models.config import SHAPES
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config(PLANNER_ARCH, "full")
+    graph, cluster, cap = edge_instance(cfg)
+    plan = partition_and_place(graph, cluster, cap, n_classes=3,
+                               rng=PLAN_RNG)
+    resnet = PAPER_MODELS["ResNet50"]()
+    for name, (g, c) in {PLANNER_ARCH: (graph, cap),
+                         "ResNet50@64MB": (resnet, 64e6)}.items():
+        p = plan if g is graph else partition_and_place(
+            g, cluster, c, n_classes=3, rng=PLAN_RNG)
+        row = out[name] = baseline_rows(g, cluster, c, p)
+        log(f"  {name} on random_geometric_cluster(10, rng=7), "
+            f"{len(p.partition.runs)} runs (modelled s): {row}")
+        if not row["optimum_s"] <= row["seifer_s"] * (1 + 1e-9):
+            raise SystemExit(f"[planner_eval] {name}: the exact optimum "
+                             f"{row['optimum_s']} exceeds SEIFER's "
+                             f"bottleneck {row['seifer_s']}")
+    stages = {}
+    for arch in ARCH_IDS:
+        sp = plan_stages(get_config(arch, "full"), SHAPES["prefill_32k"],
+                         cluster=tpu_cluster(n_pods=2, slots_per_pod=8),
+                         hbm_per_stage_bytes=16e9 * 32)
+        stages[arch] = {"n_stages": sp.n_stages, "cut_after": sp.cut_after,
+                        "bottleneck_s": sp.plan.bottleneck_s}
+    out["plan_stages"] = stages
+    log("  plan_stages at prefill_32k, 512 GB a stage, 2 pods of 8: "
+        + ", ".join(f"{a} {v['n_stages']}" for a, v in stages.items()))
+    plans = [partition_and_place(graph, cluster, cap, n_classes=3, rng=r)
+             for r in EVAL_PLAN_RNGS]
+    rows = evaluate_plans(plans, cluster, seeds=EVAL_FAULT_SEEDS,
+                          n_batches=EMU_BATCHES,
+                          fault_model=RandomNodeFaults(n_faults=1,
+                                                       window_s=(5.0, 30.0)))
+    out["evaluate_plans"] = [
+        {k: v for k, v in r.items() if k not in ("plan", "cells")}
+        for r in rows]
+    for r in out["evaluate_plans"]:
+        log(f"  evaluate_plans (modelled): {r}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  planner_eval took {out['seconds']:.2f}s")
+    return out
+
+
+def emulated():
+    """Phase 6 (host): the stage-execution IR the granite raw-wire
+    pipeline serves (the planner's 4 stages) through the emulator:
+    ``emulate_plan`` fault-free, then the reference ``PipelineEmulator``
+    with the node of stage KILL["stage"] failing at EMU_FAULT_AT_S (the
+    emulator's RPi-class nodes: modelled seconds).  Every batch must
+    complete and the stage must be rescheduled."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import partition_and_place
+    from repro_torch.emulator import (FaultInjector, NodeFault,
+                                      PipelineEmulator, emulate_plan)
+    t0 = time.perf_counter()
+    cfg = get_config(PLANNER_ARCH, "full")
+    graph, cluster, cap = edge_instance(cfg)
+    ep = partition_and_place(graph, cluster, cap, n_classes=3,
+                             rng=PLAN_RNG).execution_plan(
+        cluster, wire_bits=0, arch=cfg.name)
+    node = ep.stages[KILL["stage"]].node
+    free = emulate_plan(ep, cluster, n_batches=EMU_BATCHES)
+    emu = PipelineEmulator(cluster, *ep.emulator_args())
+    FaultInjector(emu).schedule([NodeFault(EMU_FAULT_AT_S, node)])
+    faulty = emu.run(EMU_BATCHES, 1e9)
+    keys = ("completed", "throughput_hz", "mean_e2e_s", "p95_e2e_s")
+    out = {"nodes": ep.nodes, "killed_node": node,
+           "fault_free": {k: free[k] for k in keys},
+           "node_fault": {k: faulty[k] for k in keys},
+           "events": [(t, m) for t, m in faulty["events"]]}
+    log(f"  {cfg.name}: {ep.n_stages} stages on nodes {ep.nodes}; "
+        f"fault-free {out['fault_free']}; node {node} (stage "
+        f"{KILL['stage']}) failing at {EMU_FAULT_AT_S:g}s "
+        f"{out['node_fault']} (modelled)")
+    for t, m in out["events"]:
+        log(f"    t={t:9.2f}s  {m}")
+    rescheduled = any("rescheduled" in m for _, m in faulty["events"])
+    if (free["completed"] != EMU_BATCHES
+            or faulty["completed"] != EMU_BATCHES or not rescheduled):
+        raise SystemExit(f"[emulated] {free['completed']} and "
+                         f"{faulty['completed']} of {EMU_BATCHES} batches "
+                         f"completed; rescheduled: {rescheduled}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def chaos_launches(cfg, ranges, kill, micro=1):
+    """What one chaos case launches (``expected_launches``): a prefill and
+    GEN_LEN - 1 decode steps a micro-batch, and for a kill after step s
+    the replay's prefill and s steps; a silent kill also the blocks before
+    the dead stage, computed in the step it was found in.  None for a
+    silent kill under overlap (the skewed schedule's aborted tick)."""
+    from repro_torch.chaos.campaign import GEN_LEN
+    prefills, steps, aborted = 1, GEN_LEN - 1, 0
+    if kill is not None:
+        if kill.get("silent") and micro > 1:
+            return None
+        prefills, steps = 2, GEN_LEN - 1 + kill["after_step"]
+        if kill.get("silent"):
+            aborted = ranges[kill["stage"]][0]
+    return expected_launches(cfg, len(ranges), "chaos", micro * steps,
+                             micro * prefills, aborted)
+
+
+def on_card(torch, harness):
+    """Every param and batch tensor of ``harness`` on the card."""
+    from repro_torch._tree import tree_leaves
+    eng = harness.eng
+    leaves = [t for sp in eng.stage_params for t in tree_leaves(sp)]
+    return all(t.is_cuda for t in leaves + list(harness.batch.values()))
+
+
+def chaos(torch):
+    """Phase 7 (the card): the chaos campaign's serving half on the port.
+    ``run_campaign(0, CHAOS_CASES)`` on full-width granite-3-2b at 4
+    layers, both halves, every case ok; then a silent kill (the detection
+    within ``dead_after_s + poll_s`` on the fake clock); each case's
+    launches exactly what its prefills and steps run (so none went through
+    a CPU tensor), flash, ``rows_matmul`` and ``decode_attention`` among
+    them.  One case through the overlapped executor: its baseline on the
+    fused CUDA-graph chain, the case on the staged schedule (its wire
+    observes the stages), then, the wire detached, a kill of stage 1 whose
+    restore drops the graphs and captures them again; its baseline each
+    row's tokens served alone by the sequential chain (the executor's
+    contract).  The forced exhausting schedule must fail and shrink to
+    exactly its six drops."""
+    from repro_torch import kernels
+    from repro_torch.chaos import (ChaosCase, ChaosHarness,
+                                   generate_campaign, run_campaign,
+                                   shrink_case)
+    from repro_torch.chaos.campaign import GEN_LEN, case_fails
+
+    out = {"arch": CHAOS_ARCH, "cases": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(
+            prefix="chip-smoke-chaos-",
+            dir=CKPT_ROOT if CKPT_ROOT.is_dir() else None) as tmp:
+        t0 = time.perf_counter()
+        h = ChaosHarness(CHAOS_ARCH, seed=0, preset="full", device=DEVICE,
+                         ckpt_dir=Path(tmp) / "sequential")
+        torch.cuda.synchronize()
+        eng = h.eng
+        cfg = eng.cfg
+        out["harness_s"] = time.perf_counter() - t0
+        out["baseline"] = h.baseline
+        log(f"  harness: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} "
+            f"layers, stages {eng.ranges} on nodes {eng.node_of_stage}, "
+            f"spares {eng.spares}; batch {tuple(h.batch['tokens'].shape)}, "
+            f"{GEN_LEN} tokens; built with its baseline in "
+            f"{out['harness_s']:.2f}s; on the card: {on_card(torch, h)}")
+        if not on_card(torch, h):
+            raise SystemExit("[chaos] the harness holds CPU tensors")
+        cases = {c.cid: c for c in generate_campaign(0, CHAOS_CASES)}
+        cases["silent"] = ChaosCase(cid="silent", kill=FORCED_SILENT)
+        serve_s = clocked(torch, h, "run_case")
+        state = {"t": time.perf_counter(), "events": len(eng.events)}
+
+        def case_log(msg, cid=None):
+            torch.cuda.synchronize()
+            cid = cid or msg.split(":")[0]
+            got = kernels.launch_counts()
+            kernels.reset_launch_counts()
+            msgs = [m for _, m in eng.events[state["events"]:]]
+            state["events"] = len(eng.events)
+            tr = eng.transport
+            want = chaos_launches(cfg, eng.ranges, cases[cid].kill)
+            rec = {"verdict": msg, "wall_s": time.perf_counter() - state["t"],
+                   "serve_s": serve_s[-1],
+                   "restores": sum("restored from checkpoint" in m
+                                   for m in msgs),
+                   "detections": list(eng.detections),
+                   "retransmits": tr.total("retransmits"),
+                   "launches": got, "launches_exact": got == want}
+            state["t"] = time.perf_counter()
+            out["cases"][cid] = rec
+            log(f"  [{cid}] {msg}; {rec['wall_s']:.3f}s ({rec['serve_s']:.3f}"
+                f"s serving); restores {rec['restores']}, detections "
+                f"{rec['detections']}, retransmits {rec['retransmits']}; "
+                f"launches {got}, exactly its prefills' and steps': "
+                f"{rec['launches_exact']}")
+            if want != got:
+                log(f"    expected {want}")
+
+        kernels.reset_launch_counts()
+        report = run_campaign(0, CHAOS_CASES, arch=CHAOS_ARCH,
+                              preset="full", device=DEVICE, harness=h,
+                              log=case_log)
+        log("  " + report.summary().replace("\n", "\n  "))
+        fails = h.run_case(cases["silent"])
+        case_log(f"silent: {'ok' if not fails else 'FAIL'} {fails}",
+                 "silent")
+        stage, latency = (eng.detections or [(None, math.inf)])[-1]
+        bound = eng.monitor.dead_after_s + eng.monitor.poll_s
+        out["silent"] = {"stage": stage, "detection_s": latency,
+                         "bound_s": bound, "failures": fails}
+        log(f"  silent kill of stage {FORCED_SILENT['stage']}: found dead "
+            f"(stage {stage}) after {latency:g}s of silence on the fake "
+            f"clock (bound {bound:g}s)")
+        del h.run_case
+
+        t0 = time.perf_counter()
+        bad = ChaosCase(cid="forced", wire=FORCED_WIRE)
+        probes = []
+
+        def fails_forced(c):
+            probes.append(len(c.wire))
+            return case_fails(h, c, emulator=False)
+
+        caught = fails_forced(bad)
+        small = shrink_case(bad, fails_forced) if caught else bad
+        kernels.reset_launch_counts()
+        out["forced"] = {"caught": caught, "shrunk_to": list(small.wire),
+                         "probes": len(probes),
+                         "seconds": time.perf_counter() - t0}
+        log(f"  forced exhausting schedule {list(FORCED_WIRE)}: caught "
+            f"{caught}, shrunk in {len(probes)} probes "
+            f"({out['forced']['seconds']:.2f}s) to {list(small.wire)}, "
+            f"kill {small.kill}, emu {list(small.emu)}")
+        # the overlapped executor's contract: each micro-batch (a row
+        # here) the sequential chain serving its rows alone
+        eng.attach_wire(None, None)
+        rows = h.batch["tokens"].shape[0]
+        alone = [eng.generate({k: v[r:r + 1] for k, v in h.batch.items()},
+                              GEN_LEN).tolist()[0] for r in range(rows)]
+        del h, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ov = ChaosHarness(CHAOS_ARCH, seed=0, preset="full", device=DEVICE,
+                          overlap=True, ckpt_dir=Path(tmp) / "overlap")
+        torch.cuda.synchronize()
+        ovs = {"harness_s": time.perf_counter() - t0,
+               "baseline_captures": ov.eng.graph_captures,
+               "micro_batches": ov.eng.micro_batches}
+        case = next(iter(cases.values()))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ovs["failures"] = ov.run_case(case)
+        torch.cuda.synchronize()
+        ovs["case_s"] = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        want = chaos_launches(ov.eng.cfg, ov.eng.ranges, case.kill, 2)
+        ovs["launches"] = got
+        ovs["launches_exact"] = want is None or got == want
+        ov.eng.attach_wire(None, None)
+        before = ov.eng.graph_captures
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = ov.eng.generate(ov.batch, GEN_LEN, kill=dict(KILL))
+        torch.cuda.synchronize()
+        ovs["fused_kill_s"] = time.perf_counter() - t0
+        fused = kernels.launch_counts()
+        ovs["fused_kill_launches"] = fused
+        ovs["fused_kill_exact"] = fused == chaos_launches(
+            ov.eng.cfg, ov.eng.ranges, KILL, 2)
+        ovs["recaptures"] = ov.eng.graph_captures - before
+        ovs["fused_kill_tokens_equal"] = toks.tolist() == ov.baseline
+        ovs["baseline_rows_alone"] = ov.baseline == alone
+        ovs["baseline_equal_batch"] = ov.baseline == out["baseline"]
+        out["overlap"] = ovs
+        log(f"  overlapped ({ovs['micro_batches']} micro-batches): baseline "
+            f"on the fused chain, {ovs['baseline_captures']} graph(s) "
+            f"captured; [{case.cid}] on the staged schedule "
+            f"{ovs['failures'] or 'ok'} in {ovs['case_s']:.3f}s, launches "
+            f"{got} (exact: {ovs['launches_exact']}); wire detached, stage "
+            f"{KILL['stage']} killed after step {KILL['after_step']}: "
+            f"{ovs['recaptures']} graph(s) captured again, tokens the "
+            f"baseline's {ovs['fused_kill_tokens_equal']}, launches exact "
+            f"{ovs['fused_kill_exact']} ({ovs['fused_kill_s']:.3f}s); the "
+            f"baseline each row's served alone by the sequential chain: "
+            f"{ovs['baseline_rows_alone']}, the 2-row batch's (not "
+            f"required: a prefill GEMM's bits may depend on its rows): "
+            f"{ovs['baseline_equal_batch']}")
+        del ov
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  chaos took {out['seconds']:.1f}s")
+
+    bad_cases = [cid for cid, r in out["cases"].items()
+                 if not r["verdict"].split(": ")[1].startswith("ok")
+                 or not r["launches_exact"]
+                 or not all(r["launches"][k] for k in (
+                     "flash_attention", "rows_matmul", "decode_attention"))]
+    if not report.ok or bad_cases:
+        raise SystemExit(f"[chaos] cases failed: {bad_cases}")
+    sil = out["silent"]
+    if (sil["failures"] or sil["stage"] != FORCED_SILENT["stage"]
+            or not sil["detection_s"] <= sil["bound_s"]):
+        raise SystemExit(f"[chaos] the silent kill: {sil}")
+    if not caught or small.kill is not None or small.emu != () \
+            or list(small.wire) != [("drop", 0, 1)] * 6:
+        raise SystemExit(f"[chaos] the forced case: {out['forced']}")
+    if (ovs["failures"] or not ovs["launches_exact"]
+            or not ovs["baseline_captures"] or not ovs["recaptures"]
+            or not ovs["fused_kill_tokens_equal"]
+            or not ovs["fused_kill_exact"]
+            or not ovs["baseline_rows_alone"]):
+        raise SystemExit(f"[chaos] the overlapped case: {ovs}")
+    return out
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2928,6 +3343,16 @@ def main(argv=None) -> int:
         timings[arch]["seconds"] = time.perf_counter() - t0
         log(f"-- {arch} took {timings[arch]['seconds']:.1f}s; peak device "
             f"memory by run (GB): {timings[arch]['peak_gb']}")
+    log("== 5. the planner against the paper's baselines (host; modelled "
+        "seconds)")
+    evaluation = {"planner_eval": planner_eval()}
+    log("== 6. the emulator on the served pipeline's plan (host; modelled "
+        "seconds)")
+    evaluation["emulated"] = emulated()
+    log("== 7. the chaos campaign's serving half on the card")
+    evaluation["chaos"] = chaos(torch)
+    for cid, rec in evaluation["chaos"]["cases"].items():
+        by_path[f"{CHAOS_ARCH}/chaos_{cid}"] = rec["launches"]
     for r in records:
         r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
                             for a in PIPELINED)
@@ -2951,7 +3376,7 @@ def main(argv=None) -> int:
     log(f"  the pipelined streams and the overlapped executor took "
         f"{sum(p['seconds'] for p in pipelined.values()):.1f}s in all")
     log(json.dumps({"streams": streams, "serving": timings,
-                    "faults": faults, "pipelined": pipelined}))
+                    "faults": faults, "pipelined": pipelined, **evaluation}))
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))

@@ -3,6 +3,8 @@ latency and place them on an edge cluster (numpy; a copy of the reference
 planner, so plans are bit-identical to it)."""
 
 from .api import SeiferPlan, partition_and_place
+from .baselines import (BaselineResult, exact_optimal_bottleneck,
+                        joint_greedy, random_algorithm)
 from .bottleneck import (DEFAULT_COMPRESSION, PlanEvaluation,
                          bottleneck_latency, evaluate, theorem1_bound,
                          transfer_latencies)
@@ -15,7 +17,7 @@ from .partitioner import (NotPartitionable, PartitionInfeasible,
                           PartitionPlan, build_partition_graph,
                           min_cost_path_reference, optimal_partitions,
                           transfer_sizes)
-from .pipeline import lm_block_graph
+from .pipeline import StagePlan, lm_block_graph, plan_stages
 from .placement import (PlacementInfeasible, PlacementResult, classify,
                         kpath_matching, place_with_retry,
                         replicate_bottlenecks, subgraph_k_path,
@@ -27,6 +29,8 @@ from .stageplan import (BoundarySpec, StageExecutionPlan, StageSpec,
 
 __all__ = [
     "SeiferPlan", "partition_and_place",
+    "BaselineResult", "exact_optimal_bottleneck", "joint_greedy",
+    "random_algorithm",
     "DEFAULT_COMPRESSION", "PlanEvaluation", "bottleneck_latency", "evaluate",
     "theorem1_bound", "transfer_latencies",
     "ClusterGraph", "blob_cluster", "grid_cluster",
@@ -36,7 +40,7 @@ __all__ = [
     "find_k_path", "replay_infeasible",
     "NotPartitionable", "PartitionInfeasible", "PartitionPlan",
     "build_partition_graph", "min_cost_path_reference", "optimal_partitions",
-    "transfer_sizes", "lm_block_graph",
+    "transfer_sizes", "StagePlan", "lm_block_graph", "plan_stages",
     "PlacementInfeasible", "PlacementResult", "classify", "kpath_matching",
     "place_with_retry", "replicate_bottlenecks", "subgraph_k_path",
     "subgraph_k_path_reference",

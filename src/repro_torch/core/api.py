@@ -88,3 +88,26 @@ def partition_and_place(graph: LayerGraph, cluster: ClusterGraph,
                                  basis=plan.candidate_sizes)
     return SeiferPlan(partition=plan, placement=placement)
 
+
+def evaluate_plans(plans: list[SeiferPlan], cluster: ClusterGraph, *,
+                   seeds=(0, 1, 2, 3), arrival_rates=(None,),
+                   n_batches: int = 500, duration_s: float = 1e9,
+                   fault_model=None, cfg=None) -> list[dict]:
+    """Monte-Carlo plan evaluation on the fast emulator engines.
+
+    Runs every candidate plan through a (fault-seed x arrival-rate) sweep
+    (``repro_torch.emulator.sweep``) and returns one row per plan —
+    ``{"plan", "plan_index", aggregate metrics..., "cells"}`` — ranked
+    best-first by (completion rate, then worst-case p95 E2E).  Use it to
+    pick between plans the analytic bottleneck cannot separate: behavior
+    under load, faults, and recovery."""
+    from repro_torch.emulator.sweep import aggregate, sweep_plan
+    rows = []
+    for idx, plan in enumerate(plans):
+        cells = sweep_plan(plan, cluster, cfg=cfg, seeds=seeds,
+                           arrival_rates=arrival_rates, n_batches=n_batches,
+                           duration_s=duration_s, fault_model=fault_model)
+        rows.append({"plan": plan, "plan_index": idx,
+                     **aggregate(cells, n_batches), "cells": cells})
+    rows.sort(key=lambda r: (-r["completion_rate"], r["p95_e2e_s_worst"]))
+    return rows

@@ -1,15 +1,21 @@
-"""The LM block graph the SEIFER planner partitions: one ``Layer`` per
-transformer block, sized from a ``ModelConfig`` and a serve/train shape.
+"""The paper's technique applied to an LM: the block graph the SEIFER
+planner partitions (one ``Layer`` per transformer block, sized from a
+``ModelConfig`` and a serve/train shape), and ``plan_stages``, which
+partitions it into pipeline stages with Algorithm 1 and places them on a
+cluster graph with Algorithm 3.
 
-Copied from the reference planner's ``core/pipeline.py`` (``_block_params``
-and ``lm_block_graph`` only): plans must stay bit-identical to the
-reference's, so the arithmetic is unchanged.
+Copied from the reference planner's ``core/pipeline.py``: plans must stay
+bit-identical to the reference's, so the arithmetic is unchanged.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
+from .api import SeiferPlan, partition_and_place
+from .cluster import ClusterGraph, tpu_cluster
 from .graph import Layer, LayerGraph
 
 
@@ -108,3 +114,50 @@ def lm_block_graph(cfg: ModelConfig, shape: ShapeConfig,
                              cfg.vocab * cfg.d_model * bytes_per_param),
                 work_bytes=work), [prev])
     return g
+
+
+@dataclass
+class StagePlan:
+    """Pipeline-stage assignment produced by the paper's algorithms."""
+    plan: SeiferPlan
+    n_stages: int
+    stage_of_block: dict        # block name -> stage index
+    boundary_bytes: list        # compressed transfer at each stage boundary
+    cut_after: list             # block names after which the cuts fall
+    cfg: ModelConfig | None = None
+    cluster: ClusterGraph | None = None
+
+    def describe(self) -> str:
+        return self.plan.describe()
+
+    def execution_plan(self, *, wire_bits: int = 0):
+        """Emit the stage-execution IR (``repro_torch.core.stageplan``): the
+        object ``PipelineServeEngine`` and ``emulate_plan`` accept."""
+        return self.plan.execution_plan(
+            self.cluster, wire_bits=wire_bits,
+            arch=self.cfg.name if self.cfg is not None else None)
+
+
+def plan_stages(cfg: ModelConfig, shape: ShapeConfig,
+                cluster: ClusterGraph | None = None,
+                hbm_per_stage_bytes: float = 16 * 8 * 1e9,
+                n_classes: int = 3, lam: float = 2.0,
+                rng=0) -> StagePlan:
+    """Partition an architecture into stages (Algorithm 1, kappa = per-stage
+    HBM budget) and place them on the TPU cluster graph (Algorithm 3).
+
+    lam=2.0: int8 boundary compression vs bf16 — the TPU lambda."""
+    cluster = cluster or tpu_cluster()
+    g = lm_block_graph(cfg, shape)
+    plan = partition_and_place(g, cluster, hbm_per_stage_bytes,
+                               n_classes=n_classes, rng=rng, lam=lam)
+    stage_of = {}
+    for si, layers in enumerate(plan.partition.partition_layers):
+        for name in layers:
+            stage_of[name] = si
+    cut_after = [plan.partition.points[j] for (_, j)
+                 in plan.partition.runs[:-1]]
+    return StagePlan(plan=plan, n_stages=plan.partition.n_partitions,
+                     stage_of_block=stage_of,
+                     boundary_bytes=plan.partition.boundary_sizes,
+                     cut_after=cut_after, cfg=cfg, cluster=cluster)

@@ -20,11 +20,13 @@ Runs on the card unless ``--device cpu``.
 
 The flags are those of ``repro/launch/serve.py``'s monolithic, ``--stream``
 and ``--cuts`` paths (``--overlap``, ``--micro-batches``, ``--devices``
-among them), plus three: ``--wire-bits``, since the reference launcher
-never reaches the int8 wire that the served pipeline sends (the paper's
-lambda compression), ``--profile``, which traces one prefill-only run and
-one full run with ``torch.profiler`` and prints the device busy time, the
-kernel launches and the kernels that took the most device time, and
+among them) and its ``--plan`` (the SEIFER stage plan of the full config
+for the 2-pod production cluster, printed on the host), plus three:
+``--wire-bits``, since the reference launcher never reaches the int8 wire
+that the served pipeline sends (the paper's lambda compression),
+``--profile``, which traces one prefill-only run and one full run with
+``torch.profiler`` and prints the device busy time, the kernel launches
+and the kernels that took the most device time, and
 ``--layers``, which cuts the depth (llama3-405b's 126 layers are about 810
 GB in bf16; ``chip_smoke.py`` serves 4 of them, 2 of deepseek-v3-671b's 61
 and of llama4-maverick-400b-a17b's 48).  A MoE model's cut depth and
@@ -81,6 +83,10 @@ def main(argv=None):
                     help="serve N staggered requests via continuous "
                          "batching over --batch slots instead of one "
                          "synchronized batch")
+    ap.add_argument("--plan", action="store_true",
+                    help="print the SEIFER pipeline-stage plan of the full "
+                         "config for the 2-pod production cluster (host "
+                         "only: no card needed)")
     ap.add_argument("--cuts", default="", metavar="C1,C2",
                     help="serve through PipelineServeEngine over these "
                          "block cuts (e.g. 10,20,30)")
@@ -115,6 +121,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if (args.overlap or args.micro_batches or args.devices) and not args.cuts:
         ap.error("--overlap, --micro-batches and --devices need --cuts")
+    if args.plan:
+        from repro_torch.core.cluster import tpu_cluster
+        from repro_torch.core.pipeline import plan_stages
+        from repro_torch.models.config import SHAPES
+        full = get_config(args.arch, "full")
+        sp = plan_stages(full, SHAPES["prefill_32k"],
+                         cluster=tpu_cluster(n_pods=2, slots_per_pod=8),
+                         hbm_per_stage_bytes=16e9 * 32)
+        print(sp.describe())
+        return
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)

@@ -1343,3 +1343,32 @@ def test_pipelined_stream_bit_identical_on_card(granite_card):
         reqs, kill={"after_step": 3, "stage": 1})
     for a, b in zip(want, killed):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the chaos campaign's serving half
+# ---------------------------------------------------------------------------
+
+def test_chaos_harness_on_card(granite_card, tmp_path):
+    """The chaos harness at smoke width on the card, on the params of the
+    port's CPU harness: the same baseline tokens, two campaign cases and an
+    overlapped one holding every invariant through the kernels, and the
+    overlapped engine's fused chain captured for its baseline."""
+    from repro_torch.chaos import ChaosHarness, generate_campaign
+    cfg, gpu = granite_card
+    host = ChaosHarness(params=tree_map(lambda t: t.cpu(), gpu),
+                        device="cpu", ckpt_dir=tmp_path / "cpu")
+    card = ChaosHarness(params=gpu, device="cuda", ckpt_dir=tmp_path / "card")
+    assert card.baseline == host.baseline
+    kernels.reset_launch_counts()
+    for case in generate_campaign(0, 2):
+        assert card.run_case(case) == [], case.cid
+    counts = kernels.launch_counts()
+    assert all(counts[k] for k in ("flash_attention", "rows_matmul",
+                                   "decode_attention")), counts
+    ov = ChaosHarness(params=gpu, device="cuda", overlap=True,
+                      ckpt_dir=tmp_path / "overlap")
+    assert ov.baseline == host.baseline
+    assert ov.eng.graph_captures > 0
+    assert ov.run_case(generate_campaign(0, 1)[0]) == []
+

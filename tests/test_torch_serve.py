@@ -348,7 +348,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.configs.llama4_maverick_400b_a17b',"
         " 'repro_torch.models.staging', 'repro_torch.serve.retry',"
         " 'repro_torch.serve.telemetry', 'repro_torch.serve.transport',"
-        " 'repro_torch.core.replan'} <= set(sys.modules)\n"
+        " 'repro_torch.core.replan', 'repro_torch.core.baselines',"
+        " 'repro_torch.core.equivalence', 'repro_torch.configs.paper_cnns',"
+        " 'repro_torch.emulator.core', 'repro_torch.emulator.pipeline',"
+        " 'repro_torch.emulator.faults', 'repro_torch.emulator.engine',"
+        " 'repro_torch.emulator.sweep', 'repro_torch.emulator.equivalence',"
+        " 'repro_torch.chaos.campaign', 'repro_torch.chaos.shrink',"
+        " 'repro_torch.chaos.__main__'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
