@@ -14,7 +14,13 @@ Phases, in order; any failure exits non-zero before the result line:
    dim, 112 on the 128 tile included, ragged S, a 4096-token prompt, and
    whisper's non-causal encoder: 1500 frames, 20 heads of 64, and
    llama4's prefill: 40 q heads over 8 kv heads of 128) and 2e-5
-   (float32), with no copy of its inputs or output in its wrapper,
+   (float32), with no copy of its inputs or output in its wrapper; its
+   backward (``flash_attention_bwd``, ``check_flash_bwd``) at granite's
+   training shape, llama3-405b's group of 16 at hd 128, minicpm's MHA and
+   a ragged S: dq, dk and dv within 3e-2 (1 + |plain|) and 2^-6 of the
+   largest |plain|, two runs bit-identical, the forward's lse within 1e-4
+   and its output bit-equal without the lse, no spill, times beside the
+   bound, the plain version and PyTorch's flash SDPA backward;
    quantize and dequantize bit-equal (q, scales and output bytes) at
    every served model's width (1280 to 16384), at decode rows and a
    prefill's 2048, in bf16 and float32, with an all-zero row and a row of
@@ -216,22 +222,35 @@ Phases, in order; any failure exits non-zero before the result line:
    case through the overlapped executor (the fused CUDA-graph chain for
    its baseline, captured again after a restore, the baseline each row's
    served alone); each case's wall, restores, detections and launches
-   are logged (``"chaos"`` in the JSON line).
+   are logged (``"chaos"`` in the JSON line);
+8. train (the card) — the dense family's training path (``train``): one
+   step of granite-3-2b at full width and 2 layers, batch 1 x 128, its
+   loss and every gradient against the same step on the CPU from the same
+   params; ``Trainer`` at full width and depth (40 layers, remat, bf16
+   params and float32 AdamW states), batch 4 x 512, 4 steps, each step's
+   launches exactly ``train_launches`` (flash forward and its remat
+   recompute, the flash backward, the norms), with step ms, tokens/s and
+   peak device memory; a crash at the third step and a restart at full
+   width and 4 layers (checkpoints every 2 steps under ``CKPT_ROOT``):
+   resumed at step 2 with the saved bytes, steps 3-4 the uninterrupted
+   run's losses within 1e-3 (``"train"`` in the JSON line).
 
-The whole script takes 10 to 15 minutes on one H100 80GB HBM3 at 700 W:
-the kernels' build about 26 s, phases 5-7 about 10 s, the rest the main
-paths (their host walls vary by up to a half between runs).
+The whole script takes 10 to 16 minutes on one H100 80GB HBM3 at 700 W:
+the kernels' build about 30 s, phases 5-7 about 10 s, phase 8 about a
+minute, the rest the main paths (their host walls vary by up to a half
+between runs).
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
 per kernel, and ``{"ok": true, "device": {...}}``; the streams', the
 serving phases', the fault runs' (``"faults"``), the pipelined streams'
-and overlapped runs' numbers (``"pipelined"``) and phases 5-7's
-(``"planner_eval"``, ``"emulated"``, ``"chaos"``) are on a JSON line
-before them.  A record's
+and overlapped runs' numbers (``"pipelined"``) and phases 5-8's
+(``"planner_eval"``, ``"emulated"``, ``"chaos"``, ``"train"``) are on a
+JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
-the six pipelined models; ``launches_by_path`` holds the count from each
-counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
+the six pipelined models; the flash backward's, the full-depth training
+run's 4 steps (``granite-3-2b/train_full``); ``launches_by_path`` holds
+the count from each counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
 replace no TPU kernel (the reference leaves these ops to XLA): their
 ``replaces`` names the reference's op.
 """
@@ -545,6 +564,130 @@ def check_flash(torch, gen):
                                "ms": mk_ms, "plain_ms": mp_ms,
                                "library_ms": ml_ms, "bound_ms": mb_ms,
                                "bound_by": mb_by}}
+
+
+BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
+    (BATCH, PROMPT, 32, 8, 64),      # granite's training batch
+    (1, PROMPT, 128, 8, 128),        # llama3-405b's group of 16 at hd 128
+    (BATCH, PROMPT, 36, 36, 64),     # minicpm's MHA
+    (BATCH, 300, 32, 8, 64))         # a ragged S
+BWD_TOL = 3e-2          # per element, on 1 + |plain|
+
+
+def check_flash_bwd(torch, gen):
+    """The flash-attention backward kernel (``flash_attention_bwd``)
+    against its plain version (``flash_bwd_ref``) on the same (o, lse) from
+    the forward kernel, at ``BWD_CASES``: dq, dk and dv within 3e-2 (1 +
+    |plain|) per element and within 2^-6 of the tensor's largest |plain|,
+    two runs bit-identical; the forward's lse within 1e-4 (1 + |plain|) of
+    the plain log-sum-exp and its output bit-equal with and without the
+    lse; no spill (``cuobjdump -res-usage``).  Times at granite's shape:
+    the kernel warm and cold (a copy of the inputs a call), the plain
+    version, the bound (the larger of the bytes over the HBM rate and 2.5x
+    the forward's causal operations over the bf16 peak) and, as a
+    yardstick the port never calls, the backward of PyTorch's flash SDPA
+    (``aten._scaled_dot_product_flash_attention_backward``, k and v
+    repeated to the q heads, since it takes no groups); and the forward
+    with and without its lse (the serving path asks for none)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention.ref import flash_bwd_ref, flash_ref
+    bf16 = torch.bfloat16
+    usage = _build.resource_usage("flash_attention_bwd")
+    log(f"  flash_attention_bwd registers and stack bytes: "
+        + ", ".join(f"{re.sub(r'^.*?(flash_bwd_\w+?)E.*$', r'\1', f)} "
+                    f"{r}/{st}" for f, (r, st) in usage.items()))
+    spills = {f: st for f, (_, st) in usage.items() if st}
+    if spills:
+        raise SystemExit(f"flash_attention_bwd spills: {spills}")
+    err_max, scaled_max, abs_max, inputs = 0.0, 0.0, 0.0, {}
+    for b, s, h, kv, hd in BWD_CASES:
+        q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(bf16)
+        k = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(bf16)
+        v = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(bf16)
+        do = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(bf16)
+        o, lse = ops._launch(q, k, v, True, s, with_lse=True)
+        o_plain = ops._launch(q, k, v, True, s)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int16), c.view(torch.int16))
+                   for a, c in zip(got, again))
+        o_same = torch.equal(o.view(torch.int16), o_plain.view(torch.int16))
+        _, lse_want = flash_ref(q, k, v, True, with_lse=True)
+        lse_err = ((lse - lse_want).abs() / (1 + lse_want.abs())).max().item()
+        want = flash_bwd_ref(q, k, v, o, lse, do)
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            e = (g - w).abs()
+            errs.append((name, (e / (1 + w.abs())).max().item(),
+                         e.max().item() / w.abs().max().item()))
+            abs_max = max(abs_max, e.max().item())
+        del want
+        log(f"  flash_attention_bwd B={b} S={s} H={h} KV={kv} hd={hd}: "
+            + ", ".join(f"{n} {el:.3g} per element (tol {BWD_TOL:g}), "
+                        f"{sc:.3g} of the largest (tol 2^-6)"
+                        for n, el, sc in errs)
+            + f"; two runs bit-identical {same}; lse {lse_err:.3g} (tol "
+            f"1e-4); the output bit-equal without the lse {o_same}")
+        bad = [n for n, el, sc in errs
+               if not (el <= BWD_TOL and sc <= 2 ** -6)]
+        if bad or not same or not o_same or not lse_err <= 1e-4:
+            raise SystemExit(f"flash_attention_bwd at {(b, s, h, kv, hd)}: "
+                             f"{errs}, bit-identical {same}, lse {lse_err}, "
+                             f"output with the lse equal {o_same}")
+        err_max = max(err_max, *(el for _, el, _ in errs))
+        scaled_max = max(scaled_max, *(sc for _, _, sc in errs))
+        inputs.setdefault((b, s, h, kv, hd), (q, k, v, o, lse, do))
+
+    q, k, v, o, lse, do = inputs[BWD_CASES[0]]
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    fwd_flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    # q, k, v, o, do and lse read once; dq, dk, dv written once
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + o.numel()
+                   + do.numel()) + 4 * lse.numel()
+              + 2 * (q.numel() + k.numel() + v.numel()))
+    b_ms, b_by = bound(nbytes, (2.5 * fwd_flops, BF16_PEAK))
+    k_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+    copies = [tuple(t.clone() for t in (q, k, v, o, lse, do))
+              for _ in range(cold_copies(nbytes))]
+    c_ms, _ = time_cold_ms(lambda c: ops.flash_attention_bwd(*copies[c]),
+                           nbytes)
+    del copies
+    p_ms = time_ms(lambda: flash_bwd_ref(q, k, v, o, lse, do))
+    g = h // kv
+    qt, ot, dot = (t.transpose(1, 2).contiguous() for t in (q, o, do))
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True)
+    l_out, l_lse = fwd[0], fwd[1]
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    l_ms = time_ms(lambda: sdpa_bwd(dot, qt, kt, vt, l_out, l_lse, fwd[2],
+                                    fwd[3], fwd[4], fwd[5], 0.0, True,
+                                    fwd[6], fwd[7]))
+    f_ms = time_ms(lambda: ops._launch(q, k, v, True, s))
+    fl_ms = time_ms(lambda: ops._launch(q, k, v, True, s, with_lse=True))
+    log(f"  flash_attention_bwd at granite's training shape (B={b}, S={s}, "
+        f"H={h}, KV={kv}, hd={hd}): kernel {k_ms:.4f} ms warm, {c_ms:.4f} "
+        f"cold, plain {p_ms:.4f} ms, the flash SDPA's backward (k, v "
+        f"repeated to {h} heads) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {2.5 * fwd_flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+        f"MB); the forward {f_ms:.4f} ms without its lse, {fl_ms:.4f} ms "
+        f"with it")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:248",
+            "max_abs_err": abs_max, "scaled_err": scaled_max, "ms": k_ms,
+            "cold_ms": c_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "per_element_err": err_max,
+            "forward_ms": f_ms, "forward_with_lse_ms": fl_ms,
+            "registers": {re.sub(r"^.*?(flash_bwd_\w+?)E.*$", r"\1", f): r
+                          for f, (r, _) in usage.items()},
+            "main_path": f"{TRAIN_ARCH}/train_full"}
 
 
 def time_cold_out_ms(fn, nbytes, iters=20):
@@ -3250,6 +3393,267 @@ def chaos(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+CHECK_DEPTH, CHECK_SEQ = 2, 128     # the step held against the CPU's
+RESTART_DEPTH = 4                   # the crash and restart's model
+
+
+def train_launches(cfg, steps):
+    """What ``steps`` train steps of a dense model launch: per layer, flash
+    attention's forward, ``rms_norm_rows`` (ln1) and
+    ``residual_rms_norm_rows`` once in the forward and once more in the
+    backward's recompute when ``cfg.remat``, the flash backward once, and
+    the final norm once (outside the blocks); the norms' backwards are
+    plain, and nothing else launches."""
+    from repro_torch import kernels
+    n, again = cfg.n_layers, 2 if cfg.remat else 1
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want["flash_attention"] = again * n * steps
+    want["flash_attention_bwd"] = n * steps
+    want["rms_norm_rows"] = (again * n + 1) * steps
+    want["residual_rms_norm_rows"] = again * n * steps
+    return want
+
+
+def _by_path(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_by_path(v, f"{pre}{k}/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def _bytes_equal(torch, a, b):
+    from repro_torch._tree import tree_leaves
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train(torch):
+    """Phase 8 (the card): the dense family's training path.
+
+    1. One train step's loss and gradients of granite-3-2b at full width
+       and ``CHECK_DEPTH`` layers, bf16, batch 1 x ``CHECK_SEQ``, on the
+       card (through the kernels and their backwards) against the same on
+       the CPU (the plain versions) from the same params: the loss within
+       1e-2 (1 + |cpu|), every gradient leaf within 3e-2 of the CPU leaf's
+       largest |value|, finite and not zero; the card's launches exactly
+       ``train_launches``.
+    2. ``Trainer`` on granite-3-2b at full width and depth (remat, bf16
+       params, float32 AdamW states), batch ``TRAIN_BATCH`` x
+       ``TRAIN_SEQ``, ``TRAIN_STEPS`` steps: finite losses, each step's
+       launches exactly ``train_launches``; step ms (the median of steps
+       2-4, a host clock around ``run(1)`` ending in a synchronise),
+       tokens/s and peak device memory.
+    3. A crash and restart at full width and ``RESTART_DEPTH`` layers,
+       checkpoints under ``CKPT_ROOT`` every 2 steps: a crash at the third
+       step (``raise_at=2``), a new ``Trainer`` resumes at step 2 with the
+       saved params' and states' bytes, and its steps 3-4 give the losses
+       of an uninterrupted run within 1e-3 relative (whether they are
+       bit-equal is logged: the embedding's backward on the card may sum
+       in another order)."""
+    from repro_torch import kernels
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    out, by_path = {}, {}
+    t_phase = time.perf_counter()
+    card_run = torch.device(DEVICE).type == "cuda"
+
+    def sync():
+        if card_run:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if card_run:
+            torch.cuda.empty_cache()
+    full = get_config(TRAIN_ARCH, "full")
+
+    # 1. the step against the CPU's
+    cfg = full.replace(n_layers=CHECK_DEPTH)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    card = init_params(cfg, gen, device=DEVICE)
+    host = tree_map(lambda t: t.cpu(), card)
+    toks = torch.from_numpy(
+        SyntheticTokens(cfg.vocab, CHECK_SEQ, 1).batch(0)["tokens"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m_card, g_card = loss_and_grads(cfg, card, {"tokens": toks.to(DEVICE)})
+    sync()
+    card_s = time.perf_counter() - t0
+    by_path["train_check"] = got = kernels.launch_counts()
+    t0 = time.perf_counter()
+    m_host, g_host = loss_and_grads(cfg, host, {"tokens": toks})
+    host_s = time.perf_counter() - t0
+    loss_c, loss_h = float(m_card["loss"]), float(m_host["loss"])
+    leaves, bad = {}, []
+    for path, gc_ in _by_path(g_card).items():
+        gc_, gh = gc_.float().cpu(), _by_path(g_host)[path].float()
+        top = gh.abs().max().item()
+        leaves[path] = (gc_ - gh).abs().max().item() / top
+        if not (torch.isfinite(gc_).all() and gc_.abs().max() > 0
+                and leaves[path] <= 3e-2):
+            bad.append(path)
+    want = train_launches(cfg, 1)
+    out["check"] = {"depth": CHECK_DEPTH, "tokens": [1, CHECK_SEQ],
+                    "loss_card": loss_c, "loss_cpu": loss_h,
+                    "worst_leaf": max(leaves.values()),
+                    "card_s": card_s, "cpu_s": host_s, "launches": got,
+                    "launches_exact": got == want}
+    worst = max(leaves, key=leaves.get)
+    log(f"  one step at full width, {CHECK_DEPTH} layers, batch 1 x "
+        f"{CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on the "
+        f"CPU (tol 1e-2 (1 + |cpu|)); the worst of {len(leaves)} gradient "
+        f"leaves {worst} at {leaves[worst]:.3g} of its largest (tol 3e-2); "
+        f"every leaf finite and not zero: {not bad}; {card_s:.2f}s on the "
+        f"card (first use), {host_s:.2f}s on the CPU; launches {got} "
+        f"(exact: {got == want})")
+    if (bad or abs(loss_c - loss_h) > 1e-2 * (1 + abs(loss_h))
+            or got != want):
+        raise SystemExit(f"[train] the step against the CPU's: {out['check']}"
+                         f", leaves {bad}, expected launches {want}")
+    del card, host, g_card, g_host
+    free()
+
+    with tempfile.TemporaryDirectory(
+            prefix="chip-smoke-train-",
+            dir=CKPT_ROOT if CKPT_ROOT.is_dir() else None) as tmp:
+        # 2. full width and depth
+        t0 = time.perf_counter()
+        tr = Trainer(full, SyntheticTokens(full.vocab, TRAIN_SEQ,
+                                           TRAIN_BATCH),
+                     TrainerConfig(ckpt_dir=f"{tmp}/full", ckpt_every=10 ** 9,
+                                   log_every=1, device=DEVICE))
+        tr.init_or_restore()
+        sync()
+        init_s = time.perf_counter() - t0
+        state_gb = sum(t.nbytes for t in
+                       _by_path({"p": tr.params, "m": tr.opt.m,
+                                 "v": tr.opt.v}).values()) / 1e9
+        if card_run:
+            torch.cuda.reset_peak_memory_stats()
+        steps_ms, counts = [], []
+        for _ in range(TRAIN_STEPS):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            tr.run(1)
+            sync()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(kernels.launch_counts())
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if card_run
+                   else math.nan)
+        losses = [m["loss"] for m in tr.history]
+        want = train_launches(full, 1)
+        step_ms = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
+        by_path["train_full"] = {k: sum(c[k] for c in counts)
+                                 for k in counts[0]}
+        out["full"] = {"layers": full.n_layers, "batch": [TRAIN_BATCH,
+                                                          TRAIN_SEQ],
+                       "init_s": init_s, "state_gb": state_gb,
+                       "steps_ms": steps_ms, "step_ms": step_ms,
+                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                       / (step_ms / 1e3),
+                       "peak_gb": peak_gb, "losses": losses,
+                       "launches_a_step": counts[0],
+                       "launches_exact": all(c == want for c in counts)}
+        log(f"  Trainer, {TRAIN_ARCH} at full width and depth ({full.n_layers}"
+            f" layers, remat {full.remat}), batch {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: params and AdamW states {state_gb:.2f} GB, made "
+            f"in {init_s:.2f}s; steps {[f'{x:.1f}' for x in steps_ms]} ms, "
+            f"the median of steps 2-{TRAIN_STEPS} {step_ms:.1f} ms, "
+            f"{out['full']['tokens_per_s']:.0f} tokens/s; peak device "
+            f"memory {peak_gb:.2f} GB; losses {losses}; launches a step "
+            f"{counts[0]} (each step exact: {out['full']['launches_exact']})")
+        if not (all(math.isfinite(x) for x in losses)
+                and out["full"]["launches_exact"]):
+            raise SystemExit(f"[train] full depth: {out['full']}, expected "
+                             f"{want} a step")
+        del tr
+        free()
+
+        # 3. crash and restart
+        cfg = full.replace(n_layers=RESTART_DEPTH)
+        data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+
+        def trainer(name, every=2):
+            return Trainer(cfg, data, TrainerConfig(
+                ckpt_dir=f"{tmp}/{name}", ckpt_every=every, log_every=1,
+                device=DEVICE))
+
+        t0 = time.perf_counter()
+        whole = trainer("whole", every=10 ** 9)
+        whole.init_or_restore()
+        whole.run(4)
+        want_losses = [m["loss"] for m in whole.history]
+        del whole
+        crashed = trainer("restart")
+        crashed.init_or_restore()
+        try:
+            crashed.run(4, raise_at=2)
+            msg = None
+        except RuntimeError as e:
+            msg = str(e)
+        saved = tree_map(lambda t: t.clone(),
+                         {"params": crashed.params, "opt": crashed.opt})
+        del crashed
+        gc.collect()
+        t1 = time.perf_counter()
+        again = trainer("restart")
+        start = again.init_or_restore()
+        sync()
+        restore_s = time.perf_counter() - t1
+        same_state = _bytes_equal(torch, saved,
+                                  {"params": again.params, "opt": again.opt})
+        del saved
+        kernels.reset_launch_counts()
+        again.run(2)
+        sync()
+        by_path["train_restart"] = got = kernels.launch_counts()
+        resumed = [m["loss"] for m in again.history]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                     want_losses[2:]))
+        out["restart"] = {
+            "layers": RESTART_DEPTH, "crash": msg, "resumed_at": start,
+            "restore_s": restore_s, "state_bytes_equal": same_state,
+            "losses": resumed, "uninterrupted": want_losses[2:],
+            "max_rel_diff": rel, "bit_equal": resumed == want_losses[2:],
+            "launches": got, "launches_exact": got == train_launches(cfg, 2),
+            "seconds": time.perf_counter() - t0}
+        del again
+        free()
+    r = out["restart"]
+    log(f"  crash and restart at full width, {RESTART_DEPTH} layers, "
+        f"checkpoints every 2 steps: {r['crash']!r}; resumed at step "
+        f"{r['resumed_at']} in {r['restore_s']:.2f}s, the saved params' and "
+        f"states' bytes {r['state_bytes_equal']}; steps 3-4 losses "
+        f"{r['losses']} against the uninterrupted {r['uninterrupted']} "
+        f"(max relative {r['max_rel_diff']:.3g}, tol 1e-3; bit-equal "
+        f"{r['bit_equal']}); launches exact {r['launches_exact']}; "
+        f"{r['seconds']:.1f}s")
+    if (r["crash"] != "injected crash at step 2" or r["resumed_at"] != 2
+            or not r["state_bytes_equal"] or not r["max_rel_diff"] <= 1e-3
+            or not r["launches_exact"]):
+        raise SystemExit(f"[train] crash and restart: {r}")
+    out["launches_by_path"] = by_path
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  training took {out['seconds']:.1f}s")
+    return out
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3314,7 +3718,8 @@ def main(argv=None) -> int:
     log("== 3. kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    records = [check_flash(torch, gen), *check_quantize(torch, gen),
+    records = [check_flash(torch, gen), check_flash_bwd(torch, gen),
+               *check_quantize(torch, gen),
                check_ssd(torch, gen), *check_decode(torch, gen),
                *check_norm(torch, gen), check_silu(torch, gen),
                check_conv_silu(torch, gen)]
@@ -3353,9 +3758,15 @@ def main(argv=None) -> int:
     evaluation["chaos"] = chaos(torch)
     for cid, rec in evaluation["chaos"]["cases"].items():
         by_path[f"{CHAOS_ARCH}/chaos_{cid}"] = rec["launches"]
+    log("== 8. training on the card")
+    evaluation["train"] = train(torch)
+    for path, got in evaluation["train"].pop("launches_by_path").items():
+        by_path[f"{TRAIN_ARCH}/{path}"] = got
     for r in records:
-        r["launches"] = sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
-                            for a in PIPELINED)
+        own = r.pop("main_path", None)   # a record's own counted run
+        r["launches"] = (by_path[own][r["name"]] if own else
+                         sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
+                             for a in PIPELINED))
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(f"== done in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3366,6 +3777,8 @@ def main(argv=None) -> int:
             "warm_ms", "warm_library_ms",      # the two decode kernels'
             "issue_bound_ms", "sass_per_element",   # silu's
 
+            "scaled_err", "per_element_err",   # the flash backward's
+            "forward_ms", "forward_with_lse_ms", "registers",
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "whisper_encoder", "llama4_prefill",   # flash's
             "shapes")                          # the decode kernels'

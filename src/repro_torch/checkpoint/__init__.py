@@ -1,5 +1,5 @@
-from .store import (CheckpointCorrupt, restore_checkpoint, save_checkpoint,
-                    template_of)
+from .store import (AsyncCheckpointer, CheckpointCorrupt, latest_step,
+                    restore_checkpoint, save_checkpoint, template_of)
 
-__all__ = ["CheckpointCorrupt", "restore_checkpoint", "save_checkpoint",
-           "template_of"]
+__all__ = ["AsyncCheckpointer", "CheckpointCorrupt", "latest_step",
+           "restore_checkpoint", "save_checkpoint", "template_of"]

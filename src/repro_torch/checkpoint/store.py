@@ -10,16 +10,22 @@ by either package restores in the other):
                         with the dtype named "bfloat16"
 
 Leaves are numbered in the order of JAX's ``tree_flatten`` of a nested
-dict, which is sorted keys at every level.  Writes go to ``step_<N>.tmp``
-and are renamed into place, so a crash mid-save leaves the previous
-checkpoint intact.  A leaf whose bytes do not match its CRC32 raises
-:class:`CheckpointCorrupt` instead of loading bad weights.
+dict, which is sorted keys at every level, and of a NamedTuple (the
+trainer's ``OptState``), which is its fields in order.  Writes go to
+``step_<N>.tmp`` and are renamed into place, so a crash mid-save leaves
+the previous checkpoint intact; a save keeps the newest ``keep`` steps of
+its directory and removes the rest.  A leaf whose bytes do not match its
+CRC32 raises :class:`CheckpointCorrupt` instead of loading bad weights.
+A restore casts every leaf to the dtype of the tree it restores into.
+:class:`AsyncCheckpointer` writes in a background thread from a host copy
+taken before the thread starts; its ``wait()`` re-raises a failed write.
 """
 
 from __future__ import annotations
 
 import json
 import shutil
+import threading
 import zlib
 from pathlib import Path
 
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import is_namedtuple, tree_map
 
 _NP_OF = {torch.float32: np.float32, torch.float16: np.float16,
           torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
@@ -52,6 +58,9 @@ def _walk(node, leaves):
         inner = ", ".join(f"{k!r}: {_walk(node[k], leaves)}"
                           for k in sorted(node))
         return "{" + inner + "}"
+    if is_namedtuple(node):
+        inner = ", ".join(_walk(x, leaves) for x in node)
+        return f"CustomNode(namedtuple[{type(node).__name__}], [{inner}])"
     leaves.append(node)
     return "*"
 
@@ -67,6 +76,8 @@ def _build(node, it):
     if isinstance(node, dict):
         out = {k: _build(node[k], it) for k in sorted(node)}
         return {k: out[k] for k in node}          # keep caller's order
+    if is_namedtuple(node):
+        return type(node)(*(_build(x, it) for x in node))
     return next(it)
 
 
@@ -86,7 +97,7 @@ def _to_host(t: torch.Tensor):
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(ckpt_dir, step: int, tree) -> Path:
+def save_checkpoint(ckpt_dir, step: int, tree, keep: int = 3) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -107,7 +118,26 @@ def save_checkpoint(ckpt_dir, step: int, tree) -> Path:
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)                      # atomic commit
+    _gc(ckpt_dir, keep)
     return final
+
+
+def _gc(ckpt_dir: Path, keep: int) -> None:
+    """Remove all but the newest ``keep`` committed steps."""
+    steps = sorted(p for p in ckpt_dir.glob("step_????????")
+                   if not p.name.endswith(".tmp"))
+    for p in steps[:-keep]:
+        shutil.rmtree(p, ignore_errors=True)
+
+
+def latest_step(ckpt_dir) -> int | None:
+    """The newest committed step under ``ckpt_dir``, or None."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = sorted(int(p.name.split("_")[1])
+                   for p in ckpt_dir.glob("step_????????"))
+    return steps[-1] if steps else None
 
 
 def template_of(tree):
@@ -153,3 +183,43 @@ def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device=None):
                              f"{tuple(like.shape)}")
         out.append(t.to(device=device, dtype=like.dtype))
     return _unflatten(like_tree, out)
+
+
+class AsyncCheckpointer:
+    """Background-thread saver: the train loop hands off host copies and
+    keeps stepping (compute and I/O overlap).  ``save`` waits for the last
+    write, copies the tree to the host (so later in-place updates of the
+    params and states cannot reach the write), then starts the thread;
+    ``wait`` joins it and re-raises a failed write."""
+
+    def __init__(self, ckpt_dir, keep: int = 3):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+        self.last_saved: int | None = None
+
+    def save(self, step: int, tree) -> None:
+        self.wait()
+        host_tree = tree_map(
+            lambda t: t.detach().to("cpu", copy=True), tree)
+
+        def work():
+            try:
+                save_checkpoint(self.ckpt_dir, step, host_tree, self.keep)
+                self.last_saved = step
+            except Exception as e:          # surfaced by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the in-flight save; re-raises a failed write rather than
+        letting the train loop believe the checkpoint is durable."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

@@ -1,0 +1,3 @@
+from .pipeline import SyntheticTokens, make_batch_iterator
+
+__all__ = ["SyntheticTokens", "make_batch_iterator"]

@@ -12,7 +12,7 @@ captures one takes what the capture recorded with :func:`recorded_launches`
 
 from __future__ import annotations
 
-from .attention.ops import flash_attention
+from .attention.ops import flash_attention, flash_attention_bwd
 from .decode.ops import (decode_attention, gated_rms_norm_rows,
                          residual_rms_norm_rows, rms_norm_rows, rows_matmul,
                          ssm_decode_step)
@@ -20,7 +20,8 @@ from .quantize.ops import dequantize, quantize
 from .silu.ops import conv_silu, silu
 from .ssd.ops import ssd_scan
 
-WRAPPERS = {"flash_attention": flash_attention, "quantize": quantize,
+WRAPPERS = {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd, "quantize": quantize,
             "dequantize": dequantize, "ssd": ssd_scan,
             "rows_matmul": rows_matmul, "rms_norm_rows": rms_norm_rows,
             "residual_rms_norm_rows": residual_rms_norm_rows,

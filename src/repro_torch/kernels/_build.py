@@ -40,9 +40,14 @@ _L = ctypes.c_longlong
 # library -> {C function: (argtypes, restype)}
 SIGNATURES = {
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_L] * 9
+        "flash_attention_launch": ([_P] * 5 + [_I] * 5 + [_L] * 9
                                    + [_I, _I, _F, _I, _P], _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": ([_P] * 10 + [_I] * 5 + [_L] * 15
+                                       + [_F, _P], _I),
+        "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {
         "quantize_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

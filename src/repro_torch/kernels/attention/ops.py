@@ -10,6 +10,15 @@ be dense and start on a 16-byte boundary; the wrapper raises otherwise.
 For tensors on the CPU it computes the kernel's function in plain PyTorch
 (``ref.flash_ref``); for CUDA tensors it launches the kernel or raises:
 there is no fallback.  ``flash_attention.launches`` counts kernel launches.
+
+Gradients: when grad mode is on and q, k or v requires grad,
+``flash_attention`` goes through :class:`FlashAttentionFn`, whose forward
+asks the kernel for each row's log-sum-exp as well and whose backward is
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``; on the CPU its
+plain version ``ref.flash_bwd_ref``).  The backward kernel takes bf16 at
+head dims ``BWD_HEAD_DIMS``, causal, every key valid; on the card anything
+else raises before the forward runs.  Without grad the call takes the path
+it always took, with the same launches and bits.
 """
 
 from __future__ import annotations
@@ -19,13 +28,35 @@ import math
 import torch
 
 from .. import _build
-from .ref import flash_ref
+from ..decode.ops import wants_grad
+from .ref import flash_bwd_ref, flash_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 112, 128)
+BWD_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(q, k, v, causal: bool, valid_len: int):
+def _strides(name, *ts):
+    """The (batch, row, head) strides of each of ``ts`` (B, S, heads, hd),
+    checked: same device, each row of hd elements dense and on a 16-byte
+    boundary."""
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: inputs on different devices")
+    if any(t.stride(3) != 1 for t in ts):
+        raise ValueError(f"{name}: the last dimension of every input must "
+                         "be dense")
+    # a dimension of size 1 is never stepped over: its stride is moot
+    strides = [[t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
+               for t in ts]
+    e = 16 // ts[0].element_size()
+    if any(t.data_ptr() % 16 for t in ts) \
+            or any(st % e for row in strides for st in row):
+        raise ValueError(f"{name}: every row of every input must start on "
+                         "a 16-byte boundary")
+    return [st for row in strides for st in row]
+
+
+def _launch(q, k, v, causal: bool, valid_len: int, with_lse: bool = False):
     b, s, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
@@ -33,30 +64,112 @@ def _launch(q, k, v, causal: bool, valid_len: int):
         raise TypeError(f"flash_attention: q/k/v dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype}; need one of "
                         f"{list(_DTYPES)}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k and v on different devices")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the last dimension of q, k and v "
-                         "must be dense")
-    # a dimension of size 1 is never stepped over: its stride is moot
-    strides = [[t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
-               for t in (q, k, v)]
-    e = 16 // q.element_size()
-    if any(t.data_ptr() % 16 for t in (q, k, v)) \
-            or any(st % e for row in strides for st in row):
-        raise ValueError("flash_attention: every row of q, k and v must "
-                         "start on a 16-byte boundary")
+    strides = _strides("flash_attention", q, k, v)
     o = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            k.shape[2], hd, *strides[0], *strides[1], *strides[2],
-            int(causal), valid_len, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
+            *strides, int(causal), valid_len, 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", "flash_attention_launch", err)
     flash_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _bwd_scope(q, causal: bool, valid_len: int):
+    """Raise unless the backward kernel takes this call."""
+    missing = []
+    if q.dtype != torch.bfloat16:
+        missing.append(f"dtype {q.dtype} (bf16 only)")
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        missing.append(f"head dim {q.shape[3]} (only {BWD_HEAD_DIMS})")
+    if not causal:
+        missing.append("non-causal attention")
+    if valid_len != q.shape[1]:
+        missing.append(f"valid_len {valid_len} < S {q.shape[1]}")
+    if missing:
+        raise NotImplementedError(
+            "flash_attention_bwd: the backward kernel has no path for "
+            + ", ".join(missing))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The gradients (dq, dk, dv) of causal flash attention: q, o, do
+    (B,S,H,hd), k/v (B,S,KV,hd) read in place through their strides, lse
+    (B,H,S) float32 from the forward.  dq is (B,S,H,hd) and dk, dv
+    (B,S,KV,hd), contiguous in q's dtype, dk and dv summed over each kv
+    head's q heads.  On the CPU the plain version (``ref.flash_bwd_ref``);
+    on the card the kernel (three launches: delta, dk/dv, dq; one count),
+    or a raise."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or o.shape != q.shape or do.shape != q.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
+            or tuple(lse.shape) != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, lse {tuple(lse.shape)}, do "
+                         f"{tuple(do.shape)} do not agree")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if h % kv:
+        raise ValueError(f"flash_attention_bwd: {h} q heads not a multiple "
+                         f"of {kv} kv heads")
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, o, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _bwd_scope(q, causal, s)
+    if any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError("flash_attention_bwd: q, k, v, o and do must share "
+                        "one dtype")
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("flash_attention_bwd: lse must be contiguous "
+                        "float32")
+    strides = _strides("flash_attention_bwd", q, k, v, o, do)
+    if lse.device != q.device:
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
+    lib = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, *strides,
+            1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention_bwd", "flash_attention_bwd_launch", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel with its
+    log-sum-exp, saving (q, k, v, o, lse); the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, valid_len):
+        if q.device.type == "cpu":
+            o, lse = flash_ref(q, k, v, causal, valid_len, with_lse=True)
+        else:
+            o, lse = _launch(q, k, v, causal, valid_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -77,11 +190,16 @@ def flash_attention(q, k, v, causal: bool = True,
     if not 1 <= valid_len <= s:
         raise ValueError(f"flash_attention: valid_len {valid_len} not in "
                          f"[1, {s}]")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if wants_grad(q, k, v):
+        if q.device.type == "cuda":
+            _bwd_scope(q, causal, valid_len)
+        return FlashAttentionFn.apply(q, k, v, causal, valid_len)
     if q.device.type == "cpu":
         return flash_ref(q, k, v, causal, valid_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, causal, valid_len)
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -12,7 +12,12 @@
 // and the weighted sum are accumulated in float32; the output, a
 // contiguous (B, S, H, hd) tensor in q's type, is written for the S real
 // rows only.  A ragged S needs no padding: rows past S are zero-filled on
-// load and never stored.
+// load and never stored.  On request (a non-null `lse`, the training
+// forward) each row's natural-log sum of exp(scale s) over its unmasked
+// keys goes to a float32 (B, H, S) tensor, the backward's input
+// (flash_attention_bwd.cu); the kernel keeps m and l in the log2 domain,
+// so it writes (m + log2 l) ln 2.  Without it the kernel stores what it
+// always stored.
 //
 // Bound on this card: at the main path's prefill shape (B=4, H=32, KV=8,
 // S=512, hd=64, bf16) the least time is set by bytes, 21 MB of q, k, v and
@@ -81,6 +86,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                   // (b, h, s) natural-log sum of exp, or null
   long long q_sb, q_ss, q_sh;   // strides in elements: batch, row, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -114,6 +120,7 @@ constexpr int kTq = 64;           // query rows per block, 16 per warp
 constexpr int kTk = 64;           // keys per tile
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Rows [0, 64) of a tile whose row 0 is `base`: cp.async of each 16-byte
 // chunk, zero for rows at or past `rows` and chunks at or past `creal`
@@ -299,6 +306,13 @@ flash_mma_kernel(const Args a) {
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && tq == 0) {
+    // m is the log2-domain max of scale * log2(e) * s, l the sum of
+    // 2^(x - m): ln(sum e^(scale s)) = (m + log2 l) ln 2
+    float* lr = a.lse + ((long long)t.bi * a.h + t.hi) * a.s;
+    if (qrow < a.s) lr[qrow] = (m0 + log2f(l0)) * kLn2;
+    if (qrow + 8 < a.s) lr[qrow + 8] = (m1 + log2f(l1)) * kLn2;
+  }
 
   // the warp's own 16 rows of the q buffer take its output tile, which then
   // goes out 16 bytes a lane, real rows and chunks only
@@ -419,6 +433,8 @@ flash_f32_kernel(const Args a) {
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kHalf; ++i) o[2 * i + half] = acc[i] * inv_l;
+    if (a.lse != nullptr && half == 0)
+      a.lse[((long long)t.bi * a.h + t.hi) * a.s + qpos] = m + logf(l);
   }
 }
 
@@ -455,10 +471,14 @@ int run_f32(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; o is a
-// contiguous (b, s, h, hd) tensor.  Returns cudaGetLastError() after the
-// launch (0 on success); the caller raises on anything else.
+// contiguous (b, s, h, hd) tensor; lse, when not null, a contiguous float32
+// (b, h, s) tensor that takes each row's natural-log sum of exp(scale s)
+// over its unmasked keys (the backward's input), for the s real rows.
+// Returns cudaGetLastError() after the launch (0 on success); the caller
+// raises on anything else.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int b, int s,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int b, int s,
     int h, int kv, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int valid_len, float scale,
@@ -466,7 +486,7 @@ extern "C" int flash_attention_launch(
   if (b <= 0 || s <= 0 || h <= 0) return 0;
   if (kv <= 0 || h % kv != 0 || valid_len <= 0 || valid_len > s)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    o,    q_sb,   q_ss,   q_sh,
+  const Args a{q,    k,    v,    o,    lse,  q_sb,   q_ss,   q_sh,
                k_sb, k_ss, k_sh, v_sb, v_ss,   v_sh,   b,
                s,    h,    h / kv, hd, causal, valid_len, scale};
   cudaStream_t st = (cudaStream_t)stream;

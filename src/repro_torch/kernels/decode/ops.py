@@ -37,6 +37,14 @@ forms save a launch and an intermediate tensor each:
 ``residual_rms_norm_rows`` adds the residual first (the dense block's
 ``h + attention`` before ``ln2``), ``gated_rms_norm_rows`` computes the
 mamba block's skip and SiLU gate first.
+
+Gradients: ``rms_norm_rows`` and ``residual_rms_norm_rows`` have them
+(:class:`RmsNormFn`, :class:`ResidualRmsNormFn`: the kernel forward, the
+norm recomputed and differentiated in float32 plain PyTorch from the saved
+inputs; no backward kernel yet).  Every other wrapper here and in the
+other kernel packages raises on the card when grad mode is on and an input
+requires grad (:func:`no_backward`), rather than return a tensor without a
+``grad_fn``.
 """
 
 from __future__ import annotations
@@ -75,6 +83,25 @@ def _on_card(name, *ts):
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {dev}")
     if any(t.device != dev for t in ts):
         raise ValueError(f"{name}: inputs on different devices")
+
+
+def wants_grad(*ts) -> bool:
+    """Whether a call on ``ts`` is recorded by autograd: grad mode on and
+    an input that requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def no_backward(name, *ts):
+    """Raise when grad mode is on and one of ``ts`` requires grad: the
+    kernel ``name`` has no backward yet, and its output would carry no
+    ``grad_fn``, silently cutting the gradient behind it.  Every CUDA path
+    of a kernel without a backward calls it (serving's tensors never
+    require grad)."""
+    if wants_grad(*ts):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward yet, and an input "
+            "requires grad; run it under torch.no_grad() or on tensors "
+            "that do not require grad")
 
 
 def _dtype(name, *ts):
@@ -183,6 +210,7 @@ def rows_matmul(x, w):
     if x.device.type == "cpu":
         return ref.rows_matmul_ref(x, w)
     _on_card("rows_matmul", x, w)
+    no_backward("rows_matmul", x, w)
     code = _dtype("rows_matmul", x, w)
     lead, k, n = x.shape[:-1], x.shape[-1], w.shape[1]
     x = x.reshape(-1, k)
@@ -280,10 +308,70 @@ def _norm_weight(name, x, w):
                          f"{tuple(w.shape)} do not agree")
 
 
+def _norm_grads(x, w, eps, g, need):
+    """(dx, dw) of ``ref.rms_norm_ref(x, w, eps)`` against the output's
+    gradient ``g``: the norm recomputed in float32 in plain PyTorch from
+    the saved inputs, and differentiated (None where ``need`` says no)."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(need[0])
+        w = w.detach().requires_grad_(need[1])
+        out = ref.rms_norm_ref(x, w, eps)
+        wrt = [t for t, n in zip((x, w), need) if n]
+        got = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+    return tuple(next(got) if n else None for n in need)
+
+
+class RmsNormFn(torch.autograd.Function):
+    """``rms_norm_rows`` with its gradient: the kernel forward (the plain
+    version on the CPU), a plain float32 backward (no kernel yet)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_norm_rows(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*_norm_grads(x, w, ctx.eps, g, ctx.needs_input_grad[:2]),
+                None)
+
+
+class ResidualRmsNormFn(torch.autograd.Function):
+    """``residual_rms_norm_rows`` with its gradient: the kernel forward,
+    then from the saved sum ``h + delta`` a plain float32 backward; the sum
+    passes its gradient to both h and delta."""
+
+    @staticmethod
+    def forward(ctx, h, delta, w, eps):
+        hout, out = _residual_rms_norm_rows(h, delta, w, eps)
+        ctx.save_for_backward(hout, w)
+        ctx.eps = eps
+        return hout, out
+
+    @staticmethod
+    def backward(ctx, g_h, g_out):
+        hout, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw = _norm_grads(hout, w, ctx.eps, g_out,
+                             (need[0] or need[1], need[2]))
+        dsum = None if dx is None else g_h + dx
+        return (dsum if need[0] else None, dsum if need[1] else None, dw,
+                None)
+
+
 def rms_norm_rows(x, w, eps: float):
     """RMSNorm of each row of x (..., D) with weight w (D,), in float32,
-    cast back to x's dtype; any number of rows."""
+    cast back to x's dtype; any number of rows.  Under grad it goes through
+    :class:`RmsNormFn`."""
     _norm_weight("rms_norm_rows", x, w)
+    if wants_grad(x, w):
+        return RmsNormFn.apply(x, w, eps)
+    return _rms_norm_rows(x, w, eps)
+
+
+def _rms_norm_rows(x, w, eps):
     if x.device.type == "cpu":
         return ref.rms_norm_ref(x, w, eps)
     _on_card("rms_norm_rows", x, w)
@@ -297,11 +385,18 @@ def rms_norm_rows(x, w, eps: float):
 
 def residual_rms_norm_rows(h, delta, w, eps: float):
     """``h + delta`` and its RMSNorm in one launch: returns (h + delta, the
-    norm of it), both of h's shape, as ``ref.residual_rms_norm_ref``."""
+    norm of it), both of h's shape, as ``ref.residual_rms_norm_ref``.
+    Under grad it goes through :class:`ResidualRmsNormFn`."""
     _norm_weight("residual_rms_norm_rows", h, w)
     if delta.shape != h.shape:
         raise ValueError(f"residual_rms_norm_rows: h {tuple(h.shape)} and "
                          f"delta {tuple(delta.shape)} differ")
+    if wants_grad(h, delta, w):
+        return ResidualRmsNormFn.apply(h, delta, w, eps)
+    return _residual_rms_norm_rows(h, delta, w, eps)
+
+
+def _residual_rms_norm_rows(h, delta, w, eps):
     if h.device.type == "cpu":
         return ref.residual_rms_norm_ref(h, delta, w, eps)
     name = "residual_rms_norm_rows"
@@ -331,6 +426,7 @@ def gated_rms_norm_rows(y, D, xh, z, w, eps: float):
     if y.device.type == "cpu":
         return ref.gated_rms_norm_ref(y, D, xh, z, w, eps)
     _on_card(name, y, D, xh, z, w)
+    no_backward(name, y, D, xh, z, w)
     _dtype(name, y, xh, z, w)
     if D.dtype != torch.float32 or not D.is_contiguous():
         raise TypeError(f"{name}: D must be contiguous float32")
@@ -361,6 +457,7 @@ def decode_attention(q, k, v, kv_len):
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, kv_len)
     _on_card("decode_attention", q, k, v, kv_len)
+    no_backward("decode_attention", q, k, v)
     pair = (q.dtype, k.dtype)
     if pair not in ((torch.bfloat16, torch.bfloat16),
                     (torch.float32, torch.bfloat16),
@@ -417,6 +514,7 @@ def ssm_decode_step(state, x, dt, A, Bm, Cm):
     if x.device.type == "cpu":
         return ref.ssm_decode_ref(state, x, dt, A, Bm, Cm)
     _on_card("ssm_decode_step", state, x, dt, A, Bm, Cm)
+    no_backward("ssm_decode_step", state, x, dt, A, Bm, Cm)
     code = _dtype("ssm_decode_step", x, Bm, Cm)
     if any(t.dtype != torch.float32 for t in (state, dt, A)):
         raise TypeError("ssm_decode_step: state, dt and A must be float32")

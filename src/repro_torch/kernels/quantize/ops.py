@@ -14,6 +14,7 @@ from functools import lru_cache
 import torch
 
 from .. import _build
+from ..decode.ops import no_backward
 from . import ref
 from .ref import BM, BN
 
@@ -89,6 +90,7 @@ def quantize(x, bm: int = BM, bn: int = BN):
     if x.device.type == "cpu":
         return ref.quantize_ref(x, bm, bn)
     _check(x, "quantize", _DTYPES)
+    no_backward("quantize", x)
     m, n = x.shape
     q = torch.empty((m, n), dtype=torch.int8, device=x.device)
     s = torch.empty((-(-m // bm), -(-n // bn)), dtype=torch.float32,
@@ -120,6 +122,7 @@ def dequantize(q, scales, bm: int = BM, bn: int = BN,
         return ref.dequantize_ref(q, scales, bm, bn, out_dtype)
     _check(q, "dequantize", (torch.int8,))
     _check(scales, "dequantize scales", (torch.float32,))
+    no_backward("dequantize", q, scales)
     m, n = q.shape
     if tuple(scales.shape) != (-(-m // bm), -(-n // bn)):
         raise ValueError(f"dequantize: scales {tuple(scales.shape)} do not "

@@ -58,3 +58,16 @@ def rowwise_quantize(x):
     scale = _scale_of(xf.abs().amax(dim=-1, keepdim=True))
     q = torch.clamp(torch.round(xf * torch.reciprocal(scale)), -127, 127)
     return q.to(torch.int8), scale
+
+
+def fake_quantize(x, bits: int = 8):
+    """Quantize-dequantize round trip of any tensor with one per-tensor
+    scale: the train step's gradient compression (the reference's
+    ``fake_quantize``, plain there too).  Same bits as the reference's."""
+    levels = 2.0 ** (bits - 1) - 1
+    xf = x.float()
+    absmax = xf.abs().max()
+    scale = torch.where(absmax > 0, absmax / levels,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale), -levels, levels)
+    return (q * scale).to(x.dtype)

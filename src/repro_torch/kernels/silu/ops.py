@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..decode.ops import no_backward
 from .ref import conv_silu_ref, silu_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,6 +29,7 @@ def silu(x):
         return silu_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"silu: unsupported device {x.device}")
+    no_backward("silu", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"silu: dtype {x.dtype} not in {list(_DTYPES)}")
     d = x.shape[-1]
@@ -83,6 +85,7 @@ def conv_silu(conv_buf, conv_in, w, b):
                                            for t in ts):
         raise TypeError(f"conv_silu: dtypes {[t.dtype for t in ts]}; need "
                         f"one of {list(_DTYPES)} for all")
+    no_backward("conv_silu", *ts)
     bsz, s, c = conv_in.shape
     k = w.shape[0]
     if k not in CONV_WIDTHS:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..decode.ops import no_backward
 from .ref import ssd_chunked
 
 CHUNKS = (16, 128)             # the configs' chunk lengths (a template)
@@ -88,6 +89,7 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
         return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {xh.device}")
+    no_backward("ssd_scan", xh, dt, A, Bm, Cm)
     return _launch(xh, dt, A, Bm, Cm, chunk)
 
 

@@ -212,7 +212,7 @@ def main(argv=None):
     return toks
 
 
-def _profile(label, fn, device):
+def _profile(label, fn, device, top=10):
     """One traced run: wall time, device busy time (the sum of kernel
     times; kernels on one stream do not overlap), kernel launches, and the
     kernels that took the most device time."""
@@ -227,7 +227,7 @@ def _profile(label, fn, device):
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     launches = sum(e.count for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top]
     print(f"[profile/{label}] wall {wall * 1e3:.2f} ms (traced), device "
           f"busy {busy * 1e3:.2f} ms ({busy / wall:.1%}), {launches} kernel "
           f"launches")

@@ -1,0 +1,58 @@
+"""The train step: ``make_train_step(cfg, grad_compress_bits=0)``.
+
+Counterpart of ``repro/launch/steps.py::make_train_step``.  The prefill
+and decode steps live in ``serve/engine.py``; the reference's
+``input_specs`` and other shape-only helpers belong to its compile-only
+dry-run, which the port has not taken up.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.kernels.quantize.ref import fake_quantize
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import loss_fn
+from repro_torch.optim import adamw_update, make_schedule
+
+
+def make_train_step(cfg: ModelConfig, *, grad_compress_bits: int = 0):
+    """Returns ``train_step(params, opt, batch) -> (params, opt, metrics)``
+    with metrics ``loss``, ``ce``, ``grad_norm`` and ``lr`` (float32
+    scalar tensors), as the reference's.
+
+    The gradients come from ``torch.autograd.grad`` of ``loss_fn`` over
+    the param leaves (:func:`loss_and_grads`): each step differentiates
+    detached views of the params (no copy), so the params themselves never
+    require grad and serving code may take them as they are.  ``grad_compress_bits``: 0 is
+    off; 8 quantizes each gradient to int8 and back with one per-tensor
+    scale (``fake_quantize``) before the update, as the reference does
+    before its cross-pod reduction.  The update writes the params and the
+    optimizer state in place (``adamw_update``)."""
+    sched = make_schedule(cfg.lr_schedule)
+
+    def train_step(params, opt, batch):
+        metrics, grads = loss_and_grads(cfg, params, batch)
+        if grad_compress_bits:
+            grads = tree_map(lambda g: fake_quantize(g, grad_compress_bits),
+                             grads)
+        lr = sched(opt.step)
+        params, opt, om = adamw_update(params, grads, opt, lr)
+        metrics.update(om)
+        metrics["lr"] = lr
+        return params, opt, metrics
+
+    return train_step
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch):
+    """(metrics of ``loss_fn``, the loss's gradient tree): autograd over
+    detached views of the param leaves, so ``params`` never require
+    grad."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(cfg, live, batch)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return ({k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), params))

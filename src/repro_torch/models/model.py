@@ -31,7 +31,8 @@ group (MLA's compressed ``ckv`` and ``krope``, or GQA's k/v), and for an
 interleave above 1 the dense blocks' stacked (groups, il - 1).
 
   init_params(cfg, generator, device=)                    -> params
-  forward(cfg, params, batch)                             -> (logits, (h, aux))
+  forward(cfg, params, batch, remat=)                     -> (logits, (h, aux))
+  loss_fn(cfg, params, batch)                             -> (loss, metrics)
   init_serve_cache(cfg, batch_size, max_len, batch=, device=) -> cache
   prefill(cfg, params, batch, cache)                      -> (last logits, cache)
   decode_step(cfg, params, tokens, cache, kv_bucket=)     -> (logits, cache)
@@ -39,14 +40,23 @@ interleave above 1 the dense blocks' stacked (groups, il - 1).
 ``batch`` holds ``tokens`` (B, S) and, by family, ``vision`` (B,
 vision_tokens, D) or ``frames`` (B, S_enc, D); a forward of the
 encoder-decoder may pass ``enc_out`` in place of ``frames``.
+
+Training (``loss_fn``) is ported for the dense family: the next-token
+cross-entropy of the reference, differentiated by autograd through the
+kernels' autograd wrappers (flash attention and the two norms have
+backwards), with each block recomputed in the backward when ``cfg.remat``
+is set, as ``jax.checkpoint`` does in the reference.  A dense model's
+blocks are taken apart with ``unbind`` (:func:`unstack`), so that their
+gradients gather into one stacked gradient per leaf.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.kernels.decode.ops import residual_rms_norm_rows
 
 from .config import ModelConfig
@@ -71,6 +81,17 @@ def family(cfg: ModelConfig) -> str:
 def layer_view(tree, i):
     """Layer ``i`` of a stacked tree, as views (writes reach the stack)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def unstack(tree):
+    """Every layer of a stacked tree, as views: ``layer_view`` of each
+    layer, through one ``unbind`` a leaf.  Under autograd that is one
+    backward node a leaf, which stacks the layers' gradients once, where
+    indexing a layer at a time adds a zero-filled copy of the whole stack
+    for each layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -231,15 +252,23 @@ def lm_logits(params, cfg, h):
     return linear(h, w).float()
 
 
-def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
+def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
+                 remat=False):
     """The stacked blocks of ``params`` over ``h``; ``cache`` (stacked like
-    the blocks) is updated in place.  Returns (h, cache)."""
-    blocks = params["blocks"]
+    the blocks) is updated in place.  ``remat`` (a cacheless pass under
+    grad): each block's activations are recomputed in the backward instead
+    of kept.  Returns (h, cache)."""
     offset = _write_offset(h, cache)
-    for i in range(blocks["ln1"].shape[0]):
+    remat = remat and cache is None and torch.is_grad_enabled()
+    for i, bp in enumerate(unstack(params["blocks"])):
+        if remat:
+            # the block holds no randomness: no RNG state to stash
+            h = checkpoint(apply_dense_block, bp, h, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         c = None if cache is None else layer_view(cache, i)
-        h = apply_dense_block(layer_view(blocks, i), h, cfg, positions,
-                              cache=c, kv_bucket=kv_bucket, offset=offset)
+        h = apply_dense_block(bp, h, cfg, positions, cache=c,
+                              kv_bucket=kv_bucket, offset=offset)
     return h, cache
 
 
@@ -381,20 +410,22 @@ def _encdec_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
 
 
 def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
-              layer_offset=0, app_offset=0, side=None):
+              layer_offset=0, app_offset=0, side=None, remat=False):
     """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds decode
     GQA self-attention (dense, the VLM's, the decoder's and llama4's
     blocks, and the hybrid's shared block; MLA reads the whole cache); the
     offsets place a stage's blocks in the hybrid's call-site order
     (``_ssm_apply``); ``side`` holds a cacheless pass's cross-attention
-    source (``vision`` or ``enc_out``)."""
+    source (``vision`` or ``enc_out``); ``remat`` recomputes each dense
+    block in the backward (``_dense_apply``)."""
     fam = family(cfg)
     side = side or {}
     if fam == "moe":
         h, cache, _ = _moe_apply(cfg, params, h, positions, cache, kv_bucket)
         return h, cache
     if fam == "dense":
-        return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
+        return _dense_apply(cfg, params, h, positions, cache, kv_bucket,
+                            remat)
     if fam == "vlm":
         return _vlm_apply(cfg, params, h, positions, cache, kv_bucket,
                           side.get("vision"))
@@ -409,12 +440,13 @@ def _positions(b, s, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, *, remat: bool = False):
     """Full-sequence causal forward -> (logits, (h, aux)), aux the MoE
     blocks' load-balancing loss over ``n_layers`` (0.0 for the other
     families), as the reference's.  The VLM attends to
     ``batch["vision"]``; the encoder-decoder to ``batch["enc_out"]`` or,
-    without it, to the encoding of ``batch["frames"]``."""
+    without it, to the encoding of ``batch["frames"]``.  ``remat``
+    recomputes each dense block in the backward (training)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
@@ -423,8 +455,37 @@ def forward(cfg: ModelConfig, params, batch):
         h, _, aux = _moe_apply(cfg, params, h, positions)
         return lm_logits(params, cfg, h), (h, aux / cfg.n_layers)
     h, _ = _backbone(cfg, params, h, positions,
-                     side=_side_inputs(cfg, params, batch))
+                     side=_side_inputs(cfg, params, batch), remat=remat)
     return lm_logits(params, cfg, h), (h, 0.0)
+
+
+def token_ce(logits, targets):
+    """Mean next-token cross-entropy; logits (B,S,V) float32, targets
+    (B,S)."""
+    lp = torch.log_softmax(logits, dim=-1)
+    nll = -lp.gather(-1, targets[..., None].long())[..., 0]
+    return nll.mean()
+
+
+TRAIN_FAMILIES = ("dense",)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """(loss, metrics) of the reference's ``loss_fn``: the next-token
+    cross-entropy of ``forward`` (each block rematerialised when
+    ``cfg.remat``), metrics ``ce`` and ``loss``.  The dense family only:
+    the others' training (their kernels' backwards, the MoE aux loss and
+    MTP, cross-attention) is ROADMAP Queue 1 item 10, and raises here on
+    every device."""
+    if family(cfg) not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"loss_fn: training is ported for the {TRAIN_FAMILIES} family "
+            f"only; {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
+            "item 10 (the other families' training)")
+    logits, _ = forward(cfg, params, batch, remat=cfg.remat)
+    targets = batch["tokens"]
+    loss = token_ce(logits[:, :-1], targets[:, 1:])
+    return loss, {"ce": loss, "loss": loss}
 
 
 def _side_inputs(cfg: ModelConfig, params, batch):

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs import get_config
 from repro_torch.core import from_block_cuts
 from repro_torch.kernels.attention import ops as attn_ops
@@ -1372,3 +1372,204 @@ def test_chaos_harness_on_card(granite_card, tmp_path):
     assert ov.eng.graph_captures > 0
     assert ov.run_case(generate_campaign(0, 1)[0]) == []
 
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, the norms' gradients, the wrappers
+# without a backward, one train step against the CPU's
+# ---------------------------------------------------------------------------
+
+def grads_close(got, want, name):
+    """A backward kernel's bf16 output against its plain version: within
+    3e-2 (1 + |plain|) per element and within 2^-6 of the largest |plain|
+    (one bf16 rounding of P or dS may differ by an ulp, and the output is
+    rounded once)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all(), name
+    assert (err <= 3e-2 * (1 + want.abs())).all(), (name, err.max().item())
+    assert err.max() <= 2 ** -6 * want.abs().max(), (name, err.max().item())
+
+
+BWD_SHAPES = [  # (B, S, H, KV, hd): granite, llama3-405b, minicpm, ragged
+    (4, 512, 32, 8, 64), (1, 512, 128, 8, 128), (1, 512, 36, 36, 64),
+    (2, 300, 32, 8, 64), (2, 200, 16, 8, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", BWD_SHAPES)
+def test_flash_bwd_kernel_vs_plain(cuda, b, s, h, kv, hd):
+    """The backward kernel against ``flash_bwd_ref`` on the same (o, lse)
+    from the forward kernel, and bit-identical across two runs."""
+    from repro_torch.kernels.attention.ref import flash_bwd_ref
+    bf = torch.bfloat16
+    q = randn(cuda, 0, b, s, h, hd, dtype=bf)
+    k = randn(cuda, 1, b, s, kv, hd, dtype=bf)
+    v = randn(cuda, 2, b, s, kv, hd, dtype=bf)
+    do = randn(cuda, 3, b, s, h, hd, dtype=bf)
+    o, lse = attn_ops._launch(q, k, v, True, s, with_lse=True)
+    before = attn_ops.flash_attention_bwd.launches
+    got = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    again = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention_bwd.launches == before + 2
+    want = flash_bwd_ref(q, k, v, o, lse, do)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.shape == w.shape and g.dtype == bf and g.is_contiguous()
+        bits_equal(g, a)
+        grads_close(g, w, name)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 16),
+                                      (torch.float32, 64)])
+def test_flash_lse_matches_plain_and_leaves_output(cuda, dtype, hd):
+    q = randn(cuda, 0, 2, 300, 8, hd, dtype=dtype)
+    k = randn(cuda, 1, 2, 300, 2, hd, dtype=dtype)
+    v = randn(cuda, 2, 2, 300, 2, hd, dtype=dtype)
+    o = attn_ops._launch(q, k, v, True, 300)
+    o2, lse = attn_ops._launch(q, k, v, True, 300, with_lse=True)
+    bits_equal(o, o2)
+    _, want = flash_ref(q, k, v, True, with_lse=True)
+    assert lse.shape == (2, 8, 300) and lse.dtype == torch.float32
+    assert ((lse - want).abs() <= 1e-4 * (1 + want.abs())).all(), \
+        (lse - want).abs().max().item()
+
+
+def test_flash_grad_through_autograd(cuda):
+    """flash_attention under grad: FlashAttentionFn's gradients are the
+    backward kernel's, one forward and one backward launch; without grad
+    the same output bits as the serving path."""
+    bf = torch.bfloat16
+    q, k, v = (randn(cuda, i, 2, 256, h, 64, dtype=bf).requires_grad_()
+               for i, h in ((0, 8), (1, 2), (2, 2)))
+    do = randn(cuda, 3, 2, 256, 8, 64, dtype=bf)
+    kernels.reset_launch_counts()
+    o = attn_ops.flash_attention(q, k, v)
+    assert o.grad_fn is not None
+    g = torch.autograd.grad(o, (q, k, v), do)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    with torch.no_grad():
+        bits_equal(o.detach(), attn_ops.flash_attention(q, k, v))
+        o2, lse = attn_ops._launch(q, k, v, True, 256, with_lse=True)
+        want = attn_ops.flash_attention_bwd(q, k, v, o2, lse, do)
+    for a, b in zip(g, want):
+        bits_equal(a, b)
+
+
+def test_flash_grad_refuses_what_the_backward_does_not_take(cuda):
+    for dtype, hd, causal in ((torch.float32, 64, True),
+                              (torch.bfloat16, 32, True),
+                              (torch.bfloat16, 64, False)):
+        q = randn(cuda, 0, 1, 64, 2, hd, dtype=dtype).requires_grad_()
+        k = randn(cuda, 1, 1, 64, 2, hd, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="flash_attention_bwd"):
+            attn_ops.flash_attention(q, k, k, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_gradients_vs_plain(cuda, dtype):
+    """The norms' autograd gradients on the card against autograd through
+    their plain versions on the same inputs."""
+    tol = TOL[dtype]
+    x = randn(cuda, 0, 4, 64, 2048, dtype=dtype).requires_grad_()
+    d = randn(cuda, 1, 4, 64, 2048, dtype=dtype).requires_grad_()
+    w = (1 + 0.1 * randn(cuda, 2, 2048)).to(dtype).requires_grad_()
+    g1 = randn(cuda, 3, 4, 64, 2048, dtype=dtype)
+    g2 = randn(cuda, 4, 4, 64, 2048, dtype=dtype)
+    kernels.reset_launch_counts()
+    y = dec_ops.rms_norm_rows(x, w, 1e-5)
+    hs, n = dec_ops.residual_rms_norm_rows(x, d, w, 1e-5)
+    got = torch.autograd.grad((y * g1).sum() + (hs * g2).sum()
+                              + (n * g1).sum(), (x, d, w))
+    counts = kernels.launch_counts()
+    assert counts["rms_norm_rows"] == 1
+    assert counts["residual_rms_norm_rows"] == 1
+    y = dec_ref.rms_norm_ref(x, w, 1e-5)
+    hs, n = dec_ref.residual_rms_norm_ref(x, d, w, 1e-5)
+    want = torch.autograd.grad((y * g1).sum() + (hs * g2).sum()
+                               + (n * g1).sum(), (x, d, w))
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        assert ((a - b).abs() <= tol * (1 + b.abs())).all(), \
+            (a - b).abs().max().item()
+
+
+def test_wrappers_without_a_backward_raise_under_grad(cuda):
+    """Every kernel without a backward raises when grad mode is on and an
+    input requires grad, naming the kernel, rather than return a tensor
+    without a grad_fn."""
+    bf = torch.bfloat16
+
+    def req(*shape, dtype=bf):
+        return randn(cuda, 0, *shape, dtype=dtype).requires_grad_()
+
+    calls = {
+        "rows_matmul": lambda: dec_ops.rows_matmul(req(2, 64), req(64, 64)),
+        "decode_attention": lambda: dec_ops.decode_attention(
+            req(2, 1, 4, 64), req(2, 16, 2, 64), req(2, 16, 2, 64),
+            torch.full((2,), 8, dtype=torch.int32, device=cuda)),
+        "ssm_decode_step": lambda: dec_ops.ssm_decode_step(
+            torch.zeros(2, 2, 64, 16, device=cuda), req(2, 2, 64),
+            torch.ones(2, 2, device=cuda), -torch.ones(2, device=cuda),
+            req(2, 16), req(2, 16)),
+        "gated_rms_norm_rows": lambda: dec_ops.gated_rms_norm_rows(
+            req(1, 4, 2, 64), torch.ones(2, device=cuda), req(1, 4, 2, 64),
+            req(1, 4, 128), req(128), 1e-5),
+        "ssd_scan": lambda: ssd_ops.ssd_scan(
+            req(1, 32, 2, 64), torch.ones(1, 32, 2, device=cuda),
+            -torch.ones(2, device=cuda), req(1, 32, 64), req(1, 32, 64), 16),
+        "conv_silu": lambda: silu_ops.conv_silu(None, req(1, 8, 64),
+                                                req(4, 64), req(64)),
+        "silu": lambda: silu_ops.silu(req(4, 64)),
+        "quantize": lambda: q_ops.quantize(req(4, 64), 1, 64),
+        "dequantize": lambda: q_ops.dequantize(
+            torch.ones(4, 64, dtype=torch.int8, device=cuda),
+            req(4, 1, dtype=torch.float32), 1, 64),
+    }
+    calls["rowwise"] = lambda: q_ops.rowwise_quantize(req(4, 64))
+    for name, fn in calls.items():
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn()
+        with torch.no_grad():
+            fn()                   # serving: nothing requires grad
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_card_vs_cpu(cuda):
+    """One train step of a granite smoke model widened to head dim 64 (the
+    backward kernel's), bf16, on the card against the same step on the CPU
+    from the same params: the loss within 1e-2 (1 + |cpu|), every gradient
+    leaf within 3e-2 of the CPU leaf's largest value, finite and not zero;
+    the step goes through the kernels' forwards and backwards."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = get_config("granite-3-2b", "smoke").replace(
+        d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, remat=True)
+    gen = torch.Generator().manual_seed(0)
+    host = init_params(cfg, gen, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 64, 2).batch(0)
+                              ["tokens"])
+    kernels.reset_launch_counts()
+    m_card, g_card = loss_and_grads(cfg, card, {"tokens": tokens.to(cuda)})
+    counts = kernels.launch_counts()
+    m_host, g_host = loss_and_grads(cfg, host, {"tokens": tokens})
+    n = cfg.n_layers
+    assert counts["flash_attention"] == 2 * n      # forward and remat
+    assert counts["flash_attention_bwd"] == n
+    assert counts["rms_norm_rows"] == 2 * n + 1
+    assert counts["residual_rms_norm_rows"] == 2 * n
+    loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
+    assert abs(loss_c - loss_h) <= 1e-2 * (1 + abs(loss_h))
+    for gc, gh in zip(tree_leaves(g_card), tree_leaves(g_host)):
+        gc, gh = gc.float().cpu(), gh.float()
+        assert torch.isfinite(gc).all() and gc.abs().max() > 0
+        assert (gc - gh).abs().max() <= 3e-2 * gh.abs().max()
+    step = make_train_step(cfg)
+    _, opt, metrics = step(card, adamw_init(card), {"tokens":
+                                                    tokens.to(cuda)})
+    assert int(opt.step) == 1 and torch.isfinite(metrics["grad_norm"])

@@ -444,7 +444,10 @@ class TestFlashAttention:
         kernels.ssm_decode_step(torch.ones(2, 3, 4, 8), torch.ones(2, 3, 4),
                                 torch.ones(2, 3), -torch.ones(3),
                                 torch.ones(2, 8), torch.ones(2, 8))
+        q = torch.ones(1, 4, 2, 8)
+        kernels.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 4), q)
         assert kernels.launch_counts() == {"flash_attention": 0,
+                                           "flash_attention_bwd": 0,
                                            "quantize": 0, "dequantize": 0,
                                            "ssd": 0, "rows_matmul": 0,
                                            "rms_norm_rows": 0,

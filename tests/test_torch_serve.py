@@ -354,7 +354,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.emulator.faults', 'repro_torch.emulator.engine',"
         " 'repro_torch.emulator.sweep', 'repro_torch.emulator.equivalence',"
         " 'repro_torch.chaos.campaign', 'repro_torch.chaos.shrink',"
-        " 'repro_torch.chaos.__main__'} <= set(sys.modules)\n"
+        " 'repro_torch.chaos.__main__', 'repro_torch.optim.adamw',"
+        " 'repro_torch.optim.schedules', 'repro_torch.data.pipeline',"
+        " 'repro_torch.runtime.trainer', 'repro_torch.runtime.failure',"
+        " 'repro_torch.runtime.elastic', 'repro_torch.launch.steps',"
+        " 'repro_torch.launch.train'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
