@@ -17,7 +17,7 @@ Phases, in order; any failure exits non-zero before the result line:
    (float32), with no copy of its inputs or output in its wrapper; its
    backward (``flash_attention_bwd``, ``check_flash_bwd``) at granite's
    training shape, llama3-405b's group of 16 at hd 128, minicpm's MHA and
-   a ragged S: dq, dk and dv within 3e-2 (1 + |plain|) and 2^-6 of the
+   a ragged S: dq, dk and dv within 1e-2 (1 + |plain|) and 2^-6 of the
    largest |plain|, two runs bit-identical, the forward's lse within 1e-4
    and its output bit-equal without the lse, no spill, times beside the
    bound, the plain version and PyTorch's flash SDPA backward;
@@ -571,13 +571,14 @@ BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
     (1, PROMPT, 128, 8, 128),        # llama3-405b's group of 16 at hd 128
     (BATCH, PROMPT, 36, 36, 64),     # minicpm's MHA
     (BATCH, 300, 32, 8, 64))         # a ragged S
-BWD_TOL = 3e-2          # per element, on 1 + |plain|
+BWD_TOL = 1e-2          # per element, on 1 + |plain|
+STEP_LOSS_TOL = 2e-3    # the 2-layer step's loss, card against CPU
 
 
 def check_flash_bwd(torch, gen):
     """The flash-attention backward kernel (``flash_attention_bwd``)
     against its plain version (``flash_bwd_ref``) on the same (o, lse) from
-    the forward kernel, at ``BWD_CASES``: dq, dk and dv within 3e-2 (1 +
+    the forward kernel, at ``BWD_CASES``: dq, dk and dv within 1e-2 (1 +
     |plain|) per element and within 2^-6 of the tensor's largest |plain|,
     two runs bit-identical; the forward's lse within 1e-4 (1 + |plain|) of
     the plain log-sum-exp and its output bit-equal with and without the
@@ -3444,7 +3445,7 @@ def train(torch):
        and ``CHECK_DEPTH`` layers, bf16, batch 1 x ``CHECK_SEQ``, on the
        card (through the kernels and their backwards) against the same on
        the CPU (the plain versions) from the same params: the loss within
-       1e-2 (1 + |cpu|), every gradient leaf within 3e-2 of the CPU leaf's
+       2e-3, every gradient leaf within 3e-2 of the CPU leaf's
        largest |value|, finite and not zero; the card's launches exactly
        ``train_launches``.
     2. ``Trainer`` on granite-3-2b at full width and depth (remat, bf16
@@ -3517,12 +3518,12 @@ def train(torch):
     worst = max(leaves, key=leaves.get)
     log(f"  one step at full width, {CHECK_DEPTH} layers, batch 1 x "
         f"{CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on the "
-        f"CPU (tol 1e-2 (1 + |cpu|)); the worst of {len(leaves)} gradient "
+        f"CPU (tol {STEP_LOSS_TOL:g}); the worst of {len(leaves)} gradient "
         f"leaves {worst} at {leaves[worst]:.3g} of its largest (tol 3e-2); "
         f"every leaf finite and not zero: {not bad}; {card_s:.2f}s on the "
         f"card (first use), {host_s:.2f}s on the CPU; launches {got} "
         f"(exact: {got == want})")
-    if (bad or abs(loss_c - loss_h) > 1e-2 * (1 + abs(loss_h))
+    if (bad or not abs(loss_c - loss_h) <= STEP_LOSS_TOL
             or got != want):
         raise SystemExit(f"[train] the step against the CPU's: {out['check']}"
                          f", leaves {bad}, expected launches {want}")

@@ -97,14 +97,16 @@ def _bwd_scope(q, causal: bool, valid_len: int):
             + ", ".join(missing))
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
-    """The gradients (dq, dk, dv) of causal flash attention: q, o, do
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        valid_len: int | None = None):
+    """The gradients (dq, dk, dv) of flash attention: q, o, do
     (B,S,H,hd), k/v (B,S,KV,hd) read in place through their strides, lse
     (B,H,S) float32 from the forward.  dq is (B,S,H,hd) and dk, dv
     (B,S,KV,hd), contiguous in q's dtype, dk and dv summed over each kv
-    head's q heads.  On the CPU the plain version (``ref.flash_bwd_ref``);
-    on the card the kernel (three launches: delta, dk/dv, dq; one count),
-    or a raise."""
+    head's q heads; keys at or past ``valid_len`` (default S) masked as in
+    the forward.  On the CPU the plain version (``ref.flash_bwd_ref``); on
+    the card the kernel (three launches: delta, dk/dv, dq; one count), or a
+    raise: the kernel takes causal calls with every key valid."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -118,12 +120,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     if h % kv:
         raise ValueError(f"flash_attention_bwd: {h} q heads not a multiple "
                          f"of {kv} kv heads")
+    valid_len = s if valid_len is None else valid_len
+    if not 1 <= valid_len <= s:
+        raise ValueError(f"flash_attention_bwd: valid_len {valid_len} not "
+                         f"in [1, {s}]")
     if q.device.type == "cpu":
-        return flash_bwd_ref(q, k, v, o, lse, do, causal)
+        return flash_bwd_ref(q, k, v, o, lse, do, causal, valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _bwd_scope(q, causal, s)
+    _bwd_scope(q, causal, valid_len)
     if any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError("flash_attention_bwd: q, k, v, o and do must share "
                         "one dtype")
@@ -161,14 +167,14 @@ class FlashAttentionFn(torch.autograd.Function):
         else:
             o, lse = _launch(q, k, v, causal, valid_len, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.valid_len = causal, valid_len
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal)
+                                         ctx.causal, ctx.valid_len)
         return dq, dk, dv, None, None
 
 

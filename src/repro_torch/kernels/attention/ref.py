@@ -64,11 +64,13 @@ def flash_ref(q, k, v, causal: bool = True, valid_len: int | None = None,
     return out, torch.logsumexp(sc, dim=-1).reshape(b, h, s)
 
 
-def flash_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+def flash_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                  valid_len: int | None = None):
     """The backward kernel's contract in plain PyTorch: the gradients (dq,
-    dk, dv) of ``flash_ref(q, k, v, causal)`` given the output ``o``, its
-    ``lse`` (B,H,S) and the output's gradient ``do`` (B,S,H,hd), every key
-    below S valid.  The arithmetic of the reference's flash-style VJP
+    dk, dv) of ``flash_ref(q, k, v, causal, valid_len)`` given the output
+    ``o``, its ``lse`` (B,H,S) and the output's gradient ``do`` (B,S,H,hd);
+    keys at or past ``valid_len`` (default S) are masked as in the
+    forward.  The arithmetic of the reference's flash-style VJP
     (``_blocked_bwd_rule``) in float32: P = exp(scale s - lse), delta =
     rowsum(do o), dS = P (dP - delta) scale; with bfloat16 inputs P is
     rounded to bfloat16 before it multiplies do (dv) and dS before it
@@ -83,7 +85,8 @@ def flash_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
     qf = q.float().reshape(b, s, kv, g, hd)
     dof = do.float().reshape(b, s, kv, g, hd)
     kf, vf = k.float(), v.float()
-    keep = _keep(s, causal, s, q.device)
+    valid_len = s if valid_len is None else valid_len
+    keep = _keep(s, causal, valid_len, q.device)
     sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
     p = torch.exp(sc - lse.float().reshape(b, kv, g, s)[..., None])
     p = p.masked_fill(~keep, 0.0)

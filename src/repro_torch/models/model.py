@@ -31,7 +31,7 @@ group (MLA's compressed ``ckv`` and ``krope``, or GQA's k/v), and for an
 interleave above 1 the dense blocks' stacked (groups, il - 1).
 
   init_params(cfg, generator, device=)                    -> params
-  forward(cfg, params, batch, remat=)                     -> (logits, (h, aux))
+  forward(cfg, params, batch)                             -> (logits, (h, aux))
   loss_fn(cfg, params, batch)                             -> (loss, metrics)
   init_serve_cache(cfg, batch_size, max_len, batch=, device=) -> cache
   prefill(cfg, params, batch, cache)                      -> (last logits, cache)
@@ -252,14 +252,13 @@ def lm_logits(params, cfg, h):
     return linear(h, w).float()
 
 
-def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
-                 remat=False):
+def _dense_apply(cfg, params, h, positions, cache=None, kv_bucket=None):
     """The stacked blocks of ``params`` over ``h``; ``cache`` (stacked like
-    the blocks) is updated in place.  ``remat`` (a cacheless pass under
-    grad): each block's activations are recomputed in the backward instead
-    of kept.  Returns (h, cache)."""
+    the blocks) is updated in place.  With ``cfg.remat`` a cacheless pass
+    under grad (training) recomputes each block's activations in the
+    backward instead of keeping them.  Returns (h, cache)."""
     offset = _write_offset(h, cache)
-    remat = remat and cache is None and torch.is_grad_enabled()
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, bp in enumerate(unstack(params["blocks"])):
         if remat:
             # the block holds no randomness: no RNG state to stash
@@ -410,22 +409,20 @@ def _encdec_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
 
 
 def _backbone(cfg, params, h, positions, cache=None, kv_bucket=None,
-              layer_offset=0, app_offset=0, side=None, remat=False):
+              layer_offset=0, app_offset=0, side=None):
     """The family's stacked blocks over ``h``.  ``kv_bucket`` bounds decode
     GQA self-attention (dense, the VLM's, the decoder's and llama4's
     blocks, and the hybrid's shared block; MLA reads the whole cache); the
     offsets place a stage's blocks in the hybrid's call-site order
     (``_ssm_apply``); ``side`` holds a cacheless pass's cross-attention
-    source (``vision`` or ``enc_out``); ``remat`` recomputes each dense
-    block in the backward (``_dense_apply``)."""
+    source (``vision`` or ``enc_out``)."""
     fam = family(cfg)
     side = side or {}
     if fam == "moe":
         h, cache, _ = _moe_apply(cfg, params, h, positions, cache, kv_bucket)
         return h, cache
     if fam == "dense":
-        return _dense_apply(cfg, params, h, positions, cache, kv_bucket,
-                            remat)
+        return _dense_apply(cfg, params, h, positions, cache, kv_bucket)
     if fam == "vlm":
         return _vlm_apply(cfg, params, h, positions, cache, kv_bucket,
                           side.get("vision"))
@@ -440,13 +437,12 @@ def _positions(b, s, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def forward(cfg: ModelConfig, params, batch, *, remat: bool = False):
+def forward(cfg: ModelConfig, params, batch):
     """Full-sequence causal forward -> (logits, (h, aux)), aux the MoE
     blocks' load-balancing loss over ``n_layers`` (0.0 for the other
     families), as the reference's.  The VLM attends to
     ``batch["vision"]``; the encoder-decoder to ``batch["enc_out"]`` or,
-    without it, to the encoding of ``batch["frames"]``.  ``remat``
-    recomputes each dense block in the backward (training)."""
+    without it, to the encoding of ``batch["frames"]``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed_tokens(params, cfg, tokens)
@@ -455,7 +451,7 @@ def forward(cfg: ModelConfig, params, batch, *, remat: bool = False):
         h, _, aux = _moe_apply(cfg, params, h, positions)
         return lm_logits(params, cfg, h), (h, aux / cfg.n_layers)
     h, _ = _backbone(cfg, params, h, positions,
-                     side=_side_inputs(cfg, params, batch), remat=remat)
+                     side=_side_inputs(cfg, params, batch))
     return lm_logits(params, cfg, h), (h, 0.0)
 
 
@@ -482,7 +478,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
             f"loss_fn: training is ported for the {TRAIN_FAMILIES} family "
             f"only; {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
             "item 10 (the other families' training)")
-    logits, _ = forward(cfg, params, batch, remat=cfg.remat)
+    logits, _ = forward(cfg, params, batch)
     targets = batch["tokens"]
     loss = token_ce(logits[:, :-1], targets[:, 1:])
     return loss, {"ce": loss, "loss": loss}

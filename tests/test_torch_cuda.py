@@ -1381,13 +1381,13 @@ def test_chaos_harness_on_card(granite_card, tmp_path):
 
 def grads_close(got, want, name):
     """A backward kernel's bf16 output against its plain version: within
-    3e-2 (1 + |plain|) per element and within 2^-6 of the largest |plain|
+    1e-2 (1 + |plain|) per element and within 2^-6 of the largest |plain|
     (one bf16 rounding of P or dS may differ by an ulp, and the output is
     rounded once)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     assert torch.isfinite(got).all(), name
-    assert (err <= 3e-2 * (1 + want.abs())).all(), (name, err.max().item())
+    assert (err <= 1e-2 * (1 + want.abs())).all(), (name, err.max().item())
     assert err.max() <= 2 ** -6 * want.abs().max(), (name, err.max().item())
 
 
@@ -1541,7 +1541,7 @@ def test_wrappers_without_a_backward_raise_under_grad(cuda):
 def test_train_step_on_card_vs_cpu(cuda):
     """One train step of a granite smoke model widened to head dim 64 (the
     backward kernel's), bf16, on the card against the same step on the CPU
-    from the same params: the loss within 1e-2 (1 + |cpu|), every gradient
+    from the same params: the loss within 2e-3, every gradient
     leaf within 3e-2 of the CPU leaf's largest value, finite and not zero;
     the step goes through the kernels' forwards and backwards."""
     from repro_torch.data import SyntheticTokens
@@ -1564,7 +1564,7 @@ def test_train_step_on_card_vs_cpu(cuda):
     assert counts["rms_norm_rows"] == 2 * n + 1
     assert counts["residual_rms_norm_rows"] == 2 * n
     loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
-    assert abs(loss_c - loss_h) <= 1e-2 * (1 + abs(loss_h))
+    assert abs(loss_c - loss_h) <= 2e-3
     for gc, gh in zip(tree_leaves(g_card), tree_leaves(g_host)):
         gc, gh = gc.float().cpu(), gh.float()
         assert torch.isfinite(gc).all() and gc.abs().max() > 0

@@ -106,6 +106,29 @@ def test_flash_bwd_ref_vs_autograd_through_flash_ref(s, h, kv, hd, dtype):
         hold(a, b, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_keys_vs_autograd_through_flash_ref(causal, dtype):
+    """Keys at or past valid_len < S: the autograd wrapper's gradients on
+    the CPU (flash_bwd_ref given the call's valid_len) against torch
+    autograd through flash_ref with the same mask, held as above; the
+    masked keys get no gradient at all."""
+    dt = getattr(torch, dtype)
+    s, valid_len = 90, 37
+    g = torch.Generator().manual_seed(valid_len)
+    q, k, v = (torch.randn(2, s, n, 16, generator=g).to(dt).requires_grad_()
+               for n in (4, 2, 2))
+    do = torch.randn(2, s, 4, 16, generator=g).to(dt)
+    want = torch.autograd.grad(flash_ref(q, k, v, causal, valid_len),
+                               (q, k, v), do)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal,
+                                                  valid_len), (q, k, v), do)
+    for a, b in zip(got, want):
+        hold(a, b, dtype)
+    for d in got[1:]:
+        assert not d[:, valid_len:].any()
+
+
 def test_autograd_wrapper_is_the_plain_pair_on_the_cpu():
     """On the CPU, flash_attention under grad goes through FlashAttentionFn:
     flash_ref's output, flash_bwd_ref's gradients, bit for bit; no kernel
