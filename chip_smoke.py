@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wire-times [SRC]   # the wire's times alone
+    python3 chip_smoke.py --bwd-times [SRC]    # the flash backward's alone
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -16,10 +17,12 @@ Phases, in order; any failure exits non-zero before the result line:
    llama4's prefill: 40 q heads over 8 kv heads of 128) and 2e-5
    (float32), with no copy of its inputs or output in its wrapper; its
    backward (``flash_attention_bwd``, ``check_flash_bwd``) at granite's
-   training shape, llama3-405b's group of 16 at hd 128, minicpm's MHA and
-   a ragged S: dq, dk and dv within 1e-2 (1 + |plain|) and 2^-6 of the
+   training shape, llama3-405b's group of 16 at hd 128, minicpm's MHA, a
+   ragged S, and S off every tile with a group split into chunks (hd 64
+   and 128): dq, dk and dv within 1e-2 (1 + |plain|) and 2^-6 of the
    largest |plain|, two runs bit-identical, the forward's lse within 1e-4
-   and its output bit-equal without the lse, no spill, times beside the
+   and its output bit-equal without the lse, no spill, times at granite's
+   shape and at hd 128 (each launch's from the profiler) beside the
    bound, the plain version and PyTorch's flash SDPA backward;
    quantize and dequantize bit-equal (q, scales and output bytes) at
    every served model's width (1280 to 16384), at decode rows and a
@@ -34,7 +37,9 @@ Phases, in order; any failure exits non-zero before the result line:
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); the three row-invariant
    decode kernels (``rows_matmul`` at granite's wg and tied head, mamba2's
-   in_proj, llama3-405b's wg, whisper's wg and head, the VLM's wq and
+   in_proj, llama3-405b's wg, whisper's wg and head (its rows 4-byte
+   aligned: the narrow copies, each shape's path recorded), granite's wg
+   as a view 4 bytes off the 16-byte grid, the VLM's wq and
    wg, deepseek-v3's wdq, wuq, wdkv, wo, shared expert and head, and
    llama4's wq, wk, dense and shared-expert MLPs and head,
    ``decode_attention`` at granite's, zamba2's, llama3-405b's and
@@ -570,7 +575,9 @@ BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
     (BATCH, PROMPT, 32, 8, 64),      # granite's training batch
     (1, PROMPT, 128, 8, 128),        # llama3-405b's group of 16 at hd 128
     (BATCH, PROMPT, 36, 36, 64),     # minicpm's MHA
-    (BATCH, 300, 32, 8, 64))         # a ragged S
+    (BATCH, 300, 32, 8, 64),         # a ragged S
+    (2, 330, 8, 1, 64),              # S off every tile, two head chunks
+    (1, 1000, 16, 2, 128))           # the same at hd 128
 BWD_TOL = 1e-2          # per element, on 1 + |plain|
 STEP_LOSS_TOL = 2e-3    # the 2-layer step's loss, card against CPU
 
@@ -582,14 +589,12 @@ def check_flash_bwd(torch, gen):
     |plain|) per element and within 2^-6 of the tensor's largest |plain|,
     two runs bit-identical; the forward's lse within 1e-4 (1 + |plain|) of
     the plain log-sum-exp and its output bit-equal with and without the
-    lse; no spill (``cuobjdump -res-usage``).  Times at granite's shape:
-    the kernel warm and cold (a copy of the inputs a call), the plain
-    version, the bound (the larger of the bytes over the HBM rate and 2.5x
-    the forward's causal operations over the bf16 peak) and, as a
-    yardstick the port never calls, the backward of PyTorch's flash SDPA
-    (``aten._scaled_dot_product_flash_attention_backward``, k and v
-    repeated to the q heads, since it takes no groups); and the forward
-    with and without its lse (the serving path asks for none)."""
+    lse; no spill (``cuobjdump -res-usage``).  Times (``bwd_times``) at
+    granite's shape and at llama3-405b's group of 16 at hd 128: the kernel
+    warm and cold, each of its two launches from the profiler, the plain
+    version, the bound and PyTorch's flash SDPA backward
+    (``aten._scaled_dot_product_flash_attention_backward``); and the
+    forward with and without its lse (the serving path asks for none)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ref import flash_bwd_ref, flash_ref
@@ -642,7 +647,61 @@ def check_flash_bwd(torch, gen):
         scaled_max = max(scaled_max, *(sc for _, _, sc in errs))
         inputs.setdefault((b, s, h, kv, hd), (q, k, v, o, lse, do))
 
+    timed = {case: bwd_times(torch, *inputs[case])
+             for case in BWD_CASES[:2]}
+    gran, big = timed[BWD_CASES[0]], timed[BWD_CASES[1]]
     q, k, v, o, lse, do = inputs[BWD_CASES[0]]
+    s = q.shape[1]
+    f_ms = time_ms(lambda: ops._launch(q, k, v, True, s))
+    fl_ms = time_ms(lambda: ops._launch(q, k, v, True, s, with_lse=True))
+    log(f"  the forward at granite's shape {f_ms:.4f} ms without its lse, "
+        f"{fl_ms:.4f} ms with it")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:248",
+            "max_abs_err": abs_max, "scaled_err": scaled_max,
+            "ms": gran["ms"], "cold_ms": gran["cold_ms"],
+            "per_pass_ms": gran["per_pass_ms"],
+            "plain_ms": gran["plain_ms"], "bound_ms": gran["bound_ms"],
+            "bound_by": gran["bound_by"], "library_ms": gran["library_ms"],
+            "per_element_err": err_max,
+            "forward_ms": f_ms, "forward_with_lse_ms": fl_ms,
+            "hd128": dict(big, **{"B, S, H, KV, hd": list(BWD_CASES[1])}),
+            "registers": {re.sub(r"^.*?(flash_bwd_\w+?)E.*$", r"\1", f): r
+                          for f, (r, _) in usage.items()},
+            "main_path": f"{TRAIN_ARCH}/train_full"}
+
+
+def pass_times(torch, fn, tag, iters=20):
+    """Device ms a call of each kernel whose name holds ``tag``, from
+    torch.profiler over ``iters`` calls of ``fn``: {short name: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and tag in e.key:
+            name = re.sub(rf"^.*?({tag}\w*?)(E|I|<|\(|$).*$", r"\1", e.key)
+            out[name] = e.device_time_total / e.count / 1e3
+    if not out:
+        raise SystemExit(f"the profiler saw no {tag} kernel")
+    return out
+
+
+def bwd_times(torch, q, k, v, o, lse, do):
+    """The backward kernel's times at one shape: warm, cold (a copy of the
+    inputs a call), each launch's from the profiler, the plain version's,
+    the bound (the larger of the bytes over the HBM rate and 2.5x the
+    forward's causal operations over the bf16 peak) and, as a yardstick
+    the port never calls, the backward of PyTorch's flash SDPA (k and v
+    repeated to the q heads, since it takes no groups)."""
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.attention.ref import flash_bwd_ref
     b, s, h, hd = q.shape
     kv = k.shape[2]
     fwd_flops = 4.0 * b * h * hd * s * (s + 1) / 2
@@ -652,6 +711,8 @@ def check_flash_bwd(torch, gen):
               + 2 * (q.numel() + k.numel() + v.numel()))
     b_ms, b_by = bound(nbytes, (2.5 * fwd_flops, BF16_PEAK))
     k_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+    per = pass_times(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, o, lse, do), "flash_bwd")
     copies = [tuple(t.clone() for t in (q, k, v, o, lse, do))
               for _ in range(cold_copies(nbytes))]
     c_ms, _ = time_cold_ms(lambda c: ops.flash_attention_bwd(*copies[c]),
@@ -669,26 +730,16 @@ def check_flash_bwd(torch, gen):
     l_ms = time_ms(lambda: sdpa_bwd(dot, qt, kt, vt, l_out, l_lse, fwd[2],
                                     fwd[3], fwd[4], fwd[5], 0.0, True,
                                     fwd[6], fwd[7]))
-    f_ms = time_ms(lambda: ops._launch(q, k, v, True, s))
-    fl_ms = time_ms(lambda: ops._launch(q, k, v, True, s, with_lse=True))
-    log(f"  flash_attention_bwd at granite's training shape (B={b}, S={s}, "
-        f"H={h}, KV={kv}, hd={hd}): kernel {k_ms:.4f} ms warm, {c_ms:.4f} "
-        f"cold, plain {p_ms:.4f} ms, the flash SDPA's backward (k, v "
-        f"repeated to {h} heads) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+    log(f"  flash_attention_bwd (B={b}, S={s}, H={h}, KV={kv}, hd={hd}): "
+        f"kernel {k_ms:.4f} ms warm, {c_ms:.4f} cold ("
+        + ", ".join(f"{n} {t:.4f}" for n, t in per.items())
+        + f" a launch), plain {p_ms:.4f} ms, the flash SDPA's backward (k, "
+        f"v repeated to {h} heads) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {2.5 * fwd_flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
-        f"MB); the forward {f_ms:.4f} ms without its lse, {fl_ms:.4f} ms "
-        f"with it")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/models/layers.py:248",
-            "max_abs_err": abs_max, "scaled_err": scaled_max, "ms": k_ms,
-            "cold_ms": c_ms,
+        f"MB)")
+    return {"ms": k_ms, "cold_ms": c_ms, "per_pass_ms": per,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms, "per_element_err": err_max,
-            "forward_ms": f_ms, "forward_with_lse_ms": fl_ms,
-            "registers": {re.sub(r"^.*?(flash_bwd_\w+?)E.*$", r"\1", f): r
-                          for f, (r, _) in usage.items()},
-            "main_path": f"{TRAIN_ARCH}/train_full"}
+            "library_ms": l_ms}
 
 
 def time_cold_out_ms(fn, nbytes, iters=20):
@@ -1460,10 +1511,14 @@ def check_decode(torch, gen):
                 * scale).to(dtype)
 
     # rows_matmul: granite's wg, wk, wd and tied head (embed.T), mamba2's
-    # in_proj, llama3's wg, whisper's wg and head (N = 51866: no 16-byte
-    # rows, the element-wise path), the VLM's wq and wg, the MoE models'
-    # projections and heads; timed cold (a copy of the weight a call) and
-    # warm (one weight), beside x @ w the same two ways
+    # in_proj, llama3's wg, whisper's wg and head (N = 51866: rows 4-byte
+    # aligned, the narrow copies), granite's wg as a view 4 bytes off the
+    # 16-byte grid (the narrow copies at a shape the 16-byte copies also
+    # take), the VLM's wq and wg, the MoE models' projections and heads;
+    # timed cold (a copy of the weight a call) and warm (one weight),
+    # beside x @ w the same two ways; each with the path its weight takes
+    # (ops.weight_copy: 16-byte copies, narrow copies, elements, or the
+    # transposed weight's path)
     shapes = {"granite_wg": (2048, 8192, False),
               "granite_wk": (2048, 512, False),
               "granite_wd": (8192, 2048, False),
@@ -1472,6 +1527,7 @@ def check_decode(torch, gen):
               "llama3_wg": (16384, 53248, False),
               "whisper_wg": (1280, 5120, False),
               "whisper_head": (1280, 51866, False),   # rows not 16-B aligned
+              "granite_wg_off4": (2048, 8192, "off4"),
               "vlm_wq": (8192, 8192, False),
               "vlm_wg": (8192, 28672, False),
               # deepseek-v3's MLA projections (wdkv's N = 512 + 64), shared
@@ -1495,6 +1551,8 @@ def check_decode(torch, gen):
     mm = {}
     for key, (k, n, tied) in shapes.items():
         def draw():
+            if tied == "off4":       # rows 4 bytes off the 16-byte grid
+                return randn(k, n + 8, scale=k ** -0.5)[:, 2:2 + n]
             return (randn(n, k, scale=k ** -0.5).T if tied
                     else randn(k, n, scale=k ** -0.5))
         ws = [draw() for _ in range(cold_copies(2 * k * n))]
@@ -1513,20 +1571,28 @@ def check_decode(torch, gen):
         lw_ms = time_ms(lambda: xb @ w)
         b_ms, b_by = bound(2 * (k * n + BATCH * k + BATCH * n),
                            (2.0 * BATCH * k * n, BF16_PEAK))
-        tn, ks = ((None, None) if tied else ops.rows_plan(
+        tn, ks = ((None, None) if tied is True else ops.rows_plan(
             k, n, 2, ops._sms(torch.cuda.current_device())))
-        mm[key] = {"K, N": [k, n], "transposed_w": tied, "ms": k_ms,
+        path = ("transposed" if tied is True else
+                {16: "copies16", 8: "narrow8", 4: "narrow4", 0: "elements"}[
+                    ops.weight_copy(w.data_ptr(), 2 * w.stride(0), 2 * n)])
+        mm[key] = {"K, N": [k, n], "transposed_w": tied is True,
+                   "path": path, "ms": k_ms,
                    "plain_ms": lw_ms, "library_ms": l_ms, "warm_ms": kw_ms,
                    "warm_library_ms": lw_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "cold_copies": copies,
-                   "plan": None if tied else {"tn": tn, "ks": ks,
-                                              "splits": -(-k // ks)},
+                   "plan": None if tied is True else {
+                       "tn": tn, "ks": ks, "splits": -(-k // ks)},
                    "plain_row_invariant": p_ok}
         log(f"  rows_matmul[{key}] M={BATCH}: kernel cold {k_ms:.4f} ms "
             f"(warm {kw_ms:.4f}), x @ w cold {l_ms:.4f} ms (warm "
             f"{lw_ms:.4f}), bound {b_ms:.4f} ms ({b_by}; "
             f"{2 * k * n / 1e6:.1f} MB of weight, {copies} copies); plan "
-            f"{mm[key]['plan']}")
+            f"{mm[key]['plan']}, path {path}")
+        if key in ("whisper_head", "granite_wg_off4") \
+                and not path.startswith("narrow"):
+            raise SystemExit(f"rows_matmul[{key}] took the {path} path, "
+                             "not the narrow copies")
         del w, ws
     torch.cuda.empty_cache()
     g = mm["granite_wg"]
@@ -3678,6 +3744,28 @@ def wire_times_only(torch, src):
     return 0
 
 
+def bwd_times_only(torch, src):
+    """``--bwd-times``: ``bwd_times`` alone at granite's shape and at hd 128
+    (``BWD_CASES[:2]``), with the port imported from ``src``; the JSON of
+    the times is the last line."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels.attention import ops
+    log(smi_line())
+    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {}
+    for b, s, h, kv, hd in BWD_CASES[:2]:
+        q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16)
+                       for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                     (b, s, kv, hd), (b, s, h, hd)))
+        o, lse = ops._launch(q, k, v, True, s, with_lse=True)
+        out[f"{b}x{s}x{h}x{kv}x{hd}"] = bwd_times(torch, q, k, v, o, lse, do)
+    print(json.dumps({"bwd_times": out}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port's main path once on one "
@@ -3688,6 +3776,12 @@ def main(argv=None) -> int:
                          "(wire_times), with the port imported from SRC "
                          "(default: this checkout's src/), so that one run "
                          "can time two checkouts")
+    ap.add_argument("--bwd-times", metavar="SRC", nargs="?",
+                    const=str(ROOT / "src"),
+                    help="time only the flash backward (bwd_times, each "
+                         "launch from the profiler) at granite's shape and "
+                         "at hd 128, with the port imported from SRC "
+                         "(default: this checkout's src/)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3695,6 +3789,8 @@ def main(argv=None) -> int:
         return 1
     if args.wire_times:
         return wire_times_only(torch, args.wire_times)
+    if args.bwd_times:
+        return bwd_times_only(torch, args.bwd_times)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
@@ -3779,6 +3875,7 @@ def main(argv=None) -> int:
             "issue_bound_ms", "sass_per_element",   # silu's
 
             "scaled_err", "per_element_err",   # the flash backward's
+            "per_pass_ms", "hd128",
             "forward_ms", "forward_with_lse_ms", "registers",
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "whisper_encoder", "llama4_prefill",   # flash's

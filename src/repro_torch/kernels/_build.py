@@ -45,8 +45,8 @@ SIGNATURES = {
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_launch": ([_P] * 10 + [_I] * 5 + [_L] * 15
-                                       + [_F, _P], _I),
+        "flash_attention_bwd_launch": ([_P] * 12 + [_I] * 5 + [_L] * 15
+                                       + [_F, _I, _P], _I),
         "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {
@@ -72,7 +72,7 @@ SIGNATURES = {
     },
     "decode": {
         "rows_matmul_launch": ([_P, _L, _P, _L, _L, _P, _L, _P, _P]
-                               + [_I] * 6 + [_P], _I),
+                               + [_I] * 7 + [_P], _I),
         "decode_attention_launch": ([_P, _L, _L, _P, _P] + [_L] * 6
                                     + [_P, _P] + [_I] * 6 + [_F, _I, _I, _P],
                                     _I),

@@ -28,11 +28,13 @@ import math
 import torch
 
 from .. import _build
-from ..decode.ops import wants_grad
+from ..decode.ops import _counters, wants_grad
 from .ref import flash_bwd_ref, flash_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 112, 128)
 BWD_HEAD_DIMS = (64, 128)
+BWD_KEYS = 64              # keys a dk/dv tile, queries a dq tile
+BWD_HEADS = 4              # q heads a dk/dv block at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -97,6 +99,41 @@ def _bwd_scope(q, causal: bool, valid_len: int):
             + ", ".join(missing))
 
 
+def bwd_plan(s: int, h: int, kv: int, hd: int) -> tuple[int, int, int, int]:
+    """The dk/dv pass's grid: ``(bq, heads, chunks, pairs)``.  A block
+    owns one of ``pairs`` pairs of ``BWD_KEYS``-key tiles (i and n - 1 - i,
+    so every pair walks n + 1 query tiles a head) and ``heads`` of a kv
+    head's q heads, the largest divisor of the group up to ``BWD_HEADS``;
+    the group's ``chunks`` of heads add their float32 partials in chunk
+    order.  Query tiles are ``bq`` rows: 64 at hd 64, 32 at hd 128.  There
+    is no batch size: every sum's order follows from S, the group and hd
+    alone."""
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"bwd_plan: head dim {hd} not in {BWD_HEAD_DIMS}")
+    group = h // kv
+    heads = max(d for d in range(1, BWD_HEADS + 1) if group % d == 0)
+    n = -(-s // BWD_KEYS)
+    return 64 if hd == 64 else 32, heads, group // heads, -(-n // 2)
+
+
+def bwd_blocks(b: int, s: int, h: int, kv: int, hd: int):
+    """The dk/dv blocks in launch order, as the kernel derives them from
+    its block index: ``(batch, kv head, key tiles, q heads)``, a block's
+    key tiles in the order it walks them."""
+    _, heads, chunks, pairs = bwd_plan(s, h, kv, hd)
+    n = -(-s // BWD_KEYS)
+    group = h // kv
+    out = []
+    for bi in range(b):
+        for kvh in range(kv):
+            for p in range(pairs):
+                tiles = (p,) if p == n - 1 - p else (p, n - 1 - p)
+                for c in range(chunks):
+                    h0 = kvh * group + c * heads
+                    out.append((bi, kvh, tiles, tuple(range(h0, h0 + heads))))
+    return out
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         valid_len: int | None = None):
     """The gradients (dq, dk, dv) of flash attention: q, o, do
@@ -105,8 +142,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     (B,S,KV,hd), contiguous in q's dtype, dk and dv summed over each kv
     head's q heads; keys at or past ``valid_len`` (default S) masked as in
     the forward.  On the CPU the plain version (``ref.flash_bwd_ref``); on
-    the card the kernel (three launches: delta, dk/dv, dq; one count), or a
-    raise: the kernel takes causal calls with every key valid."""
+    the card the kernel (two launches, dq with delta and then dk/dv; one
+    count), or a raise: the kernel takes causal calls with every key
+    valid."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -139,7 +177,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     strides = _strides("flash_attention_bwd", q, k, v, o, do)
     if lse.device != q.device:
         raise ValueError("flash_attention_bwd: inputs on different devices")
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _, heads, chunks, pairs = bwd_plan(s, h, kv, hd)
+    s64 = -(-s // BWD_KEYS) * BWD_KEYS
+    # (lse log2 e, delta) a row, written by the dq pass for the dk/dv pass
+    stats = torch.empty((b, h, s64, 2), dtype=torch.float32, device=q.device)
+    part = ctr = None
+    if chunks > 1:
+        tiles = b * kv * pairs * 2
+        part = torch.empty((tiles, chunks, 2 * BWD_KEYS * hd),
+                           dtype=torch.float32, device=q.device)
+        ctr = _counters(q.device, tiles)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, s, kv, hd), dtype=q.dtype, device=q.device)
@@ -147,9 +194,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ctr is None else ctr.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, *strides,
-            1.0 / math.sqrt(hd),
+            1.0 / math.sqrt(hd), heads,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention_bwd", "flash_attention_bwd_launch", err)
     flash_attention_bwd.launches += 1

@@ -167,11 +167,61 @@ __device__ __forceinline__ float warp_max(float v) {
 // float32 partials to the workspace (splits, M, N), and the last block of
 // the column tile to finish (the ticket) sums them in slice order.  Weight
 // rows and x columns past the slice are zeros (each adds exactly zero);
-// columns past N feed only outputs that are not written.  Every row of w
-// and of x on a 16-byte boundary, and N and K whole vectors, take the
-// copies; otherwise each element is loaded and stored alone, zeros past K,
-// N and M (an odd vocabulary, N = 4099).
+// columns past N feed only outputs that are not written.
+//
+// Which copies fill a stage depends on the addresses alone
+// (ops.py::weight_copy; the same stage layout and consume step whatever
+// fills it, so every output is the same products summed in the same
+// order):
+//   16    every row of w on the 16-byte grid and N whole vectors: each
+//         thread copies 16-byte chunks at addresses it works out once;
+//   8, 4  rows 8- or 4-byte aligned (bf16 with an even row stride and an
+//         even N, as whisper's head of 51866 columns, rows 103,732 bytes
+//         apart; any float32): a warp a row, its lanes copying the row's
+//         consecutive units by cp.async, each unit the widest the row's
+//         address allows (16, 8 or 4 bytes: whisper's rows cycle through
+//         16, 4, 8, 4; on the H100 faster than 4-byte units throughout),
+//         a shorter source size zero-filling past N; each warp instruction
+//         reads one contiguous run of the row and nothing waits on a load;
+//   0     an odd N in bf16 or rows off the 4-byte grid (N = 4099): each
+//         element is loaded and stored alone, zeros past K and N.
+// x takes 16-byte copies when its rows are on the 16-byte grid and K is
+// whole vectors (whisper's K of 1280 is), and elements otherwise.
 // ---------------------------------------------------------------------------
+
+// The widest cp.async, 16, 8 or 4 bytes, that the address allows.
+__device__ __forceinline__ int widest(const void* p) {
+  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  return (u & 15) == 0 ? 16 : (u & 7) == 0 ? 8 : 4;
+}
+
+// `cw` (16, 8 or 4) bytes from global to shared memory, of which the first
+// `valid` are read and the rest zero-filled; with none valid, zeros are
+// stored and nothing is read (the address may lie past the weight).
+__device__ __forceinline__ void copy_narrow(uint32_t dst, const void* src,
+                                            int cw, int valid) {
+  if (valid == 0) {
+    if (cw == 16)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+                   "r"(0));
+    else if (cw == 8)
+      asm volatile("st.shared.v2.u32 [%0], {%1, %1};\n" ::"r"(dst), "r"(0));
+    else
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(0));
+  } else if (cw == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  } else if (cw == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  }
+}
 
 constexpr int kStageBytes = 16384;
 constexpr int kStages = 4;
@@ -186,7 +236,8 @@ struct RowsArgs {
   float* part;       // (splits, m, n) float32 partials when splits > 1
   int* counters;     // one a (column tile, row chunk); zero between launches
   int m, k, n, ks, splits;
-  int w_aligned, x_aligned;
+  int w_copy;        // the weight's copy width: 16, 8, 4 or 0 (elements)
+  int x_copies;      // x's rows on the 16-byte grid, K whole vectors
 };
 
 template <typename T, int TN>
@@ -215,7 +266,6 @@ rows_matmul_kn_kernel(const RowsArgs a) {
   const int rows = min(kRowsPerBlock, a.m - m0);
   const int k0 = split * a.ks, k1 = min(a.k, k0 + a.ks);
   const int nst = (k1 - k0 + L::KB - 1) / L::KB;
-  const bool copies = a.w_aligned && a.x_aligned;
   const T* w = (const T*)a.w;
   const T* x = (const T*)a.x;
   T* out = (T*)a.out;
@@ -232,7 +282,7 @@ rows_matmul_kn_kernel(const RowsArgs a) {
     const int slot = t % kStages, kb0 = k0 + t * L::KB;
     T* ws = wst + slot * L::WST;
     T* xs = xst + slot * L::XST;
-    if (copies) {
+    if (a.w_copy == 16) {
 #pragma unroll
       for (int j = 0; j < L::WPT; ++j) {
         const int r = wr + j * (L::KB / L::WPT);
@@ -243,26 +293,51 @@ rows_matmul_kn_kernel(const RowsArgs a) {
                : w,
             ok);
       }
+    } else if (a.w_copy) {
+      // a warp a row, in units of the widest copy the row's address allows
+      // (cp.async needs source and destination on its size, and the stage
+      // rows are on the 16-byte grid): unit u of `cw` bytes is bytes [u cw,
+      // u cw + cw) of the row's TN columns, in chunk u cw / 16 of the
+      // swizzled layout.  A stage costs in cp.async instructions more than
+      // in bytes, so a row of 4-byte units costs 4x one of 16-byte units.
+      // warp w takes rows [w KB / 8, (w + 1) KB / 8): consecutive rows mix
+      // the classes of a stride off the grid (whisper's cycle through 16,
+      // 4, 8, 4 bytes), so the warps issue about as many copies each
+      constexpr int RB = TN * (int)sizeof(T), RW = L::KB / (kThreads / 32);
+      for (int r = warp * RW; r < (warp + 1) * RW; ++r) {
+        const int kk = kb0 + r;
+        const char* grow = reinterpret_cast<const char*>(
+            w + (long long)kk * a.wsk + n0);
+        const int valid = kk < k1 ? (a.n - n0) * (int)sizeof(T) : 0;
+        const int cw = widest(grow);
+        for (int ub = lane * cw; ub < RB; ub += 32 * cw)
+          copy_narrow(sm90::smem_u32(ws) +
+                          sm90::swz<L::WCH>(r, ub >> 4) * 16 + (ub & 15),
+                      grow + ub, cw, min(max(valid - ub, 0), cw));
+      }
+    } else {
+      for (int i = threadIdx.x; i < L::KB * TN; i += kThreads) {
+        const int r = i / TN, c = i % TN;
+        const int kk = kb0 + r, col = n0 + c;
+        ws[sm90::swz<L::WCH>(r, c / L::VEC) * L::VEC + c % L::VEC] =
+            kk < k1 && col < a.n ? w[(long long)kk * a.wsk + col]
+                                 : from_f32<T>(0.f);
+      }
+    }
+    if (a.x_copies) {
       if (xr < rows) {
         const bool ok = kb0 + xc * L::VEC < k1;
         sm90::cp_async16(
             sm90::smem_u32(xs + sm90::swz<L::XCH>(xr, xc) * L::VEC),
             ok ? xsrc + t * L::KB : x, ok);
       }
-      return;
-    }
-    for (int i = threadIdx.x; i < L::KB * TN; i += kThreads) {
-      const int r = i / TN, c = i % TN;
-      const int kk = kb0 + r, col = n0 + c;
-      ws[sm90::swz<L::WCH>(r, c / L::VEC) * L::VEC + c % L::VEC] =
-          kk < k1 && col < a.n ? w[(long long)kk * a.wsk + col]
-                               : from_f32<T>(0.f);
-    }
-    for (int i = threadIdx.x; i < kRowsPerBlock * L::KB; i += kThreads) {
-      const int r = i / L::KB, c = i % L::KB;
-      xs[sm90::swz<L::XCH>(r, c / L::VEC) * L::VEC + c % L::VEC] =
-          r < rows && kb0 + c < k1 ? x[(long long)(m0 + r) * a.xs + kb0 + c]
-                                   : from_f32<T>(0.f);
+    } else {
+      for (int i = threadIdx.x; i < kRowsPerBlock * L::KB; i += kThreads) {
+        const int r = i / L::KB, c = i % L::KB;
+        xs[sm90::swz<L::XCH>(r, c / L::VEC) * L::VEC + c % L::VEC] =
+            r < rows && kb0 + c < k1 ? x[(long long)(m0 + r) * a.xs + kb0 + c]
+                                     : from_f32<T>(0.f);
+      }
     }
   };
   // the ring: stage s is consumed while s + 1 .. s + kStages - 1 load
@@ -990,7 +1065,8 @@ extern "C" int rows_matmul_launch(const void* x, long long xs, const void* w,
                                   long long wsk, long long wsn, void* out,
                                   long long os, float* part, int* counters,
                                   int m, int k, int n, int tn, int ks,
-                                  int dtype, void* stream) {
+                                  int w_copy, int dtype,
+                                  void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (k <= 0 || m > 65535 * kRowsPerBlock || (wsn != 1 && wsk != 1))
     return (int)cudaErrorInvalidValue;
@@ -998,10 +1074,17 @@ extern "C" int rows_matmul_launch(const void* x, long long xs, const void* w,
   if (wsn == 1 && (ks <= 0 || ks % 16 ||
                    (splits > 1 && (part == nullptr || counters == nullptr))))
     return (int)cudaErrorInvalidValue;
-  const int vec = dtype == 1 ? 8 : 4;
+  const int vec = dtype == 1 ? 8 : 4, size = dtype == 1 ? 2 : 4;
+  // the weight's copy width (ops.py::weight_copy), checked against the
+  // addresses: each row's start and the bytes of N divisible by it
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const long long row_bytes = wsk * size, n_bytes = (long long)n * size;
+  if (wsn == 1 && w_copy != 0 &&
+      ((w_copy != 16 && w_copy != 8 && w_copy != 4) || wa % w_copy ||
+       row_bytes % w_copy || n_bytes % (w_copy == 16 ? 16 : 4)))
+    return (int)cudaErrorInvalidValue;
   RowsArgs a{x, xs, w, wsk, out, os, part, counters, m, k, n, ks, splits,
-             reinterpret_cast<uintptr_t>(w) % 16 == 0 && wsk % vec == 0 &&
-                 n % vec == 0,
+             w_copy,
              reinterpret_cast<uintptr_t>(x) % 16 == 0 && xs % vec == 0 &&
                  k % vec == 0};
   cudaStream_t st = (cudaStream_t)stream;

@@ -159,6 +159,24 @@ def rows_plan(k: int, n: int, itemsize: int, sms: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
+def weight_copy(addr: int, row_bytes: int, n_bytes: int) -> int:
+    """How ``rows_matmul`` copies a (K, N) weight's stages, from its
+    address, the bytes from one row to the next and the bytes of N: 16
+    (16-byte copies: every row on the 16-byte grid and N whole 16-byte
+    vectors), 8 or 4 (every row's start divisible by it and N by 4: a warp
+    copies a row in units of the widest size, 16, 8 or 4 bytes, that the
+    row's own address allows), or 0 (element by element: an odd N in bf16,
+    or rows off the 4-byte grid)."""
+    if addr % 16 == 0 and row_bytes % 16 == 0 and n_bytes % 16 == 0:
+        return 16
+    if n_bytes % 4:
+        return 0
+    for width in (8, 4):
+        if addr % width == 0 and row_bytes % width == 0:
+            return width
+    return 0
+
+
 def attention_cluster(kvh: int) -> int:
     """Blocks of ``decode_attention`` a (row, kv head): 8 for up to 8 kv
     heads, 4 for more (zamba2's 32), so that a batch of 4 rows still fits
@@ -179,7 +197,9 @@ _RETIRED: list[torch.Tensor] = []
 
 def _counters(dev, n: int) -> torch.Tensor:
     """At least ``n`` int32 ticket counters on ``dev``, all zero between
-    launches: allocated once per device and grown by doubling (a grown-out
+    launches (``rows_matmul``'s K-slices and the flash backward's head
+    chunks take their tickets here): allocated once per device and grown
+    by doubling (a grown-out
     buffer is kept alive, since a captured CUDA graph may still point at
     it).  The kernels that use them run in stream order.  They never grow
     inside a CUDA graph capture, which would record the zeroing as a node
@@ -188,9 +208,9 @@ def _counters(dev, n: int) -> torch.Tensor:
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                f"rows_matmul: {n} ticket counters needed inside a CUDA "
-                "graph capture, more than were allocated: run the captured "
-                "step once eagerly first")
+                f"{n} ticket counters needed inside a CUDA graph capture, "
+                "more than were allocated: run the captured step once "
+                "eagerly first")
         if buf is not None:
             _RETIRED.append(buf)
         size = max(n, 16384, 2 * buf.numel() if buf is not None else 0)
@@ -227,10 +247,12 @@ def rows_matmul(x, w):
                              f"multiple of {e} and every row of x and of "
                              "w.T must start on a 16-byte boundary")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    tn = ks = 0
+    tn = ks = copy = 0
     part = ctr = None
     if w.stride(1) == 1:
-        tn, ks = rows_plan(k, n, x.element_size(), _sms(x.device.index))
+        size = x.element_size()
+        tn, ks = rows_plan(k, n, size, _sms(x.device.index))
+        copy = weight_copy(w.data_ptr(), w.stride(0) * size, n * size)
         splits = -(-k // ks)
         if splits > 1:
             part = torch.empty((splits, m, n), dtype=torch.float32,
@@ -242,8 +264,8 @@ def rows_matmul(x, w):
             x.data_ptr(), x.stride(0), w.data_ptr(), w.stride(0),
             w.stride(1), out.data_ptr(), n,
             None if part is None else part.data_ptr(),
-            None if ctr is None else ctr.data_ptr(), m, k, n, tn, ks, code,
-            _stream(x))
+            None if ctr is None else ctr.data_ptr(), m, k, n, tn, ks, copy,
+            code, _stream(x))
     _build.check("decode", "rows_matmul_launch", err)
     rows_matmul.launches += 1
     return out.view(*lead, n)

@@ -432,16 +432,29 @@ def check_rows(a, b, dtype):
 @pytest.mark.parametrize("k,n,layout", [
     (64, 96, "kn"), (2048, 512, "kn"), (256, 4099, "kn"), (300, 1000, "kn"),
     (8192, 2048, "kn"), (2048, 8512, "kn"), (16384, 1024, "kn"),
+    (256, 1002, "kn"), (1280, 51866, "kn"), (2048, 1000, "kn4"),
     (2048, 1000, "nk"), (64, 256, "nk")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rows_matmul_vs_plain_and_row_invariant(cuda, m, k, n, layout,
                                                  dtype):
     """Against x @ w; every row's bits the same alone.  The (K, N) shapes
     take K-slices (2048 x 512, 8192 x 2048, 16384 x 1024 with slices above
-    16384 / 32 rows) or a ragged wave (2048 x 8512) in the plan."""
+    16384 / 32 rows) or a ragged wave (2048 x 8512) in the plan.  Weights
+    off the 16-byte grid take the narrow copies: N = 1002 (N % 8 == 2 in
+    bf16), whisper's head (1280 x 51866) and "kn4", a (K, N) view whose
+    rows start 4 bytes off a 16-byte boundary; bf16 N = 4099 takes the
+    element path."""
     x = randn(cuda, 1, m, k, dtype=dtype)
-    w = (weight(cuda, 2, k, n, dtype) if layout == "kn"
-         else weight(cuda, 2, n, k, dtype).T)
+    if layout == "kn":
+        w = weight(cuda, 2, k, n, dtype)
+    elif layout == "kn4":
+        size = x.element_size()
+        e = 4 // size
+        w = weight(cuda, 2, k, n + 8, dtype)[:, e:e + n]
+        assert dec_ops.weight_copy(w.data_ptr(), w.stride(0) * size,
+                                   n * size) == 4
+    else:
+        w = weight(cuda, 2, n, k, dtype).T
     before = dec_ops.rows_matmul.launches
     out = dec_ops.rows_matmul(x, w)
     torch.cuda.synchronize()
@@ -1393,7 +1406,10 @@ def grads_close(got, want, name):
 
 BWD_SHAPES = [  # (B, S, H, KV, hd): granite, llama3-405b, minicpm, ragged
     (4, 512, 32, 8, 64), (1, 512, 128, 8, 128), (1, 512, 36, 36, 64),
-    (2, 300, 32, 8, 64), (2, 200, 16, 8, 128)]
+    (2, 300, 32, 8, 64), (2, 200, 16, 8, 128),
+    # S off the 64-key and 32- or 64-query tiles, and groups split into
+    # chunks of heads (8 and 16 heads a kv head)
+    (2, 330, 8, 1, 64), (1, 1000, 16, 2, 128), (1, 77, 4, 4, 128)]
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd", BWD_SHAPES)

@@ -19,6 +19,8 @@ Tolerances (measured in brackets):
   reference's scores are bf16).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,3 +160,162 @@ def test_backward_wrapper_checks_shapes():
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_attention_bwd(q[:, :, :3], k, k, q[:, :, :3],
                                 torch.zeros(1, 3, 8), q[:, :, :3])
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's schedule (``ops.bwd_plan``, ``ops.bwd_blocks``): the
+# kernel runs only on the card; here the grid it derives from its block
+# index is checked for coverage, balance and independence from the batch,
+# and its order of partial sums, written out in float32 torch ops, is held
+# against the plain version.
+# ---------------------------------------------------------------------------
+
+SCHEDULES = [  # (B, S, H, KV, hd)
+    (4, 512, 32, 8, 64),      # granite's training batch
+    (1, 512, 128, 8, 128),    # llama3-405b's group of 16 at hd 128
+    (4, 512, 36, 36, 64),     # minicpm's MHA
+    (4, 300, 32, 8, 64),      # a ragged S: 5 key tiles, a middle one alone
+    (2, 200, 16, 8, 128),
+    (2, 330, 8, 1, 64),       # a group of 8: two chunks of 4 heads
+    (1, 1000, 40, 8, 128)]    # a group of 5: five chunks of one head
+
+
+def test_bwd_plan_takes_no_batch_size():
+    import inspect
+    assert list(inspect.signature(ops.bwd_plan).parameters) == [
+        "s", "h", "kv", "hd"]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", SCHEDULES)
+def test_bwd_blocks_cover_every_key_tile_and_head_once(b, s, h, kv, hd):
+    """Every (batch, kv head, key tile) is walked by blocks that together
+    take each of the kv head's q heads exactly once; each block's heads
+    are a run of the group's."""
+    group = h // kv
+    n = -(-s // ops.BWD_KEYS)
+    seen = {}
+    for bi, kvh, tiles, heads in ops.bwd_blocks(b, s, h, kv, hd):
+        assert len(set(tiles)) == len(tiles) and len(heads) <= ops.BWD_HEADS
+        assert all(kvh * group <= hh < (kvh + 1) * group for hh in heads)
+        assert list(heads) == list(range(heads[0], heads[0] + len(heads)))
+        for t in tiles:
+            for hh in heads:
+                seen[(bi, kvh, t, hh)] = seen.get((bi, kvh, t, hh), 0) + 1
+    want = {(bi, kvh, t, hh) for bi in range(b) for kvh in range(kv)
+            for t in range(n) for hh in range(kvh * group, (kvh + 1) * group)}
+    assert set(seen) == want and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", SCHEDULES)
+def test_bwd_blocks_have_equal_work(b, s, h, kv, hd):
+    """A pair of key tiles i and n - 1 - i walks n_q + 1 - ... query tiles
+    a head whatever i is: every two-tile block has the same steps, and a
+    middle tile alone (an odd tile count) fewer."""
+    bq = ops.bwd_plan(s, h, kv, hd)[0]
+    nq = -(-s // bq)
+    steps = [len(heads) * sum(nq - t * ops.BWD_KEYS // bq for t in tiles)
+             for _, _, tiles, heads in ops.bwd_blocks(b, s, h, kv, hd)]
+    pairs = [st for st, (_, _, tiles, _) in
+             zip(steps, ops.bwd_blocks(b, s, h, kv, hd)) if len(tiles) == 2]
+    assert len(set(pairs)) == 1
+    assert max(steps) == pairs[0]
+
+
+def test_bwd_grid_at_llama3_405b_fills_the_card():
+    """B=1, 8 kv heads of a group of 16 at hd 128: the first kernel's one
+    block a (kv head, key tile) gave 64 blocks; four pairs and four chunks
+    a kv head give 128 blocks of two warpgroups (an H100 has 132 SMs)."""
+    assert ops.bwd_plan(512, 128, 8, 128) == (32, 4, 4, 4)
+    assert len(ops.bwd_blocks(1, 512, 128, 8, 128)) == 128
+    assert ops.bwd_plan(512, 32, 8, 64) == (64, 4, 1, 4)
+    assert len(ops.bwd_blocks(4, 512, 32, 8, 64)) == 128
+
+
+def test_bwd_schedule_is_the_same_for_every_batch_row():
+    """A batch row's blocks walk the same tiles and heads in the same order
+    whatever the batch size: no sum's order depends on B."""
+    one = [blk[1:] for blk in ops.bwd_blocks(1, 300, 16, 2, 64)]
+    for b in (2, 5):
+        blocks = ops.bwd_blocks(b, 300, 16, 2, 64)
+        for bi in range(b):
+            assert [blk[1:] for blk in blocks if blk[0] == bi] == one
+
+
+def emulate_bwd(q, k, v, o, lse, do):
+    """The kernel's two passes in float32 torch ops, in its order: dq a
+    64-query tile over the key tiles up to its diagonal; dk and dv by the
+    blocks of ``bwd_blocks``, each block's (head, query tile) steps taken
+    in turn by two warpgroups (step parity), the warpgroups' sums added,
+    warpgroup 0's first, then the chunks' in chunk order."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    group = h // kv
+    bq = ops.bwd_plan(s, h, kv, hd)[0]
+    tk = ops.BWD_KEYS
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)                       # (b, s, h)
+    pos = torch.arange(s)
+
+    def probs(q0, q1, k0, k1, bi, hh):
+        sc = qf[bi, q0:q1, hh] @ kf[bi, k0:k1, hh // group].T * scale
+        p = torch.exp(sc - lse[bi, hh, q0:q1, None])
+        return p.masked_fill(pos[k0:k1][None] > pos[q0:q1, None], 0.0)
+
+    def dscore(p, q0, q1, k0, k1, bi, hh):
+        dp = dof[bi, q0:q1, hh] @ vf[bi, k0:k1, hh // group].T
+        return p * (dp - delta[bi, q0:q1, hh, None]) * scale
+
+    dq = torch.zeros(b, s, h, hd)
+    for bi in range(b):
+        for hh in range(h):
+            for q0 in range(0, s, tk):
+                q1 = min(s, q0 + tk)
+                for k0 in range(0, q1, tk):
+                    k1 = min(s, k0 + tk)
+                    p = probs(q0, q1, k0, k1, bi, hh)
+                    ds = dscore(p, q0, q1, k0, k1, bi, hh)
+                    dq[bi, q0:q1, hh] += ds @ kf[bi, k0:k1, hh // group]
+    parts = {}
+    for bi, kvh, tiles, heads in ops.bwd_blocks(b, s, h, kv, hd):
+        it = 0
+        for t in tiles:
+            k0, k1 = t * tk, min(s, t * tk + tk)
+            wg = [[torch.zeros(k1 - k0, hd), torch.zeros(k1 - k0, hd)]
+                  for _ in range(2)]
+            for hh in heads:
+                for q0 in range(k0 // bq * bq, s, bq):
+                    q1 = min(s, q0 + bq)
+                    p = probs(q0, q1, k0, k1, bi, hh)
+                    ds = dscore(p, q0, q1, k0, k1, bi, hh)
+                    wg[it % 2][0] += ds.T @ qf[bi, q0:q1, hh]
+                    wg[it % 2][1] += p.T @ dof[bi, q0:q1, hh]
+                    it += 1
+            parts.setdefault((bi, kvh, t), []).append(
+                (wg[0][0] + wg[1][0], wg[0][1] + wg[1][1]))
+    dk = torch.zeros(b, s, kv, hd)
+    dv = torch.zeros(b, s, kv, hd)
+    for (bi, kvh, t), chunks in parts.items():
+        k0, k1 = t * tk, min(s, t * tk + tk)
+        for pk, pv in chunks:
+            dk[bi, k0:k1, kvh] += pk
+            dv[bi, k0:k1, kvh] += pv
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s,h,kv,hd", [(200, 8, 2, 64), (200, 16, 2, 128),
+                                       (130, 10, 2, 64)])
+def test_bwd_schedule_sums_to_the_plain_backward(s, h, kv, hd):
+    """The schedule's partial sums (float32) add up to ``flash_bwd_ref``'s
+    gradients: within 5e-6 of each gradient's largest |ref|, as the
+    float32 comparisons above."""
+    rng = np.random.default_rng(s + h + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        sh, dtype=np.float32)) for sh in ((2, s, h, hd), (2, s, kv, hd),
+                                          (2, s, kv, hd), (2, s, h, hd)))
+    o, lse = flash_ref(q, k, v, True, with_lse=True)
+    want = flash_bwd_ref(q, k, v, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), emulate_bwd(q, k, v, o, lse, do),
+                          want):
+        err = (g - w.float()).abs().max()
+        assert err <= 5e-6 * w.abs().max(), (name, (err / w.abs().max()).item())

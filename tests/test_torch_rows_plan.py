@@ -182,3 +182,106 @@ def test_split_and_merge_match_the_plain_version(qdt, kvdt, h, kv, hd):
     short = lens.clamp(max=cut)
     assert torch.equal(split_attention(q, k[:, :cut], v[:, :cut], short),
                        split_attention(q, k, v, short))
+
+
+# ---------------------------------------------------------------------------
+# How rows_matmul copies a (K, N) weight's stages (``ops.weight_copy``): from
+# the weight's address, its row stride in bytes and N's bytes alone.
+# ---------------------------------------------------------------------------
+
+def test_weight_copy_takes_the_addresses_alone():
+    assert list(inspect.signature(ops.weight_copy).parameters) == [
+        "addr", "row_bytes", "n_bytes"]
+
+
+@pytest.mark.parametrize("addr,row,nbytes,want", [
+    (0, 4096, 4096, 16),        # dense bf16 rows of 2048 columns
+    (0, 103732, 103732, 4),     # whisper's head, 51866 bf16 columns
+    (0, 2004, 2004, 4),         # N = 1002 (N % 8 == 2) in bf16
+    (0, 2008, 2008, 8),         # N % 8 == 4 in bf16
+    (4, 4096, 4096, 4),         # a view 4 bytes off the 16-byte grid
+    (8, 4096, 4096, 8),         # and 8 bytes off it
+    (0, 4096, 4004, 8),         # rows on the grid, N not whole vectors
+    (0, 8198, 8198, 0),         # N = 4099 in bf16: the element path
+    (0, 16396, 16396, 4),       # N = 4099 in float32
+    (2, 4096, 4096, 0)])        # rows off the 4-byte grid
+def test_weight_copy_width(addr, row, nbytes, want):
+    assert ops.weight_copy(addr, row, nbytes) == want
+
+
+def test_weight_copy_is_the_widest_every_row_allows():
+    """Over random addresses and strides: with a width w > 0 every row's
+    start is a multiple of w (and of 16 with N whole 16-byte vectors when w
+    = 16); no wider width has that; 0 only where no width of 4 does."""
+    rng = np.random.default_rng(0)
+    for _ in range(2000):
+        addr = int(rng.integers(0, 64)) * 2
+        row = int(rng.integers(1, 4096)) * 2
+        nbytes = int(rng.integers(1, row // 2 + 1)) * 2
+        w = ops.weight_copy(addr, row, nbytes)
+
+        def fits(width):
+            return (all((addr + r * row) % width == 0 for r in range(16))
+                    and nbytes % (16 if width == 16 else 4) == 0)
+        if w:
+            assert fits(w)
+            assert not any(fits(wider) for wider in (8, 16) if wider > w)
+        else:
+            assert not fits(4)
+
+
+def narrow_stage(mem, addr, row, nbytes, tn_bytes, kb, kb0, k1, width,
+                 rowwise):
+    """A stage's bytes as the narrow copies leave them (unswizzled): row r
+    of the stage is weight row kb0 + r from byte 0 of the tile; a warp's
+    lanes take units of ``width`` bytes (or the widest the row's address
+    allows), each reading its valid bytes and zero-filling the rest; rows
+    at or past k1 and bytes past N are zeros.  Asserts every unit's source
+    address is a multiple of its size, as cp.async requires."""
+    stage = np.zeros((kb, tn_bytes), np.uint8)
+    for r in range(kb):
+        kk = kb0 + r
+        start = addr + kk * row
+        valid = nbytes if kk < k1 else 0
+        cw = (16 if start % 16 == 0 else 8 if start % 8 == 0 else 4) \
+            if rowwise else width
+        for lane in range(32):
+            for ub in range(lane * cw, tn_bytes, 32 * cw):
+                n = min(max(valid - ub, 0), cw)
+                if n:
+                    assert (start + ub) % cw == 0
+                    stage[r, ub:ub + n] = mem[start + ub:start + ub + n]
+    return stage
+
+
+@pytest.mark.parametrize("k,n,off,itemsize", [(40, 51866 // 64, 0, 2),
+                                              (40, 1002, 0, 2),
+                                              (40, 1000, 2, 2),
+                                              (40, 1004, 0, 2),
+                                              (40, 4099, 0, 4)])
+@pytest.mark.parametrize("rowwise", [True, False])
+def test_narrow_copies_fill_the_stage_as_the_elements_do(k, n, off, itemsize,
+                                                         rowwise):
+    """Each stage of a weight off the 16-byte grid, filled by the narrow
+    copies, holds the bytes the element path stores: the weight's rows
+    from the tile's first column, zeros past N and past the slice."""
+    stride = n + off if off else n + (n * itemsize % 4 != 0)
+    addr = off * itemsize
+    row = stride * itemsize
+    nbytes = n * itemsize
+    width = ops.weight_copy(addr, row, nbytes)
+    assert width in (4, 8)
+    rng = np.random.default_rng(n)
+    mem = rng.integers(1, 255, addr + k * row + 64).astype(np.uint8)
+    tn_bytes = 512
+    k1 = k - 3                          # a slice that ends inside a stage
+    for kb0 in range(0, k, 16):
+        got = narrow_stage(mem, addr, row, nbytes, tn_bytes, 16, kb0, k1,
+                           width, rowwise)
+        want = np.zeros_like(got)
+        for r in range(16):
+            if kb0 + r < k1:
+                src = addr + (kb0 + r) * row
+                m = min(nbytes, tn_bytes)
+                want[r, :m] = mem[src:src + m]
+        assert np.array_equal(got, want)
