@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --wire-times [SRC]   # the wire's times alone
     python3 chip_smoke.py --bwd-times [SRC]    # the flash backward's alone
+    python3 chip_smoke.py --ssd-bwd-times [SRC]   # the SSD backward's alone
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -75,7 +76,14 @@ Phases, in order; any failure exits non-zero before the result line:
    beside ``F.silu``, its bytes bound and its issue bound (SASS
    instructions an element); ``conv_silu`` bit-equal to the plain chain
    (output and the shifted conv_buf) at mamba2's and zamba2's widths, a
-   decode step, a prefill and the cacheless forward;
+   decode step, a prefill and the cacheless forward; the SSM training
+   path's three backward kernels (``check_ssm_bwd``: ``ssd_scan_bwd``,
+   ``conv_silu_bwd``, ``gated_rms_norm_bwd``) against their plain versions
+   at mamba2's and zamba2's train shapes (batch 4 x 512), a ragged S and
+   float32, within 1e-2 (1 + |plain|) per element (the gated norm's 2e-2)
+   and 2^-6 of the largest, two runs bit-identical, timed beside the
+   plain versions and their bounds; the flash backward also at zamba2's
+   head dim 112 (on the 128 tile);
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048, tied head), mamba2-1.3b (48
    layers, d_model 2048, 64 SSM heads, state 128), zamba2-7b (81 mamba2
@@ -228,21 +236,27 @@ Phases, in order; any failure exits non-zero before the result line:
    its baseline, captured again after a restore, the baseline each row's
    served alone); each case's wall, restores, detections and launches
    are logged (``"chaos"`` in the JSON line);
-8. train (the card) — the dense family's training path (``train``): one
-   step of granite-3-2b at full width and 2 layers, batch 1 x 128, its
-   loss and every gradient against the same step on the CPU from the same
-   params; ``Trainer`` at full width and depth (40 layers, remat, bf16
-   params and float32 AdamW states), batch 4 x 512, 4 steps, each step's
-   launches exactly ``train_launches`` (flash forward and its remat
-   recompute, the flash backward, the norms), with step ms, tokens/s and
-   peak device memory; a crash at the third step and a restart at full
-   width and 4 layers (checkpoints every 2 steps under ``CKPT_ROOT``):
-   resumed at step 2 with the saved bytes, steps 3-4 the uninterrupted
-   run's losses within 1e-3 (``"train"`` in the JSON line).
+8. train (the card) — the training path (``train``): one step of
+   granite-3-2b at full width and 2 layers, batch 1 x 128, its loss and
+   every gradient against the same step on the CPU from the same params;
+   ``Trainer`` at full width and depth (40 layers, remat, bf16 params and
+   float32 AdamW states), batch 4 x 512, 4 steps, each step's launches
+   exactly ``train_launches`` (flash forward and its remat recompute, the
+   flash backward, the norms), with step ms, tokens/s and peak device
+   memory; a crash at the third step and a restart at full width and 4
+   layers (checkpoints every 2 steps under ``CKPT_ROOT``): resumed at
+   step 2 with the saved bytes, steps 3-4 the uninterrupted run's losses
+   within 1e-3; then the SSM family, the same step check and ``Trainer``
+   run for mamba2-1.3b at full width and depth (48 layers) and zamba2-7b
+   at full width and 42 of its 81 layers (``SSM_TRAIN``; the scan's, the
+   conv pass's and the gated norm's backward kernels, zamba2's shared
+   block through the flash backward at head dim 112), and one step of
+   ``launch/train.py --profile`` on mamba2 (``"train"`` in the JSON
+   line).
 
 The whole script takes 10 to 16 minutes on one H100 80GB HBM3 at 700 W:
-the kernels' build about 30 s, phases 5-7 about 10 s, phase 8 about a
-minute, the rest the main paths (their host walls vary by up to a half
+the kernels' build about 30 s, phases 5-7 about 10 s, phase 8 about two
+minutes, the rest the main paths (their host walls vary by up to a half
 between runs).
 
 The last lines are the card's nvidia-smi line, a JSON line with one record
@@ -254,10 +268,12 @@ JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the six pipelined models; the flash backward's, the full-depth training
-run's 4 steps (``granite-3-2b/train_full``); ``launches_by_path`` holds
-the count from each counted run, keyed ``model/run``.  The decode, norm and SiLU kernels
-replace no TPU kernel (the reference leaves these ops to XLA): their
-``replaces`` names the reference's op.
+run's 4 steps (``granite-3-2b/train_full``), and the SSM backwards',
+mamba2's (``mamba2-1.3b/train_full``); ``launches_by_path`` holds
+the count from each counted run, keyed ``model/run``.  The decode, norm
+and SiLU kernels and the SSM backwards replace no TPU kernel (the
+reference leaves these ops to XLA and their gradients to JAX autodiff):
+their ``replaces`` names the reference's op.
 """
 
 from __future__ import annotations
@@ -577,7 +593,10 @@ BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
     (BATCH, PROMPT, 36, 36, 64),     # minicpm's MHA
     (BATCH, 300, 32, 8, 64),         # a ragged S
     (2, 330, 8, 1, 64),              # S off every tile, two head chunks
-    (1, 1000, 16, 2, 128))           # the same at hd 128
+    (1, 1000, 16, 2, 128),           # the same at hd 128
+    (BATCH, PROMPT, 32, 32, 112),    # zamba2's shared block (the 128 tile)
+    (2, 300, 8, 8, 112))             # the same, a ragged S
+BWD_HD112 = BWD_CASES[6]
 BWD_TOL = 1e-2          # per element, on 1 + |plain|
 STEP_LOSS_TOL = 2e-3    # the 2-layer step's loss, card against CPU
 
@@ -590,7 +609,8 @@ def check_flash_bwd(torch, gen):
     two runs bit-identical; the forward's lse within 1e-4 (1 + |plain|) of
     the plain log-sum-exp and its output bit-equal with and without the
     lse; no spill (``cuobjdump -res-usage``).  Times (``bwd_times``) at
-    granite's shape and at llama3-405b's group of 16 at hd 128: the kernel
+    granite's shape, at llama3-405b's group of 16 at hd 128 and at
+    zamba2's shared block (hd 112 on the 128 tile): the kernel
     warm and cold, each of its two launches from the profiler, the plain
     version, the bound and PyTorch's flash SDPA backward
     (``aten._scaled_dot_product_flash_attention_backward``); and the
@@ -648,7 +668,7 @@ def check_flash_bwd(torch, gen):
         inputs.setdefault((b, s, h, kv, hd), (q, k, v, o, lse, do))
 
     timed = {case: bwd_times(torch, *inputs[case])
-             for case in BWD_CASES[:2]}
+             for case in (*BWD_CASES[:2], BWD_HD112)}
     gran, big = timed[BWD_CASES[0]], timed[BWD_CASES[1]]
     q, k, v, o, lse, do = inputs[BWD_CASES[0]]
     s = q.shape[1]
@@ -667,6 +687,8 @@ def check_flash_bwd(torch, gen):
             "per_element_err": err_max,
             "forward_ms": f_ms, "forward_with_lse_ms": fl_ms,
             "hd128": dict(big, **{"B, S, H, KV, hd": list(BWD_CASES[1])}),
+            "hd112": dict(timed[BWD_HD112],
+                          **{"B, S, H, KV, hd": list(BWD_HD112)}),
             "registers": {re.sub(r"^.*?(flash_bwd_\w+?)E.*$", r"\1", f): r
                           for f, (r, _) in usage.items()},
             "main_path": f"{TRAIN_ARCH}/train_full"}
@@ -1237,6 +1259,234 @@ def check_conv_silu(torch, gen):
                 replaces="src/repro/models/ssm.py:151", max_abs_err=0.0,
                 shapes={key: v for key, v in rec.items()
                         if key != "mamba2_s1"})
+
+
+# (B, S, H, P, N, Q) and the conv width C of the train runs (batch 4 x 512)
+SSM_BWD_SHAPES = {"mamba2": ((BATCH, PROMPT, 64, 64, 128, 128), 4352),
+                  "zamba2": ((BATCH, PROMPT, 112, 64, 64, 128), 7296)}
+
+
+def _grad_errs(torch, got, want, tol, summed=()):
+    """Per gradient: (max |kernel - plain|, the worst of it over tol (1 +
+    |plain|), over 2^-6 of the largest |plain|); a name in ``summed`` (a
+    float32 sum over the batch and the sequence whose terms cancel) is
+    held to tol of its largest |plain| instead of per element."""
+    out = {}
+    for name in got:
+        g, w = got[name].float(), want[name].float()
+        e = (g - w).abs()
+        top = w.abs().max().item()
+        scale = top if name in summed else (1 + w.abs())
+        elem = (e / (tol * scale)).max().item()
+        out[name] = (e.max().item(), elem, e.max().item() / (2 ** -6 * top))
+    return out
+
+
+def ssd_bwd_work(b, s, h, p, n, q):
+    """What the SSD backward does, per (b, chunk): C B^T's causal half
+    (bf16 operands), and per (b, h, chunk) dy x^T's causal half (bf16
+    operands), then with a float32 operand W^T dy, E^T C and E B (causal
+    halves), G B, x^T G and dy^T S, and the recomputed chunk states and
+    their gradients (Q P N each); the bytes of x, dt, A, B, C and dy read
+    once and dx, ddt, dA, dB and dC written once (bf16 x/B/C/dy).  Returns
+    (bf16 FLOP, float32-operand FLOP, bytes)."""
+    nc = -(-s // q)
+    tri = q * (q + 1) / 2
+    bf = 2.0 * b * nc * (tri * n + h * tri * p)
+    f32 = 2.0 * b * nc * h * (tri * p + 2 * tri * n + 5 * q * p * n)
+    nbytes = (2 * 2 * 2 * b * s * h * p        # x, dy in; dx out
+              + 2 * 2 * 2 * b * s * n          # B, C in; dB, dC out
+              + 2 * 4 * b * s * h + 3 * 4 * h)  # dt in, ddt out; A, dA
+    return bf, f32, nbytes
+
+
+def check_ssm_bwd(torch, gen):
+    """The SSM training path's three backward kernels against their plain
+    versions at the train runs' shapes (mamba2-1.3b and zamba2-7b, batch
+    4 x 512), each gradient within 1e-2 (1 + |plain|) per element (bf16;
+    a bf16 step is under 0.8% of the value; the gated norm's 2e-2, argued
+    at ``gated_tol``) and 2^-6 of its largest |plain|, the scan's float32
+    dA within 1e-2 of its largest, two runs bit-identical: ``ssd_scan_bwd`` (also a ragged S and the float32 path
+    at 1e-4), ``conv_silu_bwd`` (conv_in read in place from an in_proj
+    row), ``gated_rms_norm_bwd`` (xh and z read in place).  Times beside
+    the plain version and the bound; no single PyTorch call computes any
+    of the three (``library_ms`` null)."""
+    from repro_torch.kernels.decode import ops as dops, ref as dref
+    from repro_torch.kernels.silu import ops as sops, ref as sref
+    from repro_torch.kernels.ssd import ops, ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 1e-2, f32: 1e-4}
+    # the gated norm's bf16 gradients pass through a chain of roundings
+    # (dv, then dy = r(dv silu(z)), then dxh = r(dy D)): where the float32
+    # sums of the kernel and the plain version round dv to neighbouring
+    # bf16 values, dxh moves by up to two bf16 steps (1.14x the 1e-2 bound
+    # at zamba2's width, measured on an H100)
+    gated_tol = {bf16: 2e-2, f32: 1e-4}
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def run_check(label, fn, plain, dtype, summed=(), tols=tol):
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.contiguous().view(torch.uint8),
+                               c.contiguous().view(torch.uint8))
+                   for a, c in zip(got.values(), again.values()))
+        errs = _grad_errs(torch, got, plain(), tols[dtype], summed)
+        ok = same and all(math.isfinite(a) and el <= 1 and sc <= 1
+                          for a, el, sc in errs.values())
+        log(f"  {label}: " + ", ".join(
+            f"{k} {a:.3g} ({el:.2f}x its tol, {sc:.2f}x 2^-6 of the largest)"
+            for k, (a, el, sc) in errs.items())
+            + f"; two runs bit-identical {same}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label} disagrees with its plain version or "
+                             "is not bit-identical twice")
+        return max(a for a, _, _ in errs.values())
+
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    recs = {}
+    # the scan
+    err, timing = 0.0, {}
+    for b, s, h, p, n, q, dt_ in (
+            (*SSM_BWD_SHAPES["mamba2"][0], bf16),
+            (*SSM_BWD_SHAPES["zamba2"][0], bf16),
+            (1, 300, 64, 64, 128, 128, bf16), (2, 40, 8, 16, 16, 16, bf16),
+            (2, 200, 8, 64, 128, 128, f32)):
+        ins = ssd_inputs(torch, gen, b, s, h, p, n, dt_)
+        dy = randn(b, s, h, p, dtype=dt_)
+        err = max(err, run_check(
+            f"ssd_scan_bwd B={b} S={s} H={h} P={p} N={n} Q={q} "
+            f"{str(dt_)[6:]}",
+            lambda: dict(zip(names, ops.ssd_scan_bwd(*ins, dy, q))),
+            lambda: dict(zip(names, ref.ssd_bwd_ref(*ins, dy, q))), dt_,
+            summed=("dA",)))
+        if s == PROMPT and dt_ == bf16:
+            bf, fl, nbytes = ssd_bwd_work(b, s, h, p, n, q)
+            b_ms, b_by = bound(nbytes, (bf, BF16_PEAK), (fl, F32_PEAK))
+            t = {"B, S, H, P, N": [b, s, h, p, n],
+                 "ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
+                 "plain_ms": time_ms(lambda: ref.ssd_bwd_ref(*ins, dy, q),
+                                     iters=5),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "per_pass_ms": pass_times(
+                     torch, lambda: ops.ssd_scan_bwd(*ins, dy, q), "ssd_bwd",
+                     iters=5)}
+            log(f"  ssd_scan_bwd B={b} S={s} H={h} P={p} N={n}: kernel "
+                f"{t['ms']:.4f} ms ("
+                + ", ".join(f"{k} {v:.4f}" for k, v in t["per_pass_ms"]
+                            .items())
+                + f" a launch), plain {t['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {bf / 1e9:.2f} GFLOP bf16 + "
+                f"{fl / 1e9:.2f} GFLOP float32, {nbytes / 1e6:.2f} MB)")
+            timing[h] = t
+        del ins, dy
+    m = timing[64]
+    recs["ssd_scan_bwd"] = dict(
+        {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "per_pass_ms")},
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        replaces="src/repro/models/ssm.py:55 (JAX autodiff of ssd_chunked)",
+        max_abs_err=err, zamba2=timing[112],
+        main_path="mamba2-1.3b/train_full")
+
+    # the conv pass
+    err, timing = 0.0, {}
+    k = 4
+    for key, (shape, c) in SSM_BWD_SHAPES.items():
+        b, s = shape[:2]
+        di = c - 2 * shape[4]
+        row = 2 * di + 2 * shape[4] + shape[2]
+        for dt_ in (bf16, f32):
+            conv_in = randn(b, s, row, scale=2.0, dtype=dt_)[..., di:di + c]
+            w = randn(k, c, scale=0.5, dtype=dt_)
+            bias = randn(c, scale=0.1, dtype=dt_)
+            g = randn(b, s, c, dtype=dt_)
+            err = max(err, run_check(
+                f"conv_silu_bwd[{key}] B={b} S={s} C={c} {str(dt_)[6:]}",
+                lambda: dict(zip(("dconv_in", "dw", "db"),
+                                 sops.conv_silu_bwd(conv_in, w, bias, g))),
+                lambda: dict(zip(("dconv_in", "dw", "db"),
+                                 sref.conv_silu_bwd_ref(conv_in, w, bias,
+                                                        g))), dt_))
+            if dt_ == bf16:
+                # conv_in, g in; dconv_in out; w, b in, dw, db out
+                nbytes = 2 * (3 * b * s * c + 2 * (k + 1) * c)
+                b_ms, b_by = bound(nbytes, (2.0 * (3 * k + 8) * b * s * c,
+                                            F32_PEAK))
+                t = {"B, S, C": [b, s, c],
+                     "ms": time_ms(lambda: sops.conv_silu_bwd(conv_in, w,
+                                                              bias, g)),
+                     "plain_ms": time_ms(lambda: sref.conv_silu_bwd_ref(
+                         conv_in, w, bias, g)),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                log(f"  conv_silu_bwd[{key}] B={b} S={s} C={c}: kernel "
+                    f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB)")
+                timing[key] = t
+            del conv_in, w, bias, g
+    m = timing["mamba2"]
+    recs["conv_silu_bwd"] = dict(
+        {k_: m[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        name="conv_silu_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/silu.cu",
+        replaces="src/repro/models/ssm.py:151 (JAX autodiff of the conv "
+                 "and SiLU)",
+        max_abs_err=err, zamba2=timing["zamba2"],
+        main_path="mamba2-1.3b/train_full")
+
+    # the gated norm
+    err, timing = 0.0, {}
+    for key, (shape, c) in SSM_BWD_SHAPES.items():
+        b, s, h, p, n = shape[:5]
+        di = h * p
+        for dt_ in (bf16, f32):
+            zx = randn(b, s, 2 * di + 2 * n + h, scale=3.0, dtype=dt_)
+            conv = randn(b, s, di + 2 * n, dtype=dt_)
+            z, xh = zx[..., :di], conv[..., :di].reshape(b, s, h, p)
+            y = randn(b, s, h, p, dtype=dt_)
+            D = 1 + 0.5 * randn(h, dtype=f32)
+            w = (1 + 0.1 * randn(di, dtype=f32)).to(dt_)
+            g = randn(b, s, di, dtype=dt_)
+            gnames = ("dy", "dD", "dxh", "dz", "dw")
+            err = max(err, run_check(
+                f"gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h} "
+                f"{str(dt_)[6:]}",
+                lambda: dict(zip(gnames, dops.gated_rms_norm_bwd(
+                    y, D, xh, z, w, 1e-5, g))),
+                lambda: dict(zip(gnames, dref.gated_rms_norm_bwd_ref(
+                    y, D, xh, z, w, 1e-5, g))), dt_, tols=gated_tol))
+            if dt_ == bf16:
+                # y, xh, z, g in; dy, dxh, dz out; w in, dw out; D, dD
+                nbytes = 2 * (7 * b * s * di + 2 * di) + 8 * h
+                b_ms, b_by = bound(nbytes, (40.0 * b * s * di, F32_PEAK))
+                t = {"rows, d, H": [b * s, di, h],
+                     "ms": time_ms(lambda: dops.gated_rms_norm_bwd(
+                         y, D, xh, z, w, 1e-5, g)),
+                     "plain_ms": time_ms(lambda: dref.gated_rms_norm_bwd_ref(
+                         y, D, xh, z, w, 1e-5, g)),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                log(f"  gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h}: "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} "
+                    f"MB)")
+                timing[key] = t
+            del zx, conv, z, xh, y, g
+    m = timing["mamba2"]
+    recs["gated_rms_norm_bwd"] = dict(
+        {k_: m[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        name="gated_rms_norm_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/norm.cu",
+        replaces="src/repro/models/ssm.py:183 (JAX autodiff of the skip, "
+                 "gate and rms_norm)",
+        max_abs_err=err, zamba2=timing["zamba2"],
+        main_path="mamba2-1.3b/train_full")
+    return list(recs.values())
 
 
 def check_norm(torch, gen):
@@ -3468,22 +3718,39 @@ TRAIN_ARCH = "granite-3-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
 CHECK_DEPTH, CHECK_SEQ = 2, 128     # the step held against the CPU's
 RESTART_DEPTH = 4                   # the crash and restart's model
+# the SSM family's train runs: mamba2-1.3b at full depth (48 layers, about
+# 16 GB of bf16 params and grads and float32 AdamW states); zamba2-7b at 42
+# of its 81 layers (7 call sites of the shared block, about 3.7 G params
+# and 45 GB of them; 81 layers, about 82 GB, do not fit the card)
+SSM_TRAIN = {"mamba2-1.3b": None, "zamba2-7b": 42}
+PROFILE_ARCH = "mamba2-1.3b"        # launch/train.py --profile's model
 
 
 def train_launches(cfg, steps):
-    """What ``steps`` train steps of a dense model launch: per layer, flash
+    """What ``steps`` train steps launch.  A dense model: per layer, flash
     attention's forward, ``rms_norm_rows`` (ln1) and
     ``residual_rms_norm_rows`` once in the forward and once more in the
-    backward's recompute when ``cfg.remat``, the flash backward once, and
-    the final norm once (outside the blocks); the norms' backwards are
-    plain, and nothing else launches."""
+    backward's recompute when ``cfg.remat``, the flash backward once.  An
+    SSM model: per mamba block, the scan, the conv pass, the gated norm
+    and ``rms_norm_rows`` (pre_norm) as often, their three backward
+    kernels once; the hybrid's shared block at each call site as a dense
+    block.  The final norm once (outside the blocks); the dense norms'
+    backwards are plain, and nothing else launches."""
     from repro_torch import kernels
+    from repro_torch.models.model import hybrid_apps
     n, again = cfg.n_layers, 2 if cfg.remat else 1
     want = dict.fromkeys(kernels.WRAPPERS, 0)
-    want["flash_attention"] = again * n * steps
-    want["flash_attention_bwd"] = n * steps
-    want["rms_norm_rows"] = (again * n + 1) * steps
-    want["residual_rms_norm_rows"] = again * n * steps
+    dense = n if cfg.family == "dense" else (
+        hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0)
+    mamba = 0 if cfg.family == "dense" else n
+    want["flash_attention"] = again * dense * steps
+    want["flash_attention_bwd"] = dense * steps
+    want["residual_rms_norm_rows"] = again * dense * steps
+    want["rms_norm_rows"] = (again * (dense + mamba) + 1) * steps
+    for fwd, bwd in (("ssd", "ssd_scan_bwd"), ("conv_silu", "conv_silu_bwd"),
+                     ("gated_rms_norm_rows", "gated_rms_norm_bwd")):
+        want[fwd] = again * mamba * steps
+        want[bwd] = mamba * steps
     return want
 
 
@@ -3504,52 +3771,33 @@ def _bytes_equal(torch, a, b):
         for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def train(torch):
-    """Phase 8 (the card): the dense family's training path.
+def _sync(torch):
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
 
-    1. One train step's loss and gradients of granite-3-2b at full width
-       and ``CHECK_DEPTH`` layers, bf16, batch 1 x ``CHECK_SEQ``, on the
-       card (through the kernels and their backwards) against the same on
-       the CPU (the plain versions) from the same params: the loss within
-       2e-3, every gradient leaf within 3e-2 of the CPU leaf's
-       largest |value|, finite and not zero; the card's launches exactly
-       ``train_launches``.
-    2. ``Trainer`` on granite-3-2b at full width and depth (remat, bf16
-       params, float32 AdamW states), batch ``TRAIN_BATCH`` x
-       ``TRAIN_SEQ``, ``TRAIN_STEPS`` steps: finite losses, each step's
-       launches exactly ``train_launches``; step ms (the median of steps
-       2-4, a host clock around ``run(1)`` ending in a synchronise),
-       tokens/s and peak device memory.
-    3. A crash and restart at full width and ``RESTART_DEPTH`` layers,
-       checkpoints under ``CKPT_ROOT`` every 2 steps: a crash at the third
-       step (``raise_at=2``), a new ``Trainer`` resumes at step 2 with the
-       saved params' and states' bytes, and its steps 3-4 give the losses
-       of an uninterrupted run within 1e-3 relative (whether they are
-       bit-equal is logged: the embedding's backward on the card may sum
-       in another order)."""
+
+def _free(torch):
+    gc.collect()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_check(torch, full):
+    """One train step's loss and gradients of ``full`` at ``CHECK_DEPTH``
+    layers, bf16, batch 1 x ``CHECK_SEQ``, on the card (the kernels and
+    their backwards) against the same on the CPU (the plain versions)
+    from the same params: the loss within 2e-3, every gradient leaf within
+    3e-2 of the CPU leaf's largest |value|, finite and not zero; the
+    card's launches exactly ``train_launches``.  A hybrid's bf16 forward
+    moves by more than that wherever its products round differently
+    (``tests/test_torch_cuda.py::test_model_on_card_matches_cpu``), so it
+    may instead be as close to the CPU's float32 run as twice the CPU's
+    bf16 run is.  Returns (record, launches)."""
     from repro_torch import kernels
     from repro_torch._tree import tree_map
-    from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import init_params
-    from repro_torch.runtime import Trainer, TrainerConfig
-
-    out, by_path = {}, {}
-    t_phase = time.perf_counter()
-    card_run = torch.device(DEVICE).type == "cuda"
-
-    def sync():
-        if card_run:
-            torch.cuda.synchronize()
-
-    def free():
-        gc.collect()
-        if card_run:
-            torch.cuda.empty_cache()
-    full = get_config(TRAIN_ARCH, "full")
-
-    # 1. the step against the CPU's
     cfg = full.replace(n_layers=CHECK_DEPTH)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -3560,97 +3808,189 @@ def train(torch):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     m_card, g_card = loss_and_grads(cfg, card, {"tokens": toks.to(DEVICE)})
-    sync()
+    _sync(torch)
     card_s = time.perf_counter() - t0
-    by_path["train_check"] = got = kernels.launch_counts()
+    got = kernels.launch_counts()
     t0 = time.perf_counter()
     m_host, g_host = loss_and_grads(cfg, host, {"tokens": toks})
     host_s = time.perf_counter() - t0
     loss_c, loss_h = float(m_card["loss"]), float(m_host["loss"])
+    exact = loss_x = None
+    if cfg.family == "hybrid":
+        m_x, g_x = loss_and_grads(cfg.replace(param_dtype="float32"),
+                                  tree_map(lambda t: t.float(), host),
+                                  {"tokens": toks})
+        loss_x, exact = float(m_x["loss"]), _by_path(g_x)
+        del g_x
     leaves, bad = {}, []
+    hosts = _by_path(g_host)
     for path, gc_ in _by_path(g_card).items():
-        gc_, gh = gc_.float().cpu(), _by_path(g_host)[path].float()
+        gc_, gh = gc_.float().cpu(), hosts[path].float()
         top = gh.abs().max().item()
         leaves[path] = (gc_ - gh).abs().max().item() / top
-        if not (torch.isfinite(gc_).all() and gc_.abs().max() > 0
-                and leaves[path] <= 3e-2):
+        ok = leaves[path] <= 3e-2
+        if exact is not None and not ok:
+            gx = exact[path].float()
+            ok = ((gc_ - gx).abs().max().item()
+                  <= 2 * (gh - gx).abs().max().item())
+        if not (torch.isfinite(gc_).all() and gc_.abs().max() > 0 and ok):
             bad.append(path)
+    loss_ok = abs(loss_c - loss_h) <= STEP_LOSS_TOL or (
+        loss_x is not None
+        and abs(loss_c - loss_x) <= 2 * abs(loss_h - loss_x))
     want = train_launches(cfg, 1)
-    out["check"] = {"depth": CHECK_DEPTH, "tokens": [1, CHECK_SEQ],
-                    "loss_card": loss_c, "loss_cpu": loss_h,
-                    "worst_leaf": max(leaves.values()),
-                    "card_s": card_s, "cpu_s": host_s, "launches": got,
-                    "launches_exact": got == want}
+    rec = {"depth": CHECK_DEPTH, "tokens": [1, CHECK_SEQ],
+           "loss_card": loss_c, "loss_cpu": loss_h,
+           "loss_cpu_float32": loss_x,
+           "worst_leaf": max(leaves.values()), "card_s": card_s,
+           "cpu_s": host_s, "launches": got, "launches_exact": got == want}
     worst = max(leaves, key=leaves.get)
-    log(f"  one step at full width, {CHECK_DEPTH} layers, batch 1 x "
-        f"{CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on the "
-        f"CPU (tol {STEP_LOSS_TOL:g}); the worst of {len(leaves)} gradient "
-        f"leaves {worst} at {leaves[worst]:.3g} of its largest (tol 3e-2); "
-        f"every leaf finite and not zero: {not bad}; {card_s:.2f}s on the "
+    log(f"  {cfg.name}: one step at full width, {CHECK_DEPTH} layers, batch "
+        f"1 x {CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on "
+        f"the CPU (tol {STEP_LOSS_TOL:g}"
+        + ("" if loss_x is None else f", or twice the CPU's distance from "
+           f"its float32 run's {loss_x:.6f}")
+        + f"); the worst of {len(leaves)} gradient leaves {worst} at "
+        f"{leaves[worst]:.3g} of its largest (tol 3e-2); every leaf finite, "
+        f"not zero and within its limit: {not bad}; {card_s:.2f}s on the "
         f"card (first use), {host_s:.2f}s on the CPU; launches {got} "
         f"(exact: {got == want})")
-    if (bad or not abs(loss_c - loss_h) <= STEP_LOSS_TOL
-            or got != want):
-        raise SystemExit(f"[train] the step against the CPU's: {out['check']}"
-                         f", leaves {bad}, expected launches {want}")
-    del card, host, g_card, g_host
-    free()
+    if bad or not loss_ok or got != want:
+        raise SystemExit(f"[train] {cfg.name}: the step against the CPU's: "
+                         f"{rec}, leaves {bad}, expected launches {want}")
+    del card, host, g_card, g_host, exact
+    _free(torch)
+    return rec, got
 
+
+def train_full(torch, cfg, ckpt_dir):
+    """``Trainer`` on ``cfg`` at full width (bf16 params, float32 AdamW
+    states), batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``, ``TRAIN_STEPS`` steps:
+    finite losses, each step's launches exactly ``train_launches``; step
+    ms (the median of steps 2-4, a host clock around ``run(1)`` ending in
+    a synchronise), tokens/s and peak device memory.  Returns (record,
+    the launches of all steps)."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.runtime import Trainer, TrainerConfig
+    card_run = torch.device(DEVICE).type == "cuda"
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
+                 TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
+                               log_every=1, device=DEVICE))
+    tr.init_or_restore()
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    state_gb = sum(t.nbytes for t in
+                   _by_path({"p": tr.params, "m": tr.opt.m,
+                             "v": tr.opt.v}).values()) / 1e9
+    if card_run:
+        torch.cuda.reset_peak_memory_stats()
+    steps_ms, counts = [], []
+    for _ in range(TRAIN_STEPS):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.run(1)
+        _sync(torch)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(kernels.launch_counts())
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if card_run
+               else math.nan)
+    losses = [m["loss"] for m in tr.history]
+    want = train_launches(cfg, 1)
+    step_ms = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
+    rec = {"layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "params_b": sum(t.numel() for t in _by_path(tr.params).values())
+           / 1e9, "init_s": init_s, "state_gb": state_gb,
+           "steps_ms": steps_ms, "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_gb": peak_gb, "losses": losses,
+           "launches_a_step": counts[0],
+           "launches_exact": all(c == want for c in counts)}
+    log(f"  Trainer, {cfg.name} at full width and {cfg.n_layers} layers "
+        f"(remat {cfg.remat}), batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"{rec['params_b']:.3f} G params, params and AdamW states "
+        f"{state_gb:.2f} GB, made in {init_s:.2f}s; steps "
+        f"{[f'{x:.1f}' for x in steps_ms]} ms, the median of steps "
+        f"2-{TRAIN_STEPS} {step_ms:.1f} ms, {rec['tokens_per_s']:.0f} "
+        f"tokens/s; peak device memory {peak_gb:.2f} GB; losses {losses}; "
+        f"launches a step {counts[0]} (each step exact: "
+        f"{rec['launches_exact']})")
+    if not (all(math.isfinite(x) for x in losses) and rec["launches_exact"]):
+        raise SystemExit(f"[train] {cfg.name}: {rec}, expected {want} a "
+                         "step")
+    del tr
+    _free(torch)
+    return rec, {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def train_profile(torch, arch, ckpt_dir):
+    """``python -m repro_torch.launch.train --arch ARCH --preset full
+    --seq-len TRAIN_SEQ --global-batch TRAIN_BATCH --steps 1 --profile``,
+    in this process: one step, then one traced step; its printed lines
+    (wall, device busy time, kernel launches, the kernels that took the
+    most device time) are logged and parsed."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--arch", arch, "--preset", "full", "--device",
+                        DEVICE, "--steps", "1", "--seq-len", str(TRAIN_SEQ),
+                        "--global-batch", str(TRAIN_BATCH), "--ckpt-dir",
+                        ckpt_dir, "--profile"])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    m = re.search(r"wall ([\d.]+) ms \(traced\), device busy ([\d.]+) ms "
+                  r"\(([\d.]+)%\), (\d+) kernel launches", text)
+    if not m:
+        raise SystemExit(f"[train] {arch}: no profile line in {text!r}")
+    top = re.findall(r"^\s+([\d.]+) ms\s+(\d+)x\s+(.*)$", text, re.M)
+    _free(torch)
+    return {"wall_ms": float(m.group(1)), "busy_ms": float(m.group(2)),
+            "busy_share": float(m.group(3)) / 100,
+            "kernel_launches": int(m.group(4)),
+            "top": [{"ms": float(a), "count": int(c), "kernel": k}
+                    for a, c, k in top]}
+
+
+def train(torch):
+    """Phase 8 (the card): the training path.
+
+    1. granite-3-2b (``train_check``): one step at full width and
+       ``CHECK_DEPTH`` layers on the card against the CPU's.
+    2. ``train_full``: ``Trainer`` on granite-3-2b at full width and depth
+       (40 layers), batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``, ``TRAIN_STEPS``
+       steps, each step's launches exactly ``train_launches``.
+    3. A crash and restart at full width and ``RESTART_DEPTH`` layers,
+       checkpoints under ``CKPT_ROOT`` every 2 steps: a crash at the third
+       step (``raise_at=2``), a new ``Trainer`` resumes at step 2 with the
+       saved params' and states' bytes, and its steps 3-4 give the losses
+       of an uninterrupted run within 1e-3 relative (whether they are
+       bit-equal is logged: the embedding's backward on the card may sum
+       in another order).
+    4. The SSM family (``SSM_TRAIN``): mamba2-1.3b at full width and depth
+       and zamba2-7b at full width and 42 layers, each through 1. and 2.
+       (the scan's, the conv pass's and the gated norm's backward kernels,
+       zamba2's shared block through the flash backward at head dim 112),
+       and ``launch/train.py --profile`` on mamba2 (``train_profile``)."""
+    from repro_torch import kernels
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    out, by_path = {}, {}
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN_ARCH, "full")
+    out["check"], by_path[f"{TRAIN_ARCH}/train_check"] = train_check(torch,
+                                                                     full)
     with tempfile.TemporaryDirectory(
             prefix="chip-smoke-train-",
             dir=CKPT_ROOT if CKPT_ROOT.is_dir() else None) as tmp:
-        # 2. full width and depth
-        t0 = time.perf_counter()
-        tr = Trainer(full, SyntheticTokens(full.vocab, TRAIN_SEQ,
-                                           TRAIN_BATCH),
-                     TrainerConfig(ckpt_dir=f"{tmp}/full", ckpt_every=10 ** 9,
-                                   log_every=1, device=DEVICE))
-        tr.init_or_restore()
-        sync()
-        init_s = time.perf_counter() - t0
-        state_gb = sum(t.nbytes for t in
-                       _by_path({"p": tr.params, "m": tr.opt.m,
-                                 "v": tr.opt.v}).values()) / 1e9
-        if card_run:
-            torch.cuda.reset_peak_memory_stats()
-        steps_ms, counts = [], []
-        for _ in range(TRAIN_STEPS):
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            tr.run(1)
-            sync()
-            steps_ms.append((time.perf_counter() - t0) * 1e3)
-            counts.append(kernels.launch_counts())
-        peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if card_run
-                   else math.nan)
-        losses = [m["loss"] for m in tr.history]
-        want = train_launches(full, 1)
-        step_ms = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
-        by_path["train_full"] = {k: sum(c[k] for c in counts)
-                                 for k in counts[0]}
-        out["full"] = {"layers": full.n_layers, "batch": [TRAIN_BATCH,
-                                                          TRAIN_SEQ],
-                       "init_s": init_s, "state_gb": state_gb,
-                       "steps_ms": steps_ms, "step_ms": step_ms,
-                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
-                       / (step_ms / 1e3),
-                       "peak_gb": peak_gb, "losses": losses,
-                       "launches_a_step": counts[0],
-                       "launches_exact": all(c == want for c in counts)}
-        log(f"  Trainer, {TRAIN_ARCH} at full width and depth ({full.n_layers}"
-            f" layers, remat {full.remat}), batch {TRAIN_BATCH} x "
-            f"{TRAIN_SEQ}: params and AdamW states {state_gb:.2f} GB, made "
-            f"in {init_s:.2f}s; steps {[f'{x:.1f}' for x in steps_ms]} ms, "
-            f"the median of steps 2-{TRAIN_STEPS} {step_ms:.1f} ms, "
-            f"{out['full']['tokens_per_s']:.0f} tokens/s; peak device "
-            f"memory {peak_gb:.2f} GB; losses {losses}; launches a step "
-            f"{counts[0]} (each step exact: {out['full']['launches_exact']})")
-        if not (all(math.isfinite(x) for x in losses)
-                and out["full"]["launches_exact"]):
-            raise SystemExit(f"[train] full depth: {out['full']}, expected "
-                             f"{want} a step")
-        del tr
-        free()
+        out["full"], by_path[f"{TRAIN_ARCH}/train_full"] = train_full(
+            torch, full, f"{tmp}/full")
 
         # 3. crash and restart
         cfg = full.replace(n_layers=RESTART_DEPTH)
@@ -3681,15 +4021,16 @@ def train(torch):
         t1 = time.perf_counter()
         again = trainer("restart")
         start = again.init_or_restore()
-        sync()
+        _sync(torch)
         restore_s = time.perf_counter() - t1
         same_state = _bytes_equal(torch, saved,
                                   {"params": again.params, "opt": again.opt})
         del saved
         kernels.reset_launch_counts()
         again.run(2)
-        sync()
-        by_path["train_restart"] = got = kernels.launch_counts()
+        _sync(torch)
+        by_path[f"{TRAIN_ARCH}/train_restart"] = got = \
+            kernels.launch_counts()
         resumed = [m["loss"] for m in again.history]
         rel = max(abs(a - b) / abs(b) for a, b in zip(resumed,
                                                      want_losses[2:]))
@@ -3701,20 +4042,39 @@ def train(torch):
             "launches": got, "launches_exact": got == train_launches(cfg, 2),
             "seconds": time.perf_counter() - t0}
         del again
-        free()
-    r = out["restart"]
-    log(f"  crash and restart at full width, {RESTART_DEPTH} layers, "
-        f"checkpoints every 2 steps: {r['crash']!r}; resumed at step "
-        f"{r['resumed_at']} in {r['restore_s']:.2f}s, the saved params' and "
-        f"states' bytes {r['state_bytes_equal']}; steps 3-4 losses "
-        f"{r['losses']} against the uninterrupted {r['uninterrupted']} "
-        f"(max relative {r['max_rel_diff']:.3g}, tol 1e-3; bit-equal "
-        f"{r['bit_equal']}); launches exact {r['launches_exact']}; "
-        f"{r['seconds']:.1f}s")
-    if (r["crash"] != "injected crash at step 2" or r["resumed_at"] != 2
-            or not r["state_bytes_equal"] or not r["max_rel_diff"] <= 1e-3
-            or not r["launches_exact"]):
-        raise SystemExit(f"[train] crash and restart: {r}")
+        _free(torch)
+        r = out["restart"]
+        log(f"  crash and restart at full width, {RESTART_DEPTH} layers, "
+            f"checkpoints every 2 steps: {r['crash']!r}; resumed at step "
+            f"{r['resumed_at']} in {r['restore_s']:.2f}s, the saved params' "
+            f"and states' bytes {r['state_bytes_equal']}; steps 3-4 losses "
+            f"{r['losses']} against the uninterrupted {r['uninterrupted']} "
+            f"(max relative {r['max_rel_diff']:.3g}, tol 1e-3; bit-equal "
+            f"{r['bit_equal']}); launches exact {r['launches_exact']}; "
+            f"{r['seconds']:.1f}s")
+        if (r["crash"] != "injected crash at step 2" or r["resumed_at"] != 2
+                or not r["state_bytes_equal"] or not r["max_rel_diff"] <= 1e-3
+                or not r["launches_exact"]):
+            raise SystemExit(f"[train] crash and restart: {r}")
+
+        # 4. the SSM family
+        out["ssm"] = {}
+        for arch, depth in SSM_TRAIN.items():
+            t0 = time.perf_counter()
+            cfg = get_config(arch, "full")
+            if depth:
+                cfg = cfg.replace(n_layers=depth)
+            rec = {}
+            rec["check"], by_path[f"{arch}/train_check"] = train_check(
+                torch, cfg)
+            rec["full"], by_path[f"{arch}/train_full"] = train_full(
+                torch, cfg, f"{tmp}/{arch}")
+            if arch == PROFILE_ARCH:
+                rec["profile"] = train_profile(torch, arch,
+                                               f"{tmp}/{arch}-profile")
+            rec["seconds"] = time.perf_counter() - t0
+            log(f"  {arch} took {rec['seconds']:.1f}s")
+            out["ssm"][arch] = rec
     out["launches_by_path"] = by_path
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  training took {out['seconds']:.1f}s")
@@ -3766,6 +4126,41 @@ def bwd_times_only(torch, src):
     return 0
 
 
+def ssd_bwd_times_only(torch, src):
+    """``--ssd-bwd-times``: the SSD backward alone at the train runs'
+    shapes (``SSM_BWD_SHAPES``), with the port imported from ``src``:
+    held to its plain version as in ``check_ssm_bwd``, then timed (warm,
+    each launch from the profiler); the JSON of the times is the last
+    line."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels.ssd import ops, ref
+    log(smi_line())
+    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    out = {}
+    for key, (shape, _) in SSM_BWD_SHAPES.items():
+        b, s, h, p, n, q = shape
+        ins = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16)
+        dy = torch.randn(b, s, h, p, generator=gen,
+                         device="cuda").bfloat16()
+        got = dict(zip(names, ops.ssd_scan_bwd(*ins, dy, q)))
+        errs = _grad_errs(torch, got, dict(zip(names, ref.ssd_bwd_ref(
+            *ins, dy, q))), 1e-2, summed=("dA",))
+        if not all(el <= 1 and sc <= 1 for _, el, sc in errs.values()):
+            raise SystemExit(f"ssd_scan_bwd[{key}] disagrees with its plain "
+                             f"version: {errs}")
+        out[key] = {"ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
+                    "per_pass_ms": pass_times(
+                        torch, lambda: ops.ssd_scan_bwd(*ins, dy, q),
+                        "ssd_bwd", iters=5)}
+        log(f"  ssd_scan_bwd[{key}] {list(shape)}: {out[key]['ms']:.4f} ms "
+            f"({out[key]['per_pass_ms']}), errors within their bounds")
+    print(json.dumps({"ssd_bwd_times": out}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port's main path once on one "
@@ -3782,6 +4177,11 @@ def main(argv=None) -> int:
                          "launch from the profiler) at granite's shape and "
                          "at hd 128, with the port imported from SRC "
                          "(default: this checkout's src/)")
+    ap.add_argument("--ssd-bwd-times", metavar="SRC", nargs="?",
+                    const=str(ROOT / "src"),
+                    help="time only the SSD backward at the train runs' "
+                         "shapes, with the port imported from SRC (default: "
+                         "this checkout's src/)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3791,6 +4191,8 @@ def main(argv=None) -> int:
         return wire_times_only(torch, args.wire_times)
     if args.bwd_times:
         return bwd_times_only(torch, args.bwd_times)
+    if args.ssd_bwd_times:
+        return ssd_bwd_times_only(torch, args.ssd_bwd_times)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
@@ -3819,7 +4221,7 @@ def main(argv=None) -> int:
                *check_quantize(torch, gen),
                check_ssd(torch, gen), *check_decode(torch, gen),
                *check_norm(torch, gen), check_silu(torch, gen),
-               check_conv_silu(torch, gen)]
+               check_conv_silu(torch, gen), *check_ssm_bwd(torch, gen)]
     torch.cuda.empty_cache()
 
     log("== 4. main paths at full width")
@@ -3857,8 +4259,7 @@ def main(argv=None) -> int:
         by_path[f"{CHAOS_ARCH}/chaos_{cid}"] = rec["launches"]
     log("== 8. training on the card")
     evaluation["train"] = train(torch)
-    for path, got in evaluation["train"].pop("launches_by_path").items():
-        by_path[f"{TRAIN_ARCH}/{path}"] = got
+    by_path.update(evaluation["train"].pop("launches_by_path"))
     for r in records:
         own = r.pop("main_path", None)   # a record's own counted run
         r["launches"] = (by_path[own][r["name"]] if own else
@@ -3875,7 +4276,9 @@ def main(argv=None) -> int:
             "issue_bound_ms", "sass_per_element",   # silu's
 
             "scaled_err", "per_element_err",   # the flash backward's
-            "per_pass_ms", "hd128",
+            "per_pass_ms", "hd128", "hd112",
+            "zamba2",                          # the SSM backwards'
+
             "forward_ms", "forward_with_lse_ms", "registers",
             "long_prompt", "zamba2_prefill",   # flash's and the SSD scan's
             "whisper_encoder", "llama4_prefill",   # flash's

@@ -13,12 +13,12 @@ captures one takes what the capture recorded with :func:`recorded_launches`
 from __future__ import annotations
 
 from .attention.ops import flash_attention, flash_attention_bwd
-from .decode.ops import (decode_attention, gated_rms_norm_rows,
-                         residual_rms_norm_rows, rms_norm_rows, rows_matmul,
-                         ssm_decode_step)
+from .decode.ops import (decode_attention, gated_rms_norm_bwd,
+                         gated_rms_norm_rows, residual_rms_norm_rows,
+                         rms_norm_rows, rows_matmul, ssm_decode_step)
 from .quantize.ops import dequantize, quantize
-from .silu.ops import conv_silu, silu
-from .ssd.ops import ssd_scan
+from .silu.ops import conv_silu, conv_silu_bwd, silu
+from .ssd.ops import ssd_scan, ssd_scan_bwd
 
 WRAPPERS = {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd, "quantize": quantize,
@@ -28,7 +28,9 @@ WRAPPERS = {"flash_attention": flash_attention,
             "gated_rms_norm_rows": gated_rms_norm_rows,
             "decode_attention": decode_attention,
             "ssm_decode_step": ssm_decode_step, "silu": silu,
-            "conv_silu": conv_silu}
+            "conv_silu": conv_silu, "ssd_scan_bwd": ssd_scan_bwd,
+            "conv_silu_bwd": conv_silu_bwd,
+            "gated_rms_norm_bwd": gated_rms_norm_bwd}
 
 
 def launch_counts() -> dict[str, int]:

@@ -59,15 +59,25 @@ SIGNATURES = {
         "ssd_scan_launch": ([_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, _P], _I),
         "ssd_error_string": ([_I], ctypes.c_char_p),
     },
+    "ssd_bwd": {
+        "ssd_scan_bwd_launch": ([_P] * 14 + [_I] * 6 + [_L] * 10 + [_I, _P],
+                                _I),
+        "ssd_bwd_error_string": ([_I], ctypes.c_char_p),
+    },
     "silu": {
         "silu_launch": ([_P, _L, _P, _I, _I, _I, _P], _I),
         "conv_silu_launch": ([_P, _P, _L, _L, _P, _P, _P] + [_I] * 5 + [_P],
                              _I),
+        "conv_silu_bwd_launch": ([_P, _L, _L] + [_P] * 8 + [_I] * 6 + [_P],
+                                 _I),
         "silu_error_string": ([_I], ctypes.c_char_p),
     },
     "norm": {
         "rms_norm_rows_launch": ([_I, _P, _L, _P, _L, _P, _L, _P, _I, _P, _P,
                                   _P] + [_I] * 5 + [_F, _I, _P], _I),
+        "gated_rms_norm_bwd_launch": ([_P, _L, _P, _L, _P, _L, _P, _I]
+                                      + [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+                                      _I),
         "norm_error_string": ([_I], ctypes.c_char_p),
     },
     "decode": {

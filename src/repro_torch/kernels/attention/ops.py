@@ -17,7 +17,9 @@ asks the kernel for each row's log-sum-exp as well and whose backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``; on the CPU its
 plain version ``ref.flash_bwd_ref``).  The backward kernel takes bf16 at
 head dims ``BWD_HEAD_DIMS``, causal, every key valid; on the card anything
-else raises before the forward runs.  Without grad the call takes the path
+else raises before the forward runs.  Head dim 112 (zamba2's) runs on the
+128 tile (``bwd_tile``): the kernel's copies fill columns 112-127 with
+zeros, which add nothing to any product, and its stores skip them.  Without grad the call takes the path
 it always took, with the same launches and bits.
 """
 
@@ -32,7 +34,7 @@ from ..decode.ops import _counters, wants_grad
 from .ref import flash_bwd_ref, flash_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 112, 128)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 112, 128)
 BWD_KEYS = 64              # keys a dk/dv tile, queries a dq tile
 BWD_HEADS = 4              # q heads a dk/dv block at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,17 +101,24 @@ def _bwd_scope(q, causal: bool, valid_len: int):
             + ", ".join(missing))
 
 
+def bwd_tile(hd: int) -> int:
+    """The head dim of the tiles the backward kernel runs ``hd`` on: 112
+    on the 128 tile, its last 16 columns zero."""
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"bwd_tile: head dim {hd} not in {BWD_HEAD_DIMS}")
+    return 128 if hd == 112 else hd
+
+
 def bwd_plan(s: int, h: int, kv: int, hd: int) -> tuple[int, int, int, int]:
     """The dk/dv pass's grid: ``(bq, heads, chunks, pairs)``.  A block
     owns one of ``pairs`` pairs of ``BWD_KEYS``-key tiles (i and n - 1 - i,
     so every pair walks n + 1 query tiles a head) and ``heads`` of a kv
     head's q heads, the largest divisor of the group up to ``BWD_HEADS``;
     the group's ``chunks`` of heads add their float32 partials in chunk
-    order.  Query tiles are ``bq`` rows: 64 at hd 64, 32 at hd 128.  There
-    is no batch size: every sum's order follows from S, the group and hd
-    alone."""
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"bwd_plan: head dim {hd} not in {BWD_HEAD_DIMS}")
+    order.  Query tiles are ``bq`` rows: 64 at hd 64, 32 on the 128 tile
+    (hd 112 and 128).  There is no batch size: every sum's order follows
+    from S, the group and hd alone."""
+    hd = bwd_tile(hd)
     group = h // kv
     heads = max(d for d in range(1, BWD_HEADS + 1) if group % d == 0)
     n = -(-s // BWD_KEYS)
@@ -143,8 +152,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     head's q heads; keys at or past ``valid_len`` (default S) masked as in
     the forward.  On the CPU the plain version (``ref.flash_bwd_ref``); on
     the card the kernel (two launches, dq with delta and then dk/dv; one
-    count), or a raise: the kernel takes causal calls with every key
-    valid."""
+    count), or a raise: the kernel takes bf16 causal calls with every key
+    valid at head dims ``BWD_HEAD_DIMS``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -184,7 +193,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     part = ctr = None
     if chunks > 1:
         tiles = b * kv * pairs * 2
-        part = torch.empty((tiles, chunks, 2 * BWD_KEYS * hd),
+        part = torch.empty((tiles, chunks, 2 * BWD_KEYS * bwd_tile(hd)),
                            dtype=torch.float32, device=q.device)
         ctr = _counters(q.device, tiles)
     dq = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)

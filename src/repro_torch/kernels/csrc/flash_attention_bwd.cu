@@ -85,7 +85,16 @@
 // Query tiles are 64 rows at hd 64 and 32 at hd 128, which keeps the two
 // hd-wide float32 accumulators and the transposed score and dP tiles of a
 // dk/dv thread in registers without a spill.
-// Scope: bf16, hd 64 and 128; the wrapper raises on anything else.
+// Head dim 112 (zamba2's shared block) runs on the 128 tile: its tensor
+// maps are 112 columns wide, so the second 64-column box of every q, k, v,
+// o and do tile reads 48 columns and TMA fills the last 16 with zeros.
+// Zero columns add nothing to S, dP or delta, and the products give zero
+// in columns 112-127 of dq, dk and dv, which the stores skip.  That costs
+// 16/112 more products than a native 112 would; a native tile would need a
+// 48-column box, which the 128-byte swizzle that wgmma reads does not take
+// (its rows are 64 bf16), so the pad is the simple choice, as in the
+// forward (flash_attention.cu, the bf16 path at 112).
+// Scope: bf16, hd 64, 112 and 128; the wrapper raises on anything else.
 
 #include <cuda.h>           // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
@@ -118,6 +127,7 @@ struct Args {
   bf16* dq;                     // contiguous (b, s, h, hd)
   bf16* dk;                     // contiguous (b, s, kv, hd)
   bf16* dv;
+  int hd;                       // the rows' head dim: HD, or 112 on 128
   int b, s, h, kv, group, heads, chunks, pairs, s64;
   float scale;
 };
@@ -550,11 +560,12 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Args a) {
   for (int half = 0; half < 2; ++half) {
     const int qpos = q0 + r0 + half * 8;
     if (qpos >= a.s) continue;
-    const long long off = (((long long)bi * a.s + qpos) * a.h + hi) * HD;
+    const long long off = (((long long)bi * a.s + qpos) * a.h + hi) * a.hd;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(a.dq + off + n * 8 + 2 * tq) =
-          pack_bf16(dq[4 * n + 2 * half], dq[4 * n + 2 * half + 1]);
+      if (n * 8 < a.hd)                  // hd 112: columns 112-127 are pad
+        *reinterpret_cast<uint32_t*>(a.dq + off + n * 8 + 2 * tq) =
+            pack_bf16(dq[4 * n + 2 * half], dq[4 * n + 2 * half + 1]);
   }
 }
 
@@ -650,11 +661,12 @@ __device__ __forceinline__ void finish_tile(
   for (int half = 0; half < 2; ++half) {
     const int kpos = krow + half * 8;
     if (kpos >= a.s) continue;
-    const long long off = (((long long)bi * a.s + kpos) * a.kv + kvh) * HD;
+    const long long off = (((long long)bi * a.s + kpos) * a.kv + kvh) * a.hd;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + off + n * 8 + 2 * tq) =
-          pack_bf16(keep[4 * n + 2 * half], keep[4 * n + 2 * half + 1]);
+      if (n * 8 < a.hd)
+        *reinterpret_cast<uint32_t*>(dst + off + n * 8 + 2 * tq) =
+            pack_bf16(keep[4 * n + 2 * half], keep[4 * n + 2 * half + 1]);
   }
 }
 
@@ -927,7 +939,8 @@ int run_all(const Maps& mq, const Maps& m, const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// bf16 only; hd 64 or 128; causal with every key valid.  Strides are in
+// bf16 only; hd 64, 112 (on the 128 tile) or 128; causal with every key
+// valid.  Strides are in
 // elements; lse is a contiguous float32 (b, h, s) tensor; stats float32
 // scratch (b, h, s64, 2) with s64 = s rounded up to 64; dq, dk, dv
 // contiguous.  heads: q heads a dk/dv block (ops.py::bwd_plan), a divisor
@@ -946,12 +959,13 @@ extern "C" int flash_attention_bwd_launch(
     void* stream) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
   if (kv <= 0 || h % kv != 0 || heads <= 0 || (h / kv) % heads != 0 ||
-      (hd != 64 && hd != 128))
+      (hd != 64 && hd != 112 && hd != 128))
     return (int)cudaErrorInvalidValue;
   const int group = h / kv, chunks = group / heads;
   if (chunks > 1 && (part == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
   const int allowed = hd == 64 ? allow_smem<64, 64>() : allow_smem<128, 32>();
+  // hd 112 runs the 128 instantiation: the maps below are hd columns wide
   if (allowed) return allowed;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const int bq = hd == 64 ? 64 : 32;
@@ -984,7 +998,7 @@ extern "C" int flash_attention_bwd_launch(
   mq.stats = m.stats;
   const Args a{lse, stats, part, counters,
                static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-               static_cast<bf16*>(dv), b, s, h, kv, group, heads, chunks,
+               static_cast<bf16*>(dv), hd, b, s, h, kv, group, heads, chunks,
                (n_kt + 1) / 2, s64, scale};
   cudaStream_t st = (cudaStream_t)stream;
   return hd == 64 ? run_all<64, 64>(mq, m, a, st)

@@ -41,10 +41,13 @@ mamba block's skip and SiLU gate first.
 Gradients: ``rms_norm_rows`` and ``residual_rms_norm_rows`` have them
 (:class:`RmsNormFn`, :class:`ResidualRmsNormFn`: the kernel forward, the
 norm recomputed and differentiated in float32 plain PyTorch from the saved
-inputs; no backward kernel yet).  Every other wrapper here and in the
-other kernel packages raises on the card when grad mode is on and an input
-requires grad (:func:`no_backward`), rather than return a tensor without a
-``grad_fn``.
+inputs; no backward kernel yet).  ``gated_rms_norm_rows`` goes through
+:class:`GatedRmsNormFn`, whose backward is the kernel
+``gated_rms_norm_bwd`` (``csrc/norm.cu``; on the CPU
+``ref.gated_rms_norm_bwd_ref``).  Every other wrapper here and in the
+other kernel packages without a backward raises on the card when grad mode
+is on and an input requires grad (:func:`no_backward`), rather than return
+a tensor without a ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -433,11 +436,7 @@ def _residual_rms_norm_rows(h, delta, w, eps):
     return hout.view(h.shape), out.view(h.shape)
 
 
-def gated_rms_norm_rows(y, D, xh, z, w, eps: float):
-    """The mamba block's tail in one launch: RMSNorm of (y + D xh) * silu(z)
-    with the plain chain's roundings (``ref.gated_rms_norm_ref``).  y and xh
-    (B, S, H, P), D (H,) float32, z (B, S, H*P); xh and z are read in place
-    (slices of the conv output and of in_proj's).  Returns z's shape."""
+def _gated_check(y, D, xh, z, w):
     name = "gated_rms_norm_rows"
     _norm_weight(name, z, w)
     if y.dim() != 4 or xh.shape != y.shape or D.shape != (y.shape[2],) \
@@ -445,19 +444,106 @@ def gated_rms_norm_rows(y, D, xh, z, w, eps: float):
         raise ValueError(f"{name}: shapes y {tuple(y.shape)}, D "
                          f"{tuple(D.shape)}, xh {tuple(xh.shape)}, z "
                          f"{tuple(z.shape)} do not agree")
-    if y.device.type == "cpu":
-        return ref.gated_rms_norm_ref(y, D, xh, z, w, eps)
+
+
+def _gated_card(name, y, D, xh, z, w):
+    """Raise unless the gated norm's kernels take these tensors; return
+    their rows (y, xh, z as (M, d))."""
     _on_card(name, y, D, xh, z, w)
-    no_backward(name, y, D, xh, z, w)
     _dtype(name, y, xh, z, w)
     if D.dtype != torch.float32 or not D.is_contiguous():
         raise TypeError(f"{name}: D must be contiguous float32")
     d = z.shape[-1]
-    out = _norm(2, _rows(name, y, d), _rows(name, xh, d),
-                _rows(name, z, d), D, y.shape[3], _rows(name, w, d), eps,
-                None)
+    return (_rows(name, y, d), _rows(name, xh, d), _rows(name, z, d),
+            _rows(name, w, d))
+
+
+def gated_rms_norm_rows(y, D, xh, z, w, eps: float):
+    """The mamba block's tail in one launch: RMSNorm of (y + D xh) * silu(z)
+    with the plain chain's roundings (``ref.gated_rms_norm_ref``).  y and xh
+    (B, S, H, P), D (H,) float32, z (B, S, H*P); xh and z are read in place
+    (slices of the conv output and of in_proj's).  Returns z's shape.
+    Under grad it goes through :class:`GatedRmsNormFn`."""
+    _gated_check(y, D, xh, z, w)
+    if wants_grad(y, D, xh, z, w):
+        if y.device.type == "cuda":
+            _gated_card("gated_rms_norm_bwd", y, D, xh, z, w)
+        return GatedRmsNormFn.apply(y, D, xh, z, w, eps)
+    return _gated_rms_norm_rows(y, D, xh, z, w, eps)
+
+
+def _gated_rms_norm_rows(y, D, xh, z, w, eps):
+    if y.device.type == "cpu":
+        return ref.gated_rms_norm_ref(y, D, xh, z, w, eps)
+    name = "gated_rms_norm_rows"
+    yr, xr, zr, wr = _gated_card(name, y, D, xh, z, w)
+    out = _norm(2, yr, xr, zr, D, y.shape[3], wr, eps, None)
     gated_rms_norm_rows.launches += 1
     return out.view(z.shape)
+
+
+GATED_BWD_ROWS = 64     # rows a column partial of dw and dD sums
+
+
+def gated_rms_norm_bwd(y, D, xh, z, w, eps, g):
+    """The gradients ``(dy, dD, dxh, dz, dw)`` of ``gated_rms_norm_rows``
+    against ``g`` (z's shape): dD (H,) float32, the others contiguous in
+    their inputs' dtypes and shapes.  On the CPU the plain version
+    (``ref.gated_rms_norm_bwd_ref``); on the card the kernel (three
+    launches: a row pass for dy, dxh and dz, column partials of dw and dD
+    over ``GATED_BWD_ROWS`` rows each, their sums in order; one count); it
+    takes every call the forward kernel takes."""
+    _gated_check(y, D, xh, z, w)
+    if g.shape != z.shape:
+        raise ValueError(f"gated_rms_norm_bwd: g {tuple(g.shape)} is not "
+                         f"z's {tuple(z.shape)}")
+    if y.device.type == "cpu":
+        return ref.gated_rms_norm_bwd_ref(y, D, xh, z, w, eps, g)
+    name = "gated_rms_norm_bwd"
+    yr, xr, zr, wr = _gated_card(name, y, D, xh, z, w)
+    _on_card(name, y, g)
+    _dtype(name, y, g)
+    m, d = zr.shape
+    tpr, upt, threads = norm_plan(d, y.element_size())
+    gr = g.contiguous().view(m, d)
+    dev, dt = y.device, y.dtype
+    slices = -(-m // GATED_BWD_ROWS)
+    dy = torch.empty(y.shape, dtype=dt, device=dev)
+    dxh = torch.empty(y.shape, dtype=dt, device=dev)
+    dz = torch.empty(z.shape, dtype=dt, device=dev)
+    dw = torch.empty((d,), dtype=dt, device=dev)
+    dD = torch.empty((y.shape[2],), dtype=torch.float32, device=dev)
+    rinv = torch.empty((m,), dtype=torch.float32, device=dev)
+    part = torch.empty((slices, 2, d), dtype=torch.float32, device=dev)
+    lib = _build.load("norm")
+    with torch.cuda.device(dev):
+        err = lib.gated_rms_norm_bwd_launch(
+            yr.data_ptr(), yr.stride(0), xr.data_ptr(), xr.stride(0),
+            zr.data_ptr(), zr.stride(0), D.data_ptr(), y.shape[3],
+            wr.data_ptr(), gr.data_ptr(), dy.data_ptr(), dxh.data_ptr(),
+            dz.data_ptr(), rinv.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            dD.data_ptr(), m, d, tpr, upt, threads, GATED_BWD_ROWS,
+            float(eps), _DTYPES[dt], _stream(y))
+    _build.check("norm", "gated_rms_norm_bwd_launch", err)
+    gated_rms_norm_bwd.launches += 1
+    return dy, dD, dxh, dz, dw
+
+
+class GatedRmsNormFn(torch.autograd.Function):
+    """``gated_rms_norm_rows`` with its gradient: the kernel forward (the
+    plain version on the CPU), saving its inputs; the backward
+    ``gated_rms_norm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, y, D, xh, z, w, eps):
+        ctx.save_for_backward(y, D, xh, z, w)
+        ctx.eps = eps
+        return _gated_rms_norm_rows(y, D, xh, z, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, D, xh, z, w = ctx.saved_tensors
+        return (*gated_rms_norm_bwd(y, D, xh, z, w, ctx.eps, g), None)
 
 
 def decode_attention(q, k, v, kv_len):
@@ -564,5 +650,6 @@ rows_matmul.launches = 0
 rms_norm_rows.launches = 0
 residual_rms_norm_rows.launches = 0
 gated_rms_norm_rows.launches = 0
+gated_rms_norm_bwd.launches = 0
 decode_attention.launches = 0
 ssm_decode_step.launches = 0

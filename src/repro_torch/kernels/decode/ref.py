@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from ..silu.ref import silu_ref
+from ..silu.ref import silu_grad, silu_ref
 
 NEG = -1e30
 
@@ -47,6 +47,39 @@ def gated_rms_norm_ref(y, D, xh, z, w, eps):
     y = y + D[None, None, :, None].to(y.dtype) * xh.to(y.dtype)
     y = y.reshape(z.shape).to(z.dtype)
     return rms_norm_ref(y * silu_ref(z), w, eps)
+
+
+def gated_rms_norm_bwd_ref(y, D, xh, z, w, eps, g):
+    """The gradients ``(dy, dD, dxh, dz, dw)`` of ``gated_rms_norm_ref``
+    against ``g`` (z's shape): dD float32, the others in their inputs'
+    dtypes.
+
+    The norm's input v = (y + D xh) silu(z) is recomputed with the
+    forward's roundings, the norm differentiated in float32 (dv = r (dn -
+    n mean(dn n)), n = v r, dn = g w) and dv rounded to the dtype, where
+    the reference's cotangent of the bf16 input is; from there each
+    gradient rounds where the reference's bf16 products do: dy = r(dv
+    silu(z)), dxh = r(dy r(D)), and the gate's r(dv (y + D xh)) times
+    silu'(z) in float32, rounded once (the reference's SiLU backward
+    rounds each op).  dw and dD are float32 sums over the rows (dD of dy
+    xh over each head's elements), dw rounded to its dtype."""
+    dt = z.dtype
+    f32 = torch.float32
+    yy = y + D[None, None, :, None].to(y.dtype) * xh.to(y.dtype)
+    yy = yy.reshape(z.shape).to(dt)
+    sz = silu_ref(z)
+    v = (yy * sz).float()
+    r = torch.rsqrt((v * v).mean(dim=-1, keepdim=True) + eps)
+    n = v * r
+    dn = g.float() * w.float()
+    dv = (r * (dn - n * (dn * n).mean(dim=-1, keepdim=True))).to(dt)
+    dyy = dv * sz
+    dz = ((dv * yy).float() * silu_grad(z)).to(dt)
+    d_y = dyy.reshape(y.shape)
+    dxh = (d_y * D[None, None, :, None].to(dt)).to(xh.dtype)
+    dD = (d_y.float() * xh.float()).sum((0, 1, 3))
+    dw = (g.float() * n).reshape(-1, w.shape[0]).sum(0).to(w.dtype)
+    return d_y.to(y.dtype), dD, dxh, dz, dw
 
 
 def decode_attention_ref(q, k, v, kv_len):

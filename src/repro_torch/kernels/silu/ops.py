@@ -4,6 +4,12 @@ conv pass with its SiLU.
 For tensors on the CPU each computes its plain version (``ref.py``); for
 CUDA tensors it launches its kernel or raises: there is no fallback.
 ``.launches`` on each counts its kernel launches.
+
+Gradients: the cacheless ``conv_silu`` (``conv_buf`` None, the training
+forward) goes through :class:`ConvSiluFn` under grad, whose backward is
+``conv_silu_bwd`` (the kernel on the card, ``ref.conv_silu_bwd_ref`` on the
+CPU); with a cache under grad it raises on both devices.  ``silu`` has no
+backward and raises under grad on the card (``decode.ops.no_backward``).
 """
 
 from __future__ import annotations
@@ -11,8 +17,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..decode.ops import no_backward
-from .ref import conv_silu_ref, silu_ref
+from ..decode.ops import no_backward, wants_grad
+from .ref import conv_silu_bwd_ref, conv_silu_ref, silu_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CONV_WIDTHS = (2, 3, 4)         # the conv widths K the kernel takes
@@ -56,6 +62,29 @@ def silu(x):
     return out
 
 
+def _conv_check(name, conv_buf, conv_in, w, b):
+    """Raise unless the conv kernels take these tensors on the card."""
+    ts = [conv_in, w, b] + ([] if conv_buf is None else [conv_buf])
+    if conv_in.device.type != "cuda" or any(t.device != conv_in.device
+                                            for t in ts):
+        raise ValueError(f"{name}: expected CPU or CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if conv_in.dtype not in _DTYPES or any(t.dtype != conv_in.dtype
+                                           for t in ts):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in ts]}; need "
+                        f"one of {list(_DTYPES)} for all")
+    if w.shape[0] not in CONV_WIDTHS:
+        raise ValueError(f"{name}: conv width {w.shape[0]} not in "
+                         f"{CONV_WIDTHS}")
+    if conv_in.stride(2) != 1 or not w.is_contiguous() \
+            or not b.is_contiguous() or (conv_buf is not None
+                                         and not conv_buf.is_contiguous()):
+        raise ValueError(f"{name}: conv_in's channel dim must be dense, w, "
+                         "b and conv_buf contiguous")
+    if conv_in.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {conv_in.shape[0]} above 65535")
+
+
 def conv_silu(conv_buf, conv_in, w, b):
     """The mamba block's conv pass in one launch: SiLU of the depthwise
     causal conv of ``conv_in`` (B, S, C) with ``w`` (K, C) and bias ``b``
@@ -74,29 +103,25 @@ def conv_silu(conv_buf, conv_in, w, b):
             f"{None if conv_buf is None else tuple(conv_buf.shape)}, conv_in "
             f"{tuple(conv_in.shape)}, w {tuple(w.shape)}, b "
             f"{tuple(b.shape)} do not agree")
+    if wants_grad(conv_in, w, b):
+        if conv_buf is not None:
+            raise NotImplementedError(
+                "conv_silu: only the cacheless pass (conv_buf None) takes a "
+                "gradient; run a cached pass under torch.no_grad()")
+        if conv_in.device.type == "cuda":
+            _conv_check("conv_silu", None, conv_in, w, b)
+        return ConvSiluFn.apply(conv_in, w, b)
+    return _conv_silu(conv_buf, conv_in, w, b)
+
+
+def _conv_silu(conv_buf, conv_in, w, b):
     if conv_in.device.type == "cpu":
         return conv_silu_ref(conv_buf, conv_in, w, b)
-    ts = [conv_in, w, b] + ([] if conv_buf is None else [conv_buf])
-    if conv_in.device.type != "cuda" or any(t.device != conv_in.device
-                                            for t in ts):
-        raise ValueError(f"conv_silu: expected CPU or CUDA tensors on one "
-                         f"device, got {[str(t.device) for t in ts]}")
-    if conv_in.dtype not in _DTYPES or any(t.dtype != conv_in.dtype
-                                           for t in ts):
-        raise TypeError(f"conv_silu: dtypes {[t.dtype for t in ts]}; need "
-                        f"one of {list(_DTYPES)} for all")
-    no_backward("conv_silu", *ts)
+    _conv_check("conv_silu", conv_buf, conv_in, w, b)
+    if conv_buf is not None:
+        no_backward("conv_silu", conv_buf)
     bsz, s, c = conv_in.shape
     k = w.shape[0]
-    if k not in CONV_WIDTHS:
-        raise ValueError(f"conv_silu: conv width {k} not in {CONV_WIDTHS}")
-    if conv_in.stride(2) != 1 or not w.is_contiguous() \
-            or not b.is_contiguous() or (conv_buf is not None
-                                         and not conv_buf.is_contiguous()):
-        raise ValueError("conv_silu: conv_in's channel dim must be dense, w, "
-                         "b and conv_buf contiguous")
-    if bsz > 65535:
-        raise ValueError(f"conv_silu: batch {bsz} above 65535")
     out = torch.empty((bsz, s, c), dtype=conv_in.dtype, device=conv_in.device)
     lib = _build.load("silu")
     with torch.cuda.device(conv_in.device):
@@ -111,5 +136,67 @@ def conv_silu(conv_buf, conv_in, w, b):
     return out
 
 
+CONV_BWD_ROWS = 64      # (b, t) rows a column partial of dw and db sums
+
+
+def conv_silu_bwd(conv_in, w, b, g):
+    """The gradients ``(dconv_in, dw, db)`` of the cacheless ``conv_silu``
+    against ``g`` (B, S, C), each contiguous in its input's dtype.  On the
+    CPU the plain version (``ref.conv_silu_bwd_ref``); on the card the
+    kernel (three launches: du and dconv_in, the column partials of dw and
+    db over ``CONV_BWD_ROWS`` rows each, their sums in order; one count).
+    ``conv_in`` is read in place through its strides."""
+    if conv_in.dim() != 3 or w.dim() != 2 or b.shape != (conv_in.shape[2],) \
+            or w.shape[1] != conv_in.shape[2] or g.shape != conv_in.shape:
+        raise ValueError(
+            f"conv_silu_bwd: shapes conv_in {tuple(conv_in.shape)}, w "
+            f"{tuple(w.shape)}, b {tuple(b.shape)}, g {tuple(g.shape)} do "
+            "not agree")
+    if conv_in.device.type == "cpu":
+        return conv_silu_bwd_ref(conv_in, w, b, g)
+    _conv_check("conv_silu_bwd", None, conv_in, w, b)
+    if g.device != conv_in.device or g.dtype != conv_in.dtype:
+        raise TypeError(f"conv_silu_bwd: g {g.dtype} on {g.device}; need "
+                        f"{conv_in.dtype} on {conv_in.device}")
+    bsz, s, c = conv_in.shape
+    k = w.shape[0]
+    g = g.contiguous()
+    dev, dt = conv_in.device, conv_in.dtype
+    rows = bsz * s
+    slices = -(-rows // CONV_BWD_ROWS)
+    dx = torch.empty((bsz, s, c), dtype=dt, device=dev)
+    du = torch.empty((bsz, s, c), dtype=dt, device=dev)
+    part = torch.empty((slices, k + 1, c), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, c), dtype=dt, device=dev)
+    db = torch.empty((c,), dtype=dt, device=dev)
+    lib = _build.load("silu")
+    with torch.cuda.device(dev):
+        err = lib.conv_silu_bwd_launch(
+            conv_in.data_ptr(), conv_in.stride(0), conv_in.stride(1),
+            w.data_ptr(), b.data_ptr(), g.data_ptr(), du.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            bsz, s, c, k, CONV_BWD_ROWS, _DTYPES[dt],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("silu", "conv_silu_bwd_launch", err)
+    conv_silu_bwd.launches += 1
+    return dx, dw, db
+
+
+class ConvSiluFn(torch.autograd.Function):
+    """The cacheless ``conv_silu`` with its gradient: the forward kernel
+    (the plain version on the CPU), saving its inputs; the backward
+    ``conv_silu_bwd``."""
+
+    @staticmethod
+    def forward(ctx, conv_in, w, b):
+        ctx.save_for_backward(conv_in, w, b)
+        return _conv_silu(None, conv_in, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return conv_silu_bwd(*ctx.saved_tensors, g)
+
+
 silu.launches = 0
 conv_silu.launches = 0
+conv_silu_bwd.launches = 0

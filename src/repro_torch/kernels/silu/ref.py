@@ -12,6 +12,9 @@ expression gives the CPU reference's bits.
 them before the fused kernel, op for op (``causal_conv`` for the cacheless
 forward, the cached branch for a prefill into a cache and a decode step):
 on the CPU the port computes the same bits as before.
+
+``conv_silu_bwd_ref`` is the gradient of the cacheless ``conv_silu_ref``,
+the backward kernel's plain version (``csrc/silu.cu``).
 """
 
 from __future__ import annotations
@@ -45,3 +48,37 @@ def conv_silu_ref(conv_buf, conv_in, w, b):
                for i in range(kw)) + b[None, None, :]
     conv_buf.copy_(buf[:, -(kw - 1):, :])
     return silu_ref(conv)
+
+
+def silu_grad(u):
+    """d silu / du at u, in float32: s (1 + u (1 - s)), s = sigmoid(u)."""
+    u = u.float()
+    s = 1.0 / (1.0 + torch.exp(-u))
+    return s * (1.0 + u * (1.0 - s))
+
+
+def conv_silu_bwd_ref(conv_in, w, b, g):
+    """The gradients ``(dconv_in, dw, db)`` of ``conv_silu_ref(None,
+    conv_in, w, b)`` against ``g`` (B,S,C), each in its input's dtype.
+
+    The pre-activation u is recomputed with the forward's roundings; the
+    gradient at it, du = g silu'(u), is taken in float32 and rounded to the
+    dtype, where the reference's cotangent of the conv output is rounded
+    (its SiLU's backward rounds each of its ops in bf16 before that, this
+    one only at du).  Then, in float32 and rounded once: dconv_in, the
+    anti-causal depthwise conv of du (dconv_in[t] = sum_i du[t + K - 1 -
+    i] w[i]), and dw[i] = sum over (b, t) of du[t] conv_in[t + i - K + 1],
+    db = sum over (b, t) of du."""
+    k, s = w.shape[0], conv_in.shape[1]
+    f32 = torch.float32
+    du = (g.float() * silu_grad(causal_conv(conv_in, w, b))).to(g.dtype)
+    du = du.to(f32)
+    dp = F.pad(du, (0, 0, 0, k - 1))                      # (B,S+K-1,C)
+    wf = w.to(f32)
+    dx = sum(dp[:, k - 1 - i:k - 1 - i + s, :] * wf[i][None, None, :]
+             for i in range(k))
+    xp = F.pad(conv_in.to(f32), (0, 0, k - 1, 0))
+    dw = torch.stack([(du * xp[:, i:i + s, :]).sum((0, 1))
+                      for i in range(k)])
+    return (dx.to(conv_in.dtype), dw.to(w.dtype),
+            du.sum((0, 1)).to(b.dtype))

@@ -8,6 +8,17 @@ The kernel reads x, dt, B and C in place through their strides, so the
 model's views of its convolution output go in without a copy.  It reads
 and writes x, B, C and y 16 bytes at a time: each last dimension must be
 dense, and every row of x, B and C must start on a 16-byte boundary.
+
+Gradients: when grad mode is on and an input requires grad, ``ssd_scan``
+goes through :class:`SsdScanFn` on both devices: the forward as without
+grad, and as backward ``ssd_scan_bwd`` (``csrc/ssd_bwd.cu`` on the card,
+``ref.ssd_bwd_ref`` on the CPU), for y only: the final state comes back
+detached (training never reads it).  The backward kernel takes every call
+the forward kernel takes; on the card the forward's checks run before it.
+Without grad the call keeps its path, its launches and its bits.
+``ssd_scan_bwd.launches`` counts the backward's calls on the card (four
+launches each: the chunk states, their gradients, the chunk pass, the sums
+over heads and chunks).
 """
 
 from __future__ import annotations
@@ -15,15 +26,17 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..decode.ops import no_backward
-from .ref import ssd_chunked
+from ..decode.ops import wants_grad
+from .ref import ssd_bwd_ref, ssd_chunked
 
 CHUNKS = (16, 128)             # the configs' chunk lengths (a template)
 MAX_DIM = 128                  # largest head dim P and state size N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(xh, dt, A, Bm, Cm, chunk: int):
+def _check(xh, dt, A, Bm, Cm, chunk: int):
+    """Raise unless the kernels take this call (the forward's and the
+    backward's scope is the same)."""
     if xh.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
             or Cm.dim() != 3:
         raise ValueError("ssd_scan: need xh (B,S,H,P), dt (B,S,H), A (H,), "
@@ -64,6 +77,12 @@ def _launch(xh, dt, A, Bm, Cm, chunk: int):
                                      *Cm.stride()[:2])):
         raise ValueError("ssd_scan: every row of xh, Bm and Cm must start "
                          "on a 16-byte boundary")
+
+
+def _launch(xh, dt, A, Bm, Cm, chunk: int):
+    _check(xh, dt, A, Bm, Cm, chunk)
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
     A = A.contiguous()
     y = torch.empty((b, s, h, p), dtype=xh.dtype, device=xh.device)
     st = torch.empty((b, h, p, n), dtype=torch.float32, device=xh.device)
@@ -80,17 +99,95 @@ def _launch(xh, dt, A, Bm, Cm, chunk: int):
     return y, st
 
 
+def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, chunk: int):
+    """The gradients ``(dxh, ddt, dA, dBm, dCm)`` of ``ssd_scan``'s y
+    against ``dy`` (B,S,H,P): dxh, dBm and dCm in their inputs' dtypes, ddt
+    (B,S,H) and dA (H,) float32, contiguous.  On the CPU the plain version
+    (``ref.ssd_bwd_ref``); on the card the kernel, or a raise for a call
+    the kernels do not take."""
+    if tuple(dy.shape) != tuple(xh.shape):
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} is not xh's "
+                         f"{tuple(xh.shape)}")
+    if xh.device.type == "cpu":
+        return ssd_bwd_ref(xh, dt, A, Bm, Cm, dy, chunk)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: unsupported device {xh.device}")
+    _check(xh, dt, A, Bm, Cm, chunk)
+    if dy.dtype != xh.dtype or dy.device != xh.device:
+        raise TypeError(f"ssd_scan_bwd: dy {dy.dtype} on {dy.device}; need "
+                        f"{xh.dtype} on {xh.device}")
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    nc = -(-s // chunk)
+    dev = xh.device
+    f32 = torch.float32
+    dy = dy.contiguous()
+    A = A.contiguous()
+    dx = torch.empty((b, s, h, p), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((b, s, h), dtype=f32, device=dev)
+    dA = torch.empty((h,), dtype=f32, device=dev)
+    dB = torch.empty((b, s, n), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=Cm.dtype, device=dev)
+    # scratch: the chunk-start states and the chunk-end states' gradients
+    # (b, h, nc, p, n), the heads' terms of dB and dC (2, b, h, s, n) and
+    # the chunks' terms of dA (b, nc, h)
+    states = torch.empty((2, b, h, nc, p, n), dtype=f32, device=dev)
+    part = torch.empty((2, b, h, s, n), dtype=f32, device=dev)
+    part_a = torch.empty((b, nc, h), dtype=f32, device=dev)
+    lib = _build.load("ssd_bwd")
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_bwd_launch(
+            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
+            part.data_ptr(), part_a.data_ptr(), b, s, h, p, n, chunk,
+            *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+            *Cm.stride()[:2], _DTYPES[xh.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("ssd_bwd", "ssd_scan_bwd_launch", err)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class SsdScanFn(torch.autograd.Function):
+    """``ssd_scan`` with its gradient for y: the forward as without grad
+    (the kernel on the card, ``ssd_chunked`` on the CPU), saving the
+    inputs; the backward ``ssd_scan_bwd``.  The final state is returned
+    detached."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk):
+        if xh.device.type == "cpu":
+            y, st = ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+        else:
+            y, st = _launch(xh, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(st)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, _dst):
+        xh, dt, A, Bm, Cm = ctx.saved_tensors
+        return (*ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, ctx.chunk), None)
+
+
 def ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
     """xh (B,S,H,P); dt (B,S,H) float32, softplus'd; A (H,) float32;
     Bm/Cm (B,S,N) -> (y (B,S,H,P) in xh's dtype, final state (B,H,P,N)
     float32), from a zero state, in chunks of ``chunk`` tokens (the
-    kernel masks a ragged last chunk; the plain version pads it)."""
+    kernel masks a ragged last chunk; the plain version pads it).  Under
+    grad it goes through :class:`SsdScanFn`."""
+    if xh.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: unsupported device {xh.device}")
+    if wants_grad(xh, dt, A, Bm, Cm):
+        if xh.device.type == "cuda":
+            _check(xh, dt, A, Bm, Cm, chunk)
+        return SsdScanFn.apply(xh, dt, A, Bm, Cm, chunk)
     if xh.device.type == "cpu":
         return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    if xh.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {xh.device}")
-    no_backward("ssd_scan", xh, dt, A, Bm, Cm)
     return _launch(xh, dt, A, Bm, Cm, chunk)
 
 
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

@@ -41,13 +41,15 @@ interleave above 1 the dense blocks' stacked (groups, il - 1).
 vision_tokens, D) or ``frames`` (B, S_enc, D); a forward of the
 encoder-decoder may pass ``enc_out`` in place of ``frames``.
 
-Training (``loss_fn``) is ported for the dense family: the next-token
-cross-entropy of the reference, differentiated by autograd through the
-kernels' autograd wrappers (flash attention and the two norms have
-backwards), with each block recomputed in the backward when ``cfg.remat``
-is set, as ``jax.checkpoint`` does in the reference.  A dense model's
-blocks are taken apart with ``unbind`` (:func:`unstack`), so that their
-gradients gather into one stacked gradient per leaf.
+Training (``loss_fn``) is ported for the dense, SSM and hybrid families:
+the next-token cross-entropy of the reference, differentiated by autograd
+through the kernels' autograd wrappers (flash attention, the norms, the
+SSD scan and the mamba block's conv pass have backwards), with each block
+recomputed in the backward when ``cfg.remat`` is set, as
+``jax.checkpoint`` does in the reference (the hybrid's shared block inside
+the mamba block it precedes).  The blocks are taken apart with ``unbind``
+(:func:`unstack`), so that their gradients gather into one stacked
+gradient per leaf.
 """
 
 from __future__ import annotations
@@ -321,18 +323,35 @@ def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
     every = cfg.hybrid_attn_every if shared is not None else 0
     offset = (_write_offset(h, cache["shared"])
               if every and cache is not None else None)
-    for i in range(blocks["pre_norm"].shape[0]):
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i, bp in enumerate(unstack(blocks)):
         idx = layer_offset + i
-        if every and idx % every == 0:
+        app = bool(every) and idx % every == 0
+        if remat:
+            # the shared block recomputed inside the block, as the
+            # reference's jax.checkpoint(body) does; no RNG state to stash
+            h = checkpoint(_ssm_layer, bp, shared if app else None, h, cfg,
+                           positions, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
+        if app:
             sc = (None if cache is None
                   else layer_view(cache["shared"], idx // every - app_offset))
             h = apply_dense_block(shared, h, cfg, positions, cache=sc,
                                   kv_bucket=kv_bucket, offset=offset)
         c = None if cache is None else layer_view(cache["mamba"], i)
-        bp = layer_view(blocks, i)
         h = h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps),
                             cfg, cache=c)
     return h, cache
+
+
+def _ssm_layer(bp, shared, h, cfg, positions):
+    """One cacheless layer of the SSM family: the hybrid's shared block
+    first where ``shared`` is given, then the mamba block (pre-norm,
+    residual)."""
+    if shared is not None:
+        h = apply_dense_block(shared, h, cfg, positions)
+    return h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps), cfg)
 
 
 def _cross_len(h, cache):
@@ -463,21 +482,22 @@ def token_ce(logits, targets):
     return nll.mean()
 
 
-TRAIN_FAMILIES = ("dense",)
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """(loss, metrics) of the reference's ``loss_fn``: the next-token
     cross-entropy of ``forward`` (each block rematerialised when
-    ``cfg.remat``), metrics ``ce`` and ``loss``.  The dense family only:
-    the others' training (their kernels' backwards, the MoE aux loss and
-    MTP, cross-attention) is ROADMAP Queue 1 item 10, and raises here on
-    every device."""
+    ``cfg.remat``), metrics ``ce`` and ``loss``.  The dense, SSM and
+    hybrid families (``TRAIN_FAMILIES``); the others' training (the MoE
+    aux loss and MTP, the VLM's and the encoder-decoder's cross-attention)
+    is ROADMAP Queue 1 item 10, and raises here on every device."""
     if family(cfg) not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"loss_fn: training is ported for the {TRAIN_FAMILIES} family "
-            f"only; {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
-            "item 10 (the other families' training)")
+            f"loss_fn: training is ported for the {TRAIN_FAMILIES} "
+            f"families; {cfg.name} ({cfg.family}) waits with moe, vlm and "
+            "encdec for ROADMAP Queue 1 item 10 (the other families' "
+            "training)")
     logits, _ = forward(cfg, params, batch)
     targets = batch["tokens"]
     loss = token_ce(logits[:, :-1], targets[:, 1:])

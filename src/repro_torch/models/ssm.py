@@ -16,6 +16,15 @@ conv with its bias and SiLU, shifting the cache's conv_buf in place
 reference's ``jax.nn.silu`` does under XLA on the CPU (torch's one
 rounding put these blocks over 2 bf16 ulps off the reference).  Caches are
 updated in place.
+
+Training makes the same calls under grad: the wrappers route the
+cacheless scan, conv pass and gated norm through their autograd Functions
+(``SsdScanFn``, ``ConvSiluFn``, ``GatedRmsNormFn``), whose backwards are
+the hand-written kernels ``ssd_scan_bwd``, ``conv_silu_bwd`` and
+``gated_rms_norm_bwd`` on the card and their plain versions on the CPU.
+The projections are library matmuls and the softplus of dt and the decay
+``-exp(A_log)`` plain torch, differentiated by autograd; the float32
+leaves ``A_log``, ``D`` and ``dt_bias`` get float32 gradients.
 """
 
 from __future__ import annotations

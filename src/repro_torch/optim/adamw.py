@@ -5,11 +5,14 @@ configs) and global-norm gradient clipping: the reference's
 The math is float32, as the reference's, and params and states go back to
 their storage dtypes.  The update is elementwise and runs as plain tensor
 ops under ``torch.no_grad()`` (the reference leaves it to XLA: no Pallas
-kernel), one leaf at a time, so that no more than one leaf's float32
-temporaries are alive at once.  It writes the params and states in place
-(the port may update in place where it saves memory: a second copy of
-granite-3-2b's float32 states alone would be 20 GB) and returns the same
-trees.
+kernel), one leaf at a time, and a leaf of more than ``SLICE_ELEMS``
+elements in runs of its leading dim, so that no more than ``SLICE_ELEMS``
+elements' float32 temporaries are alive at once (zamba2-7b's in_proj at 42
+layers is 2.2 G elements: four float32 temporaries of the whole leaf would
+be 35 GB).  The arithmetic of every element is the same either way.  It
+writes the params and states in place (the port may update in place where
+it saves memory: a second copy of granite-3-2b's float32 states alone
+would be 20 GB) and returns the same trees.
 """
 
 from __future__ import annotations
@@ -48,6 +51,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+SLICE_ELEMS = 1 << 26      # a leaf above this is updated a layer at a time
+
+
+def _slices(p, g, m, v):
+    """The (p, g, m, v) pieces one update takes: the leaf whole, or, when
+    it is large, runs of its leading dim (a stacked leaf's layers, an
+    embedding's rows) of at most ``SLICE_ELEMS`` elements (at least one
+    index)."""
+    if p.dim() < 1 or p.numel() <= SLICE_ELEMS:
+        return ((p, g, m, v),)
+    run = max(1, SLICE_ELEMS // (p.numel() // p.shape[0]))
+    return zip(*(t.split(run) for t in (p, g, m, v)))
+
+
 def _f32(t):
     """``t`` itself when float32 (to be updated in place), else a float32
     copy."""
@@ -69,30 +86,36 @@ def adamw_update(params, grads, opt: OptState, lr, *, b1=0.9, b2=0.95,
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                      device=sf.device), sf)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=sf.device)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(opt.m), tree_leaves(opt.v)):
-        # the reference's expressions, each rounding in the same place,
-        # as in-place steps: on a float32 state or param itself, else on
-        # its float32 copy, cast back at the end
-        g = g.float() * scale
-        m32 = _f32(m).mul_(b1)
-        m32 += (1 - b1) * g
-        v32 = _f32(v).mul_(b2)
-        v32 += (1 - b2) * g * g
-        del g
-        update = m32 / bc1
-        den = torch.sqrt(v32 / bc2)
-        den += eps
-        update /= den
-        del den
-        step_ = p.float() * weight_decay
-        step_ += update                 # update + weight_decay * p32
-        del update
-        step_ *= lr
-        p32 = _f32(p)
-        p32 -= step_
-        del step_
-        for t, t32 in ((p, p32), (m, m32), (v, v32)):
-            if t32 is not t:
-                t.copy_(t32)
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(opt.m), tree_leaves(opt.v)):
+        for p, g, m, v in _slices(*leaf):
+            _update(p, g, m, v, scale, bc1, bc2, lr, b1, b2, eps,
+                    weight_decay)
     return params, OptState(step, opt.m, opt.v), {"grad_norm": gnorm}
+
+
+def _update(p, g, m, v, scale, bc1, bc2, lr, b1, b2, eps, weight_decay):
+    """One piece of a leaf, in place: the reference's expressions, each
+    rounding in the same place, as in-place steps on a float32 state or
+    param itself, else on its float32 copy, cast back at the end."""
+    g = g.float() * scale
+    m32 = _f32(m).mul_(b1)
+    m32 += (1 - b1) * g
+    v32 = _f32(v).mul_(b2)
+    v32 += (1 - b2) * g * g
+    del g
+    update = m32 / bc1
+    den = torch.sqrt(v32 / bc2)
+    den += eps
+    update /= den
+    del den
+    step_ = p.float() * weight_decay
+    step_ += update                 # update + weight_decay * p32
+    del update
+    step_ *= lr
+    p32 = _f32(p)
+    p32 -= step_
+    del step_
+    for t, t32 in ((p, p32), (m, m32), (v, v32)):
+        if t32 is not t:
+            t.copy_(t32)

@@ -31,9 +31,11 @@ from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.decode import ref as dec_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.silu import ops as silu_ops
+from repro_torch.kernels.silu import ref as silu_ref_mod
 from repro_torch.kernels.silu.ref import conv_silu_ref, silu_ref
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.models import (decode_step, init_params, init_serve_cache,
                                 prefill)
@@ -44,6 +46,10 @@ from repro_torch.serve.pipeline import PipelineServeEngine
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# the backward kernels against their plain versions, per element on
+# 1 + |plain| (bf16 outputs: a bf16 step is under 0.8% of the value; float32
+# outputs and sums: another order of float32 sums)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -1516,7 +1522,8 @@ def test_norm_gradients_vs_plain(cuda, dtype):
 def test_wrappers_without_a_backward_raise_under_grad(cuda):
     """Every kernel without a backward raises when grad mode is on and an
     input requires grad, naming the kernel, rather than return a tensor
-    without a grad_fn."""
+    without a grad_fn (the SSD scan, the cacheless conv pass and the gated
+    norm have backwards: ``test_ssm_wrappers_under_grad``)."""
     bf = torch.bfloat16
 
     def req(*shape, dtype=bf):
@@ -1531,14 +1538,6 @@ def test_wrappers_without_a_backward_raise_under_grad(cuda):
             torch.zeros(2, 2, 64, 16, device=cuda), req(2, 2, 64),
             torch.ones(2, 2, device=cuda), -torch.ones(2, device=cuda),
             req(2, 16), req(2, 16)),
-        "gated_rms_norm_rows": lambda: dec_ops.gated_rms_norm_rows(
-            req(1, 4, 2, 64), torch.ones(2, device=cuda), req(1, 4, 2, 64),
-            req(1, 4, 128), req(128), 1e-5),
-        "ssd_scan": lambda: ssd_ops.ssd_scan(
-            req(1, 32, 2, 64), torch.ones(1, 32, 2, device=cuda),
-            -torch.ones(2, device=cuda), req(1, 32, 64), req(1, 32, 64), 16),
-        "conv_silu": lambda: silu_ops.conv_silu(None, req(1, 8, 64),
-                                                req(4, 64), req(64)),
         "silu": lambda: silu_ops.silu(req(4, 64)),
         "quantize": lambda: q_ops.quantize(req(4, 64), 1, 64),
         "dequantize": lambda: q_ops.dequantize(
@@ -1589,3 +1588,259 @@ def test_train_step_on_card_vs_cpu(cuda):
     _, opt, metrics = step(card, adamw_init(card), {"tokens":
                                                     tokens.to(cuda)})
     assert int(opt.step) == 1 and torch.isfinite(metrics["grad_norm"])
+
+
+# ---------------------------------------------------------------------------
+# training the SSM family: the backward kernels and a train step
+# ---------------------------------------------------------------------------
+
+# the gated norm's bf16 gradients pass through a chain of roundings (dv,
+# then dy = r(dv silu(z)), then dxh = r(dy D)): where the two versions'
+# float32 sums round dv to neighbouring bf16 values, dxh moves by up to
+# two bf16 steps (1.14x the 1e-2 bound at zamba2's width on an H100)
+GATED_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def assert_bwd_close(got, want, dtype, name, tol=BWD_TOL):
+    """Each gradient within BWD_TOL (1 + |plain|) per element and 2^-6 of
+    its largest |plain|; the SSD scan's dA, a float32 sum over the batch
+    and the sequence whose terms cancel (1.5e-4 of a small element, 1.2e-5
+    of the largest, in float32 at S = 200), within BWD_TOL of its largest
+    |plain|."""
+    g, w = got.float(), want.float()
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = (g - w).abs()
+    assert torch.isfinite(g).all(), name
+    scale = w.abs().max() if name == "dA" else 1 + w.abs()
+    assert bool((err <= tol[dtype] * scale).all()), \
+        (name, err.max().item())
+    assert err.max().item() <= 2 ** -6 * w.abs().max().item(), \
+        (name, err.max().item(), w.abs().max().item())
+
+
+SSD_BWD_CASES = [  # (B, S, H, P, N, Q, dtype)
+    (4, 512, 64, 64, 128, 128, torch.bfloat16),     # mamba2-1.3b training
+    (4, 512, 112, 64, 64, 128, torch.bfloat16),     # zamba2-7b
+    (1, 300, 8, 64, 128, 128, torch.bfloat16),      # ragged S
+    (2, 40, 8, 16, 16, 16, torch.bfloat16),         # the smoke chunk
+    (2, 77, 3, 32, 24, 16, torch.float32),
+    (1, 200, 4, 64, 64, 128, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q,dtype", SSD_BWD_CASES)
+def test_ssd_scan_bwd_vs_plain(cuda, b, s, h, p, n, q, dtype):
+    """The SSD backward kernel against ``ssd_bwd_ref`` on the same inputs
+    (x, B, C read in place from one row), two runs bit-identical."""
+    ins = ssd_inputs(cuda, 15, b, s, h, p, n, dtype)
+    dy = randn(cuda, 16, b, s, h, p, dtype=dtype)
+    before = ssd_ops.ssd_scan_bwd.launches
+    got = ssd_ops.ssd_scan_bwd(*ins, dy, q)
+    again = ssd_ops.ssd_scan_bwd(*ins, dy, q)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan_bwd.launches == before + 2
+    want = ssd_ref.ssd_bwd_ref(*ins, dy, q)
+    for name, a, c, w in zip(("dxh", "ddt", "dA", "dBm", "dCm"), got, again,
+                             want):
+        bits_equal(a, c)
+        assert_bwd_close(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("c,s,off,k", [(4352, 512, 16, 4), (7296, 512, 16, 4),
+                                       (160, 9, 1, 4), (36, 300, 0, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_silu_bwd_vs_plain(cuda, c, s, off, k, dtype):
+    """The conv pass's backward kernel against ``conv_silu_bwd_ref``,
+    conv_in read in place from a wider row, two runs bit-identical."""
+    b = 4
+    row = randn(cuda, 21, b, s, c + 40, dtype=dtype) * 2
+    conv_in = row[..., off:off + c]
+    w = randn(cuda, 22, k, c, dtype=dtype) * 0.5
+    bias = randn(cuda, 23, c, dtype=dtype) * 0.1
+    g = randn(cuda, 24, b, s, c, dtype=dtype)
+    got = silu_ops.conv_silu_bwd(conv_in, w, bias, g)
+    again = silu_ops.conv_silu_bwd(conv_in, w, bias, g)
+    want = silu_ref_mod.conv_silu_bwd_ref(conv_in, w, bias, g)
+    for name, a, a2, ww in zip(("dconv_in", "dw", "db"), got, again, want):
+        bits_equal(a, a2)
+        assert_bwd_close(a, ww, dtype, name)
+
+
+@pytest.mark.parametrize("h,p,s", [(64, 64, 512), (112, 64, 512), (6, 12, 9),
+                                   (8, 16, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_rms_norm_bwd_vs_plain(cuda, h, p, s, dtype):
+    """The gated norm's backward kernel against ``gated_rms_norm_bwd_ref``,
+    xh and z read in place from their slices, two runs bit-identical."""
+    b, di, n = 4, h * p, 16
+    zx = randn(cuda, 31, b, s, 2 * di + 2 * n + h, dtype=dtype) * 3
+    conv = randn(cuda, 32, b, s, di + 2 * n, dtype=dtype)
+    z, xh = zx[..., :di], conv[..., :di].reshape(b, s, h, p)
+    y = randn(cuda, 33, b, s, h, p, dtype=dtype)
+    D = 1 + 0.5 * randn(cuda, 34, h)
+    w = (1 + 0.1 * randn(cuda, 35, di)).to(dtype)
+    g = randn(cuda, 36, b, s, di, dtype=dtype)
+    got = dec_ops.gated_rms_norm_bwd(y, D, xh, z, w, 1e-5, g)
+    again = dec_ops.gated_rms_norm_bwd(y, D, xh, z, w, 1e-5, g)
+    want = dec_ref.gated_rms_norm_bwd_ref(y, D, xh, z, w, 1e-5, g)
+    for name, a, a2, ww in zip(("dy", "dD", "dxh", "dz", "dw"), got, again,
+                               want):
+        bits_equal(a, a2)
+        assert_bwd_close(a, ww, dtype, name, GATED_BWD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kv", [(4, 512, 32, 32), (2, 300, 8, 8),
+                                      (1, 330, 8, 2)])
+def test_flash_bwd_head_dim_112(cuda, b, s, h, kv):
+    """The flash backward at zamba2's head dim 112 (the 128 tile, its last
+    16 columns zero) against ``flash_bwd_ref``, two runs bit-identical."""
+    from repro_torch.kernels.attention.ref import flash_bwd_ref
+    bf = torch.bfloat16
+    q = randn(cuda, 41, b, s, h, 112, dtype=bf)
+    k, v = (randn(cuda, i, b, s, kv, 112, dtype=bf) for i in (42, 43))
+    do = randn(cuda, 44, b, s, h, 112, dtype=bf)
+    o, lse = attn_ops._launch(q, k, v, True, s, with_lse=True)
+    got = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    again = attn_ops.flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_bwd_ref(q, k, v, o, lse, do)
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        bits_equal(a, a2)
+        assert_bwd_close(a, w, bf, name)
+
+
+def test_ssm_wrappers_under_grad(cuda):
+    """Under grad the scan, the cacheless conv pass and the gated norm go
+    through their Functions, one forward and one backward launch each;
+    outside the kernels' scope they raise before the forward runs: a conv
+    pass with a cache, a chunk the kernels do not take, a gated norm in
+    float16, flash at a head dim without a backward."""
+    bf = torch.bfloat16
+
+    def req(*shape, dtype=bf, seed=0):
+        return randn(cuda, seed, *shape, dtype=dtype).requires_grad_()
+
+    kernels.reset_launch_counts()
+    xh, bm, cm = req(1, 32, 2, 64), req(1, 32, 64, seed=1), \
+        req(1, 32, 64, seed=2)
+    y, st = ssd_ops.ssd_scan(xh, torch.ones(1, 32, 2, device=cuda),
+                             -torch.ones(2, device=cuda), bm, cm, 16)
+    assert not st.requires_grad
+    y.float().sum().backward()
+    x = req(1, 8, 64)
+    silu_ops.conv_silu(None, x, req(4, 64, seed=3),
+                       req(64, seed=4)).float().sum().backward()
+    dec_ops.gated_rms_norm_rows(
+        req(1, 4, 2, 64), torch.ones(2, device=cuda), req(1, 4, 2, 64),
+        req(1, 4, 128), req(128), 1e-5).float().sum().backward()
+    counts = kernels.launch_counts()
+    for fwd, bwd in (("ssd", "ssd_scan_bwd"), ("conv_silu", "conv_silu_bwd"),
+                     ("gated_rms_norm_rows", "gated_rms_norm_bwd")):
+        assert counts[fwd] == 1 and counts[bwd] == 1, counts
+    assert xh.grad is not None and x.grad is not None
+    with pytest.raises(NotImplementedError, match="cacheless"):
+        silu_ops.conv_silu(torch.zeros(1, 3, 64, dtype=bf, device=cuda),
+                           req(1, 8, 64), req(4, 64), req(64))
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_scan(req(1, 32, 2, 64), torch.ones(1, 32, 2, device=cuda),
+                         -torch.ones(2, device=cuda), req(1, 32, 64),
+                         req(1, 32, 64), 64)
+    with pytest.raises(TypeError, match="gated_rms_norm_bwd"):
+        h16 = torch.float16
+        dec_ops.gated_rms_norm_rows(
+            req(1, 4, 2, 64, dtype=h16), torch.ones(2, device=cuda),
+            req(1, 4, 2, 64, dtype=h16), req(1, 4, 128, dtype=h16),
+            req(128, dtype=h16), 1e-5)
+    with pytest.raises(NotImplementedError, match="flash_attention_bwd"):
+        q = req(1, 64, 2, 32)
+        attn_ops.flash_attention(q, q, q)
+    assert kernels.launch_counts() == counts
+
+
+def ssm_train_launches(cfg, steps=1):
+    """What ``steps`` train steps of an SSM or hybrid model launch (remat:
+    each block's forward kernels twice)."""
+    from repro_torch.models.model import hybrid_apps
+    n, again = cfg.n_layers, 2 if cfg.remat else 1
+    apps = hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want["ssd"] = want["conv_silu"] = want["gated_rms_norm_rows"] = \
+        again * n * steps
+    want["ssd_scan_bwd"] = want["conv_silu_bwd"] = \
+        want["gated_rms_norm_bwd"] = n * steps
+    want["rms_norm_rows"] = (again * (n + apps) + 1) * steps
+    want["flash_attention"] = want["residual_rms_norm_rows"] = \
+        again * apps * steps
+    want["flash_attention_bwd"] = apps * steps
+    return want
+
+
+@pytest.mark.parametrize("arch,widen", [
+    ("mamba2-1.3b", dict(d_model=256)),
+    ("zamba2-7b", dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=512))])
+def test_ssm_train_step_on_card_vs_cpu(cuda, arch, widen):
+    """One train step of a mamba2 and a zamba2 smoke model widened to the
+    kernels' shapes (zamba2's shared block at head dim 64), bf16, remat,
+    on the card against the same step on the CPU from the same params: the
+    loss within 2e-3, every gradient leaf within 3e-2 of the CPU leaf's
+    largest value, finite and not zero; the launches exactly
+    ``ssm_train_launches``.  zamba2's bf16 forward moves by more than that
+    wherever its products round differently (``test_model_on_card_matches
+    _cpu``), so there the card is held to the CPU's own accuracy as well:
+    no further from the float32 run on the CPU than twice the CPU's bf16
+    run is, or within the limits above."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch, "smoke").replace(remat=True, **widen)
+    gen = torch.Generator().manual_seed(0)
+    host = init_params(cfg, gen, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 64, 2).batch(0)
+                              ["tokens"])
+    kernels.reset_launch_counts()
+    m_card, g_card = loss_and_grads(cfg, card, {"tokens": tokens.to(cuda)})
+    assert kernels.launch_counts() == ssm_train_launches(cfg)
+    m_host, g_host = loss_and_grads(cfg, host, {"tokens": tokens})
+    loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
+    if cfg.family == "hybrid":
+        m_x, g_x = loss_and_grads(cfg.replace(param_dtype="float32"),
+                                  tree_map(lambda t: t.float(), host),
+                                  {"tokens": tokens})
+        loss_x = m_x["loss"].item()
+        assert abs(loss_c - loss_x) <= max(2e-3, 2 * abs(loss_h - loss_x)), \
+            (loss_c, loss_h, loss_x)
+    else:
+        g_x = None
+        assert abs(loss_c - loss_h) <= 2e-3, (loss_c, loss_h)
+    for i, (gc, gh) in enumerate(zip(tree_leaves(g_card),
+                                     tree_leaves(g_host))):
+        gc, gh = gc.float().cpu(), gh.float()
+        assert torch.isfinite(gc).all() and gc.abs().max() > 0
+        err = (gc - gh).abs().max()
+        if g_x is not None:
+            gx = tree_leaves(g_x)[i]
+            assert (gc - gx).abs().max() <= max(
+                3e-2 * gx.abs().max(), 2 * (gh - gx).abs().max()), i
+        else:
+            assert err <= 3e-2 * gh.abs().max(), (i, err)
+    step = make_train_step(cfg)
+    _, opt, metrics = step(card, adamw_init(card), {"tokens":
+                                                    tokens.to(cuda)})
+    assert int(opt.step) == 1 and torch.isfinite(metrics["grad_norm"])
+
+
+def test_ssm_train_step_bit_identical_twice(cuda):
+    """Two train steps of the widened mamba2 smoke model from the same
+    params give the same bits: every backward sum has one owner."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = get_config("mamba2-1.3b", "smoke").replace(remat=True,
+                                                      d_model=256)
+    card = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(cuda), card)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(cfg.vocab, 64, 2)
+                                        .batch(0)["tokens"]).to(cuda)}
+    m1, g1 = loss_and_grads(cfg, card, batch)
+    m2, g2 = loss_and_grads(cfg, card, batch)
+    bits_equal(m1["loss"].reshape(1), m2["loss"].reshape(1))
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        bits_equal(a, b)

@@ -446,6 +446,15 @@ class TestFlashAttention:
                                 torch.ones(2, 8), torch.ones(2, 8))
         q = torch.ones(1, 4, 2, 8)
         kernels.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 4), q)
+        kernels.ssd_scan_bwd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2),
+                             -torch.ones(2), torch.ones(1, 4, 8),
+                             torch.ones(1, 4, 8), torch.ones(1, 4, 2, 8), 16)
+        kernels.conv_silu_bwd(torch.ones(2, 5, 8), torch.ones(4, 8),
+                              torch.ones(8), torch.ones(2, 5, 8))
+        kernels.gated_rms_norm_bwd(torch.ones(2, 1, 2, 4), torch.ones(2),
+                                   torch.ones(2, 1, 2, 4),
+                                   torch.ones(2, 1, 8), torch.ones(8), 1e-5,
+                                   torch.ones(2, 1, 8))
         assert kernels.launch_counts() == {"flash_attention": 0,
                                            "flash_attention_bwd": 0,
                                            "quantize": 0, "dequantize": 0,
@@ -455,4 +464,7 @@ class TestFlashAttention:
                                            "gated_rms_norm_rows": 0,
                                            "decode_attention": 0,
                                            "ssm_decode_step": 0, "silu": 0,
-                                           "conv_silu": 0}
+                                           "conv_silu": 0,
+                                           "ssd_scan_bwd": 0,
+                                           "conv_silu_bwd": 0,
+                                           "gated_rms_norm_bwd": 0}

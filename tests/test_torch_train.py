@@ -184,13 +184,15 @@ def test_crash_and_restart_resume_at_the_last_save(tmp_path):
     assert losses(tr.history) == losses(whole.history)[:5]
 
 
-def test_loss_fn_refuses_other_families():
-    for arch in ("mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
-                 "llama-3.2-vision-90b", "deepseek-v3-671b",
-                 "llama4-maverick-400b-a17b"):
-        cfg = get_config(arch, "smoke")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-90b",
+                                  "deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
+def test_loss_fn_refuses_other_families(arch):
+    """The families whose training is still to port (encdec, vlm, moe)
+    raise on every device and name ROADMAP item 10."""
+    cfg = get_config(arch, "smoke")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
 
 def test_launcher_on_the_cpu_prints_the_reference_lines(tmp_path, capsys):
