@@ -37,36 +37,46 @@
 //      by one kernel: a block owns (16 columns of P, head, batch) and walks
 //      the chunks in order (states) or in reverse (gradients), its slice of
 //      the (P, N) float32 state in registers, writing it before each chunk
-//      to a (2, B, H, NC, P, N) scratch;
+//      to a (2, B, H, NC, P, N) scratch; a chunk's x (or dy) and B (or C)
+//      come into shared memory by 16-byte loads;
 //   3. the chunk pass: a block owns (head, chunk, batch) and computes, on
-//      float32 FMA through shared-memory tiles (each thread an up to 8 x 8
-//      register tile of a 128 x 128 output), C B^T and dy x^T into two
-//      Q x Q matrices, the row and column sums of T, then W and E in their
-//      place, then dx, the head's terms of dB and dC (to a (2, B, H, S, N)
-//      float32 scratch), ddt, and its chunk's term of dA (to (B, NC, H));
+//      float32 FMA through k-major shared-memory tiles (each thread an 8 x
+//      8 register tile of a 128 x 128 output, fed by 16-byte loads; the
+//      tiles staged by 16-byte loads from global memory), C B^T and dy x^T
+//      into two Q x Q matrices, the row and column sums of T, then W and E
+//      in their place, then dx, the head's terms of dB and dC (to a (2, B,
+//      H, S, N) float32 scratch), ddt, and its chunk's term of dA (to (B,
+//      NC, H));
 //   4. the sums: dB and dC over the heads, dA over the batch and the chunks,
 //      each in order.
 // Every sum has one owner and a fixed order (no atomics): two runs give the
 // same bits.
 //
 // Bound on this card: at mamba2-1.3b's training shape (B = 4, S = 512,
-// H = 64, P = 64, N = 128, Q = 128, bf16) the function needs about 23
-// GFLOP (the causal halves of the Q x Q products count whole here) and
-// moves its inputs and outputs once, 58 MB; its float32 operations at
-// 67 TFLOP/s take 0.34 ms against 0.017 ms for the bytes: operations bound
-// it.  This first kernel runs them on FMA, not the tensor cores, and keeps
-// its scratch in device memory; a faster design is later work.
+// H = 64, P = 64, N = 128, Q = 128, bf16) the function needs 1.12 GFLOP
+// with bf16 operands (the causal halves of C B^T and dy x^T) and 16.15 with
+// a float32 one (the causal halves of the products with W and E, the state
+// products, the recomputed states), and moves its inputs and outputs once,
+// 70.3 MB: 0.241 ms at 67 TFLOP/s against 0.021 ms for the bytes, so
+// operations bound it (chip_smoke.py's ssd_bwd_work).  This first design
+// runs them on FMA, the Q x Q products whole, not on the tensor cores, and
+// keeps its scratch in device memory: on an H100 it takes about 8 times
+// its bound (PERF.md); the forward's split bf16 mma.sync products are the
+// way to the bound.  Loading the staged tiles 16 bytes at a time, not an
+// element at a time, halved its time: the element loads had cost more
+// than the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kKc = 32;            // k a staged tile
-constexpr int kLd = kKc + 1;       // its row stride in floats
 constexpr int kPs = 16;            // P columns a state block owns
 constexpr int kMaxDim = 128;       // P and N at most
 
@@ -151,7 +161,7 @@ template <typename T, int Q, bool GRAD>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_states_kernel(Args g) {
   constexpr int kEl = kPs * kMaxDim / kThreads;   // elements a thread
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* xs = smem;                   // Q x kPs: weighted x (or dy)
   float* ys = xs + Q * kPs;           // Q x n:   B (or C)
   float* dts = ys + Q * kMaxDim;
@@ -186,19 +196,39 @@ ssd_bwd_states_kernel(Args g) {
     if (GRAD ? c == 0 : c == g.nc - 1) break;
     chunk_cumsum(g, bi, hi, c, Q, dts, cs, ec);
     const float last = cs[Q - 1];
-    for (int idx = tid; idx < Q * kPs; idx += kThreads) {
-      const int i = idx / kPs, pp = idx % kPs;
+    // 16-byte units of V elements: every row starts on a unit, and the
+    // slice's width and n are whole units (the wrapper's checks)
+    constexpr int V = Unit<T>::n;
+    for (int idx = tid; idx < Q * (kPs / V); idx += kThreads) {
+      const int i = idx / (kPs / V), pp = (idx % (kPs / V)) * V;
       const int t = c * Q + i;
-      float v = 0.f;
+      float f[V];
       if (t < g.s && pp < np)
-        v = ld<T>(x + bi * xs_b + t * xs_s + hi * xs_h + p0 + pp);
-      xs[idx] = v * (GRAD ? ec[i] : expf(last - cs[i]) * dts[i]);
+        unpack<T>(__ldg(reinterpret_cast<const uint4*>(
+                      x + bi * xs_b + t * xs_s + hi * xs_h + p0 + pp)),
+                  f);
+      else
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = 0.f;
+      const float wt = GRAD ? ec[i] : expf(last - cs[i]) * dts[i];
+#pragma unroll
+      for (int e = 0; e < V; ++e) xs[i * kPs + pp + e] = f[e] * wt;
     }
-    for (int idx = tid; idx < Q * n; idx += kThreads) {
-      const int i = idx / n, nn = idx % n;
+    for (int idx = tid; idx < Q * (n / V); idx += kThreads) {
+      const int i = idx / (n / V), nn = (idx % (n / V)) * V;
       const int t = c * Q + i;
-      ys[i * kMaxDim + nn] =
-          t < g.s ? ld<T>(y + bi * ys_b + t * ys_s + nn) : 0.f;
+      float f[V];
+      if (t < g.s)
+        unpack<T>(__ldg(reinterpret_cast<const uint4*>(
+                      y + bi * ys_b + t * ys_s + nn)),
+                  f);
+      else
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(ys + i * kMaxDim + nn + e) =
+            make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
     }
     __syncthreads();
     const float decay = ec[Q - 1];
@@ -217,54 +247,126 @@ ssd_bwd_states_kernel(Args g) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. the chunk pass.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 a
-// (a < Q / 16) and columns tx + 16 b (b < 8) of a Q x (up to 128) output;
-// the 16 threads of a row lie in one half-warp, so a row's sum over its
-// columns is a fixed xor tree of shuffles.
+// 3. the chunk pass.  Thread (ty, tx) of a 16 x 16 grid owns a register
+// tile of a Q x (up to 128) output: rows 64 h + 4 ty + i and columns
+// 64 c + 4 tx + j (i, j < 4; h < Q / 64 groups of rows, at least one; c
+// < 2 groups of columns), so that a k step reads its four rows and four
+// columns of each group as one 16-byte shared-memory load each: operands
+// are staged k-major ([k][row], [k][col]).  The 16 threads of a row lie in
+// one half-warp, so a row's sum over its columns is a fixed xor tree of
+// shuffles.
 // ---------------------------------------------------------------------------
 
-template <int TM>
+constexpr int kCs = kMaxDim + 4;   // a staged B operand's row stride
+
+template <int Q>
 struct Tile {
-  float v[TM][8];
+  static constexpr int GR = Q >= 64 ? Q / 64 : 1;   // row groups
+  static constexpr int RM = 4 * GR;                 // rows a thread
+  float v[RM][8];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int a = 0; a < TM; ++a)
+    for (int a = 0; a < RM; ++a)
 #pragma unroll
       for (int b = 0; b < 8; ++b) v[a][b] = 0.f;
   }
+  // the thread's row a and column b
+  __device__ __forceinline__ static int row(int a) {
+    return 64 * (a >> 2) + 4 * (threadIdx.x >> 4) + (a & 3);
+  }
+  __device__ __forceinline__ static int col(int b) {
+    return 64 * (b >> 2) + 4 * (threadIdx.x & 15) + (b & 3);
+  }
 };
 
-// acc[a][b] += sum_{k < kc} A(ty + 16 a, k) B(k, tx + 16 b): A at
-// a[row * ar + k * ak], B staged as b[col * kLd + k]; tn column blocks.
-template <int TM>
-__device__ __forceinline__ void mma_fma(Tile<TM>& acc, const float* a, int ar,
-                                        int ak, const float* b, int kc,
-                                        int tn) {
+// acc[a][b] += sum_{k < kc} A(row a, k) B(k, col b).  A at a[k * aks + r]
+// with rows contiguous (AVEC: a 16-byte load a group), else at a[r * ars +
+// k]; B staged as b[k * kCs + col].  Row and column groups past Q and the
+// ncols columns are left alone (their loads too).
+template <int Q, bool AVEC>
+__device__ __forceinline__ void mma_fma(Tile<Q>& acc, const float* a,
+                                        int ars, int aks, const float* b,
+                                        int kc, int ncols) {
+  constexpr int GR = Tile<Q>::GR, RM = Tile<Q>::RM;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool c0 = 4 * tx < ncols, c1 = 64 + 4 * tx < ncols;
+  bool rv[GR];
+#pragma unroll
+  for (int h = 0; h < GR; ++h) rv[h] = 64 * h + 4 * ty < Q;
   for (int k = 0; k < kc; ++k) {
-    float av[TM], bv[8];
+    float av[RM], bv[8];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[(ty + 16 * i) * ar + k * ak];
+    for (int h = 0; h < GR; ++h) {
+      const int r = 64 * h + 4 * ty;
+      if (!rv[h]) {
+        av[4 * h] = av[4 * h + 1] = av[4 * h + 2] = av[4 * h + 3] = 0.f;
+      } else if constexpr (AVEC) {
+        const float4 u = *reinterpret_cast<const float4*>(a + k * aks + r);
+        av[4 * h] = u.x;
+        av[4 * h + 1] = u.y;
+        av[4 * h + 2] = u.z;
+        av[4 * h + 3] = u.w;
+      } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      bv[j] = j < tn ? b[(tx + 16 * j) * kLd + k] : 0.f;
+        for (int i = 0; i < 4; ++i) av[4 * h + i] = a[(r + i) * ars + k];
+      }
+    }
+    const float* bk = b + k * kCs + 4 * tx;
+    float4 u0 = make_float4(0.f, 0.f, 0.f, 0.f), u1 = u0;
+    if (c0) u0 = *reinterpret_cast<const float4*>(bk);
+    if (c1) u1 = *reinterpret_cast<const float4*>(bk + 64);
+    bv[0] = u0.x; bv[1] = u0.y; bv[2] = u0.z; bv[3] = u0.w;
+    bv[4] = u1.x; bv[5] = u1.y; bv[6] = u1.z; bv[7] = u1.w;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        if (j < tn) acc.v[i][j] = fmaf(av[i], bv[j], acc.v[i][j]);
+        acc.v[i][j] = fmaf(av[i], bv[j], acc.v[i][j]);
   }
 }
 
-// Stage dst[r * kLd + k] = fetch(r, k) for r < rows, k < kc (zero where
-// fetch says so); k_fast: consecutive threads take consecutive k (the
-// source's contiguous dimension), else consecutive r.
-template <bool K_FAST, typename F>
-__device__ __forceinline__ void stage(float* dst, int rows, int kc, F fetch) {
-  for (int idx = threadIdx.x; idx < rows * kKc; idx += kThreads) {
-    const int r = K_FAST ? idx / kKc : idx % rows;
-    const int k = K_FAST ? idx % kKc : idx / rows;
-    dst[r * kLd + k] = k < kc ? fetch(r, k) : 0.f;
+// Stage a (rows x kKc) operand tile k-major, dst[k * stride + r], from a
+// source of type S read 16 bytes (V elements) at a time: element (r, k) at
+// src[r * rs + k] (K_FAST: k contiguous, the units taken along k) or at
+// src[k * rs + r] (r contiguous, the units along r).  Elements at k >= kc,
+// or whose source row (r for K_FAST, else k) is at or past `valid`, are
+// zero.  Consecutive threads take consecutive r, so the stores of a warp
+// fall in distinct banks.  rows, kc and every source row's start are whole
+// 16-byte units (the wrapper's checks).
+template <typename S, bool K_FAST>
+__device__ __forceinline__ void stage(float* dst, int stride, const S* src,
+                                      long long rs, int rows, int kc,
+                                      int valid) {
+  constexpr int V = Unit<S>::n;
+  if constexpr (K_FAST) {
+    for (int idx = threadIdx.x; idx < rows * (kKc / V); idx += kThreads) {
+      const int r = idx % rows, k = (idx / rows) * V;
+      float f[V];
+      if (r < valid && k < kc)
+        unpack<S>(__ldg(reinterpret_cast<const uint4*>(src + r * rs + k)),
+                  f);
+      else
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[(k + e) * stride + r] = f[e];
+    }
+  } else {
+    const int units = rows / V;
+    for (int idx = threadIdx.x; idx < units * kKc; idx += kThreads) {
+      const int r = (idx % units) * V, k = idx / units;
+      float f[V];
+      if (k < valid && k < kc)
+        unpack<S>(__ldg(reinterpret_cast<const uint4*>(src + k * rs + r)),
+                  f);
+      else
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(dst + k * stride + r + e) =
+            make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    }
   }
 }
 
@@ -278,14 +380,15 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_chunk_kernel(Args g) {
-  constexpr int TM = Q / 16;
-  constexpr int QL = Q + 1;          // a Q x Q matrix's row stride
-  extern __shared__ float smem[];
-  float* m1 = smem;                  // C B^T, then W
-  float* m2 = m1 + Q * QL;           // dy x^T, then E
-  float* sa = m2 + Q * QL;           // Q x kLd: a staged A operand
-  float* sb = sa + Q * kLd;          // 128 x kLd: a staged B operand
-  float* dts = sb + kMaxDim * kLd;
+  using TileQ = Tile<Q>;
+  constexpr int RM = TileQ::RM;
+  constexpr int QL = Q + 4;          // a Q x Q matrix's row stride
+  extern __shared__ __align__(16) float smem[];
+  float* m1 = smem;                  // C B^T, then W   ([i][j])
+  float* m2 = m1 + Q * QL;           // dy x^T, then E  ([i][j])
+  float* sa = m2 + Q * QL;           // kKc x QL: a staged A operand
+  float* sb = sa + kKc * QL;         // kKc x kCs: a staged B operand
+  float* dts = sb + kKc * kCs;
   float* cs = dts + Q;
   float* ec = cs + Q;
   float* wv = ec + Q;                // w_j
@@ -297,7 +400,7 @@ ssd_bwd_chunk_kernel(Args g) {
   float* red = rr + Q;               // kThreads: <G, S>
   float* dcs = red + kThreads;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, tx = tid & 15;
   const int hi = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
   const int p = g.p, n = g.n, s = g.s, t0 = c * Q;
   const T* x = static_cast<const T*>(g.x) + bi * g.st.x_b + hi * g.st.x_h;
@@ -310,6 +413,12 @@ ssd_bwd_chunk_kernel(Args g) {
   const float* S = g.states + sidx;                                 // S_c
   const float* G = g.states + (long long)g.b * g.h * g.nc * p * n + sidx;
 
+  // the chunk's first rows, and how many of its rows lie before S
+  const T* x0 = x + (long long)t0 * g.st.x_s;
+  const T* dy0 = dy + (long long)t0 * dys;
+  const T* bm0 = bm + (long long)t0 * g.st.b_s;
+  const T* cm0 = cm + (long long)t0 * g.st.c_s;
+  const int valid = min(Q, s - t0);
   auto xat = [&](int i, int k) {          // x of row i of the chunk
     return t0 + i < s ? ld<T>(x + (t0 + i) * g.st.x_s + k) : 0.f;
   };
@@ -328,8 +437,7 @@ ssd_bwd_chunk_kernel(Args g) {
   for (int i = tid; i < Q; i += kThreads)
     wv[i] = expf(last - cs[i]) * dts[i];
 
-  Tile<TM> acc;
-  const int tq = Q / 16;
+  TileQ acc;
 
   // m1 = C B^T (K = n), m2 = dy x^T (K = p), each masked to j <= i
   for (int which = 0; which < 2; ++which) {
@@ -339,22 +447,22 @@ ssd_bwd_chunk_kernel(Args g) {
       const int kc = min(kKc, kk - k0);
       __syncthreads();
       if (which == 0) {
-        stage<true>(sa, Q, kc, [&](int r, int k) { return cat(r, k0 + k); });
-        stage<true>(sb, Q, kc, [&](int r, int k) { return bat(r, k0 + k); });
+        stage<T, true>(sa, QL, cm0 + k0, g.st.c_s, Q, kc, valid);
+        stage<T, true>(sb, kCs, bm0 + k0, g.st.b_s, Q, kc, valid);
       } else {
-        stage<true>(sa, Q, kc, [&](int r, int k) { return dyat(r, k0 + k); });
-        stage<true>(sb, Q, kc, [&](int r, int k) { return xat(r, k0 + k); });
+        stage<T, true>(sa, QL, dy0 + k0, dys, Q, kc, valid);
+        stage<T, true>(sb, kCs, x0 + k0, g.st.x_s, Q, kc, valid);
       }
       __syncthreads();
-      mma_fma<TM>(acc, sa, kLd, 1, sb, kc, tq);
+      mma_fma<Q, true>(acc, sa, 0, QL, sb, kc, Q);
     }
     float* m = which == 0 ? m1 : m2;
 #pragma unroll
-    for (int a = 0; a < TM; ++a)
+    for (int a = 0; a < RM; ++a)
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
-        const int i = ty + 16 * a, j = tx + 16 * b;
-        if (b < tq) m[i * QL + j] = j <= i ? acc.v[a][b] : 0.f;
+        const int i = TileQ::row(a), j = TileQ::col(b);
+        if (i < Q && j < Q) m[i * QL + j] = j <= i ? acc.v[a][b] : 0.f;
       }
   }
   __syncthreads();
@@ -390,54 +498,49 @@ ssd_bwd_chunk_kernel(Args g) {
     }
   }
 
-  const int tp = (p + 15) / 16, tn = (n + 15) / 16;
-
   // dx (rows j, columns p): w_j G B_j, with x_j^T G B_j kept for ddt, then
   // + sum_i W_ij dy_i
   acc.zero();
   for (int k0 = 0; k0 < n; k0 += kKc) {
     const int kc = min(kKc, n - k0);
     __syncthreads();
-    stage<true>(sa, Q, kc, [&](int r, int k) { return bat(r, k0 + k); });
-    stage<true>(sb, tp * 16, kc, [&](int r, int k) {
-      return r < p ? G[(long long)r * n + k0 + k] : 0.f;
-    });
+    stage<T, true>(sa, QL, bm0 + k0, g.st.b_s, Q, kc, valid);
+    stage<float, true>(sb, kCs, G + k0, n, p, kc, p);
     __syncthreads();
-    mma_fma<TM>(acc, sa, kLd, 1, sb, kc, tp);
+    mma_fma<Q, true>(acc, sa, 0, QL, sb, kc, p);
   }
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int j = ty + 16 * a;
+  for (int a = 0; a < RM; ++a) {
+    const int j = TileQ::row(a);
     float d = 0.f;
 #pragma unroll
-    for (int b = 0; b < 8; ++b)
-      if (b < tp && tx + 16 * b < p)
-        d = fmaf(acc.v[a][b], xat(j, tx + 16 * b), d);
+    for (int b = 0; b < 8; ++b) {
+      const int col = TileQ::col(b);
+      if (j < Q && col < p) d = fmaf(acc.v[a][b], xat(j, col), d);
+    }
     d = row_sum(d);
-    if (tx == 0) xgb[j] = d;
-    const float w = wv[j];
+    if (tx == 0 && j < Q) xgb[j] = d;
+    const float w = j < Q ? wv[j] : 0.f;
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc.v[a][b] *= w;
   }
   for (int k0 = 0; k0 < Q; k0 += kKc) {
     const int kc = min(kKc, Q - k0);
     __syncthreads();
-    stage<false>(sb, tp * 16, kc, [&](int r, int k) {
-      return r < p ? dyat(k0 + k, r) : 0.f;
-    });
+    stage<T, false>(sb, kCs, dy0 + k0 * dys, dys, p, kc, valid - k0);
     __syncthreads();
-    mma_fma<TM>(acc, m1 + k0 * QL, 1, QL, sb, kc, tp);
+    mma_fma<Q, true>(acc, m1 + k0 * QL, 0, QL, sb, kc, p);
   }
   {
     T* dx = static_cast<T*>(g.dx) + ((long long)bi * s * g.h + hi) * p;
 #pragma unroll
-    for (int a = 0; a < TM; ++a) {
-      const int j = ty + 16 * a;
-      if (t0 + j >= s) continue;
+    for (int a = 0; a < RM; ++a) {
+      const int j = TileQ::row(a);
+      if (j >= Q || t0 + j >= s) continue;
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
-        const int col = tx + 16 * b;
-        if (b < tp && col < p) dx[(t0 + j) * dys + col] = to_t<T>(acc.v[a][b]);
+        const int col = TileQ::col(b);
+        if (col < p) dx[(t0 + j) * dys + col] = to_t<T>(acc.v[a][b]);
       }
     }
   }
@@ -447,39 +550,37 @@ ssd_bwd_chunk_kernel(Args g) {
   for (int k0 = 0; k0 < p; k0 += kKc) {
     const int kc = min(kKc, p - k0);
     __syncthreads();
-    stage<true>(sa, Q, kc, [&](int r, int k) { return xat(r, k0 + k); });
-    stage<false>(sb, tn * 16, kc, [&](int r, int k) {
-      return r < n ? G[(long long)(k0 + k) * n + r] : 0.f;
-    });
+    stage<T, true>(sa, QL, x0 + k0, g.st.x_s, Q, kc, valid);
+    stage<float, false>(sb, kCs, G + (long long)k0 * n, n, n, kc, kc);
     __syncthreads();
-    mma_fma<TM>(acc, sa, kLd, 1, sb, kc, tn);
+    mma_fma<Q, true>(acc, sa, 0, QL, sb, kc, n);
   }
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const float w = wv[ty + 16 * a];
+  for (int a = 0; a < RM; ++a) {
+    const int j = TileQ::row(a);
+    const float w = j < Q ? wv[j] : 0.f;
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc.v[a][b] *= w;
   }
   for (int k0 = 0; k0 < Q; k0 += kKc) {
     const int kc = min(kKc, Q - k0);
     __syncthreads();
-    stage<false>(sb, tn * 16, kc, [&](int r, int k) {
-      return r < n ? cat(k0 + k, r) : 0.f;
-    });
+    stage<T, false>(sb, kCs, cm0 + k0 * g.st.c_s, g.st.c_s, n, kc,
+                    valid - k0);
     __syncthreads();
-    mma_fma<TM>(acc, m2 + k0 * QL, 1, QL, sb, kc, tn);
+    mma_fma<Q, true>(acc, m2 + k0 * QL, 0, QL, sb, kc, n);
   }
   const long long pstride = (long long)s * n;
   float* pb = g.part + ((long long)bi * g.h + hi) * pstride;
   float* pc = pb + (long long)g.b * g.h * pstride;
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int j = ty + 16 * a;
-    if (t0 + j >= s) continue;
+  for (int a = 0; a < RM; ++a) {
+    const int j = TileQ::row(a);
+    if (j >= Q || t0 + j >= s) continue;
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
-      const int col = tx + 16 * b;
-      if (b < tn && col < n) pb[(long long)(t0 + j) * n + col] = acc.v[a][b];
+      const int col = TileQ::col(b);
+      if (col < n) pb[(long long)(t0 + j) * n + col] = acc.v[a][b];
     }
   }
 
@@ -489,44 +590,42 @@ ssd_bwd_chunk_kernel(Args g) {
   for (int k0 = 0; k0 < p; k0 += kKc) {
     const int kc = min(kKc, p - k0);
     __syncthreads();
-    stage<true>(sa, Q, kc, [&](int r, int k) { return dyat(r, k0 + k); });
-    stage<false>(sb, tn * 16, kc, [&](int r, int k) {
-      return r < n ? S[(long long)(k0 + k) * n + r] : 0.f;
-    });
+    stage<T, true>(sa, QL, dy0 + k0, dys, Q, kc, valid);
+    stage<float, false>(sb, kCs, S + (long long)k0 * n, n, n, kc, kc);
     __syncthreads();
-    mma_fma<TM>(acc, sa, kLd, 1, sb, kc, tn);
+    mma_fma<Q, true>(acc, sa, 0, QL, sb, kc, n);
   }
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int i = ty + 16 * a;
+  for (int a = 0; a < RM; ++a) {
+    const int i = TileQ::row(a);
     float d = 0.f;
 #pragma unroll
-    for (int b = 0; b < 8; ++b)
-      if (b < tn && tx + 16 * b < n)
-        d = fmaf(acc.v[a][b], cat(i, tx + 16 * b), d);
+    for (int b = 0; b < 8; ++b) {
+      const int col = TileQ::col(b);
+      if (i < Q && col < n) d = fmaf(acc.v[a][b], cat(i, col), d);
+    }
     d = row_sum(d);
-    const float e = ec[i];
-    if (tx == 0) rr[i] = e * d;
+    const float e = i < Q ? ec[i] : 0.f;
+    if (tx == 0 && i < Q) rr[i] = e * d;
 #pragma unroll
     for (int b = 0; b < 8; ++b) acc.v[a][b] *= e;
   }
   for (int k0 = 0; k0 < Q; k0 += kKc) {
     const int kc = min(kKc, Q - k0);
     __syncthreads();
-    stage<false>(sb, tn * 16, kc, [&](int r, int k) {
-      return r < n ? bat(k0 + k, r) : 0.f;
-    });
+    stage<T, false>(sb, kCs, bm0 + k0 * g.st.b_s, g.st.b_s, n, kc,
+                    valid - k0);
     __syncthreads();
-    mma_fma<TM>(acc, m2 + k0, QL, 1, sb, kc, tn);
+    mma_fma<Q, false>(acc, m2 + k0, QL, 0, sb, kc, n);
   }
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int i = ty + 16 * a;
-    if (t0 + i >= s) continue;
+  for (int a = 0; a < RM; ++a) {
+    const int i = TileQ::row(a);
+    if (i >= Q || t0 + i >= s) continue;
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
-      const int col = tx + 16 * b;
-      if (b < tn && col < n) pc[(long long)(t0 + i) * n + col] = acc.v[a][b];
+      const int col = TileQ::col(b);
+      if (col < n) pc[(long long)(t0 + i) * n + col] = acc.v[a][b];
     }
   }
 
@@ -550,7 +649,6 @@ ssd_bwd_chunk_kernel(Args g) {
       vsum += v;
     }
     dcs[Q - 1] += vsum + ec[Q - 1] * red[0];
-    const float a = g.a[hi];
     float run = 0.f, pa = 0.f;
     for (int k = Q - 1; k >= 0; --k) {
       run += dcs[k];
@@ -605,7 +703,8 @@ constexpr int states_smem() {
 
 template <int Q>
 constexpr int chunk_smem() {
-  return 4 * (2 * Q * (Q + 1) + (Q + kMaxDim) * kLd + 10 * Q + kThreads + Q);
+  return 4 * (2 * Q * (Q + 4) + kKc * (Q + 4) + kKc * kCs + 10 * Q +
+              kThreads);
 }
 
 template <typename T, int Q>

@@ -323,25 +323,24 @@ def _ssm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
     every = cfg.hybrid_attn_every if shared is not None else 0
     offset = (_write_offset(h, cache["shared"])
               if every and cache is not None else None)
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, bp in enumerate(unstack(blocks)):
         idx = layer_offset + i
         app = bool(every) and idx % every == 0
-        if remat:
-            # the shared block recomputed inside the block, as the
-            # reference's jax.checkpoint(body) does; no RNG state to stash
-            h = checkpoint(_ssm_layer, bp, shared if app else None, h, cfg,
-                           positions, use_reentrant=False,
-                           preserve_rng_state=False)
+        if cache is None:
+            args = (bp, shared if app else None, h, cfg, positions)
+            # with remat the shared block is recomputed inside the block,
+            # as the reference's jax.checkpoint(body) does; no RNG state
+            h = (checkpoint(_ssm_layer, *args, use_reentrant=False,
+                            preserve_rng_state=False) if remat
+                 else _ssm_layer(*args))
             continue
         if app:
-            sc = (None if cache is None
-                  else layer_view(cache["shared"], idx // every - app_offset))
+            sc = layer_view(cache["shared"], idx // every - app_offset)
             h = apply_dense_block(shared, h, cfg, positions, cache=sc,
                                   kv_bucket=kv_bucket, offset=offset)
-        c = None if cache is None else layer_view(cache["mamba"], i)
         h = h + mamba_block(bp, rms_norm(h, bp["pre_norm"], cfg.norm_eps),
-                            cfg, cache=c)
+                            cfg, cache=layer_view(cache["mamba"], i))
     return h, cache
 
 

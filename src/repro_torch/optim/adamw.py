@@ -51,7 +51,7 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-SLICE_ELEMS = 1 << 26      # a leaf above this is updated a layer at a time
+SLICE_ELEMS = 1 << 26      # a leaf above this is updated in runs of rows
 
 
 def _slices(p, g, m, v):
