@@ -2,9 +2,8 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --wire-times [SRC]   # the wire's times alone
-    python3 chip_smoke.py --bwd-times [SRC]    # the flash backward's alone
-    python3 chip_smoke.py --ssd-bwd-times [SRC]   # the SSD backward's alone
+    python3 chip_smoke.py --times KERNEL [SRC]   # one kernel's times alone
+                                 # (KERNEL: wire, flash_bwd or ssd_bwd)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -32,8 +31,8 @@ Phases, in order; any failure exits non-zero before the result line:
    counts, each of those (1, D) calls on quantize's row path and every
    call on the vectorised dequantize, a (256, 256) tile and a misaligned
    view on the general path; no spill in either kernel (``cuobjdump
-   -res-usage``); times (``wire_times``, also run alone by
-   ``--wire-times``) warm, cold, and cold with fresh outputs beside the
+   -res-usage``); times (``wire_times``, also run alone by ``--times
+   wire``) warm, cold, and cold with fresh outputs beside the
    bytes bound and the same-bytes cast ``out.copy_(q)``; the SSD scan within
    |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output) and 2e-4 + 2e-4
    |plain| (float32 output and the float32 state); the three row-invariant
@@ -597,8 +596,21 @@ BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
     (BATCH, PROMPT, 32, 32, 112),    # zamba2's shared block (the 128 tile)
     (2, 300, 8, 8, 112))             # the same, a ragged S
 BWD_HD112 = BWD_CASES[6]
+BWD_TIMED = (*BWD_CASES[:2], BWD_HD112)    # the shapes its times are of
 BWD_TOL = 1e-2          # per element, on 1 + |plain|
 STEP_LOSS_TOL = 2e-3    # the 2-layer step's loss, card against CPU
+
+
+def flash_bwd_inputs(torch, gen, b, s, h, kv, hd):
+    """The flash backward's inputs at one shape: q, k, v and do (bf16,
+    from ``gen``), and o and lse from the forward kernel."""
+    from repro_torch.kernels.attention import ops
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd), (b, s, h, hd)))
+    o, lse = ops._launch(q, k, v, True, s, with_lse=True)
+    return q, k, v, o, lse, do
 
 
 def check_flash_bwd(torch, gen):
@@ -618,7 +630,6 @@ def check_flash_bwd(torch, gen):
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ref import flash_bwd_ref, flash_ref
-    bf16 = torch.bfloat16
     usage = _build.resource_usage("flash_attention_bwd")
     log(f"  flash_attention_bwd registers and stack bytes: "
         + ", ".join(f"{re.sub(r'^.*?(flash_bwd_\w+?)E.*$', r'\1', f)} "
@@ -628,11 +639,7 @@ def check_flash_bwd(torch, gen):
         raise SystemExit(f"flash_attention_bwd spills: {spills}")
     err_max, scaled_max, abs_max, inputs = 0.0, 0.0, 0.0, {}
     for b, s, h, kv, hd in BWD_CASES:
-        q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(bf16)
-        k = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(bf16)
-        v = torch.randn(b, s, kv, hd, generator=gen, device="cuda").to(bf16)
-        do = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(bf16)
-        o, lse = ops._launch(q, k, v, True, s, with_lse=True)
+        q, k, v, o, lse, do = flash_bwd_inputs(torch, gen, b, s, h, kv, hd)
         o_plain = ops._launch(q, k, v, True, s)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do)
         again = ops.flash_attention_bwd(q, k, v, o, lse, do)
@@ -667,8 +674,7 @@ def check_flash_bwd(torch, gen):
         scaled_max = max(scaled_max, *(sc for _, _, sc in errs))
         inputs.setdefault((b, s, h, kv, hd), (q, k, v, o, lse, do))
 
-    timed = {case: bwd_times(torch, *inputs[case])
-             for case in (*BWD_CASES[:2], BWD_HD112)}
+    timed = {case: bwd_times(torch, *inputs[case]) for case in BWD_TIMED}
     gran, big = timed[BWD_CASES[0]], timed[BWD_CASES[1]]
     q, k, v, o, lse, do = inputs[BWD_CASES[0]]
     s = q.shape[1]
@@ -800,7 +806,7 @@ def wire_times(torch, gen):
     versions, the bounds and the same-bytes cast ``out.copy_(q)``, a
     reference for the card's streaming rate at that size (no single torch
     call computes either kernel).  It calls only the wrappers and the
-    plain versions, so ``--wire-times SRC`` times another checkout's
+    plain versions, so ``--times wire SRC`` times another checkout's
     package with the same loop.  Returns {(M, D): record}."""
     from repro_torch.kernels.quantize import ops, ref
     t = {}
@@ -1264,22 +1270,65 @@ def check_conv_silu(torch, gen):
 # (B, S, H, P, N, Q) and the conv width C of the train runs (batch 4 x 512)
 SSM_BWD_SHAPES = {"mamba2": ((BATCH, PROMPT, 64, 64, 128, 128), 4352),
                   "zamba2": ((BATCH, PROMPT, 112, 64, 64, 128), 7296)}
+# the SSD backward's ddt and dA are float32 outputs of float32 arithmetic in
+# the kernel and in its plain version alike, from the same inputs whatever
+# their type, so they are held to float32 limits: ddt per element, at 5e-4
+# (1 + |plain|), since each element ends a reverse sum over the chunk of
+# row and column sums of T whose terms are far larger than it (read on an
+# H100: 1.8e-4 at mamba2's training shape, 2.6e-4 at zamba2's); dA on its
+# largest |plain| (a sum over the batch and the sequence whose terms
+# cancel: 9.9e-6 of the largest at mamba2's shape)
+SSD_DDT_TOL, SSD_DA_TOL = 5e-4, 1e-4
+# the gated norm's bf16 gradients pass through a chain of roundings (dv,
+# then dy = r(dv silu(z)), then dxh = r(dy D)): where the float32 sums of
+# the kernel and the plain version round dv to neighbouring bf16 values,
+# dxh moves by up to two bf16 steps (1.14x the 1e-2 bound at zamba2's
+# width, measured on an H100)
+GATED_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+ELEM_BWD_TOL = {"bfloat16": BWD_TOL, "float32": 1e-4}
 
 
-def _grad_errs(torch, got, want, tol, summed=()):
-    """Per gradient: (max |kernel - plain|, the worst of it over tol (1 +
-    |plain|), over 2^-6 of the largest |plain|); a name in ``summed`` (a
-    float32 sum over the batch and the sequence whose terms cancel) is
-    held to tol of its largest |plain| instead of per element."""
+def _grad_errs(torch, got, want, limits):
+    """Per gradient: (max |kernel - plain|, the worst of it over its limit,
+    over 2^-6 of the largest |plain|).  ``limits[name]`` is (tol, on): on
+    "element", tol (1 + |plain|) per element; on "largest", tol times the
+    largest |plain| (a float32 sum over the batch and the sequence whose
+    terms cancel)."""
     out = {}
     for name in got:
         g, w = got[name].float(), want[name].float()
         e = (g - w).abs()
         top = w.abs().max().item()
-        scale = top if name in summed else (1 + w.abs())
+        tol, on = limits[name]
+        scale = top if on == "largest" else (1 + w.abs())
         elem = (e / (tol * scale)).max().item()
         out[name] = (e.max().item(), elem, e.max().item() / (2 ** -6 * top))
     return out
+
+
+def bwd_check(torch, label, fn, plain, limits):
+    """``fn()`` (a dict of gradients) twice against ``plain()`` on the same
+    inputs: each gradient finite, within its limit (``_grad_errs``) and
+    2^-6 of its largest |plain|, the two runs bit-identical; logged, and a
+    failure exits.  Returns the largest |kernel - plain|."""
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.contiguous().view(torch.uint8),
+                           c.contiguous().view(torch.uint8))
+               for a, c in zip(got.values(), again.values()))
+    errs = _grad_errs(torch, got, plain(), limits)
+    ok = same and all(math.isfinite(a) and el <= 1 and sc <= 1
+                      for a, el, sc in errs.values())
+    log(f"  {label}: " + ", ".join(
+        f"{k} {a:.3g} ({el:.3g} of its limit, {limits[k][0]:g} on the "
+        f"{limits[k][1]}; {sc:.3g} of 2^-6 of the largest)"
+        for k, (a, el, sc) in errs.items())
+        + f"; two runs bit-identical {same}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label} disagrees with its plain version or is "
+                         "not bit-identical twice")
+    return max(a for a, _, _ in errs.values())
 
 
 def ssd_bwd_work(b, s, h, p, n, q):
@@ -1300,53 +1349,82 @@ def ssd_bwd_work(b, s, h, p, n, q):
     return bf, f32, nbytes
 
 
+def ssd_bwd_case(torch, gen, b, s, h, p, n, q, dtype):
+    """``ssd_scan_bwd`` against ``ssd_bwd_ref`` at one shape (``bwd_check``:
+    dxh, dBm and dCm within ``ELEM_BWD_TOL`` of their type, ddt and dA
+    within float32's).  Returns (the largest |kernel - plain|, the inputs,
+    dy)."""
+    from repro_torch.kernels.ssd import ops, ref
+    ins = ssd_inputs(torch, gen, b, s, h, p, n, dtype)
+    dy = (torch.randn(b, s, h, p, generator=gen, device="cuda")
+          .to(dtype))
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    t = ELEM_BWD_TOL[str(dtype)[6:]]
+    limits = {"dxh": (t, "element"), "ddt": (SSD_DDT_TOL, "element"),
+              "dA": (SSD_DA_TOL, "largest"), "dBm": (t, "element"),
+              "dCm": (t, "element")}
+    err = bwd_check(
+        torch, f"ssd_scan_bwd B={b} S={s} H={h} P={p} N={n} Q={q} "
+        f"{str(dtype)[6:]}",
+        lambda: dict(zip(names, ops.ssd_scan_bwd(*ins, dy, q))),
+        lambda: dict(zip(names, ref.ssd_bwd_ref(*ins, dy, q))), limits)
+    return err, ins, dy
+
+
+def ssd_bwd_timing(torch, ins, dy, q):
+    """The SSD backward's times at one shape: the kernel warm, each of its
+    launches from the profiler, the plain version, and the bound: the
+    float32-operand products counted as the forward kernel runs them, two
+    bf16 terms each on the tensor cores (``check_ssd``), with their time at
+    the float32 FMA rate logged beside."""
+    from repro_torch.kernels.ssd import ops, ref
+    b, s, h, p = ins[0].shape
+    n = ins[3].shape[-1]
+    bf, fl, nbytes = ssd_bwd_work(b, s, h, p, n, q)
+    b_ms, b_by = bound(nbytes, (bf + 2 * fl, BF16_PEAK))
+    o_ms, o_by = bound(nbytes, (bf, BF16_PEAK), (fl, F32_PEAK))
+    t = {"B, S, H, P, N": [b, s, h, p, n],
+         "ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
+         "plain_ms": time_ms(lambda: ref.ssd_bwd_ref(*ins, dy, q), iters=5),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "fma_bound_ms": o_ms,
+         "per_pass_ms": pass_times(
+             torch, lambda: ops.ssd_scan_bwd(*ins, dy, q), "ssd_bwd",
+             iters=5)}
+    log(f"  ssd_scan_bwd B={b} S={s} H={h} P={p} N={n}: kernel "
+        f"{t['ms']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in t["per_pass_ms"].items())
+        + f" a launch), plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {bf / 1e9:.2f} GFLOP bf16 + 2 x {fl / 1e9:.2f} GFLOP "
+        f"split, {nbytes / 1e6:.2f} MB), {b_ms / t['ms']:.2%} of it; "
+        f"counted at the float32 FMA rate {o_ms:.4f} ms ({o_by})")
+    return t
+
+
 def check_ssm_bwd(torch, gen):
     """The SSM training path's three backward kernels against their plain
     versions at the train runs' shapes (mamba2-1.3b and zamba2-7b, batch
-    4 x 512), each gradient within 1e-2 (1 + |plain|) per element (bf16;
-    a bf16 step is under 0.8% of the value; the gated norm's 2e-2, argued
-    at ``gated_tol``) and 2^-6 of its largest |plain|, the scan's float32
-    dA within 1e-2 of its largest, two runs bit-identical: ``ssd_scan_bwd`` (also a ragged S and the float32 path
-    at 1e-4), ``conv_silu_bwd`` (conv_in read in place from an in_proj
-    row), ``gated_rms_norm_bwd`` (xh and z read in place).  Times beside
-    the plain version and the bound; no single PyTorch call computes any
-    of the three (``library_ms`` null)."""
+    4 x 512), two runs bit-identical, each gradient within 2^-6 of its
+    largest |plain| and, per element, 1e-2 (1 + |plain|) in bf16 (a bf16
+    step is under 0.8% of the value; the gated norm's 2e-2, argued at
+    ``GATED_BWD_TOL``) or 1e-4 in float32; the scan's float32 ddt and dA
+    within float32 limits whatever the inputs' type (``SSD_DDT_TOL`` per
+    element, ``SSD_DA_TOL`` of the largest): ``ssd_scan_bwd`` (also a
+    ragged S and the float32 path), ``conv_silu_bwd`` (conv_in read in
+    place from an in_proj row), ``gated_rms_norm_bwd`` (xh and z read in
+    place).  Times beside the plain version and the bound; no single
+    PyTorch call computes any of the three (``library_ms`` null)."""
     from repro_torch.kernels.decode import ops as dops, ref as dref
     from repro_torch.kernels.silu import ops as sops, ref as sref
-    from repro_torch.kernels.ssd import ops, ref
     bf16, f32 = torch.bfloat16, torch.float32
-    tol = {bf16: 1e-2, f32: 1e-4}
-    # the gated norm's bf16 gradients pass through a chain of roundings
-    # (dv, then dy = r(dv silu(z)), then dxh = r(dy D)): where the float32
-    # sums of the kernel and the plain version round dv to neighbouring
-    # bf16 values, dxh moves by up to two bf16 steps (1.14x the 1e-2 bound
-    # at zamba2's width, measured on an H100)
-    gated_tol = {bf16: 2e-2, f32: 1e-4}
 
     def randn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    def run_check(label, fn, plain, dtype, summed=(), tols=tol):
-        got = fn()
-        again = fn()
-        torch.cuda.synchronize()
-        same = all(torch.equal(a.contiguous().view(torch.uint8),
-                               c.contiguous().view(torch.uint8))
-                   for a, c in zip(got.values(), again.values()))
-        errs = _grad_errs(torch, got, plain(), tols[dtype], summed)
-        ok = same and all(math.isfinite(a) and el <= 1 and sc <= 1
-                          for a, el, sc in errs.values())
-        log(f"  {label}: " + ", ".join(
-            f"{k} {a:.3g} ({el:.2f}x its tol, {sc:.2f}x 2^-6 of the largest)"
-            for k, (a, el, sc) in errs.items())
-            + f"; two runs bit-identical {same}: {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"{label} disagrees with its plain version or "
-                             "is not bit-identical twice")
-        return max(a for a, _, _ in errs.values())
+    def elem(names, tol):
+        return {k: (tol, "element") for k in names}
 
-    names = ("dxh", "ddt", "dA", "dBm", "dCm")
     recs = {}
     # the scan
     err, timing = 0.0, {}
@@ -1355,33 +1433,10 @@ def check_ssm_bwd(torch, gen):
             (*SSM_BWD_SHAPES["zamba2"][0], bf16),
             (1, 300, 64, 64, 128, 128, bf16), (2, 40, 8, 16, 16, 16, bf16),
             (2, 200, 8, 64, 128, 128, f32)):
-        ins = ssd_inputs(torch, gen, b, s, h, p, n, dt_)
-        dy = randn(b, s, h, p, dtype=dt_)
-        err = max(err, run_check(
-            f"ssd_scan_bwd B={b} S={s} H={h} P={p} N={n} Q={q} "
-            f"{str(dt_)[6:]}",
-            lambda: dict(zip(names, ops.ssd_scan_bwd(*ins, dy, q))),
-            lambda: dict(zip(names, ref.ssd_bwd_ref(*ins, dy, q))), dt_,
-            summed=("dA",)))
+        e, ins, dy = ssd_bwd_case(torch, gen, b, s, h, p, n, q, dt_)
+        err = max(err, e)
         if s == PROMPT and dt_ == bf16:
-            bf, fl, nbytes = ssd_bwd_work(b, s, h, p, n, q)
-            b_ms, b_by = bound(nbytes, (bf, BF16_PEAK), (fl, F32_PEAK))
-            t = {"B, S, H, P, N": [b, s, h, p, n],
-                 "ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
-                 "plain_ms": time_ms(lambda: ref.ssd_bwd_ref(*ins, dy, q),
-                                     iters=5),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "per_pass_ms": pass_times(
-                     torch, lambda: ops.ssd_scan_bwd(*ins, dy, q), "ssd_bwd",
-                     iters=5)}
-            log(f"  ssd_scan_bwd B={b} S={s} H={h} P={p} N={n}: kernel "
-                f"{t['ms']:.4f} ms ("
-                + ", ".join(f"{k} {v:.4f}" for k, v in t["per_pass_ms"]
-                            .items())
-                + f" a launch), plain {t['plain_ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}; {bf / 1e9:.2f} GFLOP bf16 + "
-                f"{fl / 1e9:.2f} GFLOP float32, {nbytes / 1e6:.2f} MB)")
-            timing[h] = t
+            timing[h] = ssd_bwd_timing(torch, ins, dy, q)
         del ins, dy
     m = timing[64]
     recs["ssd_scan_bwd"] = dict(
@@ -1405,13 +1460,15 @@ def check_ssm_bwd(torch, gen):
             w = randn(k, c, scale=0.5, dtype=dt_)
             bias = randn(c, scale=0.1, dtype=dt_)
             g = randn(b, s, c, dtype=dt_)
-            err = max(err, run_check(
-                f"conv_silu_bwd[{key}] B={b} S={s} C={c} {str(dt_)[6:]}",
-                lambda: dict(zip(("dconv_in", "dw", "db"),
-                                 sops.conv_silu_bwd(conv_in, w, bias, g))),
-                lambda: dict(zip(("dconv_in", "dw", "db"),
-                                 sref.conv_silu_bwd_ref(conv_in, w, bias,
-                                                        g))), dt_))
+            cnames = ("dconv_in", "dw", "db")
+            err = max(err, bwd_check(
+                torch, f"conv_silu_bwd[{key}] B={b} S={s} C={c} "
+                f"{str(dt_)[6:]}",
+                lambda: dict(zip(cnames, sops.conv_silu_bwd(conv_in, w,
+                                                            bias, g))),
+                lambda: dict(zip(cnames, sref.conv_silu_bwd_ref(
+                    conv_in, w, bias, g))),
+                elem(cnames, ELEM_BWD_TOL[str(dt_)[6:]])))
             if dt_ == bf16:
                 # conv_in, g in; dconv_in out; w, b in, dw, db out
                 nbytes = 2 * (3 * b * s * c + 2 * (k + 1) * c)
@@ -1453,13 +1510,14 @@ def check_ssm_bwd(torch, gen):
             w = (1 + 0.1 * randn(di, dtype=f32)).to(dt_)
             g = randn(b, s, di, dtype=dt_)
             gnames = ("dy", "dD", "dxh", "dz", "dw")
-            err = max(err, run_check(
-                f"gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h} "
+            err = max(err, bwd_check(
+                torch, f"gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h} "
                 f"{str(dt_)[6:]}",
                 lambda: dict(zip(gnames, dops.gated_rms_norm_bwd(
                     y, D, xh, z, w, 1e-5, g))),
                 lambda: dict(zip(gnames, dref.gated_rms_norm_bwd_ref(
-                    y, D, xh, z, w, 1e-5, g))), dt_, tols=gated_tol))
+                    y, D, xh, z, w, 1e-5, g))),
+                elem(gnames, GATED_BWD_TOL[str(dt_)[6:]])))
             if dt_ == bf16:
                 # y, xh, z, g in; dy, dxh, dz out; w in, dw out; D, dD
                 nbytes = 2 * (7 * b * s * di + 2 * di) + 8 * h
@@ -3726,34 +3784,6 @@ SSM_TRAIN = {"mamba2-1.3b": None, "zamba2-7b": 42}
 PROFILE_ARCH = "mamba2-1.3b"        # launch/train.py --profile's model
 
 
-def train_launches(cfg, steps):
-    """What ``steps`` train steps launch.  A dense model: per layer, flash
-    attention's forward, ``rms_norm_rows`` (ln1) and
-    ``residual_rms_norm_rows`` once in the forward and once more in the
-    backward's recompute when ``cfg.remat``, the flash backward once.  An
-    SSM model: per mamba block, the scan, the conv pass, the gated norm
-    and ``rms_norm_rows`` (pre_norm) as often, their three backward
-    kernels once; the hybrid's shared block at each call site as a dense
-    block.  The final norm once (outside the blocks); the dense norms'
-    backwards are plain, and nothing else launches."""
-    from repro_torch import kernels
-    from repro_torch.models.model import hybrid_apps
-    n, again = cfg.n_layers, 2 if cfg.remat else 1
-    want = dict.fromkeys(kernels.WRAPPERS, 0)
-    dense = n if cfg.family == "dense" else (
-        hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0)
-    mamba = 0 if cfg.family == "dense" else n
-    want["flash_attention"] = again * dense * steps
-    want["flash_attention_bwd"] = dense * steps
-    want["residual_rms_norm_rows"] = again * dense * steps
-    want["rms_norm_rows"] = (again * (dense + mamba) + 1) * steps
-    for fwd, bwd in (("ssd", "ssd_scan_bwd"), ("conv_silu", "conv_silu_bwd"),
-                     ("gated_rms_norm_rows", "gated_rms_norm_bwd")):
-        want[fwd] = again * mamba * steps
-        want[bwd] = mamba * steps
-    return want
-
-
 def _by_path(tree, pre=""):
     out = {}
     for k, v in tree.items():
@@ -3788,15 +3818,18 @@ def train_check(torch, full):
     their backwards) against the same on the CPU (the plain versions)
     from the same params: the loss within 2e-3, every gradient leaf within
     3e-2 of the CPU leaf's largest |value|, finite and not zero; the
-    card's launches exactly ``train_launches``.  A hybrid's bf16 forward
-    moves by more than that wherever its products round differently
-    (``tests/test_torch_cuda.py::test_model_on_card_matches_cpu``), so it
-    may instead be as close to the CPU's float32 run as twice the CPU's
-    bf16 run is.  Returns (record, launches)."""
+    card's launches exactly ``train_launches``.  A hybrid's bf16 shared
+    block rounds differently on the card and the CPU, each run about as far
+    from the float32 run as the other
+    (``tests/test_torch_cuda.py::test_ssm_train_step_on_card_vs_cpu``, six
+    seeds), so a hybrid may instead be held to the CPU's float32 run: the
+    loss within max(5e-3, twice the CPU's bf16 distance) of it, and a leaf
+    over 3e-2 no further from the float32 leaf, in norm, than twice the
+    CPU's bf16 leaf is.  Returns (record, launches)."""
     from repro_torch import kernels
     from repro_torch._tree import tree_map
     from repro_torch.data import SyntheticTokens
-    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.steps import loss_and_grads, train_launches
     from repro_torch.models import init_params
     cfg = full.replace(n_layers=CHECK_DEPTH)
     gen = torch.Generator(device=DEVICE)
@@ -3831,13 +3864,12 @@ def train_check(torch, full):
         ok = leaves[path] <= 3e-2
         if exact is not None and not ok:
             gx = exact[path].float()
-            ok = ((gc_ - gx).abs().max().item()
-                  <= 2 * (gh - gx).abs().max().item())
+            ok = bool((gc_ - gx).norm() <= 2 * (gh - gx).norm())
         if not (torch.isfinite(gc_).all() and gc_.abs().max() > 0 and ok):
             bad.append(path)
     loss_ok = abs(loss_c - loss_h) <= STEP_LOSS_TOL or (
         loss_x is not None
-        and abs(loss_c - loss_x) <= 2 * abs(loss_h - loss_x))
+        and abs(loss_c - loss_x) <= max(5e-3, 2 * abs(loss_h - loss_x)))
     want = train_launches(cfg, 1)
     rec = {"depth": CHECK_DEPTH, "tokens": [1, CHECK_SEQ],
            "loss_card": loss_c, "loss_cpu": loss_h,
@@ -3848,8 +3880,8 @@ def train_check(torch, full):
     log(f"  {cfg.name}: one step at full width, {CHECK_DEPTH} layers, batch "
         f"1 x {CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on "
         f"the CPU (tol {STEP_LOSS_TOL:g}"
-        + ("" if loss_x is None else f", or twice the CPU's distance from "
-           f"its float32 run's {loss_x:.6f}")
+        + ("" if loss_x is None else f", or max(5e-3, twice the CPU's "
+           f"distance) from its float32 run's {loss_x:.6f}")
         + f"); the worst of {len(leaves)} gradient leaves {worst} at "
         f"{leaves[worst]:.3g} of its largest (tol 3e-2); every leaf finite, "
         f"not zero and within its limit: {not bad}; {card_s:.2f}s on the "
@@ -3872,6 +3904,7 @@ def train_full(torch, cfg, ckpt_dir):
     the launches of all steps)."""
     from repro_torch import kernels
     from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import train_launches
     from repro_torch.runtime import Trainer, TrainerConfig
     card_run = torch.device(DEVICE).type == "cuda"
     t0 = time.perf_counter()
@@ -3979,6 +4012,7 @@ def train(torch):
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import train_launches
     from repro_torch.runtime import Trainer, TrainerConfig
 
     out, by_path = {}, {}
@@ -4089,75 +4123,41 @@ def smi_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def wire_times_only(torch, src):
-    """``--wire-times``: ``wire_times`` alone, with the port imported from
-    ``src``; the JSON of the times is the last line."""
-    sys.path.insert(0, str(Path(src).resolve()))
-    from repro_torch.kernels.quantize import ops
-    log(smi_line())
-    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    t = wire_times(torch, gen)
-    print(json.dumps({"wire_times": {f"{m}x{n}": r
-                                     for (m, n), r in t.items()}}))
-    return 0
+def _wire_times(torch, gen):
+    return {f"{m}x{n}": r for (m, n), r in wire_times(torch, gen).items()}
 
 
-def bwd_times_only(torch, src):
-    """``--bwd-times``: ``bwd_times`` alone at granite's shape and at hd 128
-    (``BWD_CASES[:2]``), with the port imported from ``src``; the JSON of
-    the times is the last line."""
-    sys.path.insert(0, str(Path(src).resolve()))
-    from repro_torch.kernels.attention import ops
-    log(smi_line())
-    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    out = {}
-    for b, s, h, kv, hd in BWD_CASES[:2]:
-        q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
-                       .to(torch.bfloat16)
-                       for shape in ((b, s, h, hd), (b, s, kv, hd),
-                                     (b, s, kv, hd), (b, s, h, hd)))
-        o, lse = ops._launch(q, k, v, True, s, with_lse=True)
-        out[f"{b}x{s}x{h}x{kv}x{hd}"] = bwd_times(torch, q, k, v, o, lse, do)
-    print(json.dumps({"bwd_times": out}))
-    return 0
+def _flash_bwd_times(torch, gen):
+    return {"x".join(map(str, case)): bwd_times(
+        torch, *flash_bwd_inputs(torch, gen, *case)) for case in BWD_TIMED}
 
 
-def ssd_bwd_times_only(torch, src):
-    """``--ssd-bwd-times``: the SSD backward alone at the train runs'
-    shapes (``SSM_BWD_SHAPES``), with the port imported from ``src``:
-    held to its plain version as in ``check_ssm_bwd``, then timed (warm,
-    each launch from the profiler); the JSON of the times is the last
-    line."""
-    sys.path.insert(0, str(Path(src).resolve()))
-    from repro_torch.kernels.ssd import ops, ref
-    log(smi_line())
-    log(f"  the port from {Path(ops.__file__).resolve().parents[3]}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+def _ssd_bwd_times(torch, gen):
     out = {}
     for key, (shape, _) in SSM_BWD_SHAPES.items():
-        b, s, h, p, n, q = shape
-        ins = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16)
-        dy = torch.randn(b, s, h, p, generator=gen,
-                         device="cuda").bfloat16()
-        got = dict(zip(names, ops.ssd_scan_bwd(*ins, dy, q)))
-        errs = _grad_errs(torch, got, dict(zip(names, ref.ssd_bwd_ref(
-            *ins, dy, q))), 1e-2, summed=("dA",))
-        if not all(el <= 1 and sc <= 1 for _, el, sc in errs.values()):
-            raise SystemExit(f"ssd_scan_bwd[{key}] disagrees with its plain "
-                             f"version: {errs}")
-        out[key] = {"ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
-                    "per_pass_ms": pass_times(
-                        torch, lambda: ops.ssd_scan_bwd(*ins, dy, q),
-                        "ssd_bwd", iters=5)}
-        log(f"  ssd_scan_bwd[{key}] {list(shape)}: {out[key]['ms']:.4f} ms "
-            f"({out[key]['per_pass_ms']}), errors within their bounds")
-    print(json.dumps({"ssd_bwd_times": out}))
+        _, ins, dy = ssd_bwd_case(torch, gen, *shape, torch.bfloat16)
+        out[key] = ssd_bwd_timing(torch, ins, dy, shape[-1])
+    return out
+
+
+# ``--times KERNEL``: what each times, with its check's own inputs (and,
+# for the SSD backward, its check against the plain version first)
+TIMES = {"wire": _wire_times,               # quantize and dequantize
+         "flash_bwd": _flash_bwd_times,     # at BWD_TIMED
+         "ssd_bwd": _ssd_bwd_times}         # at SSM_BWD_SHAPES
+
+
+def times_only(torch, kernel, src=str(ROOT / "src")):
+    """``--times KERNEL [SRC]``: one kernel's times alone, with the port
+    imported from ``SRC`` (default: this checkout's ``src/``), so that one
+    run can time two checkouts; the JSON of the times is the last line."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    log(smi_line())
+    log(f"  the port from {Path(repro_torch.__file__).resolve().parents[2]}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    print(json.dumps({f"{kernel}_times": TIMES[kernel](torch, gen)}))
     return 0
 
 
@@ -4165,39 +4165,30 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch/CUDA port's main path once on one "
                     "NVIDIA card.")
-    ap.add_argument("--wire-times", metavar="SRC", nargs="?",
-                    const=str(ROOT / "src"),
-                    help="time only the wire's quantize and dequantize "
-                         "(wire_times), with the port imported from SRC "
-                         "(default: this checkout's src/), so that one run "
-                         "can time two checkouts")
-    ap.add_argument("--bwd-times", metavar="SRC", nargs="?",
-                    const=str(ROOT / "src"),
-                    help="time only the flash backward (bwd_times, each "
-                         "launch from the profiler) at granite's shape and "
-                         "at hd 128, with the port imported from SRC "
-                         "(default: this checkout's src/)")
-    ap.add_argument("--ssd-bwd-times", metavar="SRC", nargs="?",
-                    const=str(ROOT / "src"),
-                    help="time only the SSD backward at the train runs' "
-                         "shapes, with the port imported from SRC (default: "
+    ap.add_argument("--times", nargs="+", metavar=("KERNEL", "SRC"),
+                    help="time only KERNEL (one of: " + ", ".join(TIMES)
+                         + "), with the port imported from SRC (default: "
                          "this checkout's src/)")
     args = ap.parse_args(argv)
+    if args.times and (len(args.times) > 2 or args.times[0] not in TIMES):
+        ap.error(f"--times KERNEL [SRC], KERNEL one of {', '.join(TIMES)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if args.wire_times:
-        return wire_times_only(torch, args.wire_times)
-    if args.bwd_times:
-        return bwd_times_only(torch, args.bwd_times)
-    if args.ssd_bwd_times:
-        return ssd_bwd_times_only(torch, args.ssd_bwd_times)
+    if args.times:
+        return times_only(torch, *args.times)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
-    log("== 1. device")
+    starts = []                 # (phase, its start): each phase's seconds
+
+    def phase(title):
+        starts.append((title.split(".")[0], time.perf_counter()))
+        log(f"== {title}")
+
+    phase("1. device")
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4207,14 +4198,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== 2. build")
+    phase("2. build")
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: "
         + ", ".join(f"{n}.cu {s:.1f}s" for n, s in secs.items())
         + f"; {time.perf_counter() - t0:.1f}s wall")
 
-    log("== 3. kernels against their plain versions")
+    phase("3. kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = [check_flash(torch, gen), check_flash_bwd(torch, gen),
@@ -4224,7 +4215,7 @@ def main(argv=None) -> int:
                check_conv_silu(torch, gen), *check_ssm_bwd(torch, gen)]
     torch.cuda.empty_cache()
 
-    log("== 4. main paths at full width")
+    phase("4. main paths at full width")
     by_path, streams, timings = {}, {}, {}
     for arch in ARCHS:
         cfg = get_config(arch, "full")
@@ -4247,17 +4238,17 @@ def main(argv=None) -> int:
         timings[arch]["seconds"] = time.perf_counter() - t0
         log(f"-- {arch} took {timings[arch]['seconds']:.1f}s; peak device "
             f"memory by run (GB): {timings[arch]['peak_gb']}")
-    log("== 5. the planner against the paper's baselines (host; modelled "
+    phase("5. the planner against the paper's baselines (host; modelled "
         "seconds)")
     evaluation = {"planner_eval": planner_eval()}
-    log("== 6. the emulator on the served pipeline's plan (host; modelled "
+    phase("6. the emulator on the served pipeline's plan (host; modelled "
         "seconds)")
     evaluation["emulated"] = emulated()
-    log("== 7. the chaos campaign's serving half on the card")
+    phase("7. the chaos campaign's serving half on the card")
     evaluation["chaos"] = chaos(torch)
     for cid, rec in evaluation["chaos"]["cases"].items():
         by_path[f"{CHAOS_ARCH}/chaos_{cid}"] = rec["launches"]
-    log("== 8. training on the card")
+    phase("8. training on the card")
     evaluation["train"] = train(torch)
     by_path.update(evaluation["train"].pop("launches_by_path"))
     for r in records:
@@ -4266,7 +4257,9 @@ def main(argv=None) -> int:
                          sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
                              for a in PIPELINED))
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
-    log(f"== done in {time.perf_counter() - t_start:.1f}s")
+    ends = [t for _, t in starts[1:]] + [time.perf_counter()]
+    log(f"== done in {ends[-1] - t_start:.1f}s; seconds by phase: "
+        + ", ".join(f"{n} {e - t:.1f}" for (n, t), e in zip(starts, ends)))
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",

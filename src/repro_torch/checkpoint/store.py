@@ -24,9 +24,11 @@ taken before the thread starts; its ``wait()`` re-raises a failed write.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +99,67 @@ def _to_host(t: torch.Tensor):
     return arr, str(arr.dtype)
 
 
+_PIECE = 64 << 20           # bytes a piece of a large leaf
+_WRITERS = 3                # threads writing a large leaf's pieces
+
+
+def _pwrite_all(fd: int, view: np.ndarray, offset: int) -> None:
+    done = 0
+    while done < view.nbytes:
+        done += os.pwrite(fd, view[done:], offset + done)
+
+
+def _write_leaf(path: Path, leaf: torch.Tensor):
+    """``leaf`` to ``path`` as ``np.save`` writes it; returns (shape,
+    logical dtype name, CRC32 of the payload).  A leaf of ``_PIECE`` bytes
+    or more goes in pieces: each copied off the card into one of a ring of
+    pinned buffers (or read in place from a host tensor), checksummed in
+    order, and written at its offset by a pool of ``_WRITERS`` threads, so
+    that the copy, the checksum and the writes overlap: a stage write
+    moves each of a MoE model's 15 GB expert stacks this way."""
+    t = leaf.detach()
+    low = t.dtype == torch.bfloat16
+    if t.nbytes < _PIECE or not (low or t.dtype in _NP_OF):
+        arr, logical = _to_host(t)
+        np.save(path, arr)
+        return list(arr.shape), logical, _leaf_crc(arr)
+    dtype = np.dtype(np.uint16 if low else _NP_OF[t.dtype])
+    # np.save's header, and the file at its full length
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=dtype,
+                                   shape=tuple(t.shape))
+    offset = mm.offset
+    del mm
+    flat = (t.view(torch.int16) if low else t).contiguous().view(-1)
+    flat = flat.view(torch.uint8)
+    on_host = flat.device.type == "cpu"
+    ring = ([flat.numpy()] if on_host else
+            [torch.empty(_PIECE, dtype=torch.uint8, pin_memory=True)
+             for _ in range(_WRITERS + 2)])
+    writes, crc = [], 0
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        with ThreadPoolExecutor(_WRITERS) as pool:
+            for j, start in enumerate(range(0, flat.numel(), _PIECE)):
+                n = min(_PIECE, flat.numel() - start)
+                if on_host:
+                    view = ring[0][start:start + n]
+                else:
+                    if j >= len(ring):
+                        writes[j - len(ring)].result()   # its buffer's
+                    buf = ring[j % len(ring)][:n]
+                    buf.copy_(flat[start:start + n])
+                    view = buf.numpy()
+                crc = zlib.crc32(view, crc)
+                writes.append(pool.submit(_pwrite_all, fd, view,
+                                          offset + start))
+            for w in writes:
+                w.result()
+    finally:
+        os.close(fd)
+    return (list(t.shape), "bfloat16" if low else dtype.name,
+            crc & 0xFFFFFFFF)
+
+
 def save_checkpoint(ckpt_dir, step: int, tree, keep: int = 3) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -109,11 +172,9 @@ def save_checkpoint(ckpt_dir, step: int, tree, keep: int = 3) -> Path:
     manifest = {"step": step, "treedef": treedef, "n_leaves": len(leaves),
                 "leaves": []}
     for i, leaf in enumerate(leaves):
-        arr, logical = _to_host(leaf)
-        np.save(tmp / f"leaf_{i}.npy", arr)
-        manifest["leaves"].append({"i": i, "shape": list(arr.shape),
-                                   "dtype": logical,
-                                   "crc32": _leaf_crc(arr)})
+        shape, logical, crc = _write_leaf(tmp / f"leaf_{i}.npy", leaf)
+        manifest["leaves"].append({"i": i, "shape": shape,
+                                   "dtype": logical, "crc32": crc})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     if final.exists():
         shutil.rmtree(final)

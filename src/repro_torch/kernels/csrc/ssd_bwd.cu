@@ -57,14 +57,17 @@
 // with bf16 operands (the causal halves of C B^T and dy x^T) and 16.15 with
 // a float32 one (the causal halves of the products with W and E, the state
 // products, the recomputed states), and moves its inputs and outputs once,
-// 70.3 MB: 0.241 ms at 67 TFLOP/s against 0.021 ms for the bytes, so
-// operations bound it (chip_smoke.py's ssd_bwd_work).  This first design
-// runs them on FMA, the Q x Q products whole, not on the tensor cores, and
-// keeps its scratch in device memory: on an H100 it takes about 8 times
-// its bound (PERF.md); the forward's split bf16 mma.sync products are the
-// way to the bound.  Loading the staged tiles 16 bytes at a time, not an
-// element at a time, halved its time: the element loads had cost more
-// than the products.
+// 70.3 MB.  Counted as the forward kernel runs such products, each float32
+// operand split into two bf16 terms on the tensor cores, that is 33.4
+// GFLOP at 989 TFLOP/s: 0.034 ms against 0.021 ms for the bytes, so
+// operations bound it (chip_smoke.py's ssd_bwd_work); at the float32 FMA
+// rate (67 TFLOP/s) the same products would take 0.241 ms.  This first
+// design runs them on FMA, the Q x Q products whole, not on the tensor
+// cores, and keeps its scratch in device memory: on an H100 it takes about
+// 57 times its bound (PERF.md); the forward's split bf16 mma.sync products
+// are the way to the bound.  Loading the staged tiles 16 bytes at a time,
+// not an element at a time, halved its time: the element loads had cost
+// more than the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,4 +1,5 @@
-"""The train step: ``make_train_step(cfg, grad_compress_bits=0)``.
+"""The train step: ``make_train_step(cfg, grad_compress_bits=0)``, and
+``train_launches``, the kernel launches a step makes on the card.
 
 Counterpart of ``repro/launch/steps.py::make_train_step``.  The prefill
 and decode steps live in ``serve/engine.py``; the reference's
@@ -10,10 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import kernels
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.kernels.quantize.ref import fake_quantize
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import loss_fn
+from repro_torch.models.model import hybrid_apps, loss_fn
 from repro_torch.optim import adamw_update, make_schedule
 
 
@@ -56,3 +58,30 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
         grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
     return ({k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(grads), params))
+
+
+def train_launches(cfg: ModelConfig, steps: int = 1) -> dict[str, int]:
+    """The launches of ``steps`` train steps on the card, by wrapper
+    (``kernels.WRAPPERS``; ``kernels.launch_counts`` reads them).  A dense
+    block: flash attention's forward, ``rms_norm_rows`` (ln1) and
+    ``residual_rms_norm_rows``, again in the backward's recompute when
+    ``cfg.remat``, and the flash backward once.  A mamba block: the scan,
+    the conv pass, the gated norm and ``rms_norm_rows`` (pre_norm) as
+    often, their three backward kernels once; the hybrid's shared block at
+    each of its call sites as a dense block.  The final norm once (outside
+    the blocks).  The dense norms' backwards are plain, and nothing else
+    launches."""
+    n, again = cfg.n_layers, 2 if cfg.remat else 1
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    dense = n if cfg.family == "dense" else (
+        hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0)
+    mamba = 0 if cfg.family == "dense" else n
+    want["flash_attention"] = again * dense * steps
+    want["flash_attention_bwd"] = dense * steps
+    want["residual_rms_norm_rows"] = again * dense * steps
+    want["rms_norm_rows"] = (again * (dense + mamba) + 1) * steps
+    for fwd, bwd in (("ssd", "ssd_scan_bwd"), ("conv_silu", "conv_silu_bwd"),
+                     ("gated_rms_norm_rows", "gated_rms_norm_bwd")):
+        want[fwd] = again * mamba * steps
+        want[bwd] = mamba * steps
+    return want

@@ -37,6 +37,7 @@ from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.kernels.ssd.ref import ssd_chunked
+from repro_torch.launch.steps import train_launches
 from repro_torch.models import (decode_step, init_params, init_serve_cache,
                                 prefill)
 from repro_torch.serve.engine import ServeEngine, make_batch
@@ -1573,11 +1574,7 @@ def test_train_step_on_card_vs_cpu(cuda):
     m_card, g_card = loss_and_grads(cfg, card, {"tokens": tokens.to(cuda)})
     counts = kernels.launch_counts()
     m_host, g_host = loss_and_grads(cfg, host, {"tokens": tokens})
-    n = cfg.n_layers
-    assert counts["flash_attention"] == 2 * n      # forward and remat
-    assert counts["flash_attention_bwd"] == n
-    assert counts["rms_norm_rows"] == 2 * n + 1
-    assert counts["residual_rms_norm_rows"] == 2 * n
+    assert counts == train_launches(cfg)    # forward and remat, backward
     loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
     assert abs(loss_c - loss_h) <= 2e-3
     for gc, gh in zip(tree_leaves(g_card), tree_leaves(g_host)):
@@ -1601,19 +1598,29 @@ def test_train_step_on_card_vs_cpu(cuda):
 GATED_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+# the SSD backward's ddt and dA are float32 outputs of float32 arithmetic
+# in the kernel and in its plain version alike, whatever the inputs' type,
+# so they are held to float32 limits: ddt per element, at 5e-4 (1 +
+# |plain|), since each element ends a reverse sum over the chunk of row
+# and column sums of T whose terms are far larger than it (read on an
+# H100: 1.5e-4 and 2.6e-4 at mamba2's and zamba2's training shapes); dA
+# on its largest |plain| (a sum over the batch and the sequence whose
+# terms cancel: 1e-5 of the largest at mamba2's shape)
+SSD_F32_LIMITS = {"ddt": (5e-4, "element"), "dA": (1e-4, "largest")}
+
+
 def assert_bwd_close(got, want, dtype, name, tol=BWD_TOL):
-    """Each gradient within BWD_TOL (1 + |plain|) per element and 2^-6 of
-    its largest |plain|; the SSD scan's dA, a float32 sum over the batch
-    and the sequence whose terms cancel (1.5e-4 of a small element, 1.2e-5
-    of the largest, in float32 at S = 200), within BWD_TOL of its largest
-    |plain|."""
+    """Each gradient within ``tol`` of its type times (1 + |plain|) per
+    element and within 2^-6 of its largest |plain|; the SSD scan's ddt and
+    dA within ``SSD_F32_LIMITS``."""
     g, w = got.float(), want.float()
     assert got.shape == want.shape and got.dtype == want.dtype, name
     err = (g - w).abs()
     assert torch.isfinite(g).all(), name
-    scale = w.abs().max() if name == "dA" else 1 + w.abs()
-    assert bool((err <= tol[dtype] * scale).all()), \
-        (name, err.max().item())
+    t, on = SSD_F32_LIMITS.get(name, (tol[dtype], "element"))
+    scale = w.abs().max() if on == "largest" else 1 + w.abs()
+    assert bool((err <= t * scale).all()), \
+        (name, err.max().item(), (err / (t * scale)).max().item())
     assert err.max().item() <= 2 ** -6 * w.abs().max().item(), \
         (name, err.max().item(), w.abs().max().item())
 
@@ -1755,60 +1762,64 @@ def test_ssm_wrappers_under_grad(cuda):
     assert kernels.launch_counts() == counts
 
 
-def ssm_train_launches(cfg, steps=1):
-    """What ``steps`` train steps of an SSM or hybrid model launch (remat:
-    each block's forward kernels twice)."""
-    from repro_torch.models.model import hybrid_apps
-    n, again = cfg.n_layers, 2 if cfg.remat else 1
-    apps = hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0
-    want = dict.fromkeys(kernels.WRAPPERS, 0)
-    want["ssd"] = want["conv_silu"] = want["gated_rms_norm_rows"] = \
-        again * n * steps
-    want["ssd_scan_bwd"] = want["conv_silu_bwd"] = \
-        want["gated_rms_norm_bwd"] = n * steps
-    want["rms_norm_rows"] = (again * (n + apps) + 1) * steps
-    want["flash_attention"] = want["residual_rms_norm_rows"] = \
-        again * apps * steps
-    want["flash_attention_bwd"] = apps * steps
-    return want
-
-
+@pytest.mark.parametrize("seed", range(6))
 @pytest.mark.parametrize("arch,widen", [
     ("mamba2-1.3b", dict(d_model=256)),
     ("zamba2-7b", dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=512))])
-def test_ssm_train_step_on_card_vs_cpu(cuda, arch, widen):
+def test_ssm_train_step_on_card_vs_cpu(cuda, arch, widen, seed):
     """One train step of a mamba2 and a zamba2 smoke model widened to the
     kernels' shapes (zamba2's shared block at head dim 64), bf16, remat,
-    on the card against the same step on the CPU from the same params: the
-    loss within 2e-3, every gradient leaf within 3e-2 of the CPU leaf's
-    largest value, finite and not zero; the launches exactly
-    ``ssm_train_launches``.  zamba2's bf16 forward moves by more than that
-    wherever its products round differently (``test_model_on_card_matches
-    _cpu``), so there the card may instead be held to the CPU's float32
-    run: its loss within 5e-3 of it, about one bf16 step of a unit logit
-    (2^-8; read 3.1e-3, the CPU's bf16 run 1.3e-3 from it, on an H100),
-    or twice the CPU's bf16 distance; a leaf no further from the float32
-    leaf than twice the CPU's bf16 leaf is."""
+    seeds 0-5, on the card against the same step on the CPU from the same
+    params: the loss within 2e-3, every gradient leaf within 3e-2 of the
+    CPU leaf's largest value, finite and not zero; the launches exactly
+    ``train_launches``.  mamba2 meets that with room (on an H100, seeds
+    0-5: the losses 1.5e-5 to 1.4e-4 apart, no leaf over 3e-2).  zamba2's
+    bf16 shared block does not: its card and CPU runs are two bf16
+    roundings of the float32 run about as far from it as each other (the
+    losses 0.24e-3 to 4.1e-3 and 1.1e-3 to 3.5e-3 from the float32 loss,
+    up to 4.4e-3 apart; most leaves 3-9% of their largest apart), so a
+    hybrid is held to the CPU's float32 run instead: the loss within
+    max(5e-3, twice the CPU's bf16 distance) of it (read: at most 0.65 of
+    that), and a leaf over 3e-2 no further from the float32 leaf, in norm,
+    than twice the CPU's bf16 leaf is (read: 0.81 to 1.38 times; at the
+    largest element it is up to 1.99, too ragged a statistic to hold)."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     from repro_torch.optim import adamw_init
     cfg = get_config(arch, "smoke").replace(remat=True, **widen)
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(seed)
     host = init_params(cfg, gen, device="cpu")
     card = tree_map(lambda t: t.to(cuda), host)
-    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 64, 2).batch(0)
+    tokens = torch.from_numpy(SyntheticTokens(cfg.vocab, 64, 2).batch(seed)
                               ["tokens"])
     kernels.reset_launch_counts()
     m_card, g_card = loss_and_grads(cfg, card, {"tokens": tokens.to(cuda)})
-    assert kernels.launch_counts() == ssm_train_launches(cfg)
+    assert kernels.launch_counts() == train_launches(cfg)
     m_host, g_host = loss_and_grads(cfg, host, {"tokens": tokens})
+    m_x, g_x = loss_and_grads(cfg.replace(param_dtype="float32"),
+                              tree_map(lambda t: t.float(), host),
+                              {"tokens": tokens})
     loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
-    g_x = None
+    loss_x = m_x["loss"].item()
+    over = []
+    for i, (gc, gh, gx) in enumerate(zip(tree_leaves(g_card),
+                                         tree_leaves(g_host),
+                                         tree_leaves(g_x))):
+        gc, gh = gc.float().cpu(), gh.float()
+        err = (gc - gh).abs().max() / gh.abs().max()
+        if err > 3e-2:
+            over.append((i, round(err.item(), 4), round(
+                ((gc - gx).abs().max() / (gh - gx).abs().max()).item(), 3),
+                round(((gc - gx).norm() / (gh - gx).norm()).item(), 3)))
+    print(f"[ssm step gaps] {arch} seed {seed}: loss card {loss_c:.7f}, "
+          f"cpu {loss_h:.7f}, float32 {loss_x:.7f}; |card - cpu| "
+          f"{abs(loss_c - loss_h):.3g}, |card - float32| "
+          f"{abs(loss_c - loss_x):.3g}, |cpu - float32| "
+          f"{abs(loss_h - loss_x):.3g}; leaves over 3e-2 (index, of the "
+          f"largest, |card - float32| over |cpu - float32| at its largest "
+          f"and in norm): {over}",
+          flush=True)
     if cfg.family == "hybrid":
-        m_x, g_x = loss_and_grads(cfg.replace(param_dtype="float32"),
-                                  tree_map(lambda t: t.float(), host),
-                                  {"tokens": tokens})
-        loss_x = m_x["loss"].item()
         assert abs(loss_c - loss_h) <= 2e-3 or abs(loss_c - loss_x) <= max(
             5e-3, 2 * abs(loss_h - loss_x)), (loss_c, loss_h, loss_x)
     else:
@@ -1820,13 +1831,30 @@ def test_ssm_train_step_on_card_vs_cpu(cuda, arch, widen):
         err = (gc - gh).abs().max()
         if err <= 3e-2 * gh.abs().max():
             continue
-        assert g_x is not None, (i, err)
+        assert cfg.family == "hybrid", (i, err)
         gx = tree_leaves(g_x)[i]
-        assert (gc - gx).abs().max() <= 2 * (gh - gx).abs().max(), (i, err)
+        assert (gc - gx).norm() <= 2 * (gh - gx).norm(), (i, err)
     step = make_train_step(cfg)
     _, opt, metrics = step(card, adamw_init(card), {"tokens":
                                                     tokens.to(cuda)})
     assert int(opt.step) == 1 and torch.isfinite(metrics["grad_norm"])
+
+
+def test_checkpoint_pieces_from_the_card(cuda, tmp_path, monkeypatch):
+    """A leaf on the card goes to its file in pieces through the ring of
+    pinned buffers (4 KiB pieces: more pieces than buffers, a short last
+    one): the bytes, shape, dtype name and CRC of ``np.save`` of its host
+    copy, bf16 and a non-contiguous float32 view alike."""
+    from repro_torch.checkpoint import store
+    monkeypatch.setattr(store, "_PIECE", 4096)
+    t = randn(cuda, 51, 1000, 77, dtype=torch.bfloat16)
+    for leaf in (t, t.float()[:, 3:60]):
+        got = store._write_leaf(tmp_path / "pieces.npy", leaf)
+        arr, logical = store._to_host(leaf)
+        np.save(tmp_path / "whole.npy", arr)
+        assert (tmp_path / "pieces.npy").read_bytes() == \
+            (tmp_path / "whole.npy").read_bytes()
+        assert got == (list(arr.shape), logical, store._leaf_crc(arr))
 
 
 def test_ssm_train_step_bit_identical_twice(cuda):

@@ -88,7 +88,15 @@ def test_bridge_round_trips_every_leaf(arch):
     leaves_equal(nparams, params_to_jax(tparams))
 
 
-def test_checkpoint_format_matches_reference(granite, tmp_path):
+@pytest.mark.parametrize("piece", [None, 256])
+def test_checkpoint_format_matches_reference(granite, tmp_path, monkeypatch,
+                                             piece):
+    """The port's checkpoint bytes are the reference's, also where a leaf
+    goes to its file in pieces (``piece``: every leaf of 256 bytes or
+    more, checksummed and written piece by piece)."""
+    from repro_torch.checkpoint import store
+    if piece:
+        monkeypatch.setattr(store, "_PIECE", piece)
     _, jparams, nparams, _, params = granite
     jax_ckpt.save_checkpoint(tmp_path / "jax", 0, jparams)
     save_checkpoint(tmp_path / "torch", 0, params)
