@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times KERNEL [SRC]   # one kernel's times alone
-                                 # (KERNEL: wire, flash_bwd or ssd_bwd)
+                       # (KERNEL: wire, flash_bwd, ssd_bwd or gated_bwd)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -77,12 +77,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (output and the shifted conv_buf) at mamba2's and zamba2's widths, a
    decode step, a prefill and the cacheless forward; the SSM training
    path's three backward kernels (``check_ssm_bwd``: ``ssd_scan_bwd``,
-   ``conv_silu_bwd``, ``gated_rms_norm_bwd``) against their plain versions
-   at mamba2's and zamba2's train shapes (batch 4 x 512), a ragged S and
-   float32, within 1e-2 (1 + |plain|) per element (the gated norm's 2e-2)
-   and 2^-6 of the largest, two runs bit-identical, timed beside the
-   plain versions and their bounds; the flash backward also at zamba2's
-   head dim 112 (on the 128 tile);
+   whose bf16 calls at a chunk of 128 run on the tensor cores,
+   ``conv_silu_bwd``, ``gated_rms_norm_bwd``, one pass over the rows)
+   against their plain versions at mamba2's and zamba2's train shapes
+   (batch 4 x 512), a ragged S and float32, within 1e-2 (1 + |plain|) per
+   element (the gated norm's 2e-2; the scan's float32 ddt 5e-4 (1 +
+   |plain|) and dA 1e-4 of its largest) and 2^-6 of the largest, two runs
+   bit-identical, timed beside the plain versions and their bounds, the
+   scan's and the gated norm's launches each from the profiler
+   (``per_pass_ms``; ``--times ssd_bwd`` and ``--times gated_bwd`` time
+   them alone, for this or a parent's ``src/``); the flash backward also
+   at zamba2's head dim 112 (on the 128 tile);
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048, tied head), mamba2-1.3b (48
    layers, d_model 2048, 64 SSM heads, state 128), zamba2-7b (81 mamba2
@@ -396,6 +401,28 @@ def time_cold_ms(fn, nbytes, iters=20):
 
 def cold_copies(nbytes):
     return int(COLD_BYTES // nbytes) + 1
+
+
+def copy_inputs(ts):
+    """Fresh copies of tensors for a cold call, each a view of its own copy
+    of its base where it is a view, so that strides and offsets stay (a
+    kernel that reads its input in place reads the copy the same way)."""
+    out = []
+    for t in ts:
+        b = t._base
+        out.append(t.clone() if b is None else b.clone().as_strided(
+            t.size(), t.stride(), t.storage_offset()))
+    return tuple(out)
+
+
+def cold_ms_of(fn, ins):
+    """Device ms a call of ``fn(*ins)`` takes on copies of ``ins`` that no
+    call finds in L2 (``time_cold_ms``)."""
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    copies = [copy_inputs(ins) for _ in range(cold_copies(nbytes))]
+    ms, _ = time_cold_ms(lambda c: fn(*copies[c]), nbytes)
+    del copies
+    return ms
 
 
 def scaled_check(name, got, want, fault):
@@ -1385,6 +1412,8 @@ def ssd_bwd_timing(torch, ins, dy, q):
     o_ms, o_by = bound(nbytes, (bf, BF16_PEAK), (fl, F32_PEAK))
     t = {"B, S, H, P, N": [b, s, h, p, n],
          "ms": time_ms(lambda: ops.ssd_scan_bwd(*ins, dy, q)),
+         "cold_ms": cold_ms_of(lambda *a: ops.ssd_scan_bwd(*a, q),
+                               (*ins, dy)),
          "plain_ms": time_ms(lambda: ref.ssd_bwd_ref(*ins, dy, q), iters=5),
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
          "fma_bound_ms": o_ms,
@@ -1392,12 +1421,76 @@ def ssd_bwd_timing(torch, ins, dy, q):
              torch, lambda: ops.ssd_scan_bwd(*ins, dy, q), "ssd_bwd",
              iters=5)}
     log(f"  ssd_scan_bwd B={b} S={s} H={h} P={p} N={n}: kernel "
-        f"{t['ms']:.4f} ms ("
+        f"{t['ms']:.4f} ms warm, {t['cold_ms']:.4f} cold (per launch, warm: "
         + ", ".join(f"{k} {v:.4f}" for k, v in t["per_pass_ms"].items())
         + f" a launch), plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {bf / 1e9:.2f} GFLOP bf16 + 2 x {fl / 1e9:.2f} GFLOP "
         f"split, {nbytes / 1e6:.2f} MB), {b_ms / t['ms']:.2%} of it; "
         f"counted at the float32 FMA rate {o_ms:.4f} ms ({o_by})")
+    return t
+
+
+def gated_bwd_case(torch, gen, key, dtype):
+    """``gated_rms_norm_bwd`` against ``gated_rms_norm_bwd_ref`` at a train
+    run's shape (``SSM_BWD_SHAPES[key]``: rows B x S, width H x P), xh and z
+    read in place from their rows (``bwd_check``, ``GATED_BWD_TOL``).
+    Returns (the largest |kernel - plain|, the inputs (y, D, xh, z, w,
+    g))."""
+    from repro_torch.kernels.decode import ops as dops, ref as dref
+    b, s, h, p, n = SSM_BWD_SHAPES[key][0][:5]
+    di = h * p
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    zx = randn(b, s, 2 * di + 2 * n + h, scale=3.0)
+    conv = randn(b, s, di + 2 * n)
+    z, xh = zx[..., :di], conv[..., :di].reshape(b, s, h, p)
+    y = randn(b, s, h, p)
+    D = 1 + 0.5 * randn(h, dt=torch.float32)
+    w = (1 + 0.1 * randn(di, dt=torch.float32)).to(dtype)
+    g = randn(b, s, di)
+    ins = (y, D, xh, z, w, g)
+    names = ("dy", "dD", "dxh", "dz", "dw")
+    err = bwd_check(
+        torch, f"gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h} "
+        f"{str(dtype)[6:]}",
+        lambda: dict(zip(names, dops.gated_rms_norm_bwd(
+            y, D, xh, z, w, 1e-5, g))),
+        lambda: dict(zip(names, dref.gated_rms_norm_bwd_ref(
+            y, D, xh, z, w, 1e-5, g))),
+        {k: (GATED_BWD_TOL[str(dtype)[6:]], "element") for k in names})
+    return err, ins
+
+
+def gated_bwd_timing(torch, ins):
+    """The gated norm's backward times at one shape: the kernel warm, each
+    of its launches from the profiler, the plain version, and the bound (y,
+    xh, z, g read once, dy, dxh, dz written once, w and D in, dw and dD
+    out)."""
+    from repro_torch.kernels.decode import ops as dops, ref as dref
+    y, D, xh, z, w, g = ins
+    b, s, h, p = y.shape
+    di = h * p
+    nbytes = 2 * (7 * b * s * di + 2 * di) + 8 * h
+    b_ms, b_by = bound(nbytes, (40.0 * b * s * di, F32_PEAK))
+
+    def call():
+        return dops.gated_rms_norm_bwd(y, D, xh, z, w, 1e-5, g)
+    t = {"rows, d, H": [b * s, di, h], "ms": time_ms(call),
+         "cold_ms": cold_ms_of(lambda *a: dops.gated_rms_norm_bwd(
+             *a[:5], 1e-5, a[5]), ins),
+         "plain_ms": time_ms(lambda: dref.gated_rms_norm_bwd_ref(
+             y, D, xh, z, w, 1e-5, g)),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "per_pass_ms": pass_times(torch, call, "gated_bwd")}
+    log(f"  gated_rms_norm_bwd ({b * s}, {di}) H={h}: kernel {t['ms']:.4f} "
+        f"ms warm, {t['cold_ms']:.4f} cold (per launch, warm: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                          t["per_pass_ms"].items())
+        + f" a launch), plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes / 1e6:.2f} MB), {b_ms / t['ms']:.2%} of it")
     return t
 
 
@@ -1414,7 +1507,6 @@ def check_ssm_bwd(torch, gen):
     place from an in_proj row), ``gated_rms_norm_bwd`` (xh and z read in
     place).  Times beside the plain version and the bound; no single
     PyTorch call computes any of the three (``library_ms`` null)."""
-    from repro_torch.kernels.decode import ops as dops, ref as dref
     from repro_torch.kernels.silu import ops as sops, ref as sref
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -1440,8 +1532,8 @@ def check_ssm_bwd(torch, gen):
         del ins, dy
     m = timing[64]
     recs["ssd_scan_bwd"] = dict(
-        {k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "per_pass_ms")},
+        {k: m[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "per_pass_ms")},
         name="ssd_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
         replaces="src/repro/models/ssm.py:55 (JAX autodiff of ssd_chunked)",
@@ -1498,46 +1590,17 @@ def check_ssm_bwd(torch, gen):
 
     # the gated norm
     err, timing = 0.0, {}
-    for key, (shape, c) in SSM_BWD_SHAPES.items():
-        b, s, h, p, n = shape[:5]
-        di = h * p
+    for key in SSM_BWD_SHAPES:
         for dt_ in (bf16, f32):
-            zx = randn(b, s, 2 * di + 2 * n + h, scale=3.0, dtype=dt_)
-            conv = randn(b, s, di + 2 * n, dtype=dt_)
-            z, xh = zx[..., :di], conv[..., :di].reshape(b, s, h, p)
-            y = randn(b, s, h, p, dtype=dt_)
-            D = 1 + 0.5 * randn(h, dtype=f32)
-            w = (1 + 0.1 * randn(di, dtype=f32)).to(dt_)
-            g = randn(b, s, di, dtype=dt_)
-            gnames = ("dy", "dD", "dxh", "dz", "dw")
-            err = max(err, bwd_check(
-                torch, f"gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h} "
-                f"{str(dt_)[6:]}",
-                lambda: dict(zip(gnames, dops.gated_rms_norm_bwd(
-                    y, D, xh, z, w, 1e-5, g))),
-                lambda: dict(zip(gnames, dref.gated_rms_norm_bwd_ref(
-                    y, D, xh, z, w, 1e-5, g))),
-                elem(gnames, GATED_BWD_TOL[str(dt_)[6:]])))
+            e, ins = gated_bwd_case(torch, gen, key, dt_)
+            err = max(err, e)
             if dt_ == bf16:
-                # y, xh, z, g in; dy, dxh, dz out; w in, dw out; D, dD
-                nbytes = 2 * (7 * b * s * di + 2 * di) + 8 * h
-                b_ms, b_by = bound(nbytes, (40.0 * b * s * di, F32_PEAK))
-                t = {"rows, d, H": [b * s, di, h],
-                     "ms": time_ms(lambda: dops.gated_rms_norm_bwd(
-                         y, D, xh, z, w, 1e-5, g)),
-                     "plain_ms": time_ms(lambda: dref.gated_rms_norm_bwd_ref(
-                         y, D, xh, z, w, 1e-5, g)),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-                log(f"  gated_rms_norm_bwd[{key}] ({b * s}, {di}) H={h}: "
-                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} "
-                    f"MB)")
-                timing[key] = t
-            del zx, conv, z, xh, y, g
+                timing[key] = gated_bwd_timing(torch, ins)
+            del ins
     m = timing["mamba2"]
     recs["gated_rms_norm_bwd"] = dict(
-        {k_: m[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+        {k_: m[k_] for k_ in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "per_pass_ms")},
         name="gated_rms_norm_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/norm.cu",
         replaces="src/repro/models/ssm.py:183 (JAX autodiff of the skip, "
@@ -4140,11 +4203,20 @@ def _ssd_bwd_times(torch, gen):
     return out
 
 
+def _gated_bwd_times(torch, gen):
+    out = {}
+    for key in SSM_BWD_SHAPES:
+        _, ins = gated_bwd_case(torch, gen, key, torch.bfloat16)
+        out[key] = gated_bwd_timing(torch, ins)
+    return out
+
+
 # ``--times KERNEL``: what each times, with its check's own inputs (and,
-# for the SSD backward, its check against the plain version first)
+# for the SSM backwards, their checks against the plain versions first)
 TIMES = {"wire": _wire_times,               # quantize and dequantize
          "flash_bwd": _flash_bwd_times,     # at BWD_TIMED
-         "ssd_bwd": _ssd_bwd_times}         # at SSM_BWD_SHAPES
+         "ssd_bwd": _ssd_bwd_times,         # at SSM_BWD_SHAPES
+         "gated_bwd": _gated_bwd_times}     # at SSM_BWD_SHAPES' widths
 
 
 def times_only(torch, kernel, src=str(ROOT / "src")):

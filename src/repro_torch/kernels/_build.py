@@ -60,7 +60,7 @@ SIGNATURES = {
         "ssd_error_string": ([_I], ctypes.c_char_p),
     },
     "ssd_bwd": {
-        "ssd_scan_bwd_launch": ([_P] * 14 + [_I] * 6 + [_L] * 10 + [_I, _P],
+        "ssd_scan_bwd_launch": ([_P] * 15 + [_I] * 7 + [_L] * 10 + [_I, _P],
                                 _I),
         "ssd_bwd_error_string": ([_I], ctypes.c_char_p),
     },
@@ -76,7 +76,7 @@ SIGNATURES = {
         "rms_norm_rows_launch": ([_I, _P, _L, _P, _L, _P, _L, _P, _I, _P, _P,
                                   _P] + [_I] * 5 + [_F, _I, _P], _I),
         "gated_rms_norm_bwd_launch": ([_P, _L, _P, _L, _P, _L, _P, _I]
-                                      + [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+                                      + [_P] * 8 + [_I] * 5 + [_F, _I, _P],
                                       _I),
         "norm_error_string": ([_I], ctypes.c_char_p),
     },

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the port's bf16 kernels
-// (flash_attention.cu, ssd.cu): 16-byte `cp.async`, `ldmatrix`, the
-// m16n8k16 bf16 `mma.sync` with float32 accumulators, `ex2`, and the XOR
-// swizzle that keeps `ldmatrix` free of bank conflicts.
+// (flash_attention.cu, ssd.cu, ssd_bwd.cu): 16-byte `cp.async`, `ldmatrix`,
+// the m16n8k16 bf16 `mma.sync` with float32 accumulators, `ex2`, the split
+// of float32 operands into bf16 hi + lo, and the XOR swizzle that keeps
+// `ldmatrix` free of bank conflicts.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + tq):
 //   A (16 x 16, row-major): {a0, a1} row g,     k 2tq, 2tq+1
@@ -85,6 +86,16 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs hi and lo with a = hi + lo to 2^-16 relative: lo is
+// the bf16 of the exact remainder
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
 }
 
 // Index of 16-byte chunk c of row r in a tile with CPR chunks a row.  The

@@ -27,30 +27,49 @@
 // rows are whole aligned units, single elements otherwise; the arithmetic
 // is the same.
 //
-// The gated form's backward (gated_rms_norm_bwd_launch) is three launches
-// of this file's kernels; it replaces no TPU kernel either: the reference
-// gets these gradients from JAX autodiff of the same expressions.
-//   1. a row pass in the norm's plan: v = (y + D xh) silu(z) recomputed
-//      with the forward's roundings, its sum of squares in the forward's
-//      order (so r = rsqrt(mean v^2 + eps) is the forward's), then the
-//      float32 sum of dn n (n = v r, dn = g w) in the same order, dv =
-//      r (dn - n mean(dn n)) rounded to the type, and from it dy = r(dv
-//      silu(z)), dxh = r(dy r(D)), dz = r(r(dv (y + D xh)) silu'(z)),
-//      silu'(z) = s (1 + z (1 - s)) in float32; r is kept a row;
-//   2. column partials of dw = sum g n and of dy xh over kRowsPart rows
-//      each (v recomputed element by element, the same bits);
-//   3. their sums over the row slices in order: dw, rounded to the type,
-//      and dD a head, over its columns in order.
-// Every sum has one owner and a fixed order: two runs give the same bits.
-// Bound on this card: bytes, the row pass reading y, xh, z, g once and
-// writing dy, dxh, dz; the column pass reads y, xh, z, g and dy again.
+// The gated form's backward (gated_rms_norm_bwd_launch) replaces no TPU
+// kernel either: the reference gets these gradients from JAX autodiff of
+// the same expressions.  Function: with v = (y + D xh) silu(z) recomputed
+// with the forward's roundings and r = rsqrt(mean v^2 + eps) the forward's
+// (its sum of squares in the forward's order), n = v r, dn = g w: dv =
+// r (dn - n mean(dn n)) rounded to the type, dy = r(dv silu(z)), dxh =
+// r(dy r(D)), dz = r(r(dv (y + D xh)) silu'(z)) (silu'(z) = s (1 + z (1 -
+// s)) in float32), dw = sum over rows of g n rounded to the type, dD a
+// head = sum of dy xh over its rows and columns.
+// Bound on this card: bytes, y, xh, z, g read once and dy, dxh, dz written
+// once (117.5 MB at mamba2's (2048, 4096): 0.035 ms at 3.35 TB/s).  Two
+// launches:
+//   1. one pass over the rows (gated_bwd_kernel): a block owns a slice of
+//      GATED_BWD_ROWS rows (16: 128 slices of 2048 rows), one row at a
+//      time in the norm's plan; it reads y, xh, z and g once, 16 bytes at a
+//      time, the next rows' by cp.async while this one is computed, keeps
+//      the prologue's yy, silu(z) and v in registers (no second prologue),
+//      writes dy, dxh and dz, and accumulates each column's partials of
+//      sum g n and sum dy xh over its rows, in row order, in registers; one
+//      (2, d) float32 partial leaves the block;
+//   2. the sums over the slices in a fixed order (each column's slices in
+//      four interleaved runs, added in order): dw rounded to the type, and
+//      dD a head, over its columns in order.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (chip_smoke.py --times gated_bwd; PERF.md row 8): 0.075 ms at (2048,
+// 4096) and 0.111 ms at (2048, 7168), 47% and 55% of the bound, against the
+// first design's 0.222 and 0.405 ms in the same run: the pass moves the
+// bound's bytes at 1.7-1.9 TB/s, about the rate of the first design's row
+// pass on the same reads and writes.
+// r is the forward's r; mean(dn n) is taken as r sum(dn v) / d in the
+// same exchange as the sum of squares (one exchange a row, not two), so
+// dy, dxh and dz may differ from the first design's (three launches, whose
+// column pass read every input again a 2-byte element at a time) in their
+// last rounding, and dw and dD do (its column chains were 64 rows, these
+// are 16).  Every sum has one owner and a fixed order: two runs give the
+// same bits.
 //
-// Bound on this card: bytes (each input read once, each output written
-// once), and below a few hundred KB the launch itself.  The design reads
-// each input once, holds the row's prologue output in registers (up to
-// 8 units a thread, 512 threads a row: D up to 32768 bf16 elements), and
-// gives a decode step's tiny rows one round trip to memory; fusing the
-// prologues saves their launches and intermediate tensors.
+// The forward norms' bound on this card: bytes (each input read once, each
+// output written once), and below a few hundred KB the launch itself.  The
+// design reads each input once, holds the row's prologue output in
+// registers (up to 8 units a thread, 512 threads a row: D up to 32768 bf16
+// elements), and gives a decode step's tiny rows one round trip to memory;
+// fusing the prologues saves their launches and intermediate tensors.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -259,246 +278,323 @@ struct GatedBwdArgs {
   void* dy;          // (m, d) contiguous, as dxh and dz
   void* dxh;
   void* dz;
-  float* rinv;       // (m,)
   float* part;       // (slices, 2, d)
   void* dw;          // (d,)
   float* dD;         // (heads,)
   int m, d, tpr, rows, heads;
   float eps;
+  int stages;        // rows in the pass's ring (2 or 3; VEC only)
 };
 
-// The forward's prologue on V elements [j, j + V) of one row: yy = r(y +
-// r(r(D) xh)) and sz = silu(z), their product v = r(yy sz).
-template <typename T, bool VEC>
-__device__ __forceinline__ void gated_prologue(const GatedBwdArgs& a,
-                                               long long row, int j, float* yy,
-                                               float* sz, float* v) {
-  constexpr int V = Unit<T>::n;
-  float xh[V], dh[V];
-  load<T, VEC>(static_cast<const T*>(a.y) + row * a.ys, j, a.d, yy);
-  load<T, VEC>(static_cast<const T*>(a.xh) + row * a.xs, j, a.d, xh);
-  load<T, VEC>(static_cast<const T*>(a.z) + row * a.zs, j, a.d, sz);
-  silu_n<T, V>(sz);
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    const int head = VEC ? j / a.p : (j + e) / a.p;
-    dh[e] = j + e < a.d ? __ldg(a.dv + head) : 0.f;
-  }
-  round_n<T, V>(dh);
-#pragma unroll
-  for (int e = 0; e < V; ++e) xh[e] = __fmul_rn(dh[e], xh[e]);
-  round_n<T, V>(xh);
-#pragma unroll
-  for (int e = 0; e < V; ++e) yy[e] = __fadd_rn(yy[e], xh[e]);
-  round_n<T, V>(yy);
-#pragma unroll
-  for (int e = 0; e < V; ++e) v[e] = __fmul_rn(yy[e], sz[e]);
-  round_n<T, V>(v);
-}
-
-// gated_prologue's v for the one element j of a row, the same arithmetic
-template <typename T>
-__device__ __forceinline__ float gated_v(const GatedBwdArgs& a, long long row,
-                                         int j) {
-  float yy[1] = {to_f<T>(static_cast<const T*>(a.y)[row * a.ys + j])};
-  float xh[1] = {to_f<T>(static_cast<const T*>(a.xh)[row * a.xs + j])};
-  float sz[1] = {to_f<T>(static_cast<const T*>(a.z)[row * a.zs + j])};
-  float dh[1] = {__ldg(a.dv + j / a.p)};
-  silu_n<T, 1>(sz);
-  round_n<T, 1>(dh);
-  xh[0] = __fmul_rn(dh[0], xh[0]);
-  round_n<T, 1>(xh);
-  yy[0] = __fadd_rn(yy[0], xh[0]);
-  round_n<T, 1>(yy);
-  yy[0] = __fmul_rn(yy[0], sz[0]);
-  round_n<T, 1>(yy);
-  return yy[0];
-}
-
-// the row's total of v over its threads, in the forward's order
-__device__ __forceinline__ float row_total(float v, float* part, int lr,
-                                           int t, int warps) {
+// the row's totals of u and v over its threads, each in the forward's
+// order (a warp's xor tree, then the warps in order), in one exchange
+__device__ __forceinline__ float2 row_totals(float u, float v, float* part,
+                                             int t, int warps) {
+  u = warp_sum(u);
   v = warp_sum(v);
-  if ((t & 31) == 0) part[lr * warps + (t >> 5)] = v;
+  if ((t & 31) == 0) {
+    part[t >> 5] = u;
+    part[16 + (t >> 5)] = v;
+  }
   __syncthreads();
-  float s = part[lr * warps];
-  for (int q = 1; q < warps; ++q) s += part[lr * warps + q];
+  float su = part[0], sv = part[16];
+  for (int q = 1; q < warps; ++q) {
+    su += part[q];
+    sv += part[16 + q];
+  }
   __syncthreads();
-  return s;
+  return make_float2(su, sv);
 }
 
+// 16 bytes from global to shared memory (cached in L2 only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// One pass over the rows: block q owns rows [q R, q R + R) (R = a.rows)
+// and takes them one at a time in the norm's plan (tpr threads a row,
+// thread t the units t, t + tpr, ...: the forward's order, so r is the
+// forward's r).  Each input is read once, 16 bytes at a time where the
+// rows allow it (VEC): then each thread copies its units of y, xh, z and g
+// two rows ahead by cp.async into its own slots of a three-stage ring in
+// shared memory (two stages, one row ahead, for rows of more than 1200
+// units: float32 beyond 4800 elements), so the next rows' loads are in
+// flight behind this row's arithmetic.  The prologue's yy = r(y + r(r(D)
+// xh)), sz = silu(z) and v = r(yy sz), and z, g and xh, stay in registers
+// as 16-byte units for the rest of the row.  Each column's partials of sum
+// g n and sum dy xh are accumulated over the block's rows in row order in
+// registers, and leave the block once, as one (2, d) slice of the partials.
 template <typename T, int U, bool VEC>
 __global__ void __launch_bounds__(512)
-gated_bwd_rows_kernel(GatedBwdArgs a) {
+gated_bwd_kernel(GatedBwdArgs a) {
   constexpr int V = Unit<T>::n;
-  __shared__ float part[32];
+  __shared__ float part[32];     // the exchange: [2][16 warps]
+  // VEC: [stages][4 inputs][units] 16-byte units of a row
+  extern __shared__ uint4 ring[];
+  const int stages = a.stages;
   const int tpr = a.tpr;
-  const int rpb = blockDim.x / tpr;
-  const int lr = threadIdx.x / tpr;
-  const int t = threadIdx.x - lr * tpr;
-  const int warps = tpr >> 5;
-  const long long row = (long long)blockIdx.x * rpb + lr;
-  const bool live = row < a.m;
+  const int t = threadIdx.x, warps = tpr >> 5;
   const int units = (a.d + V - 1) / V;
+  const long long r0 = (long long)blockIdx.x * a.rows;
+  const long long r1 = r0 + a.rows < a.m ? r0 + a.rows : a.m;
   const T* w = static_cast<const T*>(a.w);
-  const T* g = static_cast<const T*>(a.g) + row * a.d;
 
-  float v[U][V];
-  float ss = 0.f;
-  if (live) {
+  float sw[U][V], sd[U][V];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+#pragma unroll
+    for (int e = 0; e < V; ++e) sw[k][e] = sd[k][e] = 0.f;
+  // VEC: the thread's columns are the same every row: its units of w, and
+  // r(D) of each unit's head (a unit never straddles a head)
+  uint4 wu[VEC ? U : 1];
+  float du[VEC ? U : 1];
+  if constexpr (VEC) {
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       const int u = t + k * tpr;
       if (u >= units) break;
-      float yy[V], sz[V];
-      gated_prologue<T, VEC>(a, row, u * V, yy, sz, v[k]);
-#pragma unroll
-      for (int e = 0; e < V; ++e) ss = fmaf(v[k][e], v[k][e], ss);
+      wu[k] = __ldg(reinterpret_cast<const uint4*>(w + u * V));
+      float dh[1] = {__ldg(a.dv + u * V / a.p)};
+      round_n<T, 1>(dh);
+      du[k] = dh[0];
     }
   }
-  const float r = rsqrtf(row_total(ss, part, lr, t, warps) / (float)a.d +
-                         a.eps);
-  float dot = 0.f;
-  if (live) {
+  // w and r(D) at the thread's unit k, elements [j, j + V)
+  auto consts = [&](int k, int j, float* wv, float* dh) {
+    if constexpr (VEC) {
+      unpack<T>(wu[k], wv);
 #pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int u = t + k * tpr;
-      if (u >= units) break;
-      float gv[V], wv[V];
-      load<T, VEC>(g, u * V, a.d, gv);
-      load<T, VEC>(w, u * V, a.d, wv);
+      for (int e = 0; e < V; ++e) dh[e] = du[k];
+    } else {
+      load<T, VEC>(w, j, a.d, wv);
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        dot = fmaf(gv[e] * wv[e], v[k][e] * r, dot);
+        dh[e] = j + e < a.d ? __ldg(a.dv + (j + e) / a.p) : 0.f;
+      round_n<T, V>(dh);
+    }
+  };
+
+  // issue the copies of row `row`'s units into its ring stage (a group,
+  // empty past the block's rows, so that every row commits one)
+  auto fetch = [&](long long row) {
+    if (row < r1) {
+      uint4* dst = ring + (int)((row - r0) % stages) * 4 * units;
+      const T* y = static_cast<const T*>(a.y) + row * a.ys;
+      const T* xh = static_cast<const T*>(a.xh) + row * a.xs;
+      const T* z = static_cast<const T*>(a.z) + row * a.zs;
+      const T* g = static_cast<const T*>(a.g) + row * a.d;
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int u = t + k * tpr;
+        if (u >= units) break;
+        cp_async16(dst + u, y + u * V);
+        cp_async16(dst + units + u, xh + u * V);
+        cp_async16(dst + 2 * units + u, z + u * V);
+        cp_async16(dst + 3 * units + u, g + u * V);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if constexpr (VEC) {
+    for (int k = 0; k < stages - 1; ++k) fetch(r0 + k);
+  }
+
+  for (long long row = r0; row < r1; ++row) {
+    const T* g = static_cast<const T*>(a.g) + row * a.d;
+    const uint4* cur = ring + (int)((row - r0) % stages) * 4 * units;
+    if constexpr (VEC) {
+      fetch(row + stages - 1);
+      if (stages == 3)
+        asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+      else
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    }
+    uint4 pyy[U], psz[U], pv[U], pz[U], pg[U], px[U];
+    float ss = 0.f, gwv = 0.f;
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = t + k * tpr;
+      if (u >= units) break;
+      const int j = u * V;
+      float yy[V], xh[V], zz[V], sz[V], dh[V], v[V], gv[V];
+      if constexpr (VEC) {        // this thread's own copies: no barrier
+        unpack<T>(cur[u], yy);
+        unpack<T>(cur[units + u], xh);
+        unpack<T>(cur[2 * units + u], zz);
+        unpack<T>(cur[3 * units + u], gv);
+      } else {
+        load<T, VEC>(static_cast<const T*>(a.y) + row * a.ys, j, a.d, yy);
+        load<T, VEC>(static_cast<const T*>(a.xh) + row * a.xs, j, a.d, xh);
+        load<T, VEC>(static_cast<const T*>(a.z) + row * a.zs, j, a.d, zz);
+        load<T, VEC>(g, j, a.d, gv);
+      }
+      px[k] = pack<T>(xh);
+      pz[k] = pack<T>(zz);
+      pg[k] = pack<T>(gv);
+      float wv[V];
+      consts(k, j, wv, dh);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sz[e] = zz[e];
+      silu_n<T, V>(sz);
+#pragma unroll
+      for (int e = 0; e < V; ++e) xh[e] = __fmul_rn(dh[e], xh[e]);
+      round_n<T, V>(xh);
+#pragma unroll
+      for (int e = 0; e < V; ++e) yy[e] = __fadd_rn(yy[e], xh[e]);
+      round_n<T, V>(yy);
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = __fmul_rn(yy[e], sz[e]);
+      round_n<T, V>(v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        ss = fmaf(v[e], v[e], ss);
+        gwv = fmaf(gv[e] * wv[e], v[e], gwv);
+      }
+      pyy[k] = pack<T>(yy);
+      psz[k] = pack<T>(sz);
+      pv[k] = pack<T>(v);
+    }
+    // r from the sum of squares in the forward's order; mean(dn n) = r
+    // sum(dn v) / d, its sum taken in the same exchange
+    const float2 tot = row_totals(ss, gwv, part, t, warps);
+    const float r = rsqrtf(tot.x / (float)a.d + a.eps);
+    const float mean = r * tot.y / (float)a.d;
+    T* dy = static_cast<T*>(a.dy) + row * a.d;
+    T* dxh = static_cast<T*>(a.dxh) + row * a.d;
+    T* dz = static_cast<T*>(a.dz) + row * a.d;
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = t + k * tpr;
+      if (u >= units) break;
+      const int j = u * V;
+      float gv[V], wv[V], v[V], yy[V], sz[V], zr[V], xh[V], dh[V];
+      unpack<T>(pg[k], gv);
+      unpack<T>(pv[k], v);
+      unpack<T>(pyy[k], yy);
+      unpack<T>(psz[k], sz);
+      unpack<T>(pz[k], zr);
+      unpack<T>(px[k], xh);
+      consts(k, j, wv, dh);
+      float dvr[V], o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float n = v[e] * r;
+        dvr[e] = r * (gv[e] * wv[e] - n * mean);
+        sw[k][e] = fmaf(gv[e], n, sw[k][e]);
+      }
+      round_n<T, V>(dvr);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = __fmul_rn(dvr[e], sz[e]);  // dy
+      round_n<T, V>(o);
+      store<T, VEC>(dy, j, a.d, o);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sd[k][e] = fmaf(o[e], xh[e], sd[k][e]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = __fmul_rn(o[e], dh[e]);    // dxh
+      round_n<T, V>(o);
+      store<T, VEC>(dxh, j, a.d, o);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = __fmul_rn(dvr[e], yy[e]);  // gate
+      round_n<T, V>(o);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float s = 1.0f / (1.0f + expf(-zr[e]));
+        o[e] = o[e] * (s * (1.0f + zr[e] * (1.0f - s)));
+      }
+      round_n<T, V>(o);
+      store<T, VEC>(dz, j, a.d, o);
     }
   }
-  const float mean = row_total(dot, part, lr, t, warps) / (float)a.d;
-  if (!live) return;
-  if (t == 0) a.rinv[row] = r;
-  T* dy = static_cast<T*>(a.dy) + row * a.d;
-  T* dxh = static_cast<T*>(a.dxh) + row * a.d;
-  T* dz = static_cast<T*>(a.dz) + row * a.d;
+  float* out = a.part + (long long)blockIdx.x * 2 * a.d;
 #pragma unroll
   for (int k = 0; k < U; ++k) {
     const int u = t + k * tpr;
     if (u >= units) break;
-    const int j = u * V;
-    float yy[V], sz[V], vv[V], gv[V], wv[V], zr[V], dh[V];
-    gated_prologue<T, VEC>(a, row, j, yy, sz, vv);
-    load<T, VEC>(g, j, a.d, gv);
-    load<T, VEC>(w, j, a.d, wv);
-    load<T, VEC>(static_cast<const T*>(a.z) + row * a.zs, j, a.d, zr);
-    float dvr[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      const float n = v[k][e] * r;
-      dvr[e] = r * (gv[e] * wv[e] - n * mean);
+      const int j = u * V + e;
+      if (j < a.d) {
+        out[j] = sw[k][e];
+        out[a.d + j] = sd[k][e];
+      }
     }
-    round_n<T, V>(dvr);
-    float o[V];
-#pragma unroll
-    for (int e = 0; e < V; ++e) o[e] = __fmul_rn(dvr[e], sz[e]);  // dy
-    round_n<T, V>(o);
-    store<T, VEC>(dy, j, a.d, o);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const int head = VEC ? j / a.p : (j + e) / a.p;
-      dh[e] = j + e < a.d ? __ldg(a.dv + head) : 0.f;
-    }
-    round_n<T, V>(dh);
-#pragma unroll
-    for (int e = 0; e < V; ++e) o[e] = __fmul_rn(o[e], dh[e]);    // dxh
-    round_n<T, V>(o);
-    store<T, VEC>(dxh, j, a.d, o);
-#pragma unroll
-    for (int e = 0; e < V; ++e) o[e] = __fmul_rn(dvr[e], yy[e]);  // gate
-    round_n<T, V>(o);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float s = 1.0f / (1.0f + expf(-zr[e]));
-      o[e] = o[e] * (s * (1.0f + zr[e] * (1.0f - s)));
-    }
-    round_n<T, V>(o);
-    store<T, VEC>(dz, j, a.d, o);
   }
 }
 
-// Column partials: thread j of block (x, slice) sums rows [slice R,
-// slice R + R) of g n and dy xh at column j, in row order.
-template <typename T>
-__global__ void __launch_bounds__(256)
-gated_bwd_cols_kernel(GatedBwdArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.d) return;
-  const long long r0 = (long long)blockIdx.y * a.rows;
-  const long long r1 = r0 + a.rows < a.m ? r0 + a.rows : a.m;
-  const T* g = static_cast<const T*>(a.g);
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* xh = static_cast<const T*>(a.xh);
-  float sw = 0.f, sd = 0.f;
-  for (long long row = r0; row < r1; ++row) {
-    const float v = gated_v<T>(a, row, j);
-    sw = fmaf(to_f<T>(g[row * a.d + j]), v * a.rinv[row], sw);
-    sd = fmaf(to_f<T>(dy[row * a.d + j]), to_f<T>(xh[row * a.xs + j]), sd);
-  }
-  float* out = a.part + (long long)blockIdx.y * 2 * a.d;
-  out[j] = sw;
-  out[a.d + j] = sd;
-}
-
-// The sums over the slices: dw a column (blockIdx.y 0), dD a head over its
-// columns in order (blockIdx.y 1).
+// The sums over the slices, in a fixed order: a block owns 64 columns (dw,
+// blockIdx.y 0) or a head's columns (dD, blockIdx.y 1, 64 columns at a
+// time); its thread (column c, quarter k) sums slices k, k + 4, ... in
+// order, and the quarters are added in order: dw rounded to the type, dD
+// the head's columns in order.
 template <typename T>
 __global__ void __launch_bounds__(256)
 gated_bwd_sum_kernel(GatedBwdArgs a, int slices) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blockIdx.y == 0) {
-    if (i >= a.d) return;
+  __shared__ float q4[4][64];
+  const int c = threadIdx.x & 63, k = threadIdx.x >> 6;
+  const bool dd = blockIdx.y == 1;
+  if (dd && (int)blockIdx.x >= a.heads) return;
+  const int base = dd ? blockIdx.x * a.p : blockIdx.x * 64;
+  const int end = dd ? base + a.p : min(base + 64, a.d);
+  const float* src = a.part + (dd ? a.d : 0);
+  float head = 0.f;
+  for (int j0 = base; j0 < end; j0 += 64) {
+    const int j = j0 + c;
     float s = 0.f;
-    for (int q = 0; q < slices; ++q) s += a.part[(long long)q * 2 * a.d + i];
-    static_cast<T*>(a.dw)[i] = from_f<T>(s);
-    return;
+    if (j < end)
+      for (int q = k; q < slices; q += 4) s += src[(long long)q * 2 * a.d + j];
+    q4[k][c] = s;
+    __syncthreads();
+    if (k == 0 && j < end) {
+      const float col = ((q4[0][c] + q4[1][c]) + q4[2][c]) + q4[3][c];
+      if (dd) q4[0][c] = col;
+      else static_cast<T*>(a.dw)[j] = from_f<T>(col);
+    }
+    __syncthreads();
+    if (dd && threadIdx.x == 0)
+      for (int i = 0; i < 64 && j0 + i < end; ++i) head += q4[0][i];
+    __syncthreads();
   }
-  if (i >= a.heads) return;
-  float s = 0.f;
-  for (int j = i * a.p; j < (i + 1) * a.p && j < a.d; ++j) {
-    float c = 0.f;
-    for (int q = 0; q < slices; ++q)
-      c += a.part[(long long)q * 2 * a.d + a.d + j];
-    s += c;
-  }
-  a.dD[i] = s;
+  if (dd && threadIdx.x == 0) a.dD[blockIdx.x] = head;
 }
 
 template <typename T, int U>
-cudaError_t launch_gated_bwd_u(const GatedBwdArgs& a, int threads, bool vec,
+cudaError_t launch_gated_bwd_u(const GatedBwdArgs& a, int slices, bool vec,
                                cudaStream_t st) {
-  const int rpb = threads / a.tpr;
-  const int blocks = (a.m + rpb - 1) / rpb;
-  if (vec)
-    gated_bwd_rows_kernel<T, U, true><<<blocks, threads, 0, st>>>(a);
-  else
-    gated_bwd_rows_kernel<T, U, false><<<blocks, threads, 0, st>>>(a);
+  if (vec) {
+    const int bytes = a.stages * 4 * 16 * ((a.d + Unit<T>::n - 1) /
+                                           Unit<T>::n);
+    cudaError_t e = cudaFuncSetAttribute(
+        gated_bwd_kernel<T, U, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();         // not left to the next launch's check
+      return e;
+    }
+    gated_bwd_kernel<T, U, true><<<slices, a.tpr, bytes, st>>>(a);
+  } else {
+    gated_bwd_kernel<T, U, false><<<slices, a.tpr, 0, st>>>(a);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_gated_bwd(const GatedBwdArgs& a, int upt, int threads,
-                             bool vec, cudaStream_t st) {
+cudaError_t launch_gated_bwd(const GatedBwdArgs& a, int upt, bool vec,
+                             cudaStream_t st) {
+  const long long sl = ((long long)a.m + a.rows - 1) / a.rows;
+  if (sl > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int slices = (int)sl;
   cudaError_t e;
-  if (upt <= 1) e = launch_gated_bwd_u<T, 1>(a, threads, vec, st);
-  else if (upt <= 2) e = launch_gated_bwd_u<T, 2>(a, threads, vec, st);
-  else if (upt <= 4) e = launch_gated_bwd_u<T, 4>(a, threads, vec, st);
-  else e = launch_gated_bwd_u<T, 8>(a, threads, vec, st);
+  if (upt <= 1) e = launch_gated_bwd_u<T, 1>(a, slices, vec, st);
+  else if (upt <= 2) e = launch_gated_bwd_u<T, 2>(a, slices, vec, st);
+  else if (upt <= 4) e = launch_gated_bwd_u<T, 4>(a, slices, vec, st);
+  else e = launch_gated_bwd_u<T, 8>(a, slices, vec, st);
   if (e != cudaSuccess) return e;
-  const int slices = (a.m + a.rows - 1) / a.rows;
-  if (slices > 65535) return cudaErrorInvalidValue;
-  gated_bwd_cols_kernel<T><<<dim3((a.d + 255) / 256, slices), 256, 0, st>>>(
-      a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int cols = a.d > a.heads ? a.d : a.heads;
-  gated_bwd_sum_kernel<T><<<dim3((cols + 255) / 256, 2), 256, 0, st>>>(
-      a, slices);
+  const int cols = (a.d + 63) / 64;
+  gated_bwd_sum_kernel<T><<<dim3(cols > a.heads ? cols : a.heads, 2), 256,
+                            0, st>>>(a, slices);
   return cudaGetLastError();
 }
 
@@ -541,34 +637,37 @@ extern "C" int rms_norm_rows_launch(
 // The gated norm's backward: y, xh and z rows of d elements at their row
 // strides (dense along the row), D (heads,) float32 with p elements a head,
 // w (d,), g (m, d) contiguous; dy, dxh, dz (m, d) contiguous in the type;
-// rinv (m,) and part (ceil(m / rows), 2, d) float32 scratch; dw (d,) in
-// the type, dD (heads,) float32.  The plan (tpr, upt, threads) is
-// ops.py::norm_plan's.  Returns cudaGetLastError() after the last launch.
+// part (ceil(m / rows), 2, d) float32 scratch; dw (d,) in the type, dD
+// (heads,) float32.  tpr and upt are ops.py::norm_plan's (a block is one
+// row's tpr threads).  Returns cudaGetLastError() after the last launch.
 extern "C" int gated_rms_norm_bwd_launch(
     const void* y, long long ys, const void* xh, long long xs, const void* z,
     long long zs, const float* dv, int p, const void* w, const void* g,
-    void* dy, void* dxh, void* dz, float* rinv, float* part, void* dw,
-    float* dD, int m, int d, int tpr, int upt, int threads, int rows,
-    float eps, int dtype, void* stream) {
+    void* dy, void* dxh, void* dz, float* part, void* dw, float* dD, int m,
+    int d, int tpr, int upt, int rows, float eps, int dtype, void* stream) {
   if (m <= 0) return 0;
   const int v = dtype == 1 ? 8 : 4;
   const int units = (d + v - 1) / v;
   if (d <= 0 || p <= 0 || d % p || rows <= 0 || tpr < 32 || tpr % 32 ||
-      threads % tpr || threads > 512 || upt < 1 || upt > 8 ||
-      (long long)tpr * upt < units)
+      tpr > 512 || upt < 1 || upt > 8 || (long long)tpr * upt < units)
     return (int)cudaErrorInvalidValue;
   const bool vec = d % v == 0 && p % v == 0 && whole_units(y, ys, v) &&
                    whole_units(xh, xs, v) && whole_units(z, zs, v) &&
                    whole_units(w, 0, v) && whole_units(g, 0, v) &&
                    whole_units(dy, 0, v) && whole_units(dxh, 0, v) &&
-                   whole_units(dz, 0, v);
-  const GatedBwdArgs a{y,  ys,   xh,   xs,  z,    zs, dv,  p, w,    g,
-                       dy, dxh,  dz,   rinv, part, dw, dD, m, d,    tpr,
-                       rows, d / p, eps};
+                   whole_units(dz, 0, v) &&
+                   2LL * 4 * 16 * units <= 225 * 1024;
+  // the pass's ring: three rows where they fit in a block's shared memory
+  // (227 KB), else two; rows beyond two stages take element loads
+  const long long row_bytes = 4LL * 16 * units;
+  const int stages = 3 * row_bytes <= 225 * 1024 ? 3 : 2;
+  const GatedBwdArgs a{y,  ys,  xh,   xs, z,  zs, dv,  p,    w,    g,   dy,
+                       dxh, dz, part, dw, dD, m,  d,   tpr,  rows, d / p,
+                       eps, stages};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_gated_bwd<float>(a, upt, threads, vec, st);
+  if (dtype == 0) return (int)launch_gated_bwd<float>(a, upt, vec, st);
   if (dtype == 1)
-    return (int)launch_gated_bwd<__nv_bfloat16>(a, upt, threads, vec, st);
+    return (int)launch_gated_bwd<__nv_bfloat16>(a, upt, vec, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -106,16 +106,6 @@ constexpr int kThreadsM = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPb = 32;          // columns of P a block owns
 
-// (a, b) as bf16 pairs hi and lo with a = hi + lo to 2^-16 relative: lo is
-// the bf16 of the exact remainder
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - f.x, b - f.y);
-}
-
 // rows [0, ROWS) of a (ROWS x 8 CPR) bf16 tile from rows of `src` `rs`
 // elements apart, by 16-byte cp.async into swizzled shared memory; rows at
 // or past `rows` and chunks at or past `creal` are zero

@@ -482,17 +482,18 @@ def _gated_rms_norm_rows(y, D, xh, z, w, eps):
     return out.view(z.shape)
 
 
-GATED_BWD_ROWS = 64     # rows a column partial of dw and dD sums
+GATED_BWD_ROWS = 16     # rows a block of the backward's pass owns
 
 
 def gated_rms_norm_bwd(y, D, xh, z, w, eps, g):
     """The gradients ``(dy, dD, dxh, dz, dw)`` of ``gated_rms_norm_rows``
     against ``g`` (z's shape): dD (H,) float32, the others contiguous in
     their inputs' dtypes and shapes.  On the CPU the plain version
-    (``ref.gated_rms_norm_bwd_ref``); on the card the kernel (three
-    launches: a row pass for dy, dxh and dz, column partials of dw and dD
-    over ``GATED_BWD_ROWS`` rows each, their sums in order; one count); it
-    takes every call the forward kernel takes."""
+    (``ref.gated_rms_norm_bwd_ref``); on the card the kernel (two
+    launches: one pass over the rows, a block a slice of
+    ``GATED_BWD_ROWS`` rows, writing dy, dxh and dz and each slice's column
+    partials of dw and dD; their sums in order; one count); it takes every
+    call the forward kernel takes."""
     _gated_check(y, D, xh, z, w)
     if g.shape != z.shape:
         raise ValueError(f"gated_rms_norm_bwd: g {tuple(g.shape)} is not "
@@ -504,7 +505,7 @@ def gated_rms_norm_bwd(y, D, xh, z, w, eps, g):
     _on_card(name, y, g)
     _dtype(name, y, g)
     m, d = zr.shape
-    tpr, upt, threads = norm_plan(d, y.element_size())
+    tpr, upt, _ = norm_plan(d, y.element_size())
     gr = g.contiguous().view(m, d)
     dev, dt = y.device, y.dtype
     slices = -(-m // GATED_BWD_ROWS)
@@ -513,7 +514,6 @@ def gated_rms_norm_bwd(y, D, xh, z, w, eps, g):
     dz = torch.empty(z.shape, dtype=dt, device=dev)
     dw = torch.empty((d,), dtype=dt, device=dev)
     dD = torch.empty((y.shape[2],), dtype=torch.float32, device=dev)
-    rinv = torch.empty((m,), dtype=torch.float32, device=dev)
     part = torch.empty((slices, 2, d), dtype=torch.float32, device=dev)
     lib = _build.load("norm")
     with torch.cuda.device(dev):
@@ -521,9 +521,9 @@ def gated_rms_norm_bwd(y, D, xh, z, w, eps, g):
             yr.data_ptr(), yr.stride(0), xr.data_ptr(), xr.stride(0),
             zr.data_ptr(), zr.stride(0), D.data_ptr(), y.shape[3],
             wr.data_ptr(), gr.data_ptr(), dy.data_ptr(), dxh.data_ptr(),
-            dz.data_ptr(), rinv.data_ptr(), part.data_ptr(), dw.data_ptr(),
-            dD.data_ptr(), m, d, tpr, upt, threads, GATED_BWD_ROWS,
-            float(eps), _DTYPES[dt], _stream(y))
+            dz.data_ptr(), part.data_ptr(), dw.data_ptr(), dD.data_ptr(), m,
+            d, tpr, upt, GATED_BWD_ROWS, float(eps), _DTYPES[dt],
+            _stream(y))
     _build.check("norm", "gated_rms_norm_bwd_launch", err)
     gated_rms_norm_bwd.launches += 1
     return dy, dD, dxh, dz, dw

@@ -17,8 +17,12 @@ detached (training never reads it).  The backward kernel takes every call
 the forward kernel takes; on the card the forward's checks run before it.
 Without grad the call keeps its path, its launches and its bits.
 ``ssd_scan_bwd.launches`` counts the backward's calls on the card (four
-launches each: the chunk states, their gradients, the chunk pass, the sums
-over heads and chunks).
+launches each).  The bf16 calls at a chunk of 128 and a head dim of at
+most 64 (the SSM family's training calls) take the tensor-core design:
+the chunk-state walks (with C B^T), the chunk pass, dB and dC summed over
+groups of ``BWD_GROUP`` heads, the sums over the groups and chunks; the
+others the first design: the chunk states, their gradients, the chunk
+pass, the sums over heads and chunks (``csrc/ssd_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from .ref import ssd_bwd_ref, ssd_chunked
 
 CHUNKS = (16, 128)             # the configs' chunk lengths (a template)
 MAX_DIM = 128                  # largest head dim P and state size N
+BWD_GROUP = 8                  # heads a dB/dC partial of the backward sums
+BWD_TC_MAX_P = 64              # largest P of the backward's bf16 design
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -99,6 +105,12 @@ def _launch(xh, dt, A, Bm, Cm, chunk: int):
     return y, st
 
 
+def bwd_tensor_cores(dtype, chunk: int, p: int) -> bool:
+    """Whether the backward takes the tensor-core design (bf16, chunk 128,
+    P <= ``BWD_TC_MAX_P``) rather than the first design."""
+    return dtype == torch.bfloat16 and chunk == 128 and p <= BWD_TC_MAX_P
+
+
 def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, chunk: int):
     """The gradients ``(dxh, ddt, dA, dBm, dCm)`` of ``ssd_scan``'s y
     against ``dy`` (B,S,H,P): dxh, dBm and dCm in their inputs' dtypes, ddt
@@ -129,19 +141,26 @@ def ssd_scan_bwd(xh, dt, A, Bm, Cm, dy, chunk: int):
     dB = torch.empty((b, s, n), dtype=Bm.dtype, device=dev)
     dC = torch.empty((b, s, n), dtype=Cm.dtype, device=dev)
     # scratch: the chunk-start states and the chunk-end states' gradients
-    # (b, h, nc, p, n), the heads' terms of dB and dC (2, b, h, s, n) and
-    # the chunks' terms of dA (b, nc, h)
+    # (b, h, nc, p, n) float32 (the tensor-core design keeps them as bf16
+    # hi and lo planes, the same bytes), the head groups' terms of dB and dC
+    # (2, b, groups, s, n: groups of BWD_GROUP heads on the tensor-core
+    # design, one a head on the first), the chunks' terms of dA (b, nc, h)
+    # and the tensor-core design's C B^T (36 causal 16 x 16 tiles a chunk)
+    tc = bwd_tensor_cores(xh.dtype, chunk, p)
+    groups = -(-h // BWD_GROUP) if tc else h
     states = torch.empty((2, b, h, nc, p, n), dtype=f32, device=dev)
-    part = torch.empty((2, b, h, s, n), dtype=f32, device=dev)
+    part = torch.empty((2, b, groups, s, n), dtype=f32, device=dev)
     part_a = torch.empty((b, nc, h), dtype=f32, device=dev)
+    cb = torch.empty((b, nc, 36, 256), dtype=f32, device=dev) if tc else None
     lib = _build.load("ssd_bwd")
     with torch.cuda.device(dev):
         err = lib.ssd_scan_bwd_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
-            part.data_ptr(), part_a.data_ptr(), b, s, h, p, n, chunk,
-            *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+            part.data_ptr(), part_a.data_ptr(),
+            None if cb is None else cb.data_ptr(), b, s, h, p, n, chunk,
+            groups, *xh.stride()[:3], *dt.stride(), *Bm.stride()[:2],
             *Cm.stride()[:2], _DTYPES[xh.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check("ssd_bwd", "ssd_scan_bwd_launch", err)

@@ -1631,7 +1631,16 @@ SSD_BWD_CASES = [  # (B, S, H, P, N, Q, dtype)
     (1, 300, 8, 64, 128, 128, torch.bfloat16),      # ragged S
     (2, 40, 8, 16, 16, 16, torch.bfloat16),         # the smoke chunk
     (2, 77, 3, 32, 24, 16, torch.float32),
-    (1, 200, 4, 64, 64, 128, torch.float32)]
+    (1, 200, 4, 64, 64, 128, torch.float32),
+    # the tensor-core design's edges: head counts off its group of 8 (one
+    # short group, a ragged last group), N 64 and 128, a ragged last chunk,
+    # B = 1, one chunk, P 32 and N off 64
+    (1, 300, 3, 64, 128, 128, torch.bfloat16),
+    (2, 200, 7, 64, 64, 128, torch.bfloat16),
+    (1, 512, 20, 64, 128, 128, torch.bfloat16),
+    (3, 100, 9, 32, 40, 128, torch.bfloat16),
+    (1, 128, 2, 64, 64, 128, torch.bfloat16),
+    (1, 384, 5, 128, 64, 128, torch.bfloat16)]      # P 128: first design
 
 
 @pytest.mark.parametrize("b,s,h,p,n,q,dtype", SSD_BWD_CASES)
@@ -1673,11 +1682,13 @@ def test_conv_silu_bwd_vs_plain(cuda, c, s, off, k, dtype):
 
 
 @pytest.mark.parametrize("h,p,s", [(64, 64, 512), (112, 64, 512), (6, 12, 9),
-                                   (8, 16, 33)])
+                                   (8, 16, 33), (64, 64, 77), (112, 64, 45)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gated_rms_norm_bwd_vs_plain(cuda, h, p, s, dtype):
     """The gated norm's backward kernel against ``gated_rms_norm_bwd_ref``,
-    xh and z read in place from their slices, two runs bit-identical."""
+    xh and z read in place from their slices, two runs bit-identical, one
+    count a call; rows off the pass's slices at both served widths (4 x 77
+    and 4 x 45 rows)."""
     b, di, n = 4, h * p, 16
     zx = randn(cuda, 31, b, s, 2 * di + 2 * n + h, dtype=dtype) * 3
     conv = randn(cuda, 32, b, s, di + 2 * n, dtype=dtype)
@@ -1686,8 +1697,10 @@ def test_gated_rms_norm_bwd_vs_plain(cuda, h, p, s, dtype):
     D = 1 + 0.5 * randn(cuda, 34, h)
     w = (1 + 0.1 * randn(cuda, 35, di)).to(dtype)
     g = randn(cuda, 36, b, s, di, dtype=dtype)
+    before = dec_ops.gated_rms_norm_bwd.launches
     got = dec_ops.gated_rms_norm_bwd(y, D, xh, z, w, 1e-5, g)
     again = dec_ops.gated_rms_norm_bwd(y, D, xh, z, w, 1e-5, g)
+    assert dec_ops.gated_rms_norm_bwd.launches == before + 2
     want = dec_ref.gated_rms_norm_bwd_ref(y, D, xh, z, w, 1e-5, g)
     for name, a, a2, ww in zip(("dy", "dD", "dxh", "dz", "dw"), got, again,
                                want):

@@ -4,8 +4,10 @@ block's conv pass) and ``gated_rms_norm_bwd_ref`` (its skip, SiLU gate and
 norm), each against torch autograd of its plain forward and against
 ``jax.vjp`` of the reference's own expression (``repro.models.ssm``'s
 ``ssd_chunked``, ``jax.nn.silu(_causal_conv(...))`` and ``rms_norm((y + D
-xh) * silu(z))``), in float32 and bf16, S ragged against the chunk; and the
-wrappers' autograd Functions on the CPU.
+xh) * silu(z))``), in float32 and bf16, S ragged against the chunk; the
+wrappers' autograd Functions on the CPU; and the bf16 backward kernel's
+rounding points emulated (``emulate_bf16_bwd_kernel``): split float32
+operands meet the card's limits, one bf16 rounding does not.
 
 Inputs come from a numpy seed.  Errors are max |got - want| over the
 largest |want| of each gradient.  Tolerances (measured worst in brackets):
@@ -272,3 +274,228 @@ def test_backward_wrappers_check_their_shapes():
     g_ins, gg = gated_inputs(0, 1, 3, 2, 8, "float32")
     with pytest.raises(ValueError, match="g "):
         dec_ops.gated_rms_norm_bwd(*g_ins, EPS, gg[:, :1])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernel's precision design, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _split(v, rounding):
+    """A float32 operand as the kernel feeds it to the bf16 tensor cores:
+    "split" into bf16 (hi, lo), "once" rounded to bf16, "exact" float32."""
+    if rounding == "exact":
+        return v, torch.zeros_like(v)
+    hi = _bf16(v)
+    return (hi, _bf16(v - hi)) if rounding == "split" else (hi,
+                                                            torch.zeros_like(v))
+
+
+def _joined(v, rounding):
+    """v through the kernel's one-sided split: hi + lo against an exact
+    bf16 operand, two products summed in float32."""
+    hi, lo = _split(v, rounding)
+    return hi + lo
+
+
+def _prod3(a, b, rounding):
+    """a @ b with both operands float32, split: hi hi + hi lo + lo hi."""
+    ah, al = _split(a, rounding)
+    bh, bl = _split(b, rounding)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def emulate_bf16_bwd_kernel(xh, dt, A, Bm, Cm, dy, rounding="split",
+                            scan=None):
+    """The tensor-core backward's arithmetic (``csrc/ssd_bwd.cu``, Q =
+    128) in plain PyTorch, float32: x, B, C and dy exact bf16; W, E, the
+    states S and G (kept split in their scratch), x o w and dy o e^cs each
+    a float32 operand split into bf16 hi + lo ("split"), rounded once
+    ("once") or left exact; dB and dC summed over the heads; the
+    chunk's cumsum of dt A by ``scan`` (default ``torch.cumsum``, which
+    on the CPU accumulates float32 in float64, as the kernel's scan
+    does).  Returns (dxh, ddt, dA, dBm, dCm) in the plain version's
+    dtypes."""
+    q = 128
+    b, s, h, p = xh.shape
+    n = Bm.shape[-1]
+    nc = -(-s // q)
+    pad = nc * q - s
+    f = torch.float32
+    x, g, bm, cm = (torch.nn.functional.pad(t.to(f), (0, 0) * (t.dim() - 2)
+                                            + (0, pad))
+                    for t in (xh, dy, Bm, Cm))
+    dtp = torch.nn.functional.pad(dt.to(f), (0, 0, 0, pad))
+    x = x.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)     # (b,c,h,q,p)
+    g = g.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    bm = bm.reshape(b, nc, q, n)
+    cm = cm.reshape(b, nc, q, n)
+    dtc = dtp.reshape(b, nc, q, h).permute(0, 1, 3, 2)       # (b,c,h,q)
+    cs = (scan or (lambda v: torch.cumsum(v, -1)))(dtc * A.to(f)[:, None])
+    ec = torch.exp(cs)
+    dec = torch.exp(cs[..., -1:] - cs)
+    w = dec * dtc
+    tri = torch.ones(q, q, dtype=torch.bool).tril()
+    l = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                    0.0)                                  # (b,c,h,i,j)
+
+    # the walks: float32 states, stored split
+    S = torch.zeros(b, nc, h, p, n, dtype=f)
+    G = torch.zeros(b, nc, h, p, n, dtype=f)
+    st = torch.zeros(b, h, p, n, dtype=f)
+    for c in range(nc - 1):
+        st = st * ec[:, c, :, -1, None, None] + \
+            _joined(x[:, c] * w[:, c, ..., None], rounding).transpose(-1, -2) \
+            @ bm[:, c, None]
+        S[:, c + 1] = st
+    st = torch.zeros(b, h, p, n, dtype=f)
+    for c in range(nc - 1, 0, -1):
+        st = st * ec[:, c, :, -1, None, None] + \
+            _joined(g[:, c] * ec[:, c, ..., None], rounding) \
+            .transpose(-1, -2) @ cm[:, c, None]
+        G[:, c - 1] = st
+    Sj, Gj = _joined(S, rounding), _joined(G, rounding)
+
+    # the chunk pass
+    cb = (cm @ bm.transpose(-1, -2))[:, :, None]             # (b,c,1,i,j)
+    dx_ = g @ x.transpose(-1, -2)                            # (dy_i . x_j)
+    cbl = cb * l
+    W = cbl * dtc[..., None, :]
+    e = cbl * dx_
+    bg = bm[:, :, None] @ Gj.transpose(-1, -2)               # (b,c,h,j,p)
+    dx = _joined(W, rounding).transpose(-1, -2) @ g + w[..., None] * bg
+    xgb = (x * bg).sum(-1)
+    rr = ec * (g * (cm[:, :, None] @ Sj.transpose(-1, -2))).sum(-1)
+    cold = e.sum(-2)
+    rowt = (e * dtc[..., None, :]).sum(-1)
+    v = w * xgb
+    dcs = rowt - dtc * cold + rr - v
+    gs = (Gj * Sj).sum((-1, -2))
+    dcs[..., -1] += v.sum(-1) + ec[..., -1] * gs
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [-1]), -1), [-1])
+    ddt = cold + dec * xgb + A.to(f)[:, None] * da
+    dA = (dtc * da).sum((0, 1, 3))
+
+    # dB and dC, the heads summed in registers
+    E = l * dtc[..., None, :] * dx_
+    Ej = _joined(E, rounding)
+    dB = (Ej.transpose(-1, -2) @ cm[:, :, None]
+          + _prod3(x * w[..., None], Gj, rounding)).sum(2)
+    dC = (Ej @ bm[:, :, None]
+          + _prod3(g * ec[..., None], Sj, rounding)).sum(2)
+
+    def out(t, shape, dtype):
+        return t.reshape(b, nc * q, *shape)[:, :s].to(dtype)
+    return (out(dx.permute(0, 1, 3, 2, 4), (h, p), xh.dtype),
+            out(ddt.permute(0, 1, 3, 2), (h,), f), dA,
+            out(dB, (n,), Bm.dtype), out(dC, (n,), Cm.dtype))
+
+
+def bf16_bwd_inputs(seed, b, s, h, p, n):
+    """The card's input distribution (``chip_smoke.py``'s ``ssd_inputs``):
+    x, B and C views of one bf16 row, dt softplus'd, A negative, dy bf16."""
+    r = np.random.default_rng(seed)
+    conv = r.standard_normal((b, s, h * p + 2 * n), dtype=np.float32)
+    conv[..., h * p:] *= 0.5
+    conv = torch.from_numpy(conv).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(r.standard_normal((b, s, h), dtype=np.float32)))
+    A = -torch.exp(torch.from_numpy(r.standard_normal(h, dtype=np.float32))
+                   * 0.3)
+    dy = torch.from_numpy(r.standard_normal((b, s, h, p),
+                                            dtype=np.float32)).bfloat16()
+    return (conv[..., :h * p].reshape(b, s, h, p), dt, A,
+            conv[..., h * p:h * p + n], conv[..., h * p + n:], dy)
+
+
+# the card's limits (chip_smoke.py): bf16 gradients per element 1e-2 (1 +
+# |plain|), ddt 5e-4 (1 + |plain|), dA 1e-4 of its largest
+BWD_LIMITS = {"dxh": (1e-2, "element"), "ddt": (5e-4, "element"),
+              "dA": (1e-4, "largest"), "dBm": (1e-2, "element"),
+              "dCm": (1e-2, "element")}
+BWD_NAMES = ("dxh", "ddt", "dA", "dBm", "dCm")
+BWD_SHAPE = (1, 384, 4, 64, 128)            # B, S, H, P, N; Q = 128
+
+
+def bwd_limit_ratios(got, ins):
+    """Each gradient's worst error over its card limit, against
+    ``ssd_bwd_ref`` in float64 on the same (bf16-valued) inputs."""
+    want = ssd_ref.ssd_bwd_ref(*(t.double() for t in ins[:5]),
+                               ins[5].double(), 128)
+    out = {}
+    for name, a, w in zip(BWD_NAMES, got, want):
+        tol, on = BWD_LIMITS[name]
+        err = (a.double() - w).abs()
+        scale = w.abs().max() if on == "largest" else 1 + w.abs()
+        out[name] = float((err / (tol * scale)).max())
+    return out
+
+
+def test_bf16_bwd_emulation_unrounded_is_the_plain_version():
+    """With no operand rounded the emulation is the function ``ssd_bwd_ref``
+    computes (so the tests below measure rounding only): its bf16 outputs
+    within a bf16 step, ddt and dA within 1e-4 (1 + |plain|), the two
+    float32 versions summing in other orders (5.6e-5 seen on ddt, whose
+    terms are far larger than it)."""
+    ins = bf16_bwd_inputs(0, *BWD_SHAPE)
+    got = emulate_bf16_bwd_kernel(*ins, rounding="exact")
+    want = ssd_ref.ssd_bwd_ref(*ins, 128)
+    for name, a, w in zip(BWD_NAMES, got, want):
+        err = ((a.float() - w.float()).abs() / (1 + w.float().abs())).max()
+        assert err <= (2 ** -7 if a.dtype == torch.bfloat16 else 1e-4), \
+            (name, float(err))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_bwd_split_arithmetic_meets_card_limits(seed):
+    """bf16 x, B, C and dy exact; W, E, the states and the weighted
+    operands each split into bf16 hi + lo, dB and dC summed over the heads,
+    as the kernel does them: every gradient within the card's limits of the
+    plain version in float64 at a mamba2 head shape (P = 64, N = 128, Q =
+    128, three chunks)."""
+    ins = bf16_bwd_inputs(seed, *BWD_SHAPE)
+    ratios = bwd_limit_ratios(emulate_bf16_bwd_kernel(*ins), ins)
+    assert max(ratios.values()) <= 1, ratios
+
+
+def _warp_scan_f32(v):
+    """cumsum over the last dim (128) in float32 in a warp scan's order:
+    lane l adds 4 tokens in order, then an inclusive scan over 32 lanes."""
+    *lead, q = v.shape
+    parts, run = [], torch.zeros(*lead, 32)
+    for e in range(4):
+        run = run + v.reshape(*lead, 32, 4)[..., e]
+        parts.append(run)
+    tot, off = run.clone(), 1
+    while off < 32:
+        up = torch.zeros_like(tot)
+        up[..., off:] = tot[..., :-off]
+        tot, off = tot + up, off * 2
+    excl = torch.zeros_like(tot)
+    excl[..., 1:] = tot[..., :-1]
+    return torch.stack([p + excl for p in parts], -1).reshape(*lead, q)
+
+
+def test_float32_cumsum_costs_ddt_its_margin():
+    """Why the kernel takes the chunk's cumsum in float64: ddt rests on
+    differences of cs across the chunk, and a float32 warp scan of dt A
+    alone takes ddt several times further from the plain version than the
+    split arithmetic does (the CPU's float32 cumsum accumulates in
+    float64, as the kernel's scan does)."""
+    ins = bf16_bwd_inputs(0, 2, 128, 16, 64, 128)
+    base = bwd_limit_ratios(emulate_bf16_bwd_kernel(*ins), ins)["ddt"]
+    f32 = bwd_limit_ratios(emulate_bf16_bwd_kernel(
+        *ins, scan=_warp_scan_f32), ins)["ddt"]
+    assert f32 > 2 * base, (f32, base)
+
+
+def test_one_bf16_rounding_misses_card_limits():
+    """Why each float32 operand is split: rounded to bf16 once, the same
+    arithmetic puts a gradient outside the card's limits."""
+    ins = bf16_bwd_inputs(0, *BWD_SHAPE)
+    ratios = bwd_limit_ratios(emulate_bf16_bwd_kernel(*ins, rounding="once"),
+                              ins)
+    assert max(ratios.values()) > 1, ratios
