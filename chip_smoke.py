@@ -78,16 +78,21 @@ Phases, in order; any failure exits non-zero before the result line:
    decode step, a prefill and the cacheless forward; the SSM training
    path's three backward kernels (``check_ssm_bwd``: ``ssd_scan_bwd``,
    whose bf16 calls at a chunk of 128 run on the tensor cores,
-   ``conv_silu_bwd``, ``gated_rms_norm_bwd``, one pass over the rows)
-   against their plain versions at mamba2's and zamba2's train shapes
-   (batch 4 x 512), a ragged S and float32, within 1e-2 (1 + |plain|) per
-   element (the gated norm's 2e-2; the scan's float32 ddt 5e-4 (1 +
-   |plain|) and dA 1e-4 of its largest) and 2^-6 of the largest, two runs
-   bit-identical, timed beside the plain versions and their bounds, the
-   scan's and the gated norm's launches each from the profiler
-   (``per_pass_ms``; ``--times ssd_bwd`` and ``--times gated_bwd`` time
-   them alone, for this or a parent's ``src/``); the flash backward also
-   at zamba2's head dim 112 (on the 128 tile);
+   ``conv_silu_bwd`` and ``gated_rms_norm_bwd``, each one pass over the
+   rows and an ordered sum of its slices) against their plain versions at
+   mamba2's and zamba2's train shapes (batch 4 x 512), a ragged S and
+   float32, within 1e-2 (1 + |plain|) per element (the gated norm's 2e-2;
+   the scan's float32 ddt 5e-4 (1 + |plain|) and dA 1e-4 of its largest)
+   and 2^-6 of the largest, two runs bit-identical, timed warm and cold
+   beside the plain versions and their bounds, each launch from the
+   profiler (``per_pass_ms``); the conv pass's also with the SASS
+   instructions an element of its loop (fast path and whole), its
+   registers (a spill fails), a digest of each output's bytes and its time
+   at every run length its plan may take (``--times ssd_bwd``, ``--times
+   conv_bwd`` and ``--times gated_bwd`` time each alone, for this or a
+   parent's ``src/``: the digests show which outputs two trees give bit for
+   bit); the flash backward also at zamba2's head dim 112 (on the 128
+   tile);
 4. the main paths at full width, with random bf16 weights from seed 0:
    granite-3-2b (40 layers, d_model 2048, tied head), mamba2-1.3b (48
    layers, d_model 2048, 64 SSM heads, state 128), zamba2-7b (81 mamba2
@@ -1111,24 +1116,72 @@ def check_ssd(torch, gen):
                                "bound_by": zb_by, "library_ms": None}}
 
 
+def _sass(tag):
+    """(address, instruction) of each instruction but NOPs of the function
+    of ``csrc/silu.cu``'s built library whose mangled name holds ``tag``,
+    from ``cuobjdump -sass``; None where there is no such function."""
+    from repro_torch.kernels import _build
+    exe = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-sass", str(_build.library_path(
+        "silu"))], capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", out)
+    body = next((f for f in funcs[1:] if tag in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    found = (re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(\S.*)$", line)
+             for line in body.splitlines())
+    return [(int(m.group(1), 16), m.group(2)) for m in found
+            if m and not m.group(2).startswith("NOP")]
+
+
 def sass_per_element(name, elements):
     """SASS instructions an element of the bf16 instance of the kernel
     ``name`` of ``csrc/silu.cu``: the instructions of its function in
     ``cuobjdump -sass`` of the built library (the exact fallback is a
     function of its own, not counted) over the ``elements`` one pass of its
     unrolled loop computes.  Returns (per element, instructions)."""
-    import re
-    from repro_torch.kernels import _build
-    exe = Path(_build.nvcc()).with_name("cuobjdump")
-    out = subprocess.run([str(exe), "-sass", str(_build.library_path(
-        "silu"))], capture_output=True, text=True, check=True).stdout
-    funcs = re.split(r"\n\s*Function : ", out)
-    tag = f"{len(name)}{name}I13__nv_bfloat16"      # its mangled name
-    body = next(f for f in funcs[1:] if tag in f.split("\n", 1)[0])
-    n = sum(1 for line in body.splitlines()
-            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line)
-            and " NOP" not in line)
+    n = len(_sass(f"{len(name)}{name}I13__nv_bfloat16"))
     return n / elements, n
+
+
+def sass_loop_per_element(tag, elements):
+    """SASS instructions an element of the main loop of the function whose
+    mangled name holds ``tag``: those from the target of its widest
+    backward branch to that branch, over the ``elements`` one trip of the
+    loop computes; and those on its fast path, without the code inside the
+    loop that a forward branch skips and that holds a ``CALL`` and no
+    exponential (the IEEE quotient's out-of-range cases).  Returns (per
+    element, per element on the fast path, the loop's instructions, the
+    function's), or None where the library has no such function or loop (a
+    tree without the kernel)."""
+    lines = _sass(tag) or []
+    branches = []
+    for addr, ins in lines:
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", ins)
+        if m:
+            branches.append((addr, int(m.group(1), 16)))
+    loops = [(a - to, to, a) for a, to in branches if to <= a]
+    if not loops:
+        return None
+    _, lo, hi = max(loops)
+    inside = [(a, i) for a, i in lines if lo <= a <= hi]
+
+    def slow(f, t):
+        held = [i for a, i in inside if f < a < t]
+        return any("CALL" in i for i in held) and not any(
+            "MUFU.EX2" in i for i in held)
+    skips = [(f, t) for f, t in branches if lo <= f < t <= hi and slow(f, t)]
+    fast = [a for a, _ in inside if not any(f < a < t for f, t in skips)]
+    return (len(inside) / elements, len(fast) / elements, len(inside),
+            len(lines))
+
+
+def sm_clock_hz():
+    """The card's top SM clock, from nvidia-smi."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
 
 
 def check_silu(torch, gen):
@@ -1153,10 +1206,7 @@ def check_silu(torch, gen):
     if not same:
         raise SystemExit("the shared SiLU disagrees with its plain version")
     per_elem, n_sass = sass_per_element("silu_kernel", 2 * 8)
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0]) * 1e6
+    clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"  silu_kernel<bf16>: {n_sass} SASS instructions for its 16 "
         f"elements a thread, {per_elem:.2f} an element; {sms} SMs at "
@@ -1297,6 +1347,7 @@ def check_conv_silu(torch, gen):
 # (B, S, H, P, N, Q) and the conv width C of the train runs (batch 4 x 512)
 SSM_BWD_SHAPES = {"mamba2": ((BATCH, PROMPT, 64, 64, 128, 128), 4352),
                   "zamba2": ((BATCH, PROMPT, 112, 64, 64, 128), 7296)}
+SSM_CONV = 4            # their conv width K (ssm_conv)
 # the SSD backward's ddt and dA are float32 outputs of float32 arithmetic in
 # the kernel and in its plain version alike, from the same inputs whatever
 # their type, so they are held to float32 limits: ddt per element, at 5e-4
@@ -1494,6 +1545,127 @@ def gated_bwd_timing(torch, ins):
     return t
 
 
+def conv_bwd_case(torch, gen, key, dtype):
+    """``conv_silu_bwd`` against ``conv_silu_bwd_ref`` at a train run's
+    shape (``SSM_BWD_SHAPES[key]``: B x S rows of C channels), conv_in read
+    in place from an in_proj row (``bwd_check``, ``ELEM_BWD_TOL``).
+    Returns (the largest |kernel - plain|, the inputs (conv_in, w, bias,
+    g))."""
+    from repro_torch.kernels.silu import ops as sops, ref as sref
+    shape, c = SSM_BWD_SHAPES[key]
+    b, s, n = shape[0], shape[1], shape[4]
+    di = c - 2 * n
+
+    def randn(*sh, scale=1.0):
+        return (torch.randn(*sh, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    conv_in = randn(b, s, 2 * di + 2 * n + shape[2], scale=2.0)[
+        ..., di:di + c]
+    w = randn(SSM_CONV, c, scale=0.5)
+    bias = randn(c, scale=0.1)
+    g = randn(b, s, c)
+    ins = (conv_in, w, bias, g)
+    names = ("dconv_in", "dw", "db")
+    err = bwd_check(
+        torch, f"conv_silu_bwd[{key}] B={b} S={s} C={c} {str(dtype)[6:]}",
+        lambda: dict(zip(names, sops.conv_silu_bwd(*ins))),
+        lambda: dict(zip(names, sref.conv_silu_bwd_ref(*ins))),
+        {k: (ELEM_BWD_TOL[str(dtype)[6:]], "element") for k in names})
+    return err, ins
+
+
+def digest(torch, t):
+    """A short digest of a tensor's bytes: two trees whose outputs share it
+    gave the same bits."""
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def conv_bwd_timing(torch, ins):
+    """The conv pass's backward times at one shape: the kernel warm and
+    cold, each of its launches from the profiler, the plain version, and
+    the bound (conv_in and g read once, dconv_in written once, w and the
+    bias in, dw and db out; 3K + 8 float32 operations an element); a digest
+    of each output's bytes, which tells what two trees give bit for bit;
+    and, where the port plans the pass in runs (``conv_bwd_plan``), the
+    kernel at each run length the plan may take."""
+    from repro_torch.kernels.silu import ops as sops, ref as sref
+    conv_in, w, bias, g = ins
+    b, s, c = conv_in.shape
+    k = w.shape[0]
+    nbytes = conv_in.element_size() * (3 * b * s * c + 2 * (k + 1) * c)
+    b_ms, b_by = bound(nbytes, (2.0 * (3 * k + 8) * b * s * c, F32_PEAK))
+
+    def call():
+        return sops.conv_silu_bwd(conv_in, w, bias, g)
+    t = {"B, S, C": [b, s, c], "ms": time_ms(call),
+         "cold_ms": cold_ms_of(sops.conv_silu_bwd, ins),
+         "plain_ms": time_ms(lambda: sref.conv_silu_bwd_ref(*ins)),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "per_pass_ms": pass_times(torch, call, "conv_silu_bwd"),
+         "digest": {n: digest(torch, o)
+                    for n, o in zip(("dconv_in", "dw", "db"), call())}}
+    plan = getattr(sops, "conv_bwd_plan", None)
+    if plan is not None:
+        t["plan"] = plan(b, s, c * conv_in.element_size() // 16,
+                         torch.cuda.get_device_properties(
+                             0).multi_processor_count)
+        t["by_run"] = {}
+        try:
+            for run in sops.CONV_BWD_RUNS:
+                sops.conv_bwd_plan = (lambda *_, r=run: (
+                    r, -(-sops.CONV_BWD_SLICE // r)))
+                t["by_run"][run] = time_ms(call)
+        finally:
+            sops.conv_bwd_plan = plan
+    log(f"  conv_silu_bwd B={b} S={s} C={c}: kernel {t['ms']:.4f} ms warm, "
+        f"{t['cold_ms']:.4f} cold (per launch, warm: "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t["per_pass_ms"].items())
+        + f"), plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes / 1e6:.2f} MB), {b_ms / t['ms']:.2%} of it, "
+        f"{nbytes / t['ms'] / 1e9:.3f} TB/s; plan {t.get('plan')}, by run "
+        f"{t.get('by_run')}; digests {t['digest']}")
+    return t
+
+
+def conv_bwd_sass(torch):
+    """The pass's SASS instructions an element (bf16, K = 4, the 16-byte
+    path: a trip of its loop takes K tokens of 8 channels; on its fast path,
+    and the whole loop), the issue bound the fast path sets at mamba2's
+    shape (4 warp instructions a clock an SM at the top SM clock), and
+    every instance's registers and spill stack; fails on a spill.  None for
+    a tree whose pass has no such loop."""
+    from repro_torch.kernels import _build
+    got = sass_loop_per_element(
+        f"20conv_silu_bwd_kernelI13__nv_bfloat16Li{SSM_CONV}ELi8E",
+        SSM_CONV * 8)
+    if got is None:
+        return {"sass_per_element": None}
+    per, fast, n_loop, n_all = got
+    shape, c = SSM_BWD_SHAPES["mamba2"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    issue = fast * shape[0] * shape[1] * c / (32 * 4 * sms * clock) * 1e3
+    usage = {re.sub(r"^_ZN12_GLOBAL__N_1\d+", "", f): r
+             for f, r in _build.resource_usage("silu").items()
+             if "conv_silu_bwd" in f}
+    log(f"  conv_silu_bwd_kernel<bf16, {SSM_CONV}, 8>: {n_loop} SASS "
+        f"instructions a trip of its loop ({SSM_CONV * 8} elements), "
+        f"{per:.2f} an element, {fast:.2f} on its fast path ({n_all} in the "
+        f"function); issue bound at mamba2's shape {issue:.4f} ms ({sms} SMs "
+        f"at {clock / 1e6:.0f} MHz); registers (spill stack bytes): "
+        + ", ".join(
+            f"{f} {r} ({st})" for f, (r, st) in sorted(usage.items())))
+    spills = {f: st for f, (_, st) in usage.items() if st}
+    if spills:
+        raise SystemExit(f"conv_silu_bwd spills: {spills}")
+    return {"sass_per_element": fast, "sass_per_element_loop": per,
+            "issue_bound_ms": issue,
+            "registers": {f: r for f, (r, _) in usage.items()}}
+
+
 def check_ssm_bwd(torch, gen):
     """The SSM training path's three backward kernels against their plain
     versions at the train runs' shapes (mamba2-1.3b and zamba2-7b, batch
@@ -1542,51 +1714,23 @@ def check_ssm_bwd(torch, gen):
 
     # the conv pass
     err, timing = 0.0, {}
-    k = 4
-    for key, (shape, c) in SSM_BWD_SHAPES.items():
-        b, s = shape[:2]
-        di = c - 2 * shape[4]
-        row = 2 * di + 2 * shape[4] + shape[2]
+    for key in SSM_BWD_SHAPES:
         for dt_ in (bf16, f32):
-            conv_in = randn(b, s, row, scale=2.0, dtype=dt_)[..., di:di + c]
-            w = randn(k, c, scale=0.5, dtype=dt_)
-            bias = randn(c, scale=0.1, dtype=dt_)
-            g = randn(b, s, c, dtype=dt_)
-            cnames = ("dconv_in", "dw", "db")
-            err = max(err, bwd_check(
-                torch, f"conv_silu_bwd[{key}] B={b} S={s} C={c} "
-                f"{str(dt_)[6:]}",
-                lambda: dict(zip(cnames, sops.conv_silu_bwd(conv_in, w,
-                                                            bias, g))),
-                lambda: dict(zip(cnames, sref.conv_silu_bwd_ref(
-                    conv_in, w, bias, g))),
-                elem(cnames, ELEM_BWD_TOL[str(dt_)[6:]])))
+            e, ins = conv_bwd_case(torch, gen, key, dt_)
+            err = max(err, e)
             if dt_ == bf16:
-                # conv_in, g in; dconv_in out; w, b in, dw, db out
-                nbytes = 2 * (3 * b * s * c + 2 * (k + 1) * c)
-                b_ms, b_by = bound(nbytes, (2.0 * (3 * k + 8) * b * s * c,
-                                            F32_PEAK))
-                t = {"B, S, C": [b, s, c],
-                     "ms": time_ms(lambda: sops.conv_silu_bwd(conv_in, w,
-                                                              bias, g)),
-                     "plain_ms": time_ms(lambda: sref.conv_silu_bwd_ref(
-                         conv_in, w, bias, g)),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-                log(f"  conv_silu_bwd[{key}] B={b} S={s} C={c}: kernel "
-                    f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB)")
-                timing[key] = t
-            del conv_in, w, bias, g
+                timing[key] = conv_bwd_timing(torch, ins)
+            del ins
     m = timing["mamba2"]
     recs["conv_silu_bwd"] = dict(
-        {k_: m[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+        {k_: m[k_] for k_ in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "per_pass_ms")},
         name="conv_silu_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/silu.cu",
         replaces="src/repro/models/ssm.py:151 (JAX autodiff of the conv "
                  "and SiLU)",
         max_abs_err=err, zamba2=timing["zamba2"],
-        main_path="mamba2-1.3b/train_full")
+        main_path="mamba2-1.3b/train_full", **conv_bwd_sass(torch))
 
     # the gated norm
     err, timing = 0.0, {}
@@ -4203,6 +4347,15 @@ def _ssd_bwd_times(torch, gen):
     return out
 
 
+def _conv_bwd_times(torch, gen):
+    out = {}
+    for key in SSM_BWD_SHAPES:
+        _, ins = conv_bwd_case(torch, gen, key, torch.bfloat16)
+        out[key] = conv_bwd_timing(torch, ins)
+    out.update(conv_bwd_sass(torch))
+    return out
+
+
 def _gated_bwd_times(torch, gen):
     out = {}
     for key in SSM_BWD_SHAPES:
@@ -4216,6 +4369,7 @@ def _gated_bwd_times(torch, gen):
 TIMES = {"wire": _wire_times,               # quantize and dequantize
          "flash_bwd": _flash_bwd_times,     # at BWD_TIMED
          "ssd_bwd": _ssd_bwd_times,         # at SSM_BWD_SHAPES
+         "conv_bwd": _conv_bwd_times,       # at SSM_BWD_SHAPES' widths
          "gated_bwd": _gated_bwd_times}     # at SSM_BWD_SHAPES' widths
 
 

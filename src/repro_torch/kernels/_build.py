@@ -68,7 +68,7 @@ SIGNATURES = {
         "silu_launch": ([_P, _L, _P, _I, _I, _I, _P], _I),
         "conv_silu_launch": ([_P, _P, _L, _L, _P, _P, _P] + [_I] * 5 + [_P],
                              _I),
-        "conv_silu_bwd_launch": ([_P, _L, _L] + [_P] * 8 + [_I] * 6 + [_P],
+        "conv_silu_bwd_launch": ([_P, _L, _L] + [_P] * 7 + [_I] * 8 + [_P],
                                  _I),
         "silu_error_string": ([_I], ctypes.c_char_p),
     },

@@ -1,6 +1,6 @@
 // Element helpers of the port's element-wise kernels (silu.cu, norm.cu): a
-// 16-byte unit of float or bf16 values as floats and back, and rounding to
-// the element type.
+// 16-byte unit of float or bf16 values as floats and back, rounding to the
+// element type, and a 16-byte copy from global to shared memory.
 //
 // bf16 values are rounded in pairs through one packing conversion
 // (__floats2bfloat162_rn, F2FP.BF16.F32.PACK_AB), which issues at the ALU's
@@ -93,4 +93,22 @@ __device__ __forceinline__ uint4 pack(const float* f) {
                    __float_as_uint(f[2]), __float_as_uint(f[3]));
   }
   return u;
+}
+
+// 16 bytes from global to shared memory (cached in L2 only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -306,14 +306,6 @@ __device__ __forceinline__ float2 row_totals(float u, float v, float* part,
   return make_float2(su, sv);
 }
 
-// 16 bytes from global to shared memory (cached in L2 only)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
 // One pass over the rows: block q owns rows [q R, q R + R) (R = a.rows)
 // and takes them one at a time in the norm's plan (tpr threads a row,
 // thread t the units t, t + tpr, ...: the forward's order, so r is the

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..decode.ops import no_backward, wants_grad
+from ..decode.ops import _sms, no_backward, wants_grad
 from .ref import conv_silu_bwd_ref, conv_silu_ref, silu_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,16 +136,39 @@ def _conv_silu(conv_buf, conv_in, w, b):
     return out
 
 
-CONV_BWD_ROWS = 64      # (b, t) rows a column partial of dw and db sums
+CONV_BWD_SLICE = 64             # (b, t) rows a partial of dw and db sums
+CONV_BWD_RUNS = (16, 24, 32, 48, 64)    # tokens a thread may walk
+CONV_BWD_WARPS_SM = 12          # warps of the pass an SM holds
+
+
+def conv_bwd_plan(b, s, units, sms):
+    """``(run, warps)`` of ``conv_silu_bwd``'s pass over ``b`` batch rows of
+    ``s`` tokens and ``units`` channel units (16 bytes each, or channels off
+    the 16-byte grid) on a card of ``sms`` SMs: a thread walks ``run``
+    tokens of one batch row, and a block's ``warps`` warps take consecutive
+    runs of the same 32 units, at least ``CONV_BWD_SLICE`` rows together,
+    and leave one partial of dw and db.  The run is the shortest of
+    ``CONV_BWD_RUNS`` whose warps all fit on the card at once (a run
+    recomputes K - 1 positions past its end, so a shorter run costs
+    arithmetic; more warps than the card holds leave a partial second
+    wave); past the longest, the longest."""
+    groups = -(-units // 32)
+    for run in CONV_BWD_RUNS:
+        if groups * b * -(-s // run) <= sms * CONV_BWD_WARPS_SM:
+            break
+    return run, -(-CONV_BWD_SLICE // run)
 
 
 def conv_silu_bwd(conv_in, w, b, g):
     """The gradients ``(dconv_in, dw, db)`` of the cacheless ``conv_silu``
     against ``g`` (B, S, C), each contiguous in its input's dtype.  On the
     CPU the plain version (``ref.conv_silu_bwd_ref``); on the card the
-    kernel (three launches: du and dconv_in, the column partials of dw and
-    db over ``CONV_BWD_ROWS`` rows each, their sums in order; one count).
-    ``conv_in`` is read in place through its strides."""
+    kernel: two launches, one count.  The first is one pass over the rows
+    in runs of tokens (``conv_bwd_plan``) that writes dconv_in and leaves a
+    float32 partial of dw and db a slice of at least ``CONV_BWD_SLICE``
+    rows; the second sums the slices in order.  ``conv_in`` is read in
+    place through its strides, 16 bytes at a time where its channel count,
+    strides and pointers allow it, else a channel at a time."""
     if conv_in.dim() != 3 or w.dim() != 2 or b.shape != (conv_in.shape[2],) \
             or w.shape[1] != conv_in.shape[2] or g.shape != conv_in.shape:
         raise ValueError(
@@ -162,20 +185,27 @@ def conv_silu_bwd(conv_in, w, b, g):
     k = w.shape[0]
     g = g.contiguous()
     dev, dt = conv_in.device, conv_in.dtype
-    rows = bsz * s
-    slices = -(-rows // CONV_BWD_ROWS)
     dx = torch.empty((bsz, s, c), dtype=dt, device=dev)
-    du = torch.empty((bsz, s, c), dtype=dt, device=dev)
-    part = torch.empty((slices, k + 1, c), dtype=torch.float32, device=dev)
+    if bsz * s == 0:
+        return (dx, torch.zeros((k, c), dtype=dt, device=dev),
+                torch.zeros((c,), dtype=dt, device=dev))
     dw = torch.empty((k, c), dtype=dt, device=dev)
     db = torch.empty((c,), dtype=dt, device=dev)
+    unit = 16 // conv_in.element_size()
+    vec = c % unit == 0 and conv_in.stride(0) % unit == 0 \
+        and conv_in.stride(1) % unit == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in (conv_in, w, b, g, dx))
+    run, warps = conv_bwd_plan(bsz, s, c // unit if vec else c,
+                               _sms(dev.index))
+    slices = -(-bsz * -(-s // run) // warps)
+    part = torch.empty((slices, k + 1, c), dtype=torch.float32, device=dev)
     lib = _build.load("silu")
     with torch.cuda.device(dev):
         err = lib.conv_silu_bwd_launch(
             conv_in.data_ptr(), conv_in.stride(0), conv_in.stride(1),
-            w.data_ptr(), b.data_ptr(), g.data_ptr(), du.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            bsz, s, c, k, CONV_BWD_ROWS, _DTYPES[dt],
+            w.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dw.data_ptr(), db.data_ptr(), bsz, s, c, k, run,
+            warps, int(vec), _DTYPES[dt],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check("silu", "conv_silu_bwd_launch", err)
     conv_silu_bwd.launches += 1

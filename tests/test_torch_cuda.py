@@ -1661,24 +1661,46 @@ def test_ssd_scan_bwd_vs_plain(cuda, b, s, h, p, n, q, dtype):
         assert_bwd_close(a, w, dtype, name)
 
 
-@pytest.mark.parametrize("c,s,off,k", [(4352, 512, 16, 4), (7296, 512, 16, 4),
-                                       (160, 9, 1, 4), (36, 300, 0, 3)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_silu_bwd_vs_plain(cuda, c, s, off, k, dtype):
-    """The conv pass's backward kernel against ``conv_silu_bwd_ref``,
-    conv_in read in place from a wider row, two runs bit-identical."""
-    b = 4
+def conv_bwd_vs_plain(cuda, b, c, s, off, k, dtype):
+    """``conv_silu_bwd`` twice against ``conv_silu_bwd_ref``: conv_in read
+    in place from a wider row at channel offset ``off``, the two runs
+    bit-identical, one count a call."""
     row = randn(cuda, 21, b, s, c + 40, dtype=dtype) * 2
     conv_in = row[..., off:off + c]
     w = randn(cuda, 22, k, c, dtype=dtype) * 0.5
     bias = randn(cuda, 23, c, dtype=dtype) * 0.1
     g = randn(cuda, 24, b, s, c, dtype=dtype)
+    before = silu_ops.conv_silu_bwd.launches
     got = silu_ops.conv_silu_bwd(conv_in, w, bias, g)
     again = silu_ops.conv_silu_bwd(conv_in, w, bias, g)
+    torch.cuda.synchronize()
+    assert silu_ops.conv_silu_bwd.launches == before + 2
     want = silu_ref_mod.conv_silu_bwd_ref(conv_in, w, bias, g)
     for name, a, a2, ww in zip(("dconv_in", "dw", "db"), got, again, want):
         bits_equal(a, a2)
         assert_bwd_close(a, ww, dtype, name)
+
+
+@pytest.mark.parametrize("c,s,off,k", [
+    (4352, 512, 16, 4), (7296, 512, 16, 4), (160, 9, 1, 4), (36, 300, 0, 3),
+    # the pass's edges: runs and slices ending off the block's rows, a
+    # slice across batch rows (S = 77), the longest runs (S = 4096), K = 2,
+    # a served width off the 16-byte grid (the element path)
+    (4352, 77, 16, 4), (4352, 4096, 16, 4), (160, 100, 0, 2),
+    (4352, 512, 1, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_silu_bwd_vs_plain(cuda, c, s, off, k, dtype):
+    """The conv pass's backward kernel against ``conv_silu_bwd_ref`` at
+    batch 4 (``conv_bwd_vs_plain``)."""
+    conv_bwd_vs_plain(cuda, 4, c, s, off, k, dtype)
+
+
+@pytest.mark.parametrize("c,s,off,k", [(4352, 512, 16, 4), (7296, 77, 16, 3),
+                                       (4352, 512, 1, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_silu_bwd_one_row(cuda, c, s, off, k, dtype):
+    """The same at batch 1 (``conv_bwd_vs_plain``)."""
+    conv_bwd_vs_plain(cuda, 1, c, s, off, k, dtype)
 
 
 @pytest.mark.parametrize("h,p,s", [(64, 64, 512), (112, 64, 512), (6, 12, 9),

@@ -499,3 +499,105 @@ def test_one_bf16_rounding_misses_card_limits():
     ratios = bwd_limit_ratios(emulate_bf16_bwd_kernel(*ins, rounding="once"),
                               ins)
     assert max(ratios.values()) > 1, ratios
+
+
+# ---------------------------------------------------------------------------
+# the conv pass's backward kernel: its plan, and the rounding of its sums
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,units", [
+    (4, 512, 544), (4, 512, 912), (1, 512, 544), (4, 77, 544),
+    (4, 4096, 544), (4, 512, 4352), (4, 9, 20), (3, 300, 9), (2, 1, 5)])
+def test_conv_bwd_plan_covers_every_row_once(b, s, units):
+    """The pass's runs, walked as the kernel walks them (block q's warp w
+    takes run q W + w; run r is batch row r // runs from token (r % runs)
+    run), cover every (b, t) row exactly once, each run inside one batch
+    row; a block's runs cover at least ``CONV_BWD_SLICE`` rows where they
+    are whole; and the plan takes the shortest run whose warps the card
+    holds at once."""
+    sms = 132
+    run, warps = silu_ops.conv_bwd_plan(b, s, units, sms)
+    assert run in silu_ops.CONV_BWD_RUNS and 1 <= warps <= 4
+    assert run * warps >= silu_ops.CONV_BWD_SLICE
+    runs = -(-s // run)
+    slices = -(-b * runs // warps)
+    seen = np.zeros((b, s), np.int64)
+    for r in range(slices * warps):
+        if r >= b * runs:
+            continue
+        t0 = (r % runs) * run
+        seen[r // runs, t0:t0 + min(run, s - t0)] += 1
+    assert (seen == 1).all()
+
+    def fits(n):
+        return -(-units // 32) * b * -(-s // n) <= sms * \
+            silu_ops.CONV_BWD_WARPS_SM
+    shorter = [n for n in silu_ops.CONV_BWD_RUNS if n < run]
+    assert not any(fits(n) for n in shorter)
+    assert fits(run) or run == silu_ops.CONV_BWD_RUNS[-1]
+
+
+def _bf16_bits(f32):
+    """bf16 bit patterns of float32 values that are bf16 values."""
+    return (f32.view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _round_once_to_bf16(x):
+    """Float64 values (exact sums) rounded once to bf16, to nearest even,
+    with bf16's subnormals (a quantum of 2^-133) and overflow to inf."""
+    _, e = np.frexp(x)                              # |x| < 2^e
+    q = np.ldexp(1.0, np.maximum(e - 8, -133))      # the quantum at |x|
+    with np.errstate(over="ignore"):
+        return (np.round(x / q) * q).astype(np.float32)
+
+
+def test_bf16_sums_round_once_through_float32():
+    """The conv backward's bf16 taps are summed two at a time by
+    ``add.rn.bf16x2``, which rounds the exact sum of two bf16 values once;
+    the plain chain adds them in float32 and rounds the float32 sum to
+    bf16.  The two agree (float32's 24 bits are at least 2 x 8 + 2: double
+    rounding is innocuous; a sum within float32's subnormal range is a
+    multiple of 2^-133, exact in float32): over 1.2 million random pairs,
+    every exponent gap from 0 to 40, subnormal operands and sums, both
+    signs, overflow, with ties among them, the float32 route's bits equal
+    the exact sum rounded once (exact in float64: at most 49 bits)."""
+    rng = np.random.default_rng(0)
+    per_gap, gaps = 30000, 41
+    n = per_gap * gaps
+
+    def bf16(sign, exp, man):
+        bits = (sign.astype(np.uint32) << 31) | (exp.astype(np.uint32) << 23) \
+            | (man.astype(np.uint32) << 16)
+        return bits.view(np.float32)
+
+    ea = rng.integers(0, 255, n)                    # 0: subnormal
+    ea[: n // 20] = rng.integers(0, 9, n // 20)     # near the subnormals
+    gap = np.repeat(np.arange(gaps), per_gap)
+    eb = np.maximum(ea - gap, 0)
+    a = bf16(rng.integers(0, 2, n), ea, rng.integers(0, 128, n))
+    b = bf16(rng.integers(0, 2, n), eb, rng.integers(0, 128, n))
+    # pairs of subnormals, and of a subnormal and anything
+    m = 100000
+    a = np.concatenate([a, bf16(rng.integers(0, 2, m), np.zeros(m, int),
+                                rng.integers(0, 128, m)),
+                        bf16(rng.integers(0, 2, m), np.zeros(m, int),
+                             rng.integers(0, 128, m))])
+    b = np.concatenate([b, bf16(rng.integers(0, 2, m), np.zeros(m, int),
+                                rng.integers(0, 128, m)),
+                        bf16(rng.integers(0, 2, m), rng.integers(0, 255, m),
+                             rng.integers(0, 128, m))])
+    exact = a.astype(np.float64) + b.astype(np.float64)
+    once = _round_once_to_bf16(exact)
+    with np.errstate(over="ignore"):
+        via32 = torch.from_numpy(a + b).to(torch.bfloat16).float().numpy()
+    same = _bf16_bits(once) == _bf16_bits(via32)
+    assert same.all(), (a[~same][:5], b[~same][:5])
+    # what the pairs covered
+    assert len(a) >= 10 ** 6
+    assert set(np.unique(gap)) == set(range(gaps))
+    sub = (np.abs(once) < 2.0 ** -126) & (once != 0)
+    assert sub.sum() > 1000
+    assert np.isinf(once).sum() > 0
+    q = np.ldexp(1.0, np.maximum(np.frexp(exact)[1] - 8, -133))
+    ties = np.abs(exact / q - np.floor(exact / q)) == 0.5
+    assert ties.sum() > 1000
