@@ -19,11 +19,14 @@ Phases, in order; any failure exits non-zero before the result line:
    backward (``flash_attention_bwd``, ``check_flash_bwd``) at granite's
    training shape, llama3-405b's group of 16 at hd 128, minicpm's MHA, a
    ragged S, and S off every tile with a group split into chunks (hd 64
-   and 128): dq, dk and dv within 1e-2 (1 + |plain|) and 2^-6 of the
-   largest |plain|, two runs bit-identical, the forward's lse within 1e-4
-   and its output bit-equal without the lse, no spill, times at granite's
-   shape and at hd 128 (each launch's from the profiler) beside the
-   bound, the plain version and PyTorch's flash SDPA backward;
+   and 128), and non-causal at whisper's encoder (4 x 512, 20 heads of
+   64), its 1500 frames and two ragged groups: dq, dk and dv within 1e-2
+   (1 + |plain|) and 2^-6 of the largest |plain|, two runs
+   bit-identical, the forward's lse within 1e-4 and its output bit-equal
+   without the lse, no spill, times at granite's shape, at hd 128 and at
+   whisper's encoder (each launch's from the profiler) beside the bound,
+   the plain version and PyTorch's flash SDPA backward (the same
+   ``is_causal``);
    quantize and dequantize bit-equal (q, scales and output bytes) at
    every served model's width (1280 to 16384), at decode rows and a
    prefill's 2048, in bf16 and float32, with an all-zero row and a row of
@@ -127,10 +130,11 @@ Phases, in order; any failure exits non-zero before the result line:
    an op inside a range of one of those names, and logged by kind); then a
    stream
    of 6 staggered
-   requests over 4 slots of the ``SlotScheduler``, each request's tokens
+   requests over 4 slots of the ``SlotScheduler``, twice, the two runs'
+   tokens and every step's logits bit-identical, and each request's tokens
    and every decode step's logits bit-identical to the same request served
-   alone (see ``stream_phase``); the MoE family has no stream (the
-   scheduler refuses it: expert capacity couples the rows of a batch).
+   alone (see ``stream_phase``); not for the MoE family, whose rows,
+   idle slots' included, contend for expert capacity.
    granite, mamba2, zamba2 and whisper are
    also planned by the SEIFER planner onto a 10-node edge cluster into 4
    stages (zamba2: each stage holds call sites and its own copy of the
@@ -171,15 +175,18 @@ Phases, in order; any failure exits non-zero before the result line:
    tokens (the int8 wire's: its own).  It logs the transport's host cost
    (prefill and a decode step, with and without it, on both wires), the
    bytes of a hop's frames, the restore and migration seconds.
-   Every pipelined model but the MoE one also serves the stream phase's
+   Every pipelined model also serves the stream phase's
    requests through its raw-wire engine's per-stage banks
    (``pipelined_stream``: ``SlotScheduler`` over the pipeline engine):
    each request's tokens, and each batched decode step's logits in the
    active slots' rows, bit-identical to the monolithic stream's.  granite
-   and mamba2 (``OVERLAP_ARCHS``) also stream with stage 1 killed after
-   batched step 4 (the in-flight requests replayed into their slots; the
-   same bits), through the int8 wire, and through the int8 wire with that
-   kill (the tokens of the int8 stream without it); and they run the
+   and mamba2 (``OVERLAP_ARCHS``) and deepseek-v3 also stream with stage
+   1 killed after batched step 4 (the in-flight requests replayed into
+   their slots; the same bits but for deepseek-v3, whose replay serves each
+   request alone and whose rows contend for capacity), through the int8
+   wire, and through the int8 wire with that kill (the tokens of the int8
+   stream without it, but for deepseek-v3); each of deepseek-v3's streams
+   runs twice, bit-identical; granite and mamba2 also run the
    overlapped executor (``overlap_runs``), batch 4 in 2 micro-batches, on
    both wires, staged (every stage given the card) and then, placed anew
    on the same engine (``place``), fused (one CUDA graph a micro-batch,
@@ -259,8 +266,15 @@ Phases, in order; any failure exits non-zero before the result line:
    run for mamba2-1.3b at full width and depth (48 layers) and zamba2-7b
    at full width and 42 of its 81 layers (``SSM_TRAIN``; the scan's, the
    conv pass's and the gated norm's backward kernels, zamba2's shared
-   block through the flash backward at head dim 112), and one step of
-   ``launch/train.py --profile`` on mamba2 (``"train"`` in the JSON
+   block through the flash backward at head dim 112), one step of
+   ``launch/train.py --profile`` on mamba2; then the cross-attention
+   families through ``make_train_step`` (the launcher feeds tokens only,
+   as the reference's), batch 4 x 512 with frames or vision embeddings
+   from a seeded generator, 4 steps, each step's launches exactly
+   ``train_launches``: whisper-large-v3 at full width and depth (its
+   encoder through the non-causal flash backward, its step at 2 + 2
+   layers against the CPU's) and llama-3.2-vision-90b at full width and
+   one group of 5 layers (``XATTN_TRAIN``; ``"train"`` in the JSON
    line).
 
 The whole script takes 10 to 16 minutes on one H100 80GB HBM3 at 700 W:
@@ -277,7 +291,8 @@ JSON line before them.  A record's
 ``launches`` is the count from the runs that go through every step of a
 main path (planner, int8 wire, stage kill, restore and replay), summed over
 the six pipelined models; the flash backward's, the full-depth training
-run's 4 steps (``granite-3-2b/train_full``), and the SSM backwards',
+run's 4 steps (``granite-3-2b/train_full``; its ``non_causal`` record
+whisper's, ``whisper-large-v3/train_full``), and the SSM backwards',
 mamba2's (``mamba2-1.3b/train_full``); ``launches_by_path`` holds
 the count from each counted run, keyed ``model/run``.  The decode, norm
 and SiLU kernels and the SSM backwards replace no TPU kernel (the
@@ -319,8 +334,7 @@ PLAN_RNG = 8            # the planner's seed for the served pipelines
 PIPELINED = ("granite-3-2b", "mamba2-1.3b", "zamba2-7b", "whisper-large-v3",
              "llama-3.2-vision-90b", "deepseek-v3-671b")
 CUTS = {"llama-3.2-vision-90b": [5], "deepseek-v3-671b": [1]}
-# served by both ServeEngine loops and the stream only (the MoE model by
-# the loops only: the scheduler refuses MoE); llama3-405b at full width
+# served by both ServeEngine loops and the stream only; llama3-405b at full width
 # and a cut depth (its 126 layers are about 810 GB of bf16); llama4 is not
 # pipelined here: a pipeline needs two of its groups, 4 layers (70.6 GB),
 # and beside a restored stage (about 35 GB) they do not fit the card
@@ -618,43 +632,50 @@ def check_flash(torch, gen):
                                "bound_by": mb_by}}
 
 
-BWD_CASES = (  # (B, S, H, KV, hd): the backward kernel's shapes
-    (BATCH, PROMPT, 32, 8, 64),      # granite's training batch
-    (1, PROMPT, 128, 8, 128),        # llama3-405b's group of 16 at hd 128
-    (BATCH, PROMPT, 36, 36, 64),     # minicpm's MHA
-    (BATCH, 300, 32, 8, 64),         # a ragged S
-    (2, 330, 8, 1, 64),              # S off every tile, two head chunks
-    (1, 1000, 16, 2, 128),           # the same at hd 128
-    (BATCH, PROMPT, 32, 32, 112),    # zamba2's shared block (the 128 tile)
-    (2, 300, 8, 8, 112))             # the same, a ragged S
+BWD_CASES = (  # (B, S, H, KV, hd, causal): the backward kernel's calls
+    (BATCH, PROMPT, 32, 8, 64, True),      # granite's training batch
+    (1, PROMPT, 128, 8, 128, True),        # llama3-405b's group of 16, hd 128
+    (BATCH, PROMPT, 36, 36, 64, True),     # minicpm's MHA
+    (BATCH, 300, 32, 8, 64, True),         # a ragged S
+    (2, 330, 8, 1, 64, True),              # S off every tile, two head chunks
+    (1, 1000, 16, 2, 128, True),           # the same at hd 128
+    (BATCH, PROMPT, 32, 32, 112, True),    # zamba2's shared block (128 tile)
+    (2, 300, 8, 8, 112, True),             # the same, a ragged S
+    (BATCH, PROMPT, 20, 20, 64, False),    # whisper's encoder, non-causal
+    (BATCH, FRAMES, 20, 20, 64, False),    # its 1500 frames: a ragged S
+    (2, 200, 16, 4, 128, False),           # ragged, group 4 at hd 128
+    (2, 330, 8, 1, 64, False))             # ragged, two head chunks
 BWD_HD112 = BWD_CASES[6]
-BWD_TIMED = (*BWD_CASES[:2], BWD_HD112)    # the shapes its times are of
+BWD_ENCODER = BWD_CASES[8]
+BWD_TIMED = (*BWD_CASES[:2], BWD_HD112, BWD_ENCODER)   # the timed calls
 BWD_TOL = 1e-2          # per element, on 1 + |plain|
 STEP_LOSS_TOL = 2e-3    # the 2-layer step's loss, card against CPU
 
 
-def flash_bwd_inputs(torch, gen, b, s, h, kv, hd):
-    """The flash backward's inputs at one shape: q, k, v and do (bf16,
+def flash_bwd_inputs(torch, gen, b, s, h, kv, hd, causal=True):
+    """The flash backward's inputs at one call: q, k, v and do (bf16,
     from ``gen``), and o and lse from the forward kernel."""
     from repro_torch.kernels.attention import ops
     q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
                    .to(torch.bfloat16)
                    for shape in ((b, s, h, hd), (b, s, kv, hd),
                                  (b, s, kv, hd), (b, s, h, hd)))
-    o, lse = ops._launch(q, k, v, True, s, with_lse=True)
+    o, lse = ops._launch(q, k, v, causal, s, with_lse=True)
     return q, k, v, o, lse, do
 
 
 def check_flash_bwd(torch, gen):
     """The flash-attention backward kernel (``flash_attention_bwd``)
     against its plain version (``flash_bwd_ref``) on the same (o, lse) from
-    the forward kernel, at ``BWD_CASES``: dq, dk and dv within 1e-2 (1 +
+    the forward kernel, at ``BWD_CASES`` (causal and, for whisper's
+    encoder, non-causal): dq, dk and dv within 1e-2 (1 +
     |plain|) per element and within 2^-6 of the tensor's largest |plain|,
     two runs bit-identical; the forward's lse within 1e-4 (1 + |plain|) of
     the plain log-sum-exp and its output bit-equal with and without the
     lse; no spill (``cuobjdump -res-usage``).  Times (``bwd_times``) at
-    granite's shape, at llama3-405b's group of 16 at hd 128 and at
-    zamba2's shared block (hd 112 on the 128 tile): the kernel
+    granite's shape, at llama3-405b's group of 16 at hd 128, at
+    zamba2's shared block (hd 112 on the 128 tile) and at whisper's
+    encoder (non-causal, ``non_causal`` in the record): the kernel
     warm and cold, each of its two launches from the profiler, the plain
     version, the bound and PyTorch's flash SDPA backward
     (``aten._scaled_dot_product_flash_attention_backward``); and the
@@ -670,18 +691,24 @@ def check_flash_bwd(torch, gen):
     if spills:
         raise SystemExit(f"flash_attention_bwd spills: {spills}")
     err_max, scaled_max, abs_max, inputs = 0.0, 0.0, 0.0, {}
-    for b, s, h, kv, hd in BWD_CASES:
-        q, k, v, o, lse, do = flash_bwd_inputs(torch, gen, b, s, h, kv, hd)
-        o_plain = ops._launch(q, k, v, True, s)
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do)
-        again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for case in BWD_CASES:
+        b, s, h, kv, hd, causal = case
+        q, k, v, o, lse, do = flash_bwd_inputs(torch, gen, *case)
+        o_plain = ops._launch(q, k, v, causal, s)
+        before = ops.flash_attention_bwd.noncausal_launches
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
+        if ops.flash_attention_bwd.noncausal_launches - before != \
+                2 * (not causal):
+            raise SystemExit(f"flash_attention_bwd at {case}: the "
+                             "non-causal path's count did not move")
         same = all(torch.equal(a.view(torch.int16), c.view(torch.int16))
                    for a, c in zip(got, again))
         o_same = torch.equal(o.view(torch.int16), o_plain.view(torch.int16))
-        _, lse_want = flash_ref(q, k, v, True, with_lse=True)
+        _, lse_want = flash_ref(q, k, v, causal, with_lse=True)
         lse_err = ((lse - lse_want).abs() / (1 + lse_want.abs())).max().item()
-        want = flash_bwd_ref(q, k, v, o, lse, do)
+        want = flash_bwd_ref(q, k, v, o, lse, do, causal)
         errs = []
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             g, w = g.float(), w.float()
@@ -690,7 +717,8 @@ def check_flash_bwd(torch, gen):
                          e.max().item() / w.abs().max().item()))
             abs_max = max(abs_max, e.max().item())
         del want
-        log(f"  flash_attention_bwd B={b} S={s} H={h} KV={kv} hd={hd}: "
+        log(f"  flash_attention_bwd B={b} S={s} H={h} KV={kv} hd={hd} "
+            f"{'causal' if causal else 'non-causal'}: "
             + ", ".join(f"{n} {el:.3g} per element (tol {BWD_TOL:g}), "
                         f"{sc:.3g} of the largest (tol 2^-6)"
                         for n, el, sc in errs)
@@ -699,14 +727,16 @@ def check_flash_bwd(torch, gen):
         bad = [n for n, el, sc in errs
                if not (el <= BWD_TOL and sc <= 2 ** -6)]
         if bad or not same or not o_same or not lse_err <= 1e-4:
-            raise SystemExit(f"flash_attention_bwd at {(b, s, h, kv, hd)}: "
+            raise SystemExit(f"flash_attention_bwd at {case}: "
                              f"{errs}, bit-identical {same}, lse {lse_err}, "
                              f"output with the lse equal {o_same}")
         err_max = max(err_max, *(el for _, el, _ in errs))
         scaled_max = max(scaled_max, *(sc for _, _, sc in errs))
-        inputs.setdefault((b, s, h, kv, hd), (q, k, v, o, lse, do))
+        if case in BWD_TIMED:
+            inputs[case] = (q, k, v, o, lse, do)
 
-    timed = {case: bwd_times(torch, *inputs[case]) for case in BWD_TIMED}
+    timed = {case: bwd_times(torch, *inputs[case], causal=case[-1])
+             for case in BWD_TIMED}
     gran, big = timed[BWD_CASES[0]], timed[BWD_CASES[1]]
     q, k, v, o, lse, do = inputs[BWD_CASES[0]]
     s = q.shape[1]
@@ -724,9 +754,11 @@ def check_flash_bwd(torch, gen):
             "bound_by": gran["bound_by"], "library_ms": gran["library_ms"],
             "per_element_err": err_max,
             "forward_ms": f_ms, "forward_with_lse_ms": fl_ms,
-            "hd128": dict(big, **{"B, S, H, KV, hd": list(BWD_CASES[1])}),
+            "hd128": dict(big, **{"B, S, H, KV, hd": list(BWD_CASES[1][:5])}),
             "hd112": dict(timed[BWD_HD112],
-                          **{"B, S, H, KV, hd": list(BWD_HD112)}),
+                          **{"B, S, H, KV, hd": list(BWD_HD112[:5])}),
+            "non_causal": dict(timed[BWD_ENCODER],
+                               **{"B, S, H, KV, hd": list(BWD_ENCODER[:5])}),
             "registers": {re.sub(r"^.*?(flash_bwd_\w+?)E.*$", r"\1", f): r
                           for f, (r, _) in usage.items()},
             "main_path": f"{TRAIN_ARCH}/train_full"}
@@ -753,44 +785,47 @@ def pass_times(torch, fn, tag, iters=20):
     return out
 
 
-def bwd_times(torch, q, k, v, o, lse, do):
-    """The backward kernel's times at one shape: warm, cold (a copy of the
+def bwd_times(torch, q, k, v, o, lse, do, causal=True):
+    """The backward kernel's times at one call: warm, cold (a copy of the
     inputs a call), each launch's from the profiler, the plain version's,
     the bound (the larger of the bytes over the HBM rate and 2.5x the
-    forward's causal operations over the bf16 peak) and, as a yardstick
-    the port never calls, the backward of PyTorch's flash SDPA (k and v
-    repeated to the q heads, since it takes no groups)."""
+    forward's operations, causal or not, over the bf16 peak) and, as a
+    yardstick the port never calls, the backward of PyTorch's flash SDPA
+    (k and v repeated to the q heads, since it takes no groups; the same
+    ``is_causal``)."""
     from repro_torch.kernels.attention import ops
     from repro_torch.kernels.attention.ref import flash_bwd_ref
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    fwd_flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    fwd_flops = 4.0 * b * h * hd * s * ((s + 1) / 2 if causal else s)
     # q, k, v, o, do and lse read once; dq, dk, dv written once
     nbytes = (2 * (q.numel() + k.numel() + v.numel() + o.numel()
                    + do.numel()) + 4 * lse.numel()
               + 2 * (q.numel() + k.numel() + v.numel()))
     b_ms, b_by = bound(nbytes, (2.5 * fwd_flops, BF16_PEAK))
-    k_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+    k_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal))
     per = pass_times(torch, lambda: ops.flash_attention_bwd(
-        q, k, v, o, lse, do), "flash_bwd")
+        q, k, v, o, lse, do, causal), "flash_bwd")
     copies = [tuple(t.clone() for t in (q, k, v, o, lse, do))
               for _ in range(cold_copies(nbytes))]
-    c_ms, _ = time_cold_ms(lambda c: ops.flash_attention_bwd(*copies[c]),
-                           nbytes)
+    c_ms, _ = time_cold_ms(lambda c: ops.flash_attention_bwd(*copies[c],
+                                                             causal), nbytes)
     del copies
-    p_ms = time_ms(lambda: flash_bwd_ref(q, k, v, o, lse, do))
+    p_ms = time_ms(lambda: flash_bwd_ref(q, k, v, o, lse, do, causal))
     g = h // kv
     qt, ot, dot = (t.transpose(1, 2).contiguous() for t in (q, o, do))
     kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt, kt, vt, 0.0, True)
+        qt, kt, vt, 0.0, causal)
     l_out, l_lse = fwd[0], fwd[1]
     sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     l_ms = time_ms(lambda: sdpa_bwd(dot, qt, kt, vt, l_out, l_lse, fwd[2],
-                                    fwd[3], fwd[4], fwd[5], 0.0, True,
+                                    fwd[3], fwd[4], fwd[5], 0.0, causal,
                                     fwd[6], fwd[7]))
-    log(f"  flash_attention_bwd (B={b}, S={s}, H={h}, KV={kv}, hd={hd}): "
+    log(f"  flash_attention_bwd (B={b}, S={s}, H={h}, KV={kv}, hd={hd}, "
+        f"{'causal' if causal else 'non-causal'}): "
         f"kernel {k_ms:.4f} ms warm, {c_ms:.4f} cold ("
         + ", ".join(f"{n} {t:.4f}" for n, t in per.items())
         + f" a launch), plain {p_ms:.4f} ms, the flash SDPA's backward (k, "
@@ -2393,12 +2428,15 @@ def stream_schedule(requests, slots):
 def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
     """Continuous batching: STREAM requests (prompts scaled to ``prompt``;
     each with its own side input: vision embeddings, or FRAMES frames)
-    over SLOTS slots, each stream
-    held against the same request served alone, bit for bit: its tokens
-    equal to the per-request reference loop's, and the logits of each of
-    its batched decode steps (recorded as the scheduler's decode steps
-    return them) equal to those of the request alone (batch 1, attention
-    over the whole cache) fed the same tokens.  Returns the phase's
+    over SLOTS slots, run twice: the tokens and every batched decode
+    step's logits (recorded as the scheduler's decode steps return them)
+    bit-identical between the runs.  Each stream is held against the same
+    request served alone, bit for bit: its tokens equal to the
+    per-request reference loop's, and the logits of each of its batched
+    decode steps equal to those of the request alone (batch 1, attention
+    over the whole cache) fed the same tokens; not for the MoE family,
+    whose rows contend for expert capacity (idle slots' rows too), so a
+    request's tokens depend on the other slots'.  Returns the phase's
     numbers, the decode steps of the counted run, and (the requests, their
     streams, each batched step's logits) for the pipelined streams."""
     import numpy as np
@@ -2414,35 +2452,55 @@ def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
         one = make_batch(cfg, 1, pl, seed=1000 + i, frames_len=FRAMES)
         reqs.append(scheduler.Request(i, one.pop("tokens"), gl, extras=one))
     sched.run(reqs[:1])                                   # warm-up
-    (streams, stats), wall = timed(lambda: counted(
-        "stream", lambda: sched.run(reqs)))
-    n_tok = sum(len(t) for t in streams)
-    (ref_streams, _), ref_wall = timed(lambda: sched.run(
-        reqs, engine="reference"))
-    log(f"  stream of {len(reqs)} requests (prompt, gen) {shapes} over "
-        f"{SLOTS} slots: {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
-        f"tok/s), {stats['decode_steps']} decode steps, slot utilisation "
-        f"{stats['slot_utilization']:.3f}; the requests served alone "
-        f"(reference loop) {ref_wall:.3f}s ({n_tok / ref_wall:.1f} tok/s)")
+    # each run records its batched steps' logits (views: no launch)
+    recorded, decode = [[], []], scheduler.decode_step
 
-    # the same run again, recording each batched step's logits
-    recorded, decode = [], scheduler.decode_step
+    def recording(run):
+        def step(*args, **kw):
+            logits, cache = decode(*args, **kw)
+            recorded[run].append(logits[:, 0])
+            return logits, cache
+        return step
 
-    def recording(*args, **kw):
-        logits, cache = decode(*args, **kw)
-        recorded.append(logits[:, 0])
-        return logits, cache
-
-    scheduler.decode_step = recording
+    scheduler.decode_step = recording(0)
     try:
-        again, _ = sched.run(reqs)
+        (streams, stats), wall = timed(lambda: counted(
+            "stream", lambda: sched.run(reqs)))
+        scheduler.decode_step = recording(1)
+        (again, _), again_wall = timed(lambda: sched.run(reqs))
     finally:
         scheduler.decode_step = decode
+    n_tok = sum(len(t) for t in streams)
+    moe = cfg.family == "moe"
+    ref_streams, ref_wall = None, math.nan
+    if not moe:
+        (ref_streams, _), ref_wall = timed(lambda: sched.run(
+            reqs, engine="reference"))
     maps = stream_schedule(reqs, SLOTS)
-    if len(maps) != stats["decode_steps"] or len(recorded) != len(maps) \
-            or any((a != b).any() for a, b in zip(again, streams)):
-        raise SystemExit("the stream's schedule or tokens changed between "
-                         "two runs")
+    twice = len(recorded[0]) == len(recorded[1]) == len(maps) and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(*recorded)) and all(
+        np.array_equal(a, b) for a, b in zip(again, streams))
+    log(f"  stream of {len(reqs)} requests (prompt, gen) {shapes} over "
+        f"{SLOTS} slots: {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
+        f"tok/s; again {again_wall:.3f}s), {stats['decode_steps']} decode "
+        f"steps, slot utilisation {stats['slot_utilization']:.3f}; the two "
+        f"runs' tokens and every step's logits bit-identical: {twice}"
+        + ("" if moe else f"; the requests served alone (reference loop) "
+           f"{ref_wall:.3f}s ({n_tok / ref_wall:.1f} tok/s)"))
+    if len(maps) != stats["decode_steps"] or not twice:
+        raise SystemExit(f"[{cfg.name}/stream] the schedule, tokens or "
+                         "logits changed between two runs")
+    recorded = recorded[1]
+    if moe:
+        log("  (MoE: the slots' rows contend for expert capacity, so no "
+            "request is held to itself served alone)")
+        return {"wall_s": wall, "again_wall_s": again_wall,
+                "tokens": n_tok, "decode_steps": stats["decode_steps"],
+                "slot_utilization": stats["slot_utilization"],
+                "two_runs_bit_identical": twice,
+                "bit_identical_to_solo": None}, stats["decode_steps"], (
+                    reqs, streams, recorded)
 
     @torch.inference_mode()
     def solo_run(r, toks):
@@ -2480,9 +2538,11 @@ def stream_phase(torch, cfg, params, timed, counted, prompt=PROMPT):
         f"({'bit-identical' if not bad else 'NOT identical'})")
     if bad:
         raise SystemExit(f"[{cfg.name}/stream] " + "; ".join(bad))
-    return {"wall_s": wall, "reference_wall_s": ref_wall, "tokens": n_tok,
+    return {"wall_s": wall, "again_wall_s": again_wall,
+            "reference_wall_s": ref_wall, "tokens": n_tok,
             "decode_steps": stats["decode_steps"],
             "slot_utilization": stats["slot_utilization"],
+            "two_runs_bit_identical": twice,
             "bit_identical_to_solo": True,
             "max_logit_diff": worst}, stats["decode_steps"], (
                 reqs, streams, recorded)
@@ -2672,7 +2732,7 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
     """One model at full width: random bf16 weights from seed 0, both
     ServeEngine loops (bit-identical logits), one decode step's kernels,
     for a PIPELINED model the planner (or ``cuts``) and the raw and int8
-    pipelines with a stage kill, and the stream (not for the MoE family);
+    pipelines with a stage kill, and the stream (``stream_phase``);
     prompts of ``prompt`` tokens.  Each counted run logs its peak device
     memory.  Returns ({run: launches}, the stream's numbers, {timings})."""
     from repro_torch import kernels
@@ -2776,16 +2836,8 @@ def main_path(torch, tmp, cfg, pipelined, prompt=PROMPT, cuts=None):
         extra["cross_prefill_ms"] = cross_prefill_ms(torch, cfg, params,
                                                      batch, prompt)
 
-    mono_stream = None
-    if cfg.family == "moe":
-        stream = None
-        log("  no stream: SlotScheduler refuses the MoE family (expert "
-            "capacity couples the rows of a batch, so a request's routing "
-            "depends on the other slots' rows; the reference pins no MoE "
-            "stream)")
-    else:
-        stream, steps["stream"], mono_stream = stream_phase(
-            torch, cfg, params, timed, counted, prompt)
+    stream, steps["stream"], mono_stream = stream_phase(
+        torch, cfg, params, timed, counted, prompt)
     n_stages = 1
     runs = {}                 # run -> (prefills, decode steps, aborted)
     if pipelined:
@@ -2912,7 +2964,10 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
 
     if cuts:
         cluster = None
-        ep_raw, ep_int8 = (from_block_cuts(cfg, cuts, spare_nodes=(8, 9),
+        # a spare a restore: the kill run, and the MoE stream's kill run
+        # twice, on each wire
+        ep_raw, ep_int8 = (from_block_cuts(cfg, cuts,
+                                           spare_nodes=(8, 9, 10, 11),
                                            wire_bits=bits)
                            for bits in (0, 8))
         log(f"  cut at blocks {cuts} (group-aligned: stage granularity "
@@ -3003,15 +3058,19 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         faults["raw_seconds"] = time.perf_counter() - t_faults
     piped = {}
     overlap = cfg.name in OVERLAP_ARCHS
+    # the streams with a kill and on the int8 wire: granite's and mamba2's,
+    # and the MoE pipeline's (its rows coupled by expert capacity)
+    more = overlap or cfg.family == "moe"
     t_new = time.perf_counter()
     if mono_stream is not None:
         piped["stream_raw"] = pipelined_stream(
             torch, raw, mono_stream, "pipeline_stream_raw", timed, counted,
             runs)
-    if overlap:
+    if more:
         piped["stream_raw_kill"] = pipelined_stream(
             torch, raw, mono_stream, "pipeline_stream_raw_kill", timed,
             counted, runs, kill=STREAM_KILL)
+    if overlap:
         piped["overlap_raw"] = overlap_runs(
             torch, tmp, cfg, params, batch, raw, ep_raw, cluster, timed,
             counted, runs)
@@ -3056,13 +3115,15 @@ def pipeline_runs(torch, tmp, cfg, params, batch, toks_mono, timed,
         faults["int8_cost"] = transport_cost(torch, i8, batch, timed)
     faults["int8_seconds"] = time.perf_counter() - t_wire
     t_new = time.perf_counter()
-    if overlap:
+    if more:
         calm = piped["stream_int8"] = pipelined_stream(
             torch, i8, mono_stream, "pipeline_stream_int8", timed, counted,
             runs)
         piped["stream_int8_kill"] = pipelined_stream(
             torch, i8, mono_stream, "pipeline_stream_int8_kill", timed,
-            counted, runs, kill=STREAM_KILL, want=calm.pop("streams"))
+            counted, runs, kill=STREAM_KILL,
+            want=None if cfg.family == "moe" else calm.pop("streams"))
+    if overlap:
         piped["overlap_int8"] = overlap_runs(
             torch, tmp, cfg, params, batch, i8, ep_int8, cluster, timed,
             counted, runs)
@@ -3091,34 +3152,50 @@ def pipelined_stream(torch, eng, mono, path, timed, counted, runs, kill=None,
     stream's); on the raw wire each batched decode step's logits, in the
     rows of the active slots, bit-identical to the monolithic stream's
     step, also after a kill replays the in-flight requests into their
-    slots (the card's decode kernels are row-invariant).  ``runs`` gains
-    the run's prefills (one an admission, one a replayed request) and
-    decode steps (the batched ones and the replays').  Returns its
+    slots (the card's decode kernels are row-invariant).  A MoE model's
+    replay serves each in-flight request alone, as the reference's does,
+    and its rows contend for expert capacity, so its stream with a kill is
+    held to nothing but itself: every MoE stream runs twice, its tokens
+    and every step's logits bit-identical between the runs.  ``runs``
+    gains the run's prefills (one an admission, one a replayed request)
+    and decode steps (the batched ones and the replays').  Returns its
     numbers, and its streams under ``"streams"``."""
     import numpy as np
     from repro_torch.serve.scheduler import SlotScheduler
     reqs, mono_streams, mono_logits = mono
-    if want is None and not eng.wire_bits:
+    moe = eng.cfg.family == "moe"
+    coupled = moe and kill is not None      # held to its second run only
+    if want is None and not eng.wire_bits and not coupled:
         want = mono_streams
-    recorded, replays = [], []
+    recorded, replays = [[], []], [[], []]
     step, recover = eng.bank_step, eng.recover_and_replay
+    run = [0]
 
     def stepped(*args):
         out = step(*args)
-        recorded.append(out[1][:, 0])
+        recorded[run[0]].append(out[1][:, 0])
         return out
 
     def recovered(inflight, caches, slot_tokens):
-        replays.append([n for _, _, n in inflight])
+        replays[run[0]].append([n for _, _, n in inflight])
         return recover(inflight, caches, slot_tokens)
 
     eng.bank_step, eng.recover_and_replay = stepped, recovered
     since = len(eng.events)
+    twice = None
     try:
         (streams, stats), secs = timed(lambda: counted(
             path, lambda: SlotScheduler(eng, SLOTS).run(reqs, kill=kill)))
+        if moe:
+            run[0] = 1
+            again, _ = SlotScheduler(eng, SLOTS).run(reqs, kill=kill)
+            twice = len(recorded[0]) == len(recorded[1]) and all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(*recorded)) and all(
+                np.array_equal(a, b) for a, b in zip(again, streams))
     finally:
         del eng.bank_step, eng.recover_and_replay
+    recorded, replays = recorded[0], replays[0]
     runs[path] = (len(reqs) + sum(map(len, replays)),
                   stats["decode_steps"] + sum(n - 1 for r in replays
                                               for n in r), 0)
@@ -3128,7 +3205,7 @@ def pipelined_stream(torch, eng, mono, path, timed, counted, runs, kill=None,
     same = want is None or all(np.array_equal(a, b)
                                for a, b in zip(streams, want))
     bits = None
-    if not eng.wire_bits:
+    if not eng.wire_bits and not coupled:
         bits = len(recorded) == len(mono_logits) == len(maps) and all(
             torch.equal(a[list(m)].view(torch.int32),
                         b[list(m)].view(torch.int32))
@@ -3143,13 +3220,16 @@ def pipelined_stream(torch, eng, mono, path, timed, counted, runs, kill=None,
            f"'s: {same};")
         + f" share of tokens equal to the monolithic stream's {agree:.3f}"
         + ("" if bits is None else f"; every step's logits bit-identical "
-                                   f"to the monolithic stream's: {bits}"))
+                                   f"to the monolithic stream's: {bits}")
+        + ("" if twice is None else f"; a second run's tokens and every "
+                                    f"step's logits bit-identical: {twice}"))
     for m in msgs:
         log(f"    {m}")
-    if not same or bits is False or (kill and not replays):
+    if not same or bits is False or twice is False or (kill and not replays):
         raise SystemExit(f"[{path}] the pipelined stream failed")
     return {"seconds": secs, "decode_steps": stats["decode_steps"],
             "replayed": replays, "logits_bit_identical": bits,
+            "two_runs_bit_identical": twice,
             "tokens_equal": None if want is None else same,
             "share_equal_to_monolithic": agree, "streams": streams}
 
@@ -3989,6 +4069,15 @@ RESTART_DEPTH = 4                   # the crash and restart's model
 # and 45 GB of them; 81 layers, about 82 GB, do not fit the card)
 SSM_TRAIN = {"mamba2-1.3b": None, "zamba2-7b": 42}
 PROFILE_ARCH = "mamba2-1.3b"        # launch/train.py --profile's model
+# the cross-attention families, through make_train_step with a side input:
+# whisper-large-v3 at full depth (32 + 32 layers, about 2 G params, 24 GB
+# with float32 AdamW states), llama-3.2-vision-90b at one group of its 20
+# (5 layers, about 6.4 G params with the embedding and head, 51 GB with
+# bf16 states; two groups, about 86 GB, do not fit the card); None: full
+# depth.  The 2-layer step against the CPU's is whisper's only (the VLM's
+# smallest depth is a group, whose CPU step at full width is too large)
+XATTN_TRAIN = {"llama-3.2-vision-90b": 5, "whisper-large-v3": None}
+XATTN_CHECK = ("whisper-large-v3",)
 
 
 def _by_path(tree, pre=""):
@@ -4019,9 +4108,27 @@ def _free(torch):
         torch.cuda.empty_cache()
 
 
+def side_batch(torch, cfg, b, s, seed, device):
+    """A training batch of ``launch.steps.batch_specs``: tokens from
+    ``SyntheticTokens`` and the family's side input (frames or vision
+    embeddings, bf16) from a seeded CPU ``torch.Generator``, on
+    ``device``."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import batch_specs
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, (shape, dtype) in batch_specs(cfg, b, s).items():
+        out[name] = (torch.from_numpy(SyntheticTokens(cfg.vocab, s, b)
+                                      .batch(seed)["tokens"])
+                     if name == "tokens" else
+                     torch.randn(shape, generator=gen).to(dtype))
+    return {k: v.to(device) for k, v in out.items()}
+
+
 def train_check(torch, full):
     """One train step's loss and gradients of ``full`` at ``CHECK_DEPTH``
-    layers, bf16, batch 1 x ``CHECK_SEQ``, on the card (the kernels and
+    layers (an encoder-decoder's encoder too), bf16, batch 1 x
+    ``CHECK_SEQ`` (with its frames), on the card (the kernels and
     their backwards) against the same on the CPU (the plain versions)
     from the same params: the loss within 2e-3, every gradient leaf within
     3e-2 of the CPU leaf's largest |value|, finite and not zero; the
@@ -4029,37 +4136,39 @@ def train_check(torch, full):
     block rounds differently on the card and the CPU, each run about as far
     from the float32 run as the other
     (``tests/test_torch_cuda.py::test_ssm_train_step_on_card_vs_cpu``, six
-    seeds), so a hybrid may instead be held to the CPU's float32 run: the
-    loss within max(5e-3, twice the CPU's bf16 distance) of it, and a leaf
-    over 3e-2 no further from the float32 leaf, in norm, than twice the
-    CPU's bf16 leaf is.  Returns (record, launches)."""
+    seeds), and the encoder-decoder's bf16 loss on the CPU is the further
+    one (``test_whisper_train_step_on_card_vs_cpu``, four seeds), so these
+    may instead be held to the CPU's float32 run: the loss within max(5e-3,
+    twice the CPU's bf16 distance) of it, and a leaf over 3e-2 no further
+    from the float32 leaf, in norm, than twice the CPU's bf16 leaf is.
+    Returns (record, launches)."""
     from repro_torch import kernels
     from repro_torch._tree import tree_map
-    from repro_torch.data import SyntheticTokens
     from repro_torch.launch.steps import loss_and_grads, train_launches
     from repro_torch.models import init_params
     cfg = full.replace(n_layers=CHECK_DEPTH)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_enc_layers=CHECK_DEPTH)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     card = init_params(cfg, gen, device=DEVICE)
     host = tree_map(lambda t: t.cpu(), card)
-    toks = torch.from_numpy(
-        SyntheticTokens(cfg.vocab, CHECK_SEQ, 1).batch(0)["tokens"])
+    batch = side_batch(torch, cfg, 1, CHECK_SEQ, 0, "cpu")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    m_card, g_card = loss_and_grads(cfg, card, {"tokens": toks.to(DEVICE)})
+    m_card, g_card = loss_and_grads(
+        cfg, card, {k: v.to(DEVICE) for k, v in batch.items()})
     _sync(torch)
     card_s = time.perf_counter() - t0
     got = kernels.launch_counts()
     t0 = time.perf_counter()
-    m_host, g_host = loss_and_grads(cfg, host, {"tokens": toks})
+    m_host, g_host = loss_and_grads(cfg, host, batch)
     host_s = time.perf_counter() - t0
     loss_c, loss_h = float(m_card["loss"]), float(m_host["loss"])
     exact = loss_x = None
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "encdec"):
         m_x, g_x = loss_and_grads(cfg.replace(param_dtype="float32"),
-                                  tree_map(lambda t: t.float(), host),
-                                  {"tokens": toks})
+                                  tree_map(lambda t: t.float(), host), batch)
         loss_x, exact = float(m_x["loss"]), _by_path(g_x)
         del g_x
     leaves, bad = {}, []
@@ -4084,8 +4193,11 @@ def train_check(torch, full):
            "worst_leaf": max(leaves.values()), "card_s": card_s,
            "cpu_s": host_s, "launches": got, "launches_exact": got == want}
     worst = max(leaves, key=leaves.get)
-    log(f"  {cfg.name}: one step at full width, {CHECK_DEPTH} layers, batch "
-        f"1 x {CHECK_SEQ}: loss {loss_c:.6f} on the card, {loss_h:.6f} on "
+    log(f"  {cfg.name}: one step at full width, {CHECK_DEPTH} layers"
+        + (f" (and {cfg.n_enc_layers} encoder layers)"
+           if cfg.family == "encdec" else "")
+        + f", batch 1 x {CHECK_SEQ}: loss {loss_c:.6f} on the card, "
+        f"{loss_h:.6f} on "
         f"the CPU (tol {STEP_LOSS_TOL:g}"
         + ("" if loss_x is None else f", or max(5e-3, twice the CPU's "
            f"distance) from its float32 run's {loss_x:.6f}")
@@ -4164,6 +4276,87 @@ def train_full(torch, cfg, ckpt_dir):
     return rec, {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+def train_side(torch, cfg):
+    """``make_train_step`` on a cross-attention model at full width (bf16
+    params, AdamW states in the config's ``opt_state_dtype``), batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` with its side input (``side_batch``:
+    whisper's frames (B, S, D), the VLM's vision embeddings (B, 6400, D)),
+    ``TRAIN_STEPS`` steps (the launcher refuses these families: the
+    reference's feeds tokens only): finite losses, each step's launches
+    exactly ``train_launches`` (whisper's encoder through the non-causal
+    flash backward: ``noncausal_launches``); step ms (the median of steps
+    2-4, a host clock around a step ending in a synchronise), tokens/s and
+    peak device memory.  Returns (record, the launches of all steps)."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_train_step, train_launches
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=DEVICE)
+    opt = adamw_init(params, getattr(torch, cfg.opt_state_dtype))
+    step = make_train_step(cfg)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    state_gb = sum(t.nbytes for t in _by_path(
+        {"p": params, "m": opt.m, "v": opt.v}).values()) / 1e9
+    n_par = sum(t.numel() for t in _by_path(params).values())
+    card_run = torch.device(DEVICE).type == "cuda"
+    if card_run:
+        torch.cuda.reset_peak_memory_stats()
+    steps_ms, counts, noncausal, losses = [], [], [], []
+    bwd = kernels.WRAPPERS["flash_attention_bwd"]
+    for i in range(TRAIN_STEPS):
+        batch = side_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, i, DEVICE)
+        _sync(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        _sync(torch)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(kernels.launch_counts())
+        noncausal.append(bwd.noncausal_launches)
+        losses.append(float(m["loss"]))
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if card_run
+               else math.nan)
+    want = train_launches(cfg, 1)
+    want_nc = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    step_ms = sorted(steps_ms[1:])[len(steps_ms[1:]) // 2]
+    side = [k for k in batch if k != "tokens"][0]
+    rec = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers
+           if cfg.family == "encdec" else 0,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "side_input": {side: list(batch[side].shape)},
+           "params_b": n_par / 1e9, "init_s": init_s, "state_gb": state_gb,
+           "state_dtype": cfg.opt_state_dtype, "steps_ms": steps_ms,
+           "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_gb": peak_gb, "losses": losses,
+           "launches_a_step": counts[0],
+           "noncausal_bwd_a_step": noncausal[0],
+           "launches_exact": all(c == want for c in counts)
+           and all(n == want_nc for n in noncausal)}
+    log(f"  make_train_step, {cfg.name} at full width and {cfg.n_layers} "
+        f"layers" + (f" + {cfg.n_enc_layers} encoder layers"
+                     if cfg.family == "encdec" else "")
+        + f" (remat {cfg.remat}), batch {TRAIN_BATCH} x {TRAIN_SEQ} with "
+        f"{side} {list(batch[side].shape)}: {n_par / 1e9:.3f} G params, "
+        f"params and {cfg.opt_state_dtype} AdamW states {state_gb:.2f} GB, "
+        f"made in {init_s:.2f}s; steps {[f'{x:.1f}' for x in steps_ms]} "
+        f"ms, the median of steps 2-{TRAIN_STEPS} {step_ms:.1f} ms, "
+        f"{rec['tokens_per_s']:.0f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB; losses {losses}; launches a step {counts[0]}, "
+        f"{noncausal[0]} of the backward's non-causal (each step exact: "
+        f"{rec['launches_exact']})")
+    if not (all(math.isfinite(x) for x in losses) and rec["launches_exact"]):
+        raise SystemExit(f"[train] {cfg.name}: {rec}, expected {want} and "
+                         f"{want_nc} non-causal a step")
+    del params, opt, step
+    _free(torch)
+    return rec, {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def train_profile(torch, arch, ckpt_dir):
     """``python -m repro_torch.launch.train --arch ARCH --preset full
     --seq-len TRAIN_SEQ --global-batch TRAIN_BATCH --steps 1 --profile``,
@@ -4214,7 +4407,13 @@ def train(torch):
        and zamba2-7b at full width and 42 layers, each through 1. and 2.
        (the scan's, the conv pass's and the gated norm's backward kernels,
        zamba2's shared block through the flash backward at head dim 112),
-       and ``launch/train.py --profile`` on mamba2 (``train_profile``)."""
+       and ``launch/train.py --profile`` on mamba2 (``train_profile``).
+    5. The cross-attention families (``XATTN_TRAIN``): whisper-large-v3 at
+       full width and depth and llama-3.2-vision-90b at full width and one
+       group (5 layers) through ``train_side`` (whisper's encoder through
+       the non-causal flash backward, its decoder through the causal one;
+       the cross blocks' attention plain torch), whisper also through 1.
+       at 2 encoder and 2 decoder layers."""
     from repro_torch import kernels
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
@@ -4316,6 +4515,23 @@ def train(torch):
             rec["seconds"] = time.perf_counter() - t0
             log(f"  {arch} took {rec['seconds']:.1f}s")
             out["ssm"][arch] = rec
+
+        # 5. the cross-attention families
+        out["xattn"] = {}
+        for arch, depth in XATTN_TRAIN.items():
+            t0 = time.perf_counter()
+            cfg = get_config(arch, "full")
+            if depth:
+                cfg = cfg.replace(n_layers=depth)
+            rec = {}
+            rec["full"], by_path[f"{arch}/train_full"] = train_side(torch,
+                                                                    cfg)
+            if arch in XATTN_CHECK:
+                rec["check"], by_path[f"{arch}/train_check"] = train_check(
+                    torch, cfg)
+            rec["seconds"] = time.perf_counter() - t0
+            log(f"  {arch} took {rec['seconds']:.1f}s")
+            out["xattn"][arch] = rec
     out["launches_by_path"] = by_path
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  training took {out['seconds']:.1f}s")
@@ -4335,8 +4551,9 @@ def _wire_times(torch, gen):
 
 
 def _flash_bwd_times(torch, gen):
-    return {"x".join(map(str, case)): bwd_times(
-        torch, *flash_bwd_inputs(torch, gen, *case)) for case in BWD_TIMED}
+    return {"x".join(map(str, case[:5])) + ("" if case[5] else "-noncausal"):
+            bwd_times(torch, *flash_bwd_inputs(torch, gen, *case),
+                      causal=case[5]) for case in BWD_TIMED}
 
 
 def _ssd_bwd_times(torch, gen):
@@ -4483,6 +4700,11 @@ def main(argv=None) -> int:
                          sum(by_path[f"{a}/pipeline_int8_kill"][r["name"]]
                              for a in PIPELINED))
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        if "non_causal" in r:   # the flash backward's: whisper's encoder
+            enc = evaluation["train"]["xattn"]["whisper-large-v3"]["full"]
+            r["non_causal"]["launches"] = (enc["noncausal_bwd_a_step"]
+                                           * TRAIN_STEPS)
+            r["non_causal"]["main_path"] = "whisper-large-v3/train_full"
     ends = [t for _, t in starts[1:]] + [time.perf_counter()]
     log(f"== done in {ends[-1] - t_start:.1f}s; seconds by phase: "
         + ", ".join(f"{n} {e - t:.1f}" for (n, t), e in zip(starts, ends)))
@@ -4495,7 +4717,7 @@ def main(argv=None) -> int:
             "issue_bound_ms", "sass_per_element",   # silu's
 
             "scaled_err", "per_element_err",   # the flash backward's
-            "per_pass_ms", "hd128", "hd112",
+            "per_pass_ms", "hd128", "hd112", "non_causal",
             "zamba2",                          # the SSM backwards'
 
             "forward_ms", "forward_with_lse_ms", "registers",

@@ -2,8 +2,10 @@
 
 ``csrc/`` holds the CUDA sources; ``_build`` compiles them at first use.
 Each wrapper counts its launches; :func:`launch_counts` reads them all and
-:func:`reset_launch_counts` zeroes them (and the wire's path counts,
-``quantize.row_launches`` and ``dequantize.vec_launches``).  A CUDA graph's
+:func:`reset_launch_counts` zeroes them (and the path counts: the
+wire's ``quantize.row_launches`` and ``dequantize.vec_launches``, and the
+flash backward's non-causal launches, ``flash_attention_bwd
+.noncausal_launches``).  A CUDA graph's
 capture launches nothing and its replays call no wrapper, so the code that
 captures one takes what the capture recorded with :func:`recorded_launches`
 (which leaves every count as it was) and adds it at each replay with
@@ -39,7 +41,8 @@ def launch_counts() -> dict[str, int]:
 
 # every count: each wrapper's launches and the wire's path counts
 _COUNTS = tuple((name, "launches") for name in WRAPPERS) + (
-    ("quantize", "row_launches"), ("dequantize", "vec_launches"))
+    ("quantize", "row_launches"), ("dequantize", "vec_launches"),
+    ("flash_attention_bwd", "noncausal_launches"))
 
 
 def _counts() -> dict:

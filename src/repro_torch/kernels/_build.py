@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": ([_P] * 12 + [_I] * 5 + [_L] * 15
-                                       + [_F, _I, _P], _I),
+                                       + [_F, _I, _I, _P], _I),
         "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "quantize": {

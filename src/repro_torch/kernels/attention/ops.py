@@ -9,15 +9,17 @@ be dense and start on a 16-byte boundary; the wrapper raises otherwise.
 
 For tensors on the CPU it computes the kernel's function in plain PyTorch
 (``ref.flash_ref``); for CUDA tensors it launches the kernel or raises:
-there is no fallback.  ``flash_attention.launches`` counts kernel launches.
+there is no fallback.  ``flash_attention.launches`` counts kernel launches
+(``flash_attention_bwd.launches`` the backward's, and of them
+``noncausal_launches`` the non-causal ones).
 
 Gradients: when grad mode is on and q, k or v requires grad,
 ``flash_attention`` goes through :class:`FlashAttentionFn`, whose forward
 asks the kernel for each row's log-sum-exp as well and whose backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``; on the CPU its
 plain version ``ref.flash_bwd_ref``).  The backward kernel takes bf16 at
-head dims ``BWD_HEAD_DIMS``, causal, every key valid; on the card anything
-else raises before the forward runs.  Head dim 112 (zamba2's) runs on the
+head dims ``BWD_HEAD_DIMS``, causal or not (the encoder's blocks), every
+key valid; on the card anything else raises before the forward runs.  Head dim 112 (zamba2's) runs on the
 128 tile (``bwd_tile``): the kernel's copies fill columns 112-127 with
 zeros, which add nothing to any product, and its stores skip them.  Without grad the call takes the path
 it always took, with the same launches and bits.
@@ -84,15 +86,13 @@ def _launch(q, k, v, causal: bool, valid_len: int, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
-def _bwd_scope(q, causal: bool, valid_len: int):
-    """Raise unless the backward kernel takes this call."""
+def _bwd_scope(q, valid_len: int):
+    """Raise unless the backward kernel takes this call (causal or not)."""
     missing = []
     if q.dtype != torch.bfloat16:
         missing.append(f"dtype {q.dtype} (bf16 only)")
     if q.shape[3] not in BWD_HEAD_DIMS:
         missing.append(f"head dim {q.shape[3]} (only {BWD_HEAD_DIMS})")
-    if not causal:
-        missing.append("non-causal attention")
     if valid_len != q.shape[1]:
         missing.append(f"valid_len {valid_len} < S {q.shape[1]}")
     if missing:
@@ -109,34 +109,40 @@ def bwd_tile(hd: int) -> int:
     return 128 if hd == 112 else hd
 
 
-def bwd_plan(s: int, h: int, kv: int, hd: int) -> tuple[int, int, int, int]:
-    """The dk/dv pass's grid: ``(bq, heads, chunks, pairs)``.  A block
-    owns one of ``pairs`` pairs of ``BWD_KEYS``-key tiles (i and n - 1 - i,
-    so every pair walks n + 1 query tiles a head) and ``heads`` of a kv
-    head's q heads, the largest divisor of the group up to ``BWD_HEADS``;
-    the group's ``chunks`` of heads add their float32 partials in chunk
-    order.  Query tiles are ``bq`` rows: 64 at hd 64, 32 on the 128 tile
-    (hd 112 and 128).  There is no batch size: every sum's order follows
-    from S, the group and hd alone."""
+def bwd_plan(s: int, h: int, kv: int, hd: int,
+             causal: bool = True) -> tuple[int, int, int, int]:
+    """The dk/dv pass's grid: ``(bq, heads, chunks, units)``.  A block
+    owns one of ``units`` units of ``BWD_KEYS``-key tiles and ``heads`` of
+    a kv head's q heads, the largest divisor of the group up to
+    ``BWD_HEADS``; the group's ``chunks`` of heads add their float32
+    partials in chunk order.  Causal, a unit is a pair of key tiles (i and
+    n - 1 - i, so every pair walks n + 1 query tiles a head); non-causal,
+    every key tile walks every query tile, so a unit is one tile.  Query
+    tiles are ``bq`` rows: 64 at hd 64, 32 on the 128 tile (hd 112 and
+    128).  There is no batch size: every sum's order follows from S, the
+    group, hd and the mask alone."""
     hd = bwd_tile(hd)
     group = h // kv
     heads = max(d for d in range(1, BWD_HEADS + 1) if group % d == 0)
     n = -(-s // BWD_KEYS)
-    return 64 if hd == 64 else 32, heads, group // heads, -(-n // 2)
+    return (64 if hd == 64 else 32, heads, group // heads,
+            -(-n // 2) if causal else n)
 
 
-def bwd_blocks(b: int, s: int, h: int, kv: int, hd: int):
+def bwd_blocks(b: int, s: int, h: int, kv: int, hd: int,
+               causal: bool = True):
     """The dk/dv blocks in launch order, as the kernel derives them from
     its block index: ``(batch, kv head, key tiles, q heads)``, a block's
     key tiles in the order it walks them."""
-    _, heads, chunks, pairs = bwd_plan(s, h, kv, hd)
+    _, heads, chunks, units = bwd_plan(s, h, kv, hd, causal)
     n = -(-s // BWD_KEYS)
     group = h // kv
     out = []
     for bi in range(b):
         for kvh in range(kv):
-            for p in range(pairs):
-                tiles = (p,) if p == n - 1 - p else (p, n - 1 - p)
+            for p in range(units):
+                tiles = (p,) if p == n - 1 - p or not causal \
+                    else (p, n - 1 - p)
                 for c in range(chunks):
                     h0 = kvh * group + c * heads
                     out.append((bi, kvh, tiles, tuple(range(h0, h0 + heads))))
@@ -152,8 +158,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     head's q heads; keys at or past ``valid_len`` (default S) masked as in
     the forward.  On the CPU the plain version (``ref.flash_bwd_ref``); on
     the card the kernel (two launches, dq with delta and then dk/dv; one
-    count), or a raise: the kernel takes bf16 causal calls with every key
-    valid at head dims ``BWD_HEAD_DIMS``."""
+    count), or a raise: the kernel takes bf16 calls, causal or not, with
+    every key valid at head dims ``BWD_HEAD_DIMS``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -176,7 +182,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _bwd_scope(q, causal, valid_len)
+    _bwd_scope(q, valid_len)
     if any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError("flash_attention_bwd: q, k, v, o and do must share "
                         "one dtype")
@@ -186,13 +192,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     strides = _strides("flash_attention_bwd", q, k, v, o, do)
     if lse.device != q.device:
         raise ValueError("flash_attention_bwd: inputs on different devices")
-    _, heads, chunks, pairs = bwd_plan(s, h, kv, hd)
+    _, heads, chunks, units = bwd_plan(s, h, kv, hd, causal)
     s64 = -(-s // BWD_KEYS) * BWD_KEYS
     # (lse log2 e, delta) a row, written by the dq pass for the dk/dv pass
     stats = torch.empty((b, h, s64, 2), dtype=torch.float32, device=q.device)
     part = ctr = None
     if chunks > 1:
-        tiles = b * kv * pairs * 2
+        tiles = b * kv * units * 2
         part = torch.empty((tiles, chunks, 2 * BWD_KEYS * bwd_tile(hd)),
                            dtype=torch.float32, device=q.device)
         ctr = _counters(q.device, tiles)
@@ -207,10 +213,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
             None if part is None else part.data_ptr(),
             None if ctr is None else ctr.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, s, h, kv, hd, *strides,
-            1.0 / math.sqrt(hd), heads,
+            1.0 / math.sqrt(hd), heads, int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention_bwd", "flash_attention_bwd_launch", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.noncausal_launches += not causal
     return dq, dk, dv
 
 
@@ -258,7 +265,7 @@ def flash_attention(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if wants_grad(q, k, v):
         if q.device.type == "cuda":
-            _bwd_scope(q, causal, valid_len)
+            _bwd_scope(q, valid_len)
         return FlashAttentionFn.apply(q, k, v, causal, valid_len)
     if q.device.type == "cpu":
         return flash_ref(q, k, v, causal, valid_len)
@@ -267,3 +274,4 @@ def flash_attention(q, k, v, causal: bool = True,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.noncausal_launches = 0

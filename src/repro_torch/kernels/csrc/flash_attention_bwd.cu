@@ -1,4 +1,4 @@
-// Backward of causal flash attention (GQA) for Hopper (sm_90a).
+// Backward of flash attention (GQA), causal or not, for Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the reference's TPU flash kernel has no
 // backward.  It is the counterpart of the reference's flash-style custom
@@ -11,7 +11,8 @@
 // layout, read in place through their batch, row and head strides (each
 // row of hd elements dense and on a 16-byte boundary; the wrapper checks),
 // lse (B, H, S) float32 from the forward (natural log).  q head h reads kv
-// head h / group.  Causal, every key below S valid.  Returns dq (B, S, H,
+// head h / group.  Causal or not (whisper's encoder), every key below S
+// valid.  Returns dq (B, S, H,
 // hd) and dk, dv (B, S, KV, hd), contiguous, in bf16; dk and dv are summed
 // over the group's q heads.  Arithmetic as `_blocked_bwd_rule`:
 //   delta = rowsum(do * o)                     (float32)
@@ -79,6 +80,17 @@
 //      leave float32 partials in a workspace and the last block of a tile
 //      to finish (a ticket, as rows_matmul's K-slices use) adds them in
 //      chunk order.
+// Non-causal (the encoder's blocks): a dq block walks every key tile and
+// a dk/dv block every query tile, so the work of a key tile no longer
+// depends on where it lies and a dk/dv block owns one key tile (a "unit";
+// causal, a unit is the pair).  Where S is ragged (1500 frames), TMA fills
+// the last key tile past S with zeros, whose scores are 0, not -inf: P =
+// 2^(0 - lse) is not 0 there.  dq would add dS times those zero keys
+// (nothing, but only as long as dS stays finite), so the dq pass masks
+// keys at or past S explicitly, as the causal diagonal hides them from
+// every valid query; the dk/dv pass computes rows for those keys and never
+// stores them.  Query rows past S are zero in q, do, o and the scratch:
+// their dS and do are 0, so they add nothing to dk or dv in either mode.
 // Every sum has one owner and a fixed order: no float32 `atomicAdd`, so
 // two runs give the same bits, and the plan (kernels/attention/ops.py
 // ::bwd_plan) takes no batch size, so neither does any sum's order.
@@ -94,7 +106,8 @@
 // 48-column box, which the 128-byte swizzle that wgmma reads does not take
 // (its rows are 64 bf16), so the pad is the simple choice, as in the
 // forward (flash_attention.cu, the bf16 path at 112).
-// Scope: bf16, hd 64, 112 and 128; the wrapper raises on anything else.
+// Scope: bf16, hd 64, 112 and 128, causal or not, every key valid; the
+// wrapper raises on anything else.
 
 #include <cuda.h>           // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
@@ -128,7 +141,9 @@ struct Args {
   bf16* dk;                     // contiguous (b, s, kv, hd)
   bf16* dv;
   int hd;                       // the rows' head dim: HD, or 112 on 128
-  int b, s, h, kv, group, heads, chunks, pairs, s64;
+  int b, s, h, kv, group, heads, chunks;
+  int units;                    // dk/dv units a (batch, kv head): ops.bwd_plan
+  int s64, causal;
   float scale;
 };
 
@@ -423,7 +438,8 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Args a) {
   const int q0 = (nqt - 1 - (int)(blockIdx.x / bh)) * kTq;
   const int bi = (blockIdx.x % bh) / a.h, hi = (blockIdx.x % bh) % a.h;
   const int kvh = hi / a.group;
-  const int n_tiles = (min(q0 + kTq, a.s) + kTk - 1) / kTk;
+  const int n_tiles =
+      ((a.causal ? min(q0 + kTq, a.s) : a.s) + kTk - 1) / kTk;
   const int tid = threadIdx.x;
   // key tile j into its stage; thread 0 issues every copy
   auto issue = [&](int j) {
@@ -521,16 +537,19 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Args a) {
     fence_regs<kTk / 2>(sc);
     fence_regs<kTk / 2>(dp);
 
-    // P and dS; only the diagonal tile has keys after a query
+    // P and dS; causal, only the diagonal tile has keys after a query;
+    // non-causal, only a ragged last tile has keys past S
     const int k0 = j * kTk;
-    const bool edge = k0 == q0;
+    const bool edge = a.causal && k0 == q0;
+    const bool ragged = !a.causal && k0 + kTk > a.s;
 #pragma unroll
     for (int n = 0; n < kTk / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hi8 = e >> 1;
+        const int key = k0 + n * 8 + 2 * tq + (e & 1);
         float x = sc[4 * n + e] * sl2 - (hi8 ? lse1 : lse0);
-        if (edge && k0 + n * 8 + 2 * tq + (e & 1) > q0 + r0 + hi8 * 8)
+        if ((edge && key > q0 + r0 + hi8 * 8) || (ragged && key >= a.s))
           x = -INFINITY;
         const float p = ex2(x);
         dp[4 * n + e] = p * (dp[4 * n + e] - (hi8 ? del1 : del0)) * a.scale;
@@ -570,7 +589,8 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// 2. dk, dv: one block a (batch, kv head, pair of key tiles, head chunk)
+// 2. dk, dv: one block a (batch, kv head, unit of key tiles, head chunk):
+//    causal, a unit is the pair i and n - 1 - i; non-causal, one tile
 // ---------------------------------------------------------------------------
 
 template <int HD, int BQ>
@@ -686,23 +706,24 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Args a) {
   int* const last = reinterpret_cast<int*>(kvfull + 2);
 
   const int chunk = blockIdx.x % a.chunks;
-  const int unit = blockIdx.x / a.chunks;        // (batch, kv head, pair)
-  const int pair = unit % a.pairs;
-  const int bi = unit / a.pairs / a.kv, kvh = unit / a.pairs % a.kv;
+  const int unit = blockIdx.x / a.chunks;        // (batch, kv head, unit)
+  const int pair = unit % a.units;
+  const int bi = unit / a.units / a.kv, kvh = unit / a.units % a.kv;
   const int n_kt = (a.s + kTk - 1) / kTk;
   const int n_qt = (a.s + BQ - 1) / BQ;
-  const int tiles = pair == n_kt - 1 - pair ? 1 : 2;
+  const int tiles = a.causal && pair != n_kt - 1 - pair ? 2 : 1;
   const int h0 = kvh * a.group + chunk * a.heads;
   const int tid = threadIdx.x;
+  // the first query tile a key tile reads: its diagonal's, or the first
+  auto q_first = [&](int kt) { return a.causal ? kt * kTk / BQ : 0; };
   // the steps: tile 0's (head, query tile) pairs, then tile 1's
-  const int first = a.heads * (n_qt - pair * kTk / BQ);
+  const int first = a.heads * (n_qt - q_first(pair));
   const int steps =
-      first + (tiles > 1 ? a.heads * (n_qt - (n_kt - 1 - pair) * kTk / BQ)
-                         : 0);
+      first + (tiles > 1 ? a.heads * (n_qt - q_first(n_kt - 1 - pair)) : 0);
   // step it's q, do and (lse, delta) tiles into stage it % ST
   auto issue = [&](int it) {
     const int tt = it >= first, rest = tt ? it - first : it;
-    const int j0 = (tt ? n_kt - 1 - pair : pair) * kTk / BQ;
+    const int j0 = q_first(tt ? n_kt - 1 - pair : pair);
     const int hh = rest / (n_qt - j0), j = j0 + rest % (n_qt - j0);
     const int slot = it % L::ST;
     mbar_expect(full + slot, 2 * L::QT * 2 + 2 * BQ * 4);
@@ -748,7 +769,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Args a) {
   int it = 0;
   for (int tt = 0; tt < tiles; ++tt) {
     const int kt = tt ? n_kt - 1 - pair : pair;
-    const int k0 = kt * kTk, j0 = k0 / BQ;
+    const int k0 = kt * kTk, j0 = q_first(kt);
     const bf16* sk = skv + 2 * tt * L::KT;
     const bf16* sv = sk + L::KT;
     const int krow = k0 + warp * 16 + g;          // this thread's keys: +0, +8
@@ -787,11 +808,11 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Args a) {
         fence_frags<BQ / 16>(da);
         if (pending >= 0) refill();
 
-        // P^T = 2^(scale log2e s - lse log2e), masked above the diagonal;
-        // dS^T = P^T (dP^T - delta) scale.  Query rows past S hold zeros in
-        // q, do and the scratch: their P is 1 and their dS and do are 0, so
-        // they add nothing.
-        const bool edge = q0 < k0 + kTk;
+        // P^T = 2^(scale log2e s - lse log2e), masked above the diagonal
+        // when causal; dS^T = P^T (dP^T - delta) scale.  Query rows past S
+        // hold zeros in q, do and the scratch: their P is 1 and their dS
+        // and do are 0, so they add nothing.
+        const bool edge = a.causal && q0 < k0 + kTk;
 #pragma unroll
         for (int n = 0; n < BQ / 8; ++n) {
           const float4 sd = *reinterpret_cast<const float4*>(
@@ -925,7 +946,7 @@ int allow_smem() {
 template <int HD, int BQ>
 int run_all(const Maps& mq, const Maps& m, const Args& a, cudaStream_t st) {
   const long long dq_blocks = (long long)(a.s64 / kTq) * a.b * a.h;
-  const long long dkdv_blocks = (long long)a.b * a.kv * a.pairs * a.chunks;
+  const long long dkdv_blocks = (long long)a.b * a.kv * a.units * a.chunks;
   if (dq_blocks > 0x7fffffffLL || dkdv_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   flash_bwd_dq_kernel<HD><<<(unsigned)dq_blocks, 128,
@@ -939,14 +960,14 @@ int run_all(const Maps& mq, const Maps& m, const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// bf16 only; hd 64, 112 (on the 128 tile) or 128; causal with every key
-// valid.  Strides are in
+// bf16 only; hd 64, 112 (on the 128 tile) or 128; causal or not, with
+// every key valid.  Strides are in
 // elements; lse is a contiguous float32 (b, h, s) tensor; stats float32
 // scratch (b, h, s64, 2) with s64 = s rounded up to 64; dq, dk, dv
 // contiguous.  heads: q heads a dk/dv block (ops.py::bwd_plan), a divisor
-// of the group; with fewer than the group, part holds (b kv pairs 2,
-// group / heads, 128 hd) float32 and counters one zero int a (b kv pairs
-// 2).
+// of the group; with fewer than the group, part holds (b kv units 2,
+// group / heads, 128 hd) float32 and counters one zero int a (b kv units
+// 2), units (n + 1) / 2 causal and n not, n the 64-key tiles.
 // Returns cudaGetLastError() after the last launch (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -956,7 +977,7 @@ extern "C" int flash_attention_bwd_launch(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long d_sb, long long d_ss, long long d_sh, float scale, int heads,
-    void* stream) {
+    int causal, void* stream) {
   if (b <= 0 || s <= 0 || h <= 0) return 0;
   if (kv <= 0 || h % kv != 0 || heads <= 0 || (h / kv) % heads != 0 ||
       (hd != 64 && hd != 112 && hd != 128))
@@ -999,7 +1020,7 @@ extern "C" int flash_attention_bwd_launch(
   const Args a{lse, stats, part, counters,
                static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                static_cast<bf16*>(dv), hd, b, s, h, kv, group, heads, chunks,
-               (n_kt + 1) / 2, s64, scale};
+               causal ? (n_kt + 1) / 2 : n_kt, s64, causal != 0, scale};
   cudaStream_t st = (cudaStream_t)stream;
   return hd == 64 ? run_all<64, 64>(mq, m, a, st)
                   : run_all<128, 32>(mq, m, a, st);

@@ -30,9 +30,9 @@ and the kernels that took the most device time, and
 ``--layers``, which cuts the depth (llama3-405b's 126 layers are about 810
 GB in bf16; ``chip_smoke.py`` serves 4 of them, 2 of deepseek-v3-671b's 61
 and of llama4-maverick-400b-a17b's 48).  A MoE model's cut depth and
-``--cuts`` fall on its groups (llama4: an even count); the MoE family has
-no ``--stream`` (``SlotScheduler`` refuses it: expert capacity couples the
-rows of a batch).
+``--cuts`` fall on its groups (llama4: an even count); its ``--stream``
+couples the slots' rows through expert capacity, as the reference's does
+(``serve/scheduler.py``).
 
 Timing: the first generate is a warm-up (it builds the kernels on first
 use, and captures the fused chain's graphs) and is reported separately;
@@ -136,9 +136,6 @@ def main(argv=None):
     cfg = get_config(args.arch, args.preset)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    if args.stream and cfg.family == "moe":
-        from repro_torch.serve.scheduler import MOE_REFUSAL
-        ap.error(MOE_REFUSAL)
     rng = torch.Generator(device=device)
     rng.manual_seed(0)
     params = init_params(cfg, rng, device=device)

@@ -1,10 +1,12 @@
-"""The train step: ``make_train_step(cfg, grad_compress_bits=0)``, and
+"""The train step: ``make_train_step(cfg, grad_compress_bits=0)``,
+``batch_specs``, the names, shapes and dtypes of a training batch, and
 ``train_launches``, the kernel launches a step makes on the card.
 
-Counterpart of ``repro/launch/steps.py::make_train_step``.  The prefill
-and decode steps live in ``serve/engine.py``; the reference's
-``input_specs`` and other shape-only helpers belong to its compile-only
-dry-run, which the port has not taken up.
+Counterpart of ``repro/launch/steps.py::make_train_step`` and
+``batch_specs``.  The prefill and decode steps live in
+``serve/engine.py``; the reference's ``input_specs`` and other shape-only
+helpers belong to its compile-only dry-run, which the port has not taken
+up.
 """
 
 from __future__ import annotations
@@ -60,6 +62,19 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
             tree_map(lambda _: next(grads), params))
 
 
+def batch_specs(cfg: ModelConfig, b: int, s: int) -> dict:
+    """A training batch of ``b`` rows of ``s`` tokens, as the reference's
+    ``batch_specs``: ``{name: (shape, dtype)}``, ``tokens`` int32 and, by
+    family, the VLM's ``vision`` (b, vision_tokens, D) or the
+    encoder-decoder's ``frames`` (b, s, D), bf16."""
+    out = {"tokens": ((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        out["vision"] = ((b, cfg.vision_tokens, cfg.d_model), torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = ((b, s, cfg.d_model), torch.bfloat16)
+    return out
+
+
 def train_launches(cfg: ModelConfig, steps: int = 1) -> dict[str, int]:
     """The launches of ``steps`` train steps on the card, by wrapper
     (``kernels.WRAPPERS``; ``kernels.launch_counts`` reads them).  A dense
@@ -68,18 +83,33 @@ def train_launches(cfg: ModelConfig, steps: int = 1) -> dict[str, int]:
     ``cfg.remat``, and the flash backward once.  A mamba block: the scan,
     the conv pass, the gated norm and ``rms_norm_rows`` (pre_norm) as
     often, their three backward kernels once; the hybrid's shared block at
-    each of its call sites as a dense block.  The final norm once (outside
-    the blocks).  The dense norms' backwards are plain, and nothing else
-    launches."""
-    n, again = cfg.n_layers, 2 if cfg.remat else 1
+    each of its call sites as a dense block.  The VLM's self blocks as
+    dense blocks, its cross blocks ``rms_norm_rows`` (lnq) and
+    ``residual_rms_norm_rows`` (lnf) as often (their attention is plain
+    torch: no kernel); the encoder-decoder's encoder blocks as dense
+    blocks run once (no remat; the flash forward and backward non-causal)
+    and its ``enc_norm``, its decoder blocks as dense blocks with one more
+    ``residual_rms_norm_rows`` (ln2 after the plain cross-attention).  The
+    final norm once (outside the blocks).  The dense norms' backwards are
+    plain, and nothing else launches."""
+    n, again, fam = cfg.n_layers, 2 if cfg.remat else 1, cfg.family
     want = dict.fromkeys(kernels.WRAPPERS, 0)
-    dense = n if cfg.family == "dense" else (
-        hybrid_apps(cfg, 0, n)[1] if cfg.family == "hybrid" else 0)
-    mamba = 0 if cfg.family == "dense" else n
-    want["flash_attention"] = again * dense * steps
-    want["flash_attention_bwd"] = dense * steps
-    want["residual_rms_norm_rows"] = again * dense * steps
-    want["rms_norm_rows"] = (again * (dense + mamba) + 1) * steps
+    xblocks = n // (cfg.cross_attn_every + 1) if fam == "vlm" else 0
+    # self-attention blocks (with remat), the decoder's among them
+    dense = {"dense": n, "hybrid": hybrid_apps(cfg, 0, n)[1],
+             "vlm": n - xblocks, "encdec": n}.get(fam, 0)
+    mamba = n if fam in ("ssm", "hybrid") else 0
+    enc = cfg.n_enc_layers if fam == "encdec" else 0     # without remat
+    # a cross block's norms (lnq, lnf); a decoder block's second residual
+    # norm (ln2, after its cross-attention)
+    cross_res = xblocks + (n if fam == "encdec" else 0)
+    want["flash_attention"] = (again * dense + enc) * steps
+    want["flash_attention_bwd"] = (dense + enc) * steps
+    want["residual_rms_norm_rows"] = (again * (dense + cross_res)
+                                      + enc) * steps
+    # and the encoder's enc_norm, the final norm
+    want["rms_norm_rows"] = (again * (dense + mamba + xblocks) + enc
+                             + (enc > 0) + 1) * steps
     for fwd, bwd in (("ssd", "ssd_scan_bwd"), ("conv_silu", "conv_silu_bwd"),
                      ("gated_rms_norm_rows", "gated_rms_norm_bwd")):
         want[fwd] = again * mamba * steps

@@ -6,9 +6,12 @@ cut depth (as the serve launcher's), ``--device`` (default the card; the
 launcher raises without one unless ``--device cpu``), and ``--profile``,
 which traces one more step with ``torch.profiler`` after the run and
 prints its wall, the device busy time, the kernel launches and the
-kernels that took the most device time (as the serve launcher's).  Training is ported
-for the dense family (granite-3-2b, minicpm-2b, deepseek-7b,
-llama3-405b); the other families raise.
+kernels that took the most device time (as the serve launcher's).  It
+trains the dense, SSM and hybrid families.  It refuses the VLM and the
+encoder-decoder (``SIDE_INPUT_REFUSAL``): the reference's launcher feeds
+``SyntheticTokens``, which gives tokens only, so it trains neither family
+(``loss_fn`` takes them, with the vision embeddings or the frames in the
+batch: ``launch.steps.batch_specs``); the MoE family's ``loss_fn`` raises.
 """
 
 from __future__ import annotations
@@ -21,6 +24,13 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.serve import _profile
 from repro_torch.data import SyntheticTokens
 from repro_torch.runtime import Trainer, TrainerConfig
+
+
+SIDE_INPUT_REFUSAL = (
+    "the launcher trains on SyntheticTokens, which gives tokens only, as "
+    "the reference's; the VLM's vision embeddings and the "
+    "encoder-decoder's frames have no source here (train them through "
+    "launch.steps.make_train_step with a batch of launch.steps.batch_specs)")
 
 
 def main(argv=None):
@@ -44,6 +54,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, args.preset)
+    if cfg.family in ("vlm", "encdec"):
+        ap.error(f"{cfg.name}: {SIDE_INPUT_REFUSAL}")
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
     data = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq_len,

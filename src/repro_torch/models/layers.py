@@ -168,22 +168,33 @@ def cache_offset(lens) -> int:
     return vals.pop()
 
 
-def _batched_update(cache, new, lens, offset: int):
-    """Write ``new`` (B,s,...) into ``cache`` (B,S,...) in place.
+def _batched_update(pairs, lens, offset: int):
+    """Write each ``new`` (B,s,...) of ``pairs`` into its ``cache``
+    (B,S,...), in place; ``pairs`` is ((cache, new), ...), one layer's
+    caches (k and v, or MLA's ckv and krope).
 
     Decode (s == 1) writes each row at its own length ``lens`` (on the
-    device).  A multi-token write goes at ``offset``, the rows' common
+    device); a row whose length has passed the cache (an idle slot of
+    ``SlotScheduler``, which steps on) writes nothing, as the reference's
+    scatter ``cache.at[rows, lens].set(...)`` drops an update out of
+    bounds.  A multi-token write goes at ``offset``, the rows' common
     length (``cache_offset``), as the reference's
     ``dynamic_update_slice_in_dim`` at ``lens[0]``; it must fit."""
-    s = new.shape[1]
+    s, size = pairs[0][1].shape[1], pairs[0][0].shape[1]
     if s == 1:
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, lens.long()] = new[:, 0].to(cache.dtype)
+        rows = torch.arange(lens.shape[0], device=lens.device)
+        at, inside = lens.clamp(max=size - 1), lens < size
+        for cache, new in pairs:
+            old = cache[rows, at]
+            keep = inside.view(-1, *(1,) * (old.dim() - 1))
+            cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                          old)
         return
-    if offset + s > cache.shape[1]:
+    if offset + s > size:
         raise ValueError(f"a write of {s} rows at {offset} does not fit a "
-                         f"cache of {cache.shape[1]}")
-    cache[:, offset:offset + s] = new.to(cache.dtype)
+                         f"cache of {size}")
+    for cache, new in pairs:
+        cache[:, offset:offset + s] = new.to(cache.dtype)
 
 
 def attention(params, x, cfg: ModelConfig, positions, *, causal=True,
@@ -192,12 +203,13 @@ def attention(params, x, cfg: ModelConfig, positions, *, causal=True,
     """Returns the attention output (B, S, D).
 
     cache: None, or dict(k, v, len) with k/v (B, S_max, KV, hd) and len
-    (B,); it is updated in place.  kv_bucket: the plain decode attention
-    reads rows [0, kv_bucket) of the cache only; every row's length + 1
-    must fit (the decode kernel reads each row's own length whatever the
-    bucket).  offset: for a multi-token write, the rows' common cache
-    length when the caller has read it (``cache_offset``); None reads it
-    here."""
+    (B,); it is updated in place.  kv_bucket: decode attention reads rows
+    [0, kv_bucket) of the cache only; an active row's length + 1 must fit
+    (the decode kernel reads each row's own length whatever the bucket),
+    and a longer row (an idle slot stepping on) reads the bucket's rows,
+    as the reference's slice of the cache does.  offset: for a
+    multi-token write, the rows' common cache length when the caller has
+    read it (``cache_offset``); None reads it here."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = linear(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -211,8 +223,7 @@ def attention(params, x, cfg: ModelConfig, positions, *, causal=True,
         lens = cache["len"]
         if s > 1 and offset is None:
             offset = cache_offset(lens)
-        _batched_update(cache["k"], k, lens, offset)
-        _batched_update(cache["v"], v, lens, offset)
+        _batched_update(((cache["k"], k), (cache["v"], v)), lens, offset)
         kv_len = lens + s
         if s == 1:
             kc, vc = cache["k"], cache["v"]
@@ -298,7 +309,7 @@ def init_mla(gen, cfg: ModelConfig, n_layers: int):
 
 
 def mla_attention(params, x, cfg: ModelConfig, positions, *, cache=None,
-                  offset: int | None = None):
+                  kv_bucket: int | None = None, offset: int | None = None):
     """Returns the attention output (B, S, D).
 
     cache: None, or dict(ckv, krope, len): the compressed ``c_kv`` (B,
@@ -309,12 +320,14 @@ def mla_attention(params, x, cfg: ModelConfig, positions, *, cache=None,
     the attention are plain torch over the cache's rows, as the reference
     (its ``_sdpa``): causal from ``offset`` over ``[0, offset + S)`` at a
     prefill, and at a decode step over the whole cache, masked by each
-    row's length.  There is no ``kv_bucket``: the reference slices the
-    cache to the bucket before decompressing, which changes which masked
-    zeros a plain reduction sums, so reading the whole cache in both
-    ``ServeEngine`` loops is what keeps their logits bit-identical on the
-    card.  q and k have ``qk_nope + qk_rope`` dims a head, v
-    ``v_head_dim``: ``decode_attention`` takes neither."""
+    row's length.  ``kv_bucket`` bounds that length and no more: the
+    reference slices the cache to the bucket before decompressing, which
+    changes which masked zeros a plain reduction sums, so reading the
+    whole cache in both ``ServeEngine`` loops is what keeps their logits
+    bit-identical on the card; a row longer than the bucket (an idle slot
+    stepping on) reads the bucket's keys, as the reference's.  q and k
+    have ``qk_nope + qk_rope`` dims a head, v ``v_head_dim``:
+    ``decode_attention`` takes neither."""
     b, s, _ = x.shape
     nh, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     kl = cfg.kv_lora_rank
@@ -334,10 +347,12 @@ def mla_attention(params, x, cfg: ModelConfig, positions, *, cache=None,
         lens = cache["len"]
         if s > 1 and offset is None:
             offset = cache_offset(lens)
-        _batched_update(cache["ckv"], c_kv, lens, offset)
-        _batched_update(cache["krope"], k_rope[:, :, 0], lens, offset)
+        _batched_update(((cache["ckv"], c_kv),
+                         (cache["krope"], k_rope[:, :, 0])), lens, offset)
         if s == 1:
             kv_len = lens + 1
+            if kv_bucket is not None:
+                kv_len = kv_len.clamp(max=kv_bucket)
             c_kv, k_rope = cache["ckv"], cache["krope"][:, :, None]
         else:
             end = offset + s

@@ -41,15 +41,17 @@ interleave above 1 the dense blocks' stacked (groups, il - 1).
 vision_tokens, D) or ``frames`` (B, S_enc, D); a forward of the
 encoder-decoder may pass ``enc_out`` in place of ``frames``.
 
-Training (``loss_fn``) is ported for the dense, SSM and hybrid families:
-the next-token cross-entropy of the reference, differentiated by autograd
-through the kernels' autograd wrappers (flash attention, the norms, the
-SSD scan and the mamba block's conv pass have backwards), with each block
-recomputed in the backward when ``cfg.remat`` is set, as
-``jax.checkpoint`` does in the reference (the hybrid's shared block inside
-the mamba block it precedes).  The blocks are taken apart with ``unbind``
-(:func:`unstack`), so that their gradients gather into one stacked
-gradient per leaf.
+Training (``loss_fn``) is ported for every family but the MoE one: the
+next-token cross-entropy of the reference, differentiated by autograd
+through the kernels' autograd wrappers (flash attention, causal and the
+encoder's non-causal, the norms, the SSD scan and the mamba block's conv
+pass have backwards; cross-attention over a prompt is plain torch, as the
+reference's ``_sdpa``), with each block recomputed in the backward when
+``cfg.remat`` is set, as ``jax.checkpoint`` does in the reference (the
+hybrid's shared block inside the mamba block it precedes, the VLM a group
+at a time, the decoder's cross k/v inside its block, the encoder not at
+all).  The blocks are taken apart with ``unbind`` (:func:`unstack`), so
+that their gradients gather into one stacked gradient per leaf.
 """
 
 from __future__ import annotations
@@ -177,11 +179,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def _self_attend(p, x, cfg: ModelConfig, positions, cache, kv_bucket, offset,
                  causal=True):
-    """The block's self-attention: MLA (causal; no ``kv_bucket``) or
-    GQA."""
+    """The block's self-attention: MLA (causal; ``kv_bucket`` bounds only
+    a row's length, the whole cache is read) or GQA."""
     if cfg.use_mla:
         return mla_attention(p, x, cfg, positions, cache=cache,
-                             offset=offset)
+                             kv_bucket=kv_bucket, offset=offset)
     return attention(p, x, cfg, positions, causal=causal, cache=cache,
                      kv_bucket=kv_bucket, offset=offset)
 
@@ -364,63 +366,85 @@ def _cross_len(h, cache):
                       device=xk.device)
 
 
+def _vlm_group(gp, h, cfg, positions, vision):
+    """One cacheless VLM group: its self blocks, then the cross block over
+    ``vision``'s k/v, computed here (inside the recomputed group under
+    remat, as the reference's ``jax.checkpoint(body)``)."""
+    for bp in unstack(gp["self"]):
+        h = apply_dense_block(bp, h, cfg, positions)
+    return apply_cross_block(gp["cross"], h, cfg,
+                             cross_kv(gp["cross"], cfg, vision))
+
+
 def _vlm_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
                vision=None):
     """The VLM's groups over ``h``: ``cross_attn_every`` self blocks, then
     the cross block, which reads the group's filled cross cache or, without
-    a cache, attends to ``vision``.  Returns (h, cache)."""
+    a cache, attends to ``vision``.  With ``cfg.remat`` a cacheless pass
+    under grad recomputes each group in the backward.  Returns (h,
+    cache)."""
     groups = params["groups"]
-    offset = kv_len = None
-    if cache is not None:
-        offset = _write_offset(h, cache["self"])
-        kv_len = _cross_len(h, cache)
+    if cache is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+        for gp in unstack(groups):
+            h = (checkpoint(_vlm_group, gp, h, cfg, positions, vision,
+                            use_reentrant=False, preserve_rng_state=False)
+                 if remat else _vlm_group(gp, h, cfg, positions, vision))
+        return h, cache
+    offset = _write_offset(h, cache["self"])
+    kv_len = _cross_len(h, cache)
     for g in range(groups["cross"]["lnq"].shape[0]):
         gp = layer_view(groups, g)
-        sc = None if cache is None else layer_view(cache["self"], g)
+        sc = layer_view(cache["self"], g)
         for i in range(gp["self"]["ln1"].shape[0]):
             h = apply_dense_block(layer_view(gp["self"], i), h, cfg,
-                                  positions,
-                                  cache=None if sc is None
-                                  else layer_view(sc, i),
+                                  positions, cache=layer_view(sc, i),
                                   kv_bucket=kv_bucket, offset=offset)
-        kv = (cross_kv(gp["cross"], cfg, vision) if cache is None
-              else layer_view(cache["cross"], g))
-        h = apply_cross_block(gp["cross"], h, cfg, kv, kv_len)
+        h = apply_cross_block(gp["cross"], h, cfg,
+                              layer_view(cache["cross"], g), kv_len)
     return h, cache
 
 
 def encode(cfg: ModelConfig, params, frames):
     """The encoder over frame embeddings (B, S_enc, D): the frontend's
     projection, non-causal dense blocks with RoPE over the frame positions,
-    and ``enc_norm``."""
+    and ``enc_norm``.  No remat, as the reference's."""
     h = linear(frames.to(params["frontend"].dtype), params["frontend"])
     b, s = frames.shape[:2]
     pos = _positions(b, s, frames.device)
-    blocks = params["enc_blocks"]
-    for i in range(blocks["ln1"].shape[0]):
-        h = apply_dense_block(layer_view(blocks, i), h, cfg, pos,
-                              causal=False)
+    for bp in unstack(params["enc_blocks"]):
+        h = apply_dense_block(bp, h, cfg, pos, causal=False)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder_layer(bp, h, cfg, positions, enc_out):
+    """One cacheless decoder block, its cross k/v over ``enc_out``
+    computed here (inside the recomputed block under remat, as the
+    reference's ``jax.checkpoint(body)``)."""
+    return apply_decoder_block(bp, h, cfg, positions,
+                               cross_kv(bp, cfg, enc_out))
 
 
 def _encdec_apply(cfg, params, h, positions, cache=None, kv_bucket=None,
                   enc_out=None):
     """The decoder blocks over ``h``: each cross-attends to its filled
-    cross cache or, without a cache, to ``enc_out``.  Returns (h,
-    cache)."""
+    cross cache or, without a cache, to ``enc_out``.  With ``cfg.remat`` a
+    cacheless pass under grad recomputes each block in the backward.
+    Returns (h, cache)."""
     blocks = params["dec_blocks"]
-    offset = kv_len = None
-    if cache is not None:
-        offset = _write_offset(h, cache["self"])
-        kv_len = _cross_len(h, cache)
+    if cache is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+        for bp in unstack(blocks):
+            h = (checkpoint(_decoder_layer, bp, h, cfg, positions, enc_out,
+                            use_reentrant=False, preserve_rng_state=False)
+                 if remat else _decoder_layer(bp, h, cfg, positions, enc_out))
+        return h, cache
+    offset = _write_offset(h, cache["self"])
+    kv_len = _cross_len(h, cache)
     for i in range(blocks["ln1"].shape[0]):
-        bp = layer_view(blocks, i)
-        if cache is None:
-            kv, c = cross_kv(bp, cfg, enc_out), None
-        else:
-            kv, c = (layer_view(cache["cross"], i),
-                     layer_view(cache["self"], i))
-        h = apply_decoder_block(bp, h, cfg, positions, kv, cache=c,
+        h = apply_decoder_block(layer_view(blocks, i), h, cfg, positions,
+                                layer_view(cache["cross"], i),
+                                cache=layer_view(cache["self"], i),
                                 kv_len=kv_len, kv_bucket=kv_bucket,
                                 offset=offset)
     return h, cache
@@ -481,22 +505,24 @@ def token_ce(logits, targets):
     return nll.mean()
 
 
-TRAIN_FAMILIES = ("dense", "ssm", "hybrid")
+TRAIN_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "encdec")
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """(loss, metrics) of the reference's ``loss_fn``: the next-token
-    cross-entropy of ``forward`` (each block rematerialised when
-    ``cfg.remat``), metrics ``ce`` and ``loss``.  The dense, SSM and
-    hybrid families (``TRAIN_FAMILIES``); the others' training (the MoE
-    aux loss and MTP, the VLM's and the encoder-decoder's cross-attention)
-    is ROADMAP Queue 1 item 10, and raises here on every device."""
+    cross-entropy of ``forward`` (each block, or the VLM's each group,
+    rematerialised when ``cfg.remat``), metrics ``ce`` and ``loss``.  The
+    families of ``TRAIN_FAMILIES``; the batch holds the VLM's ``vision``
+    (B, vision_tokens, D) or the encoder-decoder's ``frames`` (B, S, D)
+    beside ``tokens``.  The MoE family's training (its aux loss and
+    multi-token prediction) is ROADMAP Queue 1 item 10.2, and raises here
+    on every device."""
     if family(cfg) not in TRAIN_FAMILIES:
         raise NotImplementedError(
             f"loss_fn: training is ported for the {TRAIN_FAMILIES} "
-            f"families; {cfg.name} ({cfg.family}) waits with moe, vlm and "
-            "encdec for ROADMAP Queue 1 item 10 (the other families' "
-            "training)")
+            f"families; {cfg.name} ({cfg.family}) waits for ROADMAP Queue 1 "
+            "item 10.2 (the MoE family's training: its aux loss and "
+            "multi-token prediction)")
     logits, _ = forward(cfg, params, batch)
     targets = batch["tokens"]
     loss = token_ce(logits[:, :-1], targets[:, 1:])

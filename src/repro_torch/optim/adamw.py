@@ -6,11 +6,12 @@ The math is float32, as the reference's, and params and states go back to
 their storage dtypes.  The update is elementwise and runs as plain tensor
 ops under ``torch.no_grad()`` (the reference leaves it to XLA: no Pallas
 kernel), one leaf at a time, and a leaf of more than ``SLICE_ELEMS``
-elements in runs of its leading dim, so that no more than ``SLICE_ELEMS``
-elements' float32 temporaries are alive at once (zamba2-7b's in_proj at 42
-layers is 2.2 G elements: four float32 temporaries of the whole leaf would
-be 35 GB).  The arithmetic of every element is the same either way.  It
-writes the params and states in place (the port may update in place where
+elements in runs of its leading dim (an index at a time where one index
+holds more), so that no more than ``SLICE_ELEMS`` elements' float32
+temporaries are alive at once (zamba2-7b's in_proj at 42 layers is 2.2 G
+elements: four float32 temporaries of the whole leaf would be 35 GB).
+The arithmetic of every element is the same either way.  It writes the
+params and states in place (the port may update in place where
 it saves memory: a second copy of granite-3-2b's float32 states alone
 would be 20 GB) and returns the same trees.
 """
@@ -58,10 +59,16 @@ def _slices(p, g, m, v):
     """The (p, g, m, v) pieces one update takes: the leaf whole, or, when
     it is large, runs of its leading dim (a stacked leaf's layers, an
     embedding's rows) of at most ``SLICE_ELEMS`` elements (at least one
-    index)."""
+    index); where one index of the leading dim is itself larger (the
+    VLM's (groups, blocks, 8192, 28672) MLP leaves), each index is sliced
+    the same way in turn."""
     if p.dim() < 1 or p.numel() <= SLICE_ELEMS:
         return ((p, g, m, v),)
-    run = max(1, SLICE_ELEMS // (p.numel() // p.shape[0]))
+    per = p.numel() // p.shape[0]
+    if per > SLICE_ELEMS and p.dim() > 1:
+        return (piece for i in range(p.shape[0])
+                for piece in _slices(p[i], g[i], m[i], v[i]))
+    run = max(1, SLICE_ELEMS // per)
     return zip(*(t.split(run) for t in (p, g, m, v)))
 
 

@@ -3,8 +3,7 @@ engine's per-stage banks, and the kill-spec normaliser both take.
 
 A bank is a serving cache of ``slots`` rows.  Each leaf has one batch axis
 (found from two caches built on the meta device), a request is admitted
-by scattering its batch-1 cache into its slot, and an idle slot is reset
-by zeroing its length counters.
+by scattering its batch-1 cache into its slot.
 """
 
 from __future__ import annotations
@@ -40,13 +39,3 @@ def insert_slot(bank, one, slot, axes):
             .copy_(src)
 
     tree_map(put, bank, one, axes)
-
-
-def zero_lens(cache, axes, slot):
-    """Every length counter of slot ``slot`` back to 0, in place (cross
-    caches have none)."""
-    for key, leaf in cache.items():
-        if isinstance(leaf, dict):
-            zero_lens(leaf, axes[key], slot)
-        elif key == "len":
-            leaf.select(axes[key], slot).zero_()

@@ -119,7 +119,7 @@ from repro_torch.kernels.quantize.ops import (rowwise_dequantize,
 from repro_torch.models import staging
 from repro_torch.models.layers import dtype_of
 
-from .banks import insert_slot, kill_specs, leaf_batch_axes, zero_lens
+from .banks import insert_slot, kill_specs, leaf_batch_axes
 from .engine import ServeEngine, as_batch
 from .retry import RetryExhausted, RetryPolicy, retry_call
 from .transport import DEAD, SUSPECTED
@@ -1180,13 +1180,6 @@ class PipelineServeEngine:
         """Stage ``k``'s batch-1 cache ``one`` into slot ``slot`` of its
         bank, in place."""
         insert_slot(bank, one, slot, self._bank_axes[k])
-
-    def reset_slot(self, caches, slot):
-        """Every length counter of ``slot`` back to 0 in every stage's
-        bank: the port's answer to an idle slot about to write past
-        ``max_len`` (the reference clamps the write), held per stage."""
-        for bank, axes in zip(caches, self._bank_axes):
-            zero_lens(bank, axes, slot)
 
     def admit_slot(self, batch, caches, slot_tokens, slot):
         """Admit one request (``batch``: its tokens (1, S) and side input)

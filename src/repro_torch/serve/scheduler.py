@@ -18,14 +18,15 @@ request's alone bit for bit (``chip_smoke.py`` checks it); the CPU's plain
 matmuls may round a row by the row count, so there the tokens are what
 is held identical.
 
-Inactive slots keep stepping with garbage rows (the batch shape is fixed);
-their outputs are never recorded and their rows never influence other
-slots.  An inactive row writes its kv at its own length, so a slot that
-stays idle long enough would write past the end of the cache (the
-reference clamps that write); here its lengths go back to 0 first, which
-changes no active row.  Admission scatters a batch-1 cache into the bank
-at offset 0 along every axis but the batch axis; stale rows past the new
-request's length are masked by its length until overwritten.
+Inactive slots keep stepping, as the reference's do (the batch shape is
+fixed): each feeds back its own last token and its lengths grow by one a
+step, past ``max_len`` if it idles long enough.  There its decode writes
+land nowhere and its attention reads the keys the bucket holds, as the
+reference's out-of-bounds scatter is dropped and its slice of the cache
+bounds the keys (``models.layers``).  Their outputs are never recorded.
+Admission scatters a batch-1 cache into the bank at offset 0 along every
+axis but the batch axis; stale rows past the new request's length are
+masked by its length until overwritten.
 
 A request of the VLM brings its own vision embeddings, one of the
 encoder-decoder its own frames (``Request.extras``); admission fills the
@@ -46,15 +47,17 @@ steps the banks through its sequential chain (``bank_step``; also under
 after a stage kill or a live replan re-creates the moved stages' banks
 and replays every in-flight request into its slot (``recover_and_replay``,
 ``migrate_and_replay``).  The schedule here is the same either way, so a
-pipelined stream is token-identical to the monolithic one; an idle slot's
-lengths go back to 0 in every stage's bank.
+pipelined stream is token-identical to the monolithic one.
 
-A MoE model is refused (``MOE_REFUSAL``).  Expert capacity couples the
-rows of a batch: a row's entries compete with the others' for each
-expert's ``cap`` slots, so the reference pins no MoE stream.  Here the
-idle slots' garbage rows differ from the reference's too (their lengths
-go back to 0 rather than being clamped), so they would contend for
-capacity differently again.
+Except for the MoE family, a slot's rows never influence the other slots.
+A MoE model's rows are coupled by expert capacity: a row's entries compete
+with the others' for each expert's ``cap`` places (the idle slots' rows
+too), so a MoE request's tokens depend on what the other slots hold and a
+stream need not equal its requests served alone; the reference pins no
+MoE stream.  The idle slots stepping as the reference's is what lets a MoE
+stream equal the reference's stream of the same requests.  A replay after
+a restore serves each in-flight request alone, as the reference's does,
+so a MoE stream with a kill need not equal the stream without it.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ import torch
 
 from repro_torch.models import decode_step, init_serve_cache, prefill
 
-from .banks import insert_slot, kill_specs, leaf_batch_axes, zero_lens
+from .banks import insert_slot, kill_specs, leaf_batch_axes
 from .engine import as_batch
 from .pipeline import PipelineServeEngine
 
@@ -92,21 +95,11 @@ def _meta_batch(extras, b):
             for k, v in extras.items()}
 
 
-MOE_REFUSAL = (
-    "SlotScheduler does not serve the MoE family: expert capacity couples "
-    "the rows of a batch (a request's routing depends on the other slots' "
-    "rows, so the reference pins no MoE stream), and the idle slots' rows "
-    "here differ from the reference's (lengths reset, not clamped), so "
-    "they would contend for capacity differently")
-
-
 class SlotScheduler:
     """Continuous batching: admit/evict requests into ``slots`` cache rows
     of a ``ServeEngine`` or, a bank a stage, of a ``PipelineServeEngine``."""
 
     def __init__(self, engine, slots: int):
-        if engine.cfg.family == "moe":
-            raise NotImplementedError(MOE_REFUSAL)
         self.engine = engine
         self.slots = int(slots)
         self._batch_axes = None
@@ -133,13 +126,6 @@ class SlotScheduler:
         slot_tokens = slot_tokens.clone()
         slot_tokens[slot] = tok[0]
         return tok, slot_tokens
-
-    def _reset_slot(self, cache, slot):
-        """An idle slot's lengths back to 0 (in every stage's bank)."""
-        if isinstance(self.engine, PipelineServeEngine):
-            self.engine.reset_slot(cache, slot)
-        else:
-            zero_lens(cache, self._batch_axes, slot)
 
     @torch.inference_mode()
     def run(self, requests: list[Request], engine: str = "fast",
@@ -273,10 +259,6 @@ class SlotScheduler:
                         slot_tokens)
             if not active:
                 continue
-            for slot in range(B):     # an idle row about to write past the end
-                if slot not in active and slot_len[slot] >= eng.max_len:
-                    self._reset_slot(cache, slot)
-                    slot_len[slot] = 0
             if tel is not None:
                 tel.record_queue_depth(len(active))
             bucket = eng.bucket_for(

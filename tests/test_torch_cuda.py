@@ -1483,13 +1483,18 @@ def test_flash_grad_through_autograd(cuda):
 
 
 def test_flash_grad_refuses_what_the_backward_does_not_take(cuda):
-    for dtype, hd, causal in ((torch.float32, 64, True),
-                              (torch.bfloat16, 32, True),
-                              (torch.bfloat16, 64, False)):
+    """float32, a head dim off ``BWD_HEAD_DIMS`` or keys past ``valid_len``
+    raise before the forward runs, causal or not."""
+    for dtype, hd, causal, valid in ((torch.float32, 64, True, 64),
+                                     (torch.bfloat16, 32, True, 64),
+                                     (torch.bfloat16, 64, False, 40),
+                                     (torch.float32, 64, False, 64)):
         q = randn(cuda, 0, 1, 64, 2, hd, dtype=dtype).requires_grad_()
         k = randn(cuda, 1, 1, 64, 2, hd, dtype=dtype)
+        before = attn_ops.flash_attention.launches
         with pytest.raises(NotImplementedError, match="flash_attention_bwd"):
-            attn_ops.flash_attention(q, k, k, causal=causal)
+            attn_ops.flash_attention(q, k, k, causal=causal, valid_len=valid)
+        assert attn_ops.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1907,4 +1912,143 @@ def test_ssm_train_step_bit_identical_twice(cuda):
     m2, g2 = loss_and_grads(cfg, card, batch)
     bits_equal(m1["loss"].reshape(1), m2["loss"].reshape(1))
     for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        bits_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the non-causal flash backward (whisper's encoder), the cross-attention
+# families' train step, and the MoE family's streams
+# ---------------------------------------------------------------------------
+
+NONCAUSAL_BWD_SHAPES = [  # (B, S, H, KV, hd)
+    (4, 512, 20, 20, 64),     # whisper's encoder at the training shape
+    (4, 1500, 20, 20, 64),    # its 1500 frames: the last key tile of 28
+    (2, 200, 16, 4, 128),     # ragged, group 4 at hd 128
+    (2, 330, 8, 1, 64)]       # ragged, a group of 8 in two head chunks
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", NONCAUSAL_BWD_SHAPES)
+def test_flash_bwd_non_causal_vs_plain(cuda, b, s, h, kv, hd):
+    """The non-causal backward kernel against ``flash_bwd_ref(...,
+    causal=False)`` on the same (o, lse) from the non-causal forward,
+    bit-identical across two runs, each counted as non-causal; keys of a
+    ragged last tile past S (zeros, not -inf, from the copies) add nothing
+    to dq."""
+    from repro_torch.kernels.attention.ref import flash_bwd_ref
+    bf = torch.bfloat16
+    q = randn(cuda, 0, b, s, h, hd, dtype=bf)
+    k = randn(cuda, 1, b, s, kv, hd, dtype=bf)
+    v = randn(cuda, 2, b, s, kv, hd, dtype=bf)
+    do = randn(cuda, 3, b, s, h, hd, dtype=bf)
+    o, lse = attn_ops._launch(q, k, v, False, s, with_lse=True)
+    kernels.reset_launch_counts()
+    got = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    again = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention_bwd.launches == 2
+    assert attn_ops.flash_attention_bwd.noncausal_launches == 2
+    want = flash_bwd_ref(q, k, v, o, lse, do, causal=False)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.shape == w.shape and g.dtype == bf and g.is_contiguous()
+        bits_equal(g, a)
+        grads_close(g, w, name)
+
+
+def test_flash_grad_non_causal_through_autograd(cuda):
+    """The encoder's flash attention under grad: one non-causal forward
+    and one non-causal backward launch, the backward kernel's gradients."""
+    bf = torch.bfloat16
+    q, k, v = (randn(cuda, i, 2, 200, 4, 64, dtype=bf).requires_grad_()
+               for i in range(3))
+    do = randn(cuda, 3, 2, 200, 4, 64, dtype=bf)
+    kernels.reset_launch_counts()
+    g = torch.autograd.grad(attn_ops.flash_attention(q, k, v, causal=False),
+                            (q, k, v), do)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert attn_ops.flash_attention_bwd.noncausal_launches == 1
+    with torch.no_grad():
+        o, lse = attn_ops._launch(q, k, v, False, 200, with_lse=True)
+        want = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, False)
+    for a, b in zip(g, want):
+        bits_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_whisper_train_step_on_card_vs_cpu(cuda, seed):
+    """One train step of whisper at its full width (d_model 1280, 20 heads
+    of 64) and 2 encoder and 2 decoder layers, bf16, with its frames,
+    seeds 0-3, on the card against the same step on the CPU from the same
+    params: every gradient leaf within 3e-2 of the CPU leaf's largest
+    value, finite and not zero; the launches ``train_launches`` (the
+    encoder's two through the non-causal backward).  The loss within 2e-3
+    of the CPU's or, as a hybrid's (``test_ssm_train_step_on_card_vs_cpu``),
+    within max(5e-3, twice the CPU's bf16 distance) of the CPU's float32
+    run: here the CPU's bf16 loss is the further one (on an H100, seeds
+    0-3: the card's 2e-5 to 1.15e-3 from the float32 loss, the CPU's 2.4e-4
+    to 2.9e-3, the two 1.4e-3 to 2.3e-3 apart; the worst leaf 0.0192 to
+    0.0217 of its largest)."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = get_config("whisper-large-v3", "full").replace(
+        n_layers=2, n_enc_layers=2)
+    gen = torch.Generator().manual_seed(seed)
+    host = init_params(cfg, gen, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = {"tokens": torch.from_numpy(SyntheticTokens(cfg.vocab, 128, 1)
+                                        .batch(seed)["tokens"]),
+             "frames": torch.randn(1, 128, cfg.d_model,
+                                   generator=gen).bfloat16()}
+    kernels.reset_launch_counts()
+    m_card, g_card = loss_and_grads(cfg, card, {k: v.to(cuda)
+                                                for k, v in batch.items()})
+    counts = kernels.launch_counts()
+    noncausal = attn_ops.flash_attention_bwd.noncausal_launches
+    m_host, g_host = loss_and_grads(cfg, host, batch)
+    m_x, _ = loss_and_grads(cfg.replace(param_dtype="float32"),
+                            tree_map(lambda t: t.float(), host), batch)
+    assert counts == train_launches(cfg) and noncausal == 2
+    loss_c, loss_h = m_card["loss"].item(), m_host["loss"].item()
+    loss_x = m_x["loss"].item()
+    print(f"[whisper step] seed {seed}: loss card {loss_c:.7f}, cpu "
+          f"{loss_h:.7f}, float32 {loss_x:.7f}", flush=True)
+    assert abs(loss_c - loss_h) <= 2e-3 or abs(loss_c - loss_x) <= max(
+        5e-3, 2 * abs(loss_h - loss_x)), (loss_c, loss_h, loss_x)
+    for gc, gh in zip(tree_leaves(g_card), tree_leaves(g_host)):
+        gc, gh = gc.float().cpu(), gh.float()
+        assert torch.isfinite(gc).all() and gc.abs().max() > 0
+        assert (gc - gh).abs().max() <= 3e-2 * gh.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_stream_bit_identical_twice_on_card(cuda, arch):
+    """A MoE smoke model's stream (3 slots; slot 0 idles from its first
+    step past ``max_len`` 16, its writes dropped) twice on the card: the
+    same tokens and every batched step's logits, bit for bit."""
+    cfg = get_config(arch, "smoke")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    eng = ServeEngine(cfg, init_params(cfg, gen, device=cuda), max_len=16,
+                      kv_block=8)
+    reqs = [scheduler.Request(i, make_batch(cfg, 1, pl, seed=70 + i)[
+        "tokens"], gl) for i, (pl, gl) in enumerate([(8, 2), (2, 15),
+                                                      (2, 4)])]
+    runs = []
+    for _ in range(2):
+        recorded, decode = [], scheduler.decode_step
+
+        def recording(*args, **kw):
+            logits, cache = decode(*args, **kw)
+            recorded.append(logits[:, 0].cpu())
+            return logits, cache
+
+        scheduler.decode_step = recording
+        try:
+            streams, stats = scheduler.SlotScheduler(eng, 3).run(reqs)
+        finally:
+            scheduler.decode_step = decode
+        runs.append((streams, recorded))
+    assert stats["decode_steps"] == 14 == len(runs[0][1])
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(runs[0][1], runs[1][1]):
         bits_equal(a, b)

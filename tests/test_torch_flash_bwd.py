@@ -131,6 +131,26 @@ def test_masked_keys_vs_autograd_through_flash_ref(causal, dtype):
         assert not d[:, valid_len:].any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 150, 4, 4, 64),
+                                         (1, 100, 8, 2, 128)])
+def test_non_causal_vs_autograd_through_flash_ref(b, s, h, kv, hd, dtype):
+    """The encoder's non-causal attention at a ragged S (not a multiple of
+    the kernel's 64-key tiles, as whisper's 1500 frames): the autograd
+    wrapper's gradients on the CPU (``flash_bwd_ref``, non-causal) against
+    torch autograd through ``flash_ref``, held as above."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g).to(dt).requires_grad_()
+               for n in (h, kv, kv))
+    do = torch.randn(b, s, h, hd, generator=g).to(dt)
+    want = torch.autograd.grad(flash_ref(q, k, v, False), (q, k, v), do)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False),
+                              (q, k, v), do)
+    for a, b_ in zip(got, want):
+        hold(a, b_, dtype)
+
+
 def test_autograd_wrapper_is_the_plain_pair_on_the_cpu():
     """On the CPU, flash_attention under grad goes through FlashAttentionFn:
     flash_ref's output, flash_bwd_ref's gradients, bit for bit; no kernel
@@ -183,7 +203,7 @@ SCHEDULES = [  # (B, S, H, KV, hd)
 def test_bwd_plan_takes_no_batch_size():
     import inspect
     assert list(inspect.signature(ops.bwd_plan).parameters) == [
-        "s", "h", "kv", "hd"]
+        "s", "h", "kv", "hd", "causal"]
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd", SCHEDULES)
@@ -221,6 +241,35 @@ def test_bwd_blocks_have_equal_work(b, s, h, kv, hd):
     assert max(steps) == pairs[0]
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd", SCHEDULES)
+def test_non_causal_bwd_blocks_cover_every_tile_once_with_equal_work(
+        b, s, h, kv, hd):
+    """Non-causal, a block owns one key tile and walks every query tile of
+    each of its heads: every (batch, kv head, key tile, q head) once, and
+    every block of a full chunk of heads the same steps."""
+    group = h // kv
+    n = -(-s // ops.BWD_KEYS)
+    bq, heads_a_block, chunks, units = ops.bwd_plan(s, h, kv, hd, False)
+    assert units == n and chunks * heads_a_block == group
+    blocks = ops.bwd_blocks(b, s, h, kv, hd, causal=False)
+    assert len(blocks) == b * kv * n * chunks
+    seen = set()
+    for bi, kvh, tiles, heads in blocks:
+        assert len(tiles) == 1 and len(heads) == heads_a_block
+        seen |= {(bi, kvh, tiles[0], hh) for hh in heads}
+    assert len(seen) == b * kv * n * group
+
+
+def test_whisper_encoder_bwd_grid():
+    """whisper's encoder (B=4, S=512, 20 heads of 64, MHA), non-causal: 640
+    blocks of one key tile and one head, each of 8 query tiles; its ragged
+    1500 frames: 24 key tiles, the last of 28 keys."""
+    assert ops.bwd_plan(512, 20, 20, 64, False) == (64, 1, 1, 8)
+    assert len(ops.bwd_blocks(4, 512, 20, 20, 64, causal=False)) == 640
+    assert ops.bwd_plan(1500, 20, 20, 64, False) == (64, 1, 1, 24)
+    assert ops.bwd_plan(512, 20, 20, 64) == (64, 1, 1, 4)
+
+
 def test_bwd_grid_at_llama3_405b_fills_the_card():
     """B=1, 8 kv heads of a group of 16 at hd 128: the first kernel's one
     block a (kv head, key tile) gave 64 blocks; four pairs and four chunks
@@ -241,16 +290,17 @@ def test_bwd_schedule_is_the_same_for_every_batch_row():
             assert [blk[1:] for blk in blocks if blk[0] == bi] == one
 
 
-def emulate_bwd(q, k, v, o, lse, do):
+def emulate_bwd(q, k, v, o, lse, do, causal=True):
     """The kernel's two passes in float32 torch ops, in its order: dq a
-    64-query tile over the key tiles up to its diagonal; dk and dv by the
-    blocks of ``bwd_blocks``, each block's (head, query tile) steps taken
-    in turn by two warpgroups (step parity), the warpgroups' sums added,
-    warpgroup 0's first, then the chunks' in chunk order."""
+    64-query tile over the key tiles up to its diagonal (non-causal: every
+    key tile); dk and dv by the blocks of ``bwd_blocks``, each block's
+    (head, query tile) steps taken in turn by two warpgroups (step
+    parity), the warpgroups' sums added, warpgroup 0's first, then the
+    chunks' in chunk order."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     group = h // kv
-    bq = ops.bwd_plan(s, h, kv, hd)[0]
+    bq = ops.bwd_plan(s, h, kv, hd, causal)[0]
     tk = ops.BWD_KEYS
     scale = 1.0 / math.sqrt(hd)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -260,6 +310,8 @@ def emulate_bwd(q, k, v, o, lse, do):
     def probs(q0, q1, k0, k1, bi, hh):
         sc = qf[bi, q0:q1, hh] @ kf[bi, k0:k1, hh // group].T * scale
         p = torch.exp(sc - lse[bi, hh, q0:q1, None])
+        if not causal:
+            return p
         return p.masked_fill(pos[k0:k1][None] > pos[q0:q1, None], 0.0)
 
     def dscore(p, q0, q1, k0, k1, bi, hh):
@@ -271,20 +323,20 @@ def emulate_bwd(q, k, v, o, lse, do):
         for hh in range(h):
             for q0 in range(0, s, tk):
                 q1 = min(s, q0 + tk)
-                for k0 in range(0, q1, tk):
+                for k0 in range(0, q1 if causal else s, tk):
                     k1 = min(s, k0 + tk)
                     p = probs(q0, q1, k0, k1, bi, hh)
                     ds = dscore(p, q0, q1, k0, k1, bi, hh)
                     dq[bi, q0:q1, hh] += ds @ kf[bi, k0:k1, hh // group]
     parts = {}
-    for bi, kvh, tiles, heads in ops.bwd_blocks(b, s, h, kv, hd):
+    for bi, kvh, tiles, heads in ops.bwd_blocks(b, s, h, kv, hd, causal):
         it = 0
         for t in tiles:
             k0, k1 = t * tk, min(s, t * tk + tk)
             wg = [[torch.zeros(k1 - k0, hd), torch.zeros(k1 - k0, hd)]
                   for _ in range(2)]
             for hh in heads:
-                for q0 in range(k0 // bq * bq, s, bq):
+                for q0 in range(k0 // bq * bq if causal else 0, s, bq):
                     q1 = min(s, q0 + bq)
                     p = probs(q0, q1, k0, k1, bi, hh)
                     ds = dscore(p, q0, q1, k0, k1, bi, hh)
@@ -317,5 +369,21 @@ def test_bwd_schedule_sums_to_the_plain_backward(s, h, kv, hd):
     want = flash_bwd_ref(q, k, v, o, lse, do)
     for name, g, w in zip(("dq", "dk", "dv"), emulate_bwd(q, k, v, o, lse, do),
                           want):
+        err = (g - w.float()).abs().max()
+        assert err <= 5e-6 * w.abs().max(), (name, (err / w.abs().max()).item())
+
+
+@pytest.mark.parametrize("s,h,kv,hd", [(150, 4, 4, 64), (100, 16, 2, 128)])
+def test_non_causal_bwd_schedule_sums_to_the_plain_backward(s, h, kv, hd):
+    """The non-causal schedule's partial sums at a ragged S add up to
+    ``flash_bwd_ref``'s non-causal gradients, as above."""
+    rng = np.random.default_rng(s + h + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        sh, dtype=np.float32)) for sh in ((2, s, h, hd), (2, s, kv, hd),
+                                          (2, s, kv, hd), (2, s, h, hd)))
+    o, lse = flash_ref(q, k, v, False, with_lse=True)
+    want = flash_bwd_ref(q, k, v, o, lse, do, causal=False)
+    got = emulate_bwd(q, k, v, o, lse, do, causal=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g - w.float()).abs().max()
         assert err <= 5e-6 * w.abs().max(), (name, (err / w.abs().max()).item())

@@ -33,7 +33,6 @@ from repro_torch.models import init_params, init_serve_cache, layers, model
 from repro_torch.models import staging
 from repro_torch.serve.engine import ServeEngine, as_batch, make_batch
 from repro_torch.serve.pipeline import PipelineServeEngine
-from repro_torch.serve.scheduler import MOE_REFUSAL, SlotScheduler
 from test_torch_encdec import (B, PROMPT, check_forward, check_layout,
                                check_pipelines, check_round_trip,
                                check_teacher_forced, close, fixture_batch,
@@ -387,11 +386,3 @@ def test_fast_and_reference_loops_agree(arch):
     fast = eng.generate(batch, 10)
     np.testing.assert_array_equal(fast, eng.generate(batch, 10,
                                                      engine="reference"))
-
-
-def test_slot_scheduler_refuses_moe():
-    cfg = get_config(DEEPSEEK, "smoke")
-    eng = ServeEngine(cfg, init_params(cfg, device="cpu"), max_len=16)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        SlotScheduler(eng, slots=2)
-    assert "reference pins no MoE stream" in MOE_REFUSAL

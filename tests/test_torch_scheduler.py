@@ -97,8 +97,8 @@ def test_stream_equals_each_request_served_alone(arch, dtype):
 def test_idle_slot_past_max_len_changes_no_stream(arch):
     """Slot 0 frees after one decode step and is never reused while slot
     1 decodes 27 more steps: its rows step on to length 9 + 27 > max_len
-    32, so it goes back to 0 first; the streams equal the requests served
-    alone.  More slots than requests: the idle slots step too."""
+    32, writing nowhere past the cache; the streams equal the requests
+    served alone.  More slots than requests: the idle slots step too."""
     _, _, eng = port_engine(arch)
     reqs = requests(eng.cfg, [(8, 2), (4, 29)], seed=5)
     for slots in (2, 3):

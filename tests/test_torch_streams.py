@@ -26,8 +26,8 @@ with a stage kill) are served by the port's ``SlotScheduler`` over its
 Then the scheduler's API over a pipeline: a replica kill needs no
 restore; whisper (its encoder on a block-free first stage) and the VLM
 stream their side inputs through ``admit_slot``, token-identical to their
-monolithic streams; an idle slot past ``max_len`` goes back to 0 in every
-stage's bank.
+monolithic streams; an idle slot past ``max_len`` steps on in every
+stage's bank, writing nowhere, as the reference's.
 """
 
 import jax
@@ -256,25 +256,32 @@ def test_side_input_stream_through_the_stages(arch, n_layers, cuts, kill):
         assert any("after restoring stage(s)" in m for _, m in eng.events)
 
 
-def test_idle_slot_past_max_len_resets_every_stage():
+def test_idle_slot_past_max_len_steps_on_in_every_stage():
     """Slot 0 frees after one step and idles while slot 1 decodes 27
-    more: its rows would write past max_len 32, so its lengths go back to
-    0 in every stage's bank; the streams equal the monolithic ones."""
+    more: its lengths grow to 36, past max_len 32, in every stage's bank,
+    its writes past the cache land nowhere (its rows are what they were
+    when its length reached 32), and the streams equal the monolithic
+    ones."""
     cfg, params = granite()
     reqs = requests(cfg, [(8, 2), (4, 29)], seed=5)
     mono, _ = SlotScheduler(ServeEngine(cfg, params, max_len=32,
                                         kv_block=16), 2).run(reqs)
     eng = PipelineServeEngine(cfg, params, from_block_cuts(cfg, [1, 3]),
                               max_len=32, kv_block=16)
-    zeroed, reset = [], eng.reset_slot
+    seen, step = {}, eng.bank_step
 
-    def recorded(caches, slot):
-        zeroed.append(slot)
-        reset(caches, slot)
-        assert all(int(c["len"][:, slot].abs().sum()) == 0 for c in caches)
+    def recorded(slot_tokens, caches, bucket, inflight):
+        out = step(slot_tokens, caches, bucket, inflight)
+        seen["banks"] = caches
+        if int(caches[0]["len"][0, 0]) == 32:
+            seen["at_max"] = [c["k"][:, 0].clone() for c in caches]
+        return out
 
-    eng.reset_slot = recorded
+    eng.bank_step = recorded
     streams, stats = SlotScheduler(eng, 2).run(reqs)
-    assert stats["decode_steps"] == 28 and zeroed == [0]
+    assert stats["decode_steps"] == 28
     for a, b in zip(mono, streams):
         np.testing.assert_array_equal(a, b)
+    for bank, rows in zip(seen["banks"], seen["at_max"]):
+        assert (bank["len"][:, 0] == 36).all()
+        assert torch.equal(bank["k"][:, 0], rows)
